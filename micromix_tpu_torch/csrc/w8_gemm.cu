@@ -9,172 +9,40 @@
 // from M in the hundreds.
 //
 // Design (simple, not yet tuned): a block of 4 warps owns a 64-wide strip
-// of N and BM = 16 or 64 rows of M, and walks its share of K in 128-deep
-// steps.  Each step loads the A tile and the 64 x 128 code tile into
-// registers while the previous step's MMAs run, decodes the codes to exact
-// bf16 in-kernel (bits = (c & 0x7F) << 22 | (c & 0x80) << 24, times
-// 2^(base+126), as _w8_kernel does), stores both tiles to shared memory,
-// and runs mma.sync m16n8k16 bf16 with f32 accumulation.  When N and M
-// give too few blocks to fill 132 SMs, K is split over gridDim.z: each
-// split writes f32 partials and a second kernel sums them in a fixed
-// order and rounds to bf16, so results do not depend on scheduling.
-// TMA, wgmma and a deeper pipeline are later work.
+// of N and BM = 16 or 64 rows of M and runs the tile of w8_tile.cuh over
+// its share of K (register-staged loads, in-kernel exact bf16 decode,
+// mma.sync m16n8k16, f32 accumulation).  When N and M give too few blocks
+// to fill 132 SMs, K is split over gridDim.z: each split writes f32
+// partials and a second kernel sums them in a fixed order and rounds to
+// bf16, so results do not depend on scheduling.  TMA, wgmma and a deeper
+// pipeline are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "w8_tile.cuh"
 
 namespace {
 
-constexpr int BN = 64;
-constexpr int BK = 128;
-constexpr int PAD = 8;
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float decode_code(uint32_t c, float scale) {
-  const uint32_t bits = ((c & 0x7Fu) << 22) | ((c & 0x80u) << 24);
-  return __uint_as_float(bits) * scale;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using w8::BN;
 
 template <int BM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(w8::THREADS)
 w8_gemm_kernel(const __nv_bfloat16* __restrict__ A,
                const uint8_t* __restrict__ W, __nv_bfloat16* __restrict__ out,
                float* __restrict__ partial, int M, int N, int K, float scale,
                int k_chunk) {
-  constexpr int MT = BM / 16;
-  constexpr int A_CHUNKS = BM * BK / 8 / THREADS;   // uint4 = 8 bf16
-  constexpr int W_CHUNKS = BN * BK / 16 / THREADS;  // uint4 = 16 codes
-  __shared__ __align__(16) __nv_bfloat16 As[BM][BK + PAD];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BN][BK + PAD];
-
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_chunk, kend = kbeg + k_chunk;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
-
-  uint4 ra[A_CHUNKS], rw[W_CHUNKS];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      const int m = m0 + r;
-      ra[i] = m < M ? *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m) * K + k0 + c)
-                    : zero;
+  const int kbeg = blockIdx.z * k_chunk;
+  float acc[BM / 16][2][4];
+  w8::mainloop<BM>(A, W, M, N, K, m0, n0, kbeg, kbeg + k_chunk, scale, acc);
+  w8::for_each_pair<BM>(acc, m0, n0, [&](int m, int n, float c0, float c1) {
+    if (m >= M || n >= N) return;
+    if (partial == nullptr) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
+          __floats2bfloat162_rn(c0, c1);
+    } else {
+      float* p = partial + (static_cast<size_t>(blockIdx.z) * M + m) * N + n;
+      *reinterpret_cast<float2*>(p) = make_float2(c0, c1);
     }
-#pragma unroll
-    for (int i = 0; i < W_CHUNKS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (BK / 16), c = (idx % (BK / 16)) * 16;
-      const int n = n0 + r;
-      rw[i] = n < N ? *reinterpret_cast<const uint4*>(W + static_cast<size_t>(n) * K + k0 + c)
-                    : zero;
-    }
-  };
-
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&As[r][c]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < W_CHUNKS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (BK / 16), c = (idx % (BK / 16)) * 16;
-      const uint32_t words[4] = {rw[i].x, rw[i].y, rw[i].z, rw[i].w};
-      uint32_t packed[8];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const uint32_t v = words[w];
-        packed[2 * w] = pack_bf16(decode_code(v & 0xFF, scale),
-                                  decode_code((v >> 8) & 0xFF, scale));
-        packed[2 * w + 1] = pack_bf16(decode_code((v >> 16) & 0xFF, scale),
-                                      decode_code(v >> 24, scale));
-      }
-      *reinterpret_cast<uint4*>(&Ws[r][c]) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      *reinterpret_cast<uint4*>(&Ws[r][c + 8]) =
-          make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-  };
-
-  load(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    store();
-    __syncthreads();
-    if (k0 + BK < kend) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const int kc = kk * 16 + t4 * 2;
-      uint32_t bfrag[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int nr = warp * 16 + nt * 8 + g;
-        bfrag[nt][0] = *reinterpret_cast<const uint32_t*>(&Ws[nr][kc]);
-        bfrag[nt][1] = *reinterpret_cast<const uint32_t*>(&Ws[nr][kc + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int mr = mt * 16 + g;
-        uint32_t afrag[4];
-        afrag[0] = *reinterpret_cast<const uint32_t*>(&As[mr][kc]);
-        afrag[1] = *reinterpret_cast<const uint32_t*>(&As[mr + 8][kc]);
-        afrag[2] = *reinterpret_cast<const uint32_t*>(&As[mr][kc + 8]);
-        afrag[3] = *reinterpret_cast<const uint32_t*>(&As[mr + 8][kc + 8]);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[mt][nt], afrag, bfrag[nt]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int n = n0 + warp * 16 + nt * 8 + t4 * 2;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + mt * 16 + g + half * 8;
-        if (m >= M || n >= N) continue;
-        const float c0 = acc[mt][nt][2 * half], c1 = acc[mt][nt][2 * half + 1];
-        if (partial == nullptr) {
-          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
-              __floats2bfloat162_rn(c0, c1);
-        } else {
-          float* p = partial + (static_cast<size_t>(blockIdx.z) * M + m) * N + n;
-          *reinterpret_cast<float2*>(p) = make_float2(c0, c1);
-        }
-      }
-    }
-  }
+  });
 }
 
 __global__ void sum_partials(const float* __restrict__ partial,
@@ -199,12 +67,12 @@ extern "C" int w8_gemm(const void* a, const void* codes, void* out,
   const auto* A = static_cast<const __nv_bfloat16*>(a);
   const auto* W = static_cast<const uint8_t*>(codes);
   auto* Y = static_cast<__nv_bfloat16*>(out);
-  if (M <= 16) {
+  if (w8::block_m(M) == 16) {
     dim3 grid((N + BN - 1) / BN, (M + 15) / 16, splits);
-    w8_gemm_kernel<16><<<grid, THREADS, 0, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
+    w8_gemm_kernel<16><<<grid, w8::THREADS, 0, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
   } else {
     dim3 grid((N + BN - 1) / BN, (M + 63) / 64, splits);
-    w8_gemm_kernel<64><<<grid, THREADS, 0, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
+    w8_gemm_kernel<64><<<grid, w8::THREADS, 0, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
-           "flash_attention")
+           "flash_attention", "w8_stack", "w8_pair", "paged_prefill")
 # No --use_fast_math: the site kernel's bit-exactness rests on IEEE
 # division, sqrtf and rintf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,6 +45,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+# host arrays (ctypes arrays of c_int / c_float / c_void_p)
+INTS = ctypes.POINTER(ctypes.c_int)
+FLOATS = ctypes.POINTER(ctypes.c_float)
+PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 
 def _nvcc() -> str:
@@ -59,7 +63,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's identity
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

@@ -1,26 +1,32 @@
-"""ScaledW8 GEMM and the site + GEMM pair.
+"""ScaledW8 GEMMs: per consumer, stacked, and the residual pair.
 
 Counterpart of ``micromix_tpu/kernels/mixed_matmul.py`` for the ScaledW8
 weight layout: ``mixed_matmul`` (dispatch by M), ``mixed_matmul_w8`` (the
-decode GEMM, CUDA kernel ``csrc/w8_gemm.cu`` on a CUDA tensor, its plain
-version on a CPU tensor) and ``mixed_matmul_w8_site``.  The split-plane
-MX GEMM and the stacked / paired / grouped kernels are not ported yet.
+decode GEMM, CUDA kernel ``csrc/w8_gemm.cu``), ``mixed_matmul_w8_site``,
+``mixed_matmul_w8_stack`` (``csrc/w8_stack.cu``) and
+``mixed_matmul_w8_pair`` (``csrc/w8_pair.cu``).  Each runs its kernels on
+CUDA tensors and its plain version on CPU tensors.  The split-plane MX
+GEMM and the grouped MoE kernel are not ported yet.
 
-``mixed_matmul_w8_site`` is two launches on the GPU: the site kernel,
-whose output is the ``emit_qx`` image, then the GEMM.  The 32-blocks of the
-interleaved layout span a whole segment of the row, so one GEMM output
-tile cannot cheaply own its site.
+On the GPU a site runs as its own launch (the site kernel), whose output is
+the bf16 image the GEMMs consume: the 32-blocks of the interleaved layout
+span a whole segment of the row, so one GEMM output tile cannot cheaply own
+its site.  So ``mixed_matmul_w8_site`` and ``mixed_matmul_w8_stack`` are
+two launches each, and ``mixed_matmul_w8_pair`` four: site A, the GEMM
+that closes the residual, then the stack's site and GEMM.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import List, Optional
 
 import torch
 
-from ..mx.scaledw8 import ScaledW8, dequantize_scaled_w8
+from ..mx.scaledw8 import (ScaledW8, ScaledW8Stack, dequantize_scaled_w8,
+                           section_weight)
 from . import build
-from .fakequant import fakequant_site
+from .fakequant import fakequant_site, fakequant_site_plain
 
 # From this M on, the weight is dequantized to bf16 and the product left to
 # torch.matmul, as the JAX package leaves it to XLA.
@@ -30,11 +36,29 @@ _SMS = 132          # H100 SXM streaming multiprocessors
 _BN, _BK = 64, 128  # csrc/w8_gemm.cu tile sizes
 _SIG = {"w8_gemm": [build.PTR, build.PTR, build.PTR, build.PTR, build.INT,
                     build.INT, build.INT, build.FLOAT, build.INT, build.PTR]}
+_SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
+                           build.INTS, build.FLOATS, build.PTRS, build.INT,
+                           build.INT, build.INT, build.INT, build.PTR]}
+_SIG_PAIR = {"w8_residual": [build.PTR] * 6 + [build.INT] * 3
+             + [build.FLOAT, build.INT, build.PTR]}
+_MAX_SECTIONS = 4   # csrc/w8_stack.cu
 
 
 def w8_scale(w: ScaledW8) -> float:
     """2^(base+126): rescales the unbiased decode pattern to the value."""
     return 2.0 ** (w.base + 126)
+
+
+def _check_gemm_operands(name: str, a: torch.Tensor, codes: torch.Tensor):
+    if a.dtype != torch.bfloat16 or codes.dtype != torch.uint8:
+        raise ValueError(f"{name} takes bf16 activations, u8 codes")
+    if a.shape[1] % _BK:
+        raise ValueError(f"{name} needs K % {_BK} == 0, got {a.shape[1]}")
+
+
+def _partials(splits: int, m: int, n: int, device) -> Optional[torch.Tensor]:
+    return (torch.empty((splits, m, n), dtype=torch.float32, device=device)
+            if splits > 1 else None)
 
 
 def mixed_matmul_w8_plain(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
@@ -65,18 +89,16 @@ def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
         raise ValueError(f"K mismatch: activation {k}, weight {w.k}")
     if not a.is_cuda:
         return mixed_matmul_w8_plain(a, w)
-    if a.dtype != torch.bfloat16 or w.codes.dtype != torch.uint8:
-        raise ValueError("mixed_matmul_w8 takes bf16 activations, u8 codes")
-    if k % _BK or n % 8:
-        raise ValueError(f"mixed_matmul_w8 needs K % {_BK} == 0, N % 8 == 0")
+    _check_gemm_operands("mixed_matmul_w8", a, w.codes)
+    if n % 8:
+        raise ValueError(f"mixed_matmul_w8 needs N % 8 == 0, got {n}")
     a = a.contiguous()
     build.require_cuda("mixed_matmul_w8", a, w.codes)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m == 0:
         return out
     splits = split_k(m, n, k)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=a.device) if splits > 1 else None)
+    partial = _partials(splits, m, n, a.device)
     lib = build.library("w8_gemm", _SIG)
     build.launches["w8_gemm"] += 1
     rc = lib.w8_gemm(build.ptr(a), build.ptr(w.codes), build.ptr(out),
@@ -114,3 +136,174 @@ def mixed_matmul_w8_site(x: torch.Tensor, w: ScaledW8, *,
                         up=up, perm=perm, eps=eps)
     y = mixed_matmul(qx, w)
     return (y, qx) if emit_qx else y
+
+
+# ---------------------------------------------------------------- stack
+
+
+def w8_stack_gemm_plain(qx: torch.Tensor, st: ScaledW8Stack) -> List[torch.Tensor]:
+    """[qx . dq(W_i)^T in f32, rounded to bf16] for every section."""
+    return [mixed_matmul_w8_plain(qx, section_weight(st, i))
+            for i in range(st.n_sections)]
+
+
+def w8_stack_gemm(qx: torch.Tensor, st: ScaledW8Stack) -> List[torch.Tensor]:
+    """The stacked GEMM: the site image qx (M, K) bf16 against every
+    section of ``st`` in one launch -> [(M, N_i) bf16]."""
+    m, k = qx.shape
+    if st.k != k:
+        raise ValueError(f"K mismatch: activation {k}, stack {st.k}")
+    if not qx.is_cuda:
+        return w8_stack_gemm_plain(qx, st)
+    _check_gemm_operands("w8_stack", qx, st.codes)
+    n_sec = st.n_sections
+    if (n_sec > _MAX_SECTIONS or any(p % _BN for p in st.padded)
+            or any(n % 8 for n in st.sections)):
+        raise ValueError(f"w8_stack takes at most {_MAX_SECTIONS} sections of "
+                         f"N % 8 == 0 padded to multiples of {_BN}: "
+                         f"{st.sections} / {st.padded}")
+    qx = qx.contiguous()
+    build.require_cuda("w8_stack", qx, st.codes)
+    outs = [torch.empty((m, n), dtype=torch.bfloat16, device=qx.device)
+            for n in st.sections]
+    if m == 0:
+        return outs
+    total = sum(st.padded)
+    splits = split_k(m, total, k)
+    partial = _partials(splits, m, total, qx.device)
+    lib = build.library("w8_stack", _SIG_STACK)
+    build.launches["w8_stack"] += 1
+    rc = lib.w8_stack(
+        build.ptr(qx), build.ptr(st.codes), build.ptr(partial),
+        (ctypes.c_int * n_sec)(*st.sections), (ctypes.c_int * n_sec)(*st.padded),
+        (ctypes.c_float * n_sec)(*[2.0 ** (b + 126) for b in st.bases]),
+        (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
+        n_sec, m, k, splits, build.stream())
+    build.check(rc, "w8_stack")
+    return outs
+
+
+def _check_stack_site(producer: str) -> None:
+    if producer not in ("plain", "rms"):
+        raise ValueError(f"a stacked site is plain or rms, got {producer!r}")
+
+
+def mixed_matmul_w8_stack_plain(x, st, *, producer="plain", gamma=None,
+                                perm=None, eps=1e-6) -> List[torch.Tensor]:
+    _check_stack_site(producer)
+    qx = fakequant_site_plain(x, *st.segments(), producer=producer,
+                              gamma=gamma, perm=perm, eps=eps)
+    return w8_stack_gemm_plain(qx, st)
+
+
+def mixed_matmul_w8_stack(x: torch.Tensor, st: ScaledW8Stack, *,
+                          producer: str = "plain",
+                          gamma: Optional[torch.Tensor] = None,
+                          perm: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> List[torch.Tensor]:
+    """[Y_i = fakequant_site(x) . dq(W_i)^T for the sections of ``st``].
+
+    ``x``, ``gamma`` and ``perm`` as in ``fakequant_site`` (producer
+    "plain" or "rms").  Biases are not applied: ``project_all`` adds them.
+    Two launches on the GPU: the site kernel, then the stacked GEMM.
+    """
+    _check_stack_site(producer)
+    qx = fakequant_site(x, *st.segments(), producer=producer, gamma=gamma,
+                        perm=perm, eps=eps)
+    return w8_stack_gemm(qx, st)
+
+
+# ----------------------------------------------------------------- pair
+
+
+def w8_residual_plain(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_in + (qa . dq(Wa)^T (+ bias)) with the unfused chain's bf16
+    rounding points: the product, the bias add and the residual add each
+    round to bf16."""
+    a = mixed_matmul_w8_plain(qa, wa)
+    if bias is not None:
+        a = a + bias.to(torch.bfloat16)
+    return h_in + a
+
+
+def w8_residual(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pair's middle stage: Kernel B's GEMM whose last pass closes the
+    residual, h_mid (M, N) bf16 = h_in + qa . dq(Wa)^T (+ bias)."""
+    m, k = qa.shape
+    n = wa.rows
+    if wa.k != k or h_in.shape != (m, n):
+        raise ValueError(f"pair shapes: image {tuple(qa.shape)}, weight "
+                         f"({n}, {wa.k}), residual {tuple(h_in.shape)}")
+    if not qa.is_cuda:
+        return w8_residual_plain(qa, wa, h_in, bias)
+    _check_gemm_operands("w8_residual", qa, wa.codes)
+    if n % 8 or h_in.dtype != torch.bfloat16:
+        raise ValueError("w8_residual needs N % 8 == 0 and a bf16 residual")
+    qa, h_in = qa.contiguous(), h_in.contiguous()
+    if bias is not None:
+        bias = bias.to(torch.bfloat16).contiguous()
+        if bias.shape != (n,):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != ({n},)")
+    build.require_cuda("w8_residual", qa, wa.codes, h_in, bias)
+    out = torch.empty_like(h_in)
+    if m == 0:
+        return out
+    splits = split_k(m, n, k)
+    partial = _partials(splits, m, n, qa.device)
+    lib = build.library("w8_pair", _SIG_PAIR)
+    build.launches["w8_pair"] += 1
+    rc = lib.w8_residual(build.ptr(qa), build.ptr(wa.codes), build.ptr(h_in),
+                         build.ptr(bias), build.ptr(out), build.ptr(partial),
+                         m, n, k, w8_scale(wa), splits, build.stream())
+    build.check(rc, "w8_pair")
+    return out
+
+
+def _check_pair(x_a, h_in, wa, stack_b, producer_a):
+    if producer_a not in ("plain", "silu"):
+        raise ValueError(f"site A is plain or silu, got {producer_a!r}")
+    if x_a.shape[1] != wa.k or wa.rows != h_in.shape[1] or stack_b.k != wa.rows:
+        raise ValueError(f"pair shapes: x_a {tuple(x_a.shape)}, Wa "
+                         f"({wa.rows}, {wa.k}), h_in {tuple(h_in.shape)}, "
+                         f"stack K {stack_b.k}")
+
+
+def mixed_matmul_w8_pair_plain(x_a, h_in, wa, stack_b, *, gamma_b,
+                               producer_a="plain", up_a=None, perm_a=None,
+                               bias_a=None, perm_b=None, eps=1e-6):
+    _check_pair(x_a, h_in, wa, stack_b, producer_a)
+    qa = fakequant_site_plain(x_a, *wa.segments(), producer=producer_a,
+                              up=up_a, perm=perm_a, eps=eps)
+    h_mid = w8_residual_plain(qa, wa, h_in, bias_a)
+    return h_mid, mixed_matmul_w8_stack_plain(
+        h_mid, stack_b, producer="rms", gamma=gamma_b, perm=perm_b, eps=eps)
+
+
+def mixed_matmul_w8_pair(x_a: torch.Tensor, h_in: torch.Tensor, wa: ScaledW8,
+                         stack_b: ScaledW8Stack, *, gamma_b: torch.Tensor,
+                         producer_a: str = "plain",
+                         up_a: Optional[torch.Tensor] = None,
+                         perm_a: Optional[torch.Tensor] = None,
+                         bias_a: Optional[torch.Tensor] = None,
+                         perm_b: Optional[torch.Tensor] = None,
+                         eps: float = 1e-6):
+    """(h_mid, [Y_b...]), the residual pair:
+
+        A     = site_a(x_a[, up_a]) . dq(Wa)^T          (o or down proj)
+        h_mid = h_in + A (+ bias_a)                      (residual close)
+        Y_b   = fq(rms(h_mid) * gamma_b) . dq(W_b,i)^T   (stack_b sections)
+
+    ``x_a`` in source order, gathered by ``perm_a`` (plain site) or the
+    silu site's gate with ``up_a``; ``gamma_b`` (K,) in source order,
+    ``perm_b`` the rms site's gather.  h_mid rounds exactly where the
+    unfused chain rounds.  Four launches on the GPU: site A, the GEMM that
+    closes the residual, site B, the stacked GEMM.
+    """
+    _check_pair(x_a, h_in, wa, stack_b, producer_a)
+    qa = fakequant_site(x_a, *wa.segments(), producer=producer_a, up=up_a,
+                        perm=perm_a, eps=eps)
+    h_mid = w8_residual(qa, wa, h_in, bias_a)
+    return h_mid, mixed_matmul_w8_stack(h_mid, stack_b, producer="rms",
+                                        gamma=gamma_b, perm=perm_b, eps=eps)

@@ -3,7 +3,8 @@
 Counterpart of ``micromix_tpu/models/common.py`` for the dense Llama path
 with ScaledW8 weights: ``ModelConfig``, ``DenseLinear``, ``QuantLinear``,
 ``QuantSite``, ``rmsnorm``, the RoPE helpers (including llama3 frequency
-scaling) and the per-consumer ScaledW8 leg of ``project_all``.  Parameters
+scaling) and the ScaledW8 legs of ``project_all``, per consumer and
+stacked.  Parameters
 are plain dicts of tensors and these small dataclasses; every bf16 rounding
 point of the JAX code is kept (rmsnorm output, RoPE output, GEMM outputs,
 bf16 residual adds).
@@ -17,9 +18,11 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..kernels.mixed_matmul import mixed_matmul, mixed_matmul_w8_site
+from ..kernels.fakequant import fakequant_site
+from ..kernels.mixed_matmul import (mixed_matmul, mixed_matmul_w8_site,
+                                    mixed_matmul_w8_stack)
 from ..mx.numerics import div
-from ..mx.scaledw8 import ScaledW8
+from ..mx.scaledw8 import ScaledW8, ScaledW8Stack, dequantize_stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,16 +179,27 @@ def lm_logits(h: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
                       for w in lm_head.split(_LM_HEAD_CHUNK)], dim=-1)
 
 
-def project_all(x: torch.Tensor, site: QuantSite, linears: List[QuantLinear],
+# Rows up to which a stacked site runs the stacked GEMM kernel (the JAX
+# package's PALLAS_FAKEQUANT_MAX_M); above, the stack is dequantized and
+# multiplied in one dense product, as the JAX package leaves it to XLA.
+STACK_KERNEL_MAX_M = 128
+
+
+def project_all(x: torch.Tensor, site: QuantSite,
+                linears: Optional[List[QuantLinear]],
                 norm_gamma: Optional[torch.Tensor] = None,
-                rms_eps: float = 1e-6) -> List[torch.Tensor]:
+                rms_eps: float = 1e-6,
+                stack: Optional[ScaledW8Stack] = None) -> List[torch.Tensor]:
     """[rmsnorm ->] site fakequant -> every ScaledW8 consumer of the site.
 
     x (..., K) -> [(..., N_i)].  The site runs once; its bf16 image feeds
-    the sibling consumers (q/k/v, gate/up).  The port keeps the JAX
-    package's per-consumer form: the weights are not stacked.
+    the sibling consumers (q/k/v, gate/up).  ``stack``: the consumers
+    row-stacked (``stack_layer_projections``); ``linears`` is then ignored
+    and the stacked leg runs, with the same values.
     """
     lead = x.shape[:-1]
+    if stack is not None:
+        return _project_stack(x, site, stack, norm_gamma, rms_eps, lead)
     x2d = x.reshape(-1, x.shape[-1])
     if linears[0].w.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs weight {linears[0].w.segments()}")
@@ -195,4 +209,33 @@ def project_all(x: torch.Tensor, site: QuantSite, linears: List[QuantLinear],
     first, rest = linears[0], linears[1:]
     y0, qx = mixed_matmul_w8_site(x2d, first.w, emit_qx=True, **kw)
     outs = [add_bias(y0, first.bias)] + [lin(qx) for lin in rest]
+    return [o.reshape(*lead, o.shape[-1]) for o in outs]
+
+
+def _project_stack(x, site: QuantSite, stack: ScaledW8Stack, norm_gamma,
+                   rms_eps: float, lead) -> List[torch.Tensor]:
+    """project_all's stacked leg: the stacked GEMM at up to
+    ``STACK_KERNEL_MAX_M`` rows; above, the site, one dequantized stack
+    and one dense product.  Biases are added per section afterwards."""
+    if stack.segments() != site.splits:
+        raise ValueError(f"site {site.splits} vs stack {stack.segments()}")
+    x2d = x.reshape(-1, x.shape[-1])
+    kw = dict(perm=site.perm)
+    if norm_gamma is not None:
+        kw.update(producer="rms", gamma=norm_gamma, eps=rms_eps)
+    if x2d.shape[0] <= STACK_KERNEL_MAX_M:
+        outs = mixed_matmul_w8_stack(x2d, stack, **kw)
+    else:
+        qx = fakequant_site(x2d, *stack.segments(), **kw)
+        if qx.is_cuda:
+            y = torch.matmul(qx, dequantize_stack(stack).t())
+        else:       # f32 product, rounded once (the plain versions' form)
+            y = torch.matmul(qx.to(torch.float32),
+                             dequantize_stack(stack, torch.float32).t()
+                             ).to(torch.bfloat16)
+        outs, off = [], 0
+        for n, p in zip(stack.sections, stack.padded):
+            outs.append(y[:, off:off + n])
+            off += p
+    outs = [add_bias(o, b) for o, b in zip(outs, stack.biases)]
     return [o.reshape(*lead, o.shape[-1]) for o in outs]

@@ -11,6 +11,9 @@ package's for the same dense weights.
 The JAX package falls back to the split-plane layout when a tensor's
 scaled-exponent span exceeds 62; the port has no split-plane GEMM yet and
 raises instead (real and random weights span about 20).
+
+``stack_layer_projections`` is the serving engine's init transform: each
+site's ScaledW8 consumers (q|k|v, gate|up) become one ``ScaledW8Stack``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ..device import resolve_device
 from ..mx import layout as lay
 from ..mx.mxtensor import quantize_mixed
-from ..mx.scaledw8 import pack_scaled_w8
+from ..mx.scaledw8 import ScaledW8, pack_scaled_w8, stack_scaled_w8
 from .common import DenseLinear, ModelConfig, QuantLinear, QuantSite
 
 ATTN_IN = "attn_in"    # -> q, k, v
@@ -120,6 +123,51 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig,
         "layers": [quantize_layer(p, cfg, c)
                    for p, c in zip(params["layers"], calibs)],
     }
+
+
+_STACKS = (("qkv_stack", ("q", "k", "v"), "attn_site"),
+           ("gateup_stack", ("gate", "up"), "mlp_site"))
+
+
+def stack_layer_projections(params: Dict[str, Any],
+                            memo: Optional[dict] = None) -> Dict[str, Any]:
+    """Per layer, replace the q/k/v and gate/up ScaledW8 QuantLinears with
+    one row-stacked ``ScaledW8Stack`` each (``qkv_stack``,
+    ``gateup_stack``), so decode runs each site's consumers as one stacked
+    GEMM and prefill as one wide product, with the same values.
+
+    The per-weight entries are removed: the stack is the only copy.
+    Aliased layer dicts map to one stacked dict through ``memo`` (pass one
+    memo across params that share layers).  Layers whose consumers are not
+    all ScaledW8 pass through untouched; Mixtral experts raise.
+    """
+    if memo is None:
+        memo = {}
+
+    def stackable(p, names, site_key):
+        return isinstance(p.get(site_key), QuantSite) and all(
+            isinstance(p.get(n), QuantLinear) and isinstance(p[n].w, ScaledW8)
+            for n in names)
+
+    def one(p):
+        key = id(p)
+        if key in memo:
+            return memo[key]
+        if p.get("experts"):
+            raise NotImplementedError("Mixtral experts are not ported yet")
+        q = dict(p)
+        for stack_key, names, site_key in _STACKS:
+            if stackable(p, names, site_key):
+                q[stack_key] = stack_scaled_w8([p[n].w for n in names],
+                                               [p[n].bias for n in names])
+                for n in names:
+                    del q[n]
+        memo[key] = q
+        return q
+
+    out = dict(params)
+    out["layers"] = [one(p) for p in params["layers"]]
+    return out
 
 
 def default_calibration(cfg: ModelConfig, p6: int = 0, p8: int = 0,

@@ -2,8 +2,10 @@
 
 Counterpart of ``micromix_tpu/models/transformer.py`` (``forward``,
 ``attention_block``, ``mlp_block`` and the ScaledW8 branch of
-``_down_proj_q``).  Prefill attention goes through ``flash_attention``:
-the CUDA kernel on the GPU, its plain f32 version on the CPU.
+``_down_proj_q``); layers carry per-consumer q/k/v and gate/up or their
+stacks (``qkv_stack``, ``gateup_stack``).  Prefill attention goes through
+``flash_attention``: the CUDA kernel on the GPU, its plain f32 version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ def attention_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
                     cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     b, s, _ = h.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = project_all(h, p["attn_site"], [p["q"], p["k"], p["v"]],
-                          p["ln1"], cfg.rms_eps)
+    q, k, v = qkv_proj(h, p, cfg)
     q = apply_rope(q.reshape(b, s, nh, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, nkv, hd), cos, sin)
     out = flash_attention(q, k, v.reshape(b, s, nkv, hd),
@@ -34,9 +35,19 @@ def attention_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
     return o
 
 
+def qkv_proj(h: torch.Tensor, p: Params, cfg: ModelConfig):
+    """ln1 + the attention site -> (q, k, v), (..., N_i) each."""
+    stack = p.get("qkv_stack")
+    lins = None if stack is not None else [p["q"], p["k"], p["v"]]
+    return project_all(h, p["attn_site"], lins, p["ln1"], cfg.rms_eps,
+                       stack=stack)
+
+
 def mlp_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
-    gate, up = project_all(h, p["mlp_site"], [p["gate"], p["up"]],
-                           p["ln2"], cfg.rms_eps)
+    stack = p.get("gateup_stack")
+    lins = None if stack is not None else [p["gate"], p["up"]]
+    gate, up = project_all(h, p["mlp_site"], lins, p["ln2"], cfg.rms_eps,
+                           stack=stack)
     return _down_proj_q(gate, up, p["down_site"], p["down"])
 
 

@@ -100,7 +100,10 @@ def kv_quantize(x: torch.Tensor, bits: int
 
 def kv_dequantize_page(codes: torch.Tensor, sz: torch.Tensor, bits: int,
                        dtype=torch.float32) -> torch.Tensor:
-    """codes (..., dq, ps) + sz (..., 2, ps) -> values (..., D, ps)."""
+    """codes (..., dq, ps) + sz (..., 2, ps) -> values (..., D, ps); bf16
+    pages (bits 16) hold the values themselves."""
+    if bits == 16:
+        return codes.to(dtype)
     if bits == 4:
         q = torch.cat([codes & 0xF, codes >> 4], dim=-2)
     else:

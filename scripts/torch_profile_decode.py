@@ -4,15 +4,19 @@
 Builds the Llama-3.1-8B-shaped model of ``chip_smoke.py`` phase 4 (32
 layers, random ScaledW8 weights from seed 0, K split 3584/256/256), fills
 8 slots with 128-token prompts, and profiles ``--steps`` greedy decode
-steps (``decode_multi``) with ``torch.profiler``.  Prints one JSON object:
-host wall ms per step, device busy ms per step (sum of kernel times on the
-one stream), the device's idle share, kernel launches per step, and the
-kernels that take the most device time.  Also writes it to
-``chiprun_out/profile_decode.json``.
+steps (``decode_multi``) with ``torch.profiler``, for each parameter form
+named by ``--forms``: "stacked" (the default engine's form: q|k|v and
+gate|up stacked, residual-pair decode) and "per-consumer" (the form that
+``MICROMIX_NO_STACK=1`` keeps).  Prints one JSON object per form: host
+wall ms per step, device busy ms per step (sum of kernel times on the one
+stream), the device's idle share, CUDA kernel launches per step (all of
+them, PyTorch's own included), and the kernels that take the most device
+time.  Also writes them to ``chiprun_out/profile_decode.json``.
 
 Run from the repository root on the GPU machine:
 
-    python3 scripts/torch_profile_decode.py [--steps 8] [--layers 32]
+    python3 scripts/torch_profile_decode.py [--steps 8] [--layers 32] \
+        [--forms stacked per-consumer]
 """
 
 from __future__ import annotations
@@ -32,26 +36,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import SEED, llama31_8b  # noqa: E402
 from micromix_tpu_torch.models.surgery import (  # noqa: E402
-    default_calibration, random_quantized_model)
+    default_calibration, random_quantized_model, stack_layer_projections)
 from micromix_tpu_torch.serve.kv_cache import make_cache  # noqa: E402
 from micromix_tpu_torch.serve.runner import decode_multi, prefill_batch  # noqa: E402
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--layers", type=int, default=32)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
+def profile_form(params, cfg, steps: int) -> dict:
     dev = "cuda"
-    cfg = llama31_8b(args.layers)
-    params = random_quantized_model(
-        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
-        device=dev)
     b, s, ps = 8, 128, 128
-    mp = -(-(s + 2 * args.steps + 1) // ps)
+    mp = -(-(s + 2 * steps + 1) // ps)
     caches = [make_cache(b * mp + 1, ps, cfg.num_kv_heads, cfg.head_dim, b, mp,
                          device=dev) for _ in range(cfg.num_layers)]
     table = torch.arange(1, b * mp + 1, dtype=torch.int32).reshape(b, mp)
@@ -65,13 +58,13 @@ def main() -> int:
     first = torch.argmax(logits, dim=-1).to(torch.int32)
     zeros = torch.zeros(b, device=dev)
     kw = dict(gen=None, temps=zeros, top_k=zeros.to(torch.int32),
-              top_p=torch.ones(b, device=dev), n_steps=args.steps,
+              top_p=torch.ones(b, device=dev), n_steps=steps,
               sample_mode="greedy")
     pos = torch.full((b,), s, dtype=torch.int32, device=dev)
     # warm-up chunk: first launches, allocator growth
     toks, caches = decode_multi(params, cfg, caches, first, seq, pos, **kw)
     torch.cuda.synchronize()
-    pos = pos + args.steps
+    pos = pos + steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         toks, caches = decode_multi(params, cfg, caches, toks[-1], seq, pos, **kw)
@@ -85,16 +78,37 @@ def main() -> int:
             launches[e.name] += 1
     busy_ms = sum(per_kernel.values()) / 1e3
     wall_ms = wall * 1e3
-    top = [dict(kernel=name[:80], ms_per_step=us / 1e3 / args.steps,
-                launches_per_step=launches[name] / args.steps)
-           for name, us in per_kernel.most_common(12)]
+    top = [dict(kernel=name[:80], ms_per_step=us / 1e3 / steps,
+                launches_per_step=launches[name] / steps)
+           for name, us in per_kernel.most_common(14)]
+    return dict(host_wall_ms_per_step=wall_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                kernel_launches_per_step=sum(launches.values()) / steps,
+                top_kernels=top)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--forms", nargs="+", default=["stacked", "per-consumer"],
+                    choices=["stacked", "per-consumer"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    cfg = llama31_8b(args.layers)
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device="cuda")
     out = dict(device=torch.cuda.get_device_name(0), layers=cfg.num_layers,
-               batch=b, context=s, steps=args.steps,
-               host_wall_ms_per_step=wall_ms / args.steps,
-               device_busy_ms_per_step=busy_ms / args.steps,
-               device_idle_share=1.0 - busy_ms / wall_ms,
-               kernel_launches_per_step=sum(launches.values()) / args.steps,
-               top_kernels=top)
+               batch=8, context=128, steps=args.steps, forms={})
+    for form in args.forms:
+        p = stack_layer_projections(params) if form == "stacked" else params
+        out["forms"][form] = profile_form(p, cfg, args.steps)
+        del p
+        torch.cuda.empty_cache()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_decode.json"), "w") as f:
         json.dump(out, f, indent=1)

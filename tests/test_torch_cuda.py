@@ -6,7 +6,10 @@ not have).
 
 Tolerances as in the CPU parity tests: site images bit-exact for the
 plain producer and within the RNE tie band for rms / silu; GEMM and
-attention outputs within 2^-7 |ref| + 2^-8 max|ref|; KV pages bit-exact.
+attention outputs within 2^-7 |ref| + 2^-8 max|ref|; KV pages bit-exact;
+the pair's h_mid bit-exact.  Stacked outputs behind an rms site are
+compared on the kernel's own site image (``w8_stack_gemm``), so a tie the
+site kernel moved does not count against the GEMM.
 """
 
 import numpy as np
@@ -15,19 +18,24 @@ import torch
 
 from micromix_tpu_torch.kernels import build
 from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
-                                                  fakequant_site_plain)
+                                                  fakequant_site_plain,
+                                                  fakequant_values)
 from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain)
-from micromix_tpu_torch.kernels.mixed_matmul import (mixed_matmul_w8,
-                                                     mixed_matmul_w8_plain)
+from micromix_tpu_torch.kernels.mixed_matmul import (
+    mixed_matmul_w8, mixed_matmul_w8_pair, mixed_matmul_w8_pair_plain,
+    mixed_matmul_w8_plain, mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain,
+    w8_residual, w8_residual_plain, w8_stack_gemm, w8_stack_gemm_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
 from micromix_tpu_torch.mx.mxtensor import quantize_mixed
-from micromix_tpu_torch.mx.scaledw8 import pack_scaled_w8
+from micromix_tpu_torch.mx.scaledw8 import pack_scaled_w8, stack_scaled_w8
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
                                                     append_kv_plain)
 from micromix_tpu_torch.serve.attention import (paged_decode_attention,
                                                 paged_decode_attention_plain)
 from micromix_tpu_torch.serve.kv_cache import make_cache
+from micromix_tpu_torch.serve.prefill_attention import (
+    paged_prefill_attention, paged_prefill_attention_plain)
 
 pytestmark = pytest.mark.cuda
 SPLITS = (256, 128, 128)
@@ -151,6 +159,100 @@ def test_flash_kernel(dev, s, window, d):
     v = torch.randn(b, s, hkv, d, device=dev).to(torch.bfloat16)
     _close(flash_attention(q, k, v, sliding_window=window),
            flash_attention_plain(q, k, v, sliding_window=window))
+
+
+def _w8(dev, n, k, splits=SPLITS):
+    return pack_scaled_w8(quantize_mixed(torch.randn(n, k, device=dev) * 0.05,
+                                         *splits, weight_fp4_only=True))
+
+
+@pytest.mark.parametrize("m", [1, 8, 100])
+@pytest.mark.parametrize("ns", [(256, 64, 64), (384, 120)])
+def test_w8_stack_kernel(dev, m, ns):
+    st = stack_scaled_w8([_w8(dev, n, K) for n in ns])
+    a = torch.randn(m, K, device=dev).to(torch.bfloat16)
+    before = build.launches["w8_stack"]
+    got = w8_stack_gemm(a, st)
+    assert build.launches["w8_stack"] == before + 1
+    for g, r in zip(got, w8_stack_gemm_plain(a, st)):
+        assert g.shape == r.shape
+        _close(g, r)
+    x = (torch.randn(m, K, device=dev) * 4).to(torch.bfloat16)
+    perm = torch.from_numpy(compose_segmented(
+        np.random.default_rng(m).permutation(K), *SPLITS)).to(dev)
+    kw = dict(producer="rms", gamma=torch.rand(K, device=dev) + 0.5,
+              perm=perm, eps=1e-5)
+    img = fakequant_site(x, *SPLITS, **kw)
+    _tie_band(img, fakequant_site_plain(x, *SPLITS, **kw))
+    for g, r in zip(mixed_matmul_w8_stack(x, st, **kw), w8_stack_gemm_plain(img, st)):
+        _close(g, r)
+    for g, r in zip(mixed_matmul_w8_stack(x, st, perm=perm),
+                    mixed_matmul_w8_stack_plain(x, st, perm=perm)):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("m", [3, 8, 40])
+@pytest.mark.parametrize("bias", [False, True])
+def test_w8_residual_kernel(dev, m, bias):
+    k = 512
+    wa = _w8(dev, k, 1024, (768, 128, 128))
+    # a site image: its products with the weight sum exactly in f32, so
+    # any order gives the plain version's bits
+    qa = fakequant_values(torch.randn(m, 1024, device=dev) * 3, 768, 128, 128)
+    h = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    b = (torch.randn(k, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+    before = build.launches["w8_pair"]
+    got = w8_residual(qa, wa, h, b)
+    assert build.launches["w8_pair"] == before + 1
+    assert torch.equal(got, w8_residual_plain(qa, wa, h, b))
+
+
+@pytest.mark.parametrize("producer", ["plain", "silu"])
+def test_w8_pair_kernels(dev, producer):
+    m, k = 8, 512
+    st = stack_scaled_w8([_w8(dev, n, k) for n in (256, 128, 128)])
+    x = torch.randn(m, K, device=dev).to(torch.bfloat16)
+    kw = dict(gamma_b=torch.rand(k, device=dev) + 0.5, eps=1e-5,
+              perm_b=torch.from_numpy(compose_segmented(
+                  np.random.default_rng(1).permutation(k), *SPLITS)).to(dev))
+    if producer == "silu":
+        kw.update(producer_a="silu", up_a=torch.randn(m, K, device=dev).to(torch.bfloat16))
+    else:
+        kw["perm_a"] = torch.from_numpy(compose_segmented(
+            np.random.default_rng(2).permutation(K), *SPLITS)).to(dev)
+    wa = _w8(dev, k, K)
+    h = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    hm, outs = mixed_matmul_w8_pair(x, h, wa, st, **kw)
+    hm_ref, _ = mixed_matmul_w8_pair_plain(x, h, wa, st, **kw)
+    assert torch.equal(hm, hm_ref)
+    img = fakequant_site(hm, *SPLITS, producer="rms", gamma=kw["gamma_b"],
+                         perm=kw["perm_b"], eps=1e-5)
+    for g, r in zip(outs, w8_stack_gemm_plain(img, st)):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("start,s,window,d,ps", [
+    (0, 70, None, 64, 16), (16, 13, None, 128, 16), (41, 100, 30, 64, 16),
+    (300, 128, None, 128, 128), (200, 65, 90, 128, 128)])
+def test_paged_prefill_kernel(dev, start, s, window, d, ps):
+    rng = np.random.default_rng(start + s)
+    h, hkv, mp = 8, 2, 8
+    cache = make_cache(mp + 2, ps, hkv, d, 2, mp, device=dev)
+    cache.k_codes.random_(0, 256)
+    cache.v_codes.random_(0, 256)
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(0.01, 0.2)
+        sz[:, :, 1].copy_(torch.randint(0, 16, sz[:, :, 1].shape, device=dev))
+    cache.page_table[1] = torch.from_numpy(
+        1 + rng.permutation(mp + 1)[:mp].astype(np.int32)).to(dev)
+    q = torch.randn(s, h, d, device=dev).to(torch.bfloat16)
+    k = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    v = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = build.launches["paged_prefill"]
+    got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
+    assert build.launches["paged_prefill"] == before + 1
+    _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
 
 
 def test_wrappers_refuse_mixed_devices(dev):

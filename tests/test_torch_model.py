@@ -7,6 +7,8 @@ Tolerances:
   * forward logits: see ``test_forward_logits_match_jax``.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -100,8 +102,12 @@ def test_from_jax_params_equals_port_surgery(models):
         for name in SITES:
             a, b = cl[name].perm, tl[name].perm
             assert (a is None and b is None) or torch.equal(a, b), name
+    # stacks come over when they are ScaledW8 (tests/test_torch_stack.py);
+    # a split-plane stack (its codes live in ``mt``) is not ported
+    tree = jax.tree.map(np.asarray, jparams)
+    tree["layers"] = [dict(tree["layers"][0], qkv_stack=types.SimpleNamespace(mt=None))]
     with pytest.raises(NotImplementedError):
-        from_jax_params({"layers": [{"qkv_stack": None}]}, tcfg, device="cpu")
+        from_jax_params(tree, tcfg, device="cpu")
 
 
 def test_to_tensor_reads_bf16_bits():

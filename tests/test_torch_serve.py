@@ -133,14 +133,20 @@ def test_engine_run_matches_jax_engine(model, jax_flash_prefill, monkeypatch):
 
 
 def test_engine_limits_raise(model):
+    """With no other request to preempt, a prompt whose next chunk or a
+    sequence whose next decode chunk outgrows its page cap raises.
+    (Chunked prefill lifts the largest-bucket limit on prompts.)"""
     _, tcfg, _, tparams = model
-    eng = tengine.Engine(tparams, tcfg, max_seqs=1, page_size=PS,
-                         max_pages_per_seq=1, prefill_buckets=(16,),
-                         decode_chunk=4, device="cpu")
-    with pytest.raises(ValueError, match="largest bucket"):
-        eng.submit(tengine.Request(0, list(range(17))))
+    kw = dict(max_seqs=1, page_size=PS, max_pages_per_seq=1,
+              prefill_buckets=(16,), decode_chunk=4, device="cpu")
+    eng = tengine.Engine(tparams, tcfg, **kw)
+    eng.submit(tengine.Request(0, list(range(17))))
+    with pytest.raises(RuntimeError, match="too small for this prompt"):
+        while eng.step():
+            pass
+    eng = tengine.Engine(tparams, tcfg, **kw)
     eng.submit(tengine.Request(1, list(range(10)), max_new_tokens=20))
-    with pytest.raises(RuntimeError, match="exhausted"):
+    with pytest.raises(RuntimeError, match="too small for a single sequence"):
         while eng.step():
             pass
 
