@@ -5,40 +5,46 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's eight CUDA kernels from ``micromix_tpu_torch/csrc/``
+It builds the port's nine CUDA kernels from ``micromix_tpu_torch/csrc/``
 and runs these phases; any failure exits non-zero before the result line.
 
   0. the card's name and power limit, torch / CUDA / nvcc versions;
   1. build the kernels (one nvcc per source, all at once);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the Llama-3.1-8B main path, with its median time (CUDA
-     events, L2 flushed before each launch), its bound (bytes over
-     3.35 TB/s or operations over 989 TFLOP/s, whichever is larger), the
-     plain version's time and, where one PyTorch call computes the same
-     function, that call's time;
-  3. a 2-layer full-width Llama-3.1-8B model from one seed, stacked: a
-     300-token prompt prefilled in chunks of 128 (flash, then paged
-     history) and 8 greedy decode steps through the residual pairs, each
-     chunk and step with the kernels on the card and with the plain
-     versions on the CPU from the same cache state; the greedy tokens
-     must be equal;
-  4. serving at full depth (32 layers, random weights made on the card):
-     the default (stacked) engine answers 8 requests, six of 96-128 and
-     two of 1200-1500 prompt tokens, with prefill_chunk 512 and 32 new
-     tokens each, so chunked prefill and piggyback run; then the
-     per-consumer engine (``MICROMIX_NO_STACK=1``) at 4 layers answers
-     8 requests of 96-128 tokens.  Every kernel launch counter is reset
-     just before each run and read just after; each run must launch
-     every kernel of its path.  Kernel launches per decode step and layer
-     are counted for both forms.
+     shapes of the Llama-3.1-8B and Mixtral-8x7B main paths, with its
+     median time (CUDA events, L2 flushed before each launch), its bound
+     (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever is
+     larger), the plain version's time and, where one PyTorch call
+     computes the same function, that call's time;
+  3. 2-layer full-width models from one seed, stacked, Llama-3.1-8B and
+     then Mixtral-8x7B (experts grouped): a 300-token prompt prefilled in
+     chunks of 128 (flash, then paged history) and 8 (Mixtral: 4) greedy
+     decode steps (Llama: through the residual pairs), each chunk and step
+     with the kernels on the card and with the plain versions on the CPU
+     from the same cache state; the greedy tokens must be equal;
+  4. serving Llama-3.1-8B at full depth (32 layers, random weights made on
+     the card): the default (stacked) engine answers 8 requests, six of
+     96-128 and two of 1200-1500 prompt tokens, with prefill_chunk 512
+     and 32 new tokens each, so chunked prefill and piggyback run; then
+     the per-consumer engine (``MICROMIX_NO_STACK=1``) at 4 layers
+     answers 8 requests of 96-128 tokens;
+  5. serving Mixtral-8x7B at full depth (32 layers, random weights made
+     on the card and grouped layer by layer) with the default engine and
+     phase 4's traffic; then the per-expert engine (``MICROMIX_NO_STACK=1``)
+     at 2 layers answers 8 requests of 96-128 tokens.
 
-It prints the per-kernel JSON line, and last ``{"ok": true, "device":
-...}``.  Per-shape results also go to ``chiprun_out/chip_smoke.json``.
-Without a CUDA device it exits with status 2 and prints no result.
+In phases 4 and 5 every kernel launch counter is reset just before each
+run and read just after; each run must launch every kernel of its path
+(and the default Mixtral run no residual pair).  Kernel launches per
+decode step and layer are counted for every form.  It prints the
+per-kernel JSON line, and last ``{"ok": true, "device": ...}``.
+Per-shape results also go to ``chiprun_out/chip_smoke.json``.  Without a
+CUDA device it exits with status 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -74,6 +80,18 @@ def llama31_8b(num_layers: int):
                        rope_theta=500000.0, rms_eps=1e-5,
                        max_position_embeddings=131072,
                        rope_scaling=LLAMA3_SCALING)
+
+
+def mixtral_8x7b(num_layers: int):
+    """Mixtral-8x7B's published config.json widths; depth as given.  Dense
+    dispatch (no capacity factor), no sliding window."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    return ModelConfig(arch="mixtral", vocab_size=32000, hidden_size=4096,
+                       intermediate_size=14336, num_layers=num_layers,
+                       num_heads=32, num_kv_heads=8, head_dim=128,
+                       rope_theta=1e6, rms_eps=1e-5,
+                       max_position_embeddings=32768, num_experts=8,
+                       num_experts_per_tok=2)
 
 
 class Timer:
@@ -435,6 +453,69 @@ def check_prefill(results, timer, rng):
                4.0 * s * (hist + s / 2) * h * d, timer.ms(plain))
 
 
+def check_grouped(results, timer, rng):
+    """Kernel I at Mixtral-8x7B's expert shapes: w1|w3 behind each
+    expert's own plain site (E=8, C=8 and 128) and w2 behind the silu site
+    (C=8).  The site image against the plain site (bit-exact, or the tie
+    band for silu), the outputs against the plain GEMM on the kernel's own
+    image, and against the per-expert loop of the site and Kernel B on the
+    card, bit for bit."""
+    from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
+                                                      fakequant_site_plain)
+    from micromix_tpu_torch.kernels.mixed_matmul import (
+        mixed_matmul_w8_grouped, mixed_matmul_w8_grouped_plain,
+        mixed_matmul_w8_site, w8_grouped_gemm_plain)
+    from micromix_tpu_torch.mx.scaledw8 import (dequantize_grouped,
+                                                group_scaled_w8, grouped_section)
+    e = 8
+    for name, k, ksplit, ns, producer, cs in (
+            ("w13", 4096, SPLIT_4096, (14336, 14336), "plain", (8, 128)),
+            ("w2", 14336, SPLIT_14336, (4096,), "silu", (8,))):
+        secs = [[_w8_weight(n, k, ksplit) for _ in range(e)] for n in ns]
+        gw = group_scaled_w8(secs)
+        del secs
+        wd = dequantize_grouped(gw)
+        for c in cs:
+            x = _site_input(e * c, k).reshape(e, c, k)
+            if producer == "plain":
+                perm = torch.stack([_perm(rng, k, ksplit) for _ in range(e)])
+                kw = dict(perm=perm)
+                site_kw = dict(perm=perm)
+                one = [dict(perm=perm[i]) for i in range(e)]
+            else:
+                up = torch.randn(e, c, k, device=DEV).to(torch.bfloat16)
+                kw = dict(producer="silu", up=up)
+                site_kw = dict(producer="silu", up=up.reshape(-1, k))
+                one = [dict(producer="silu", up=up[i]) for i in range(e)]
+            outs = mixed_matmul_w8_grouped(x, gw, **kw)
+            img = fakequant_site(x.reshape(-1, k), *ksplit, **site_kw)
+            ref_img = fakequant_site_plain(x.reshape(-1, k), *ksplit, **site_kw)
+            if producer == "plain":
+                ok_img = torch.equal(img, ref_img)
+            else:
+                _, ok_img = tie_band(img, ref_img, ksplit)
+            img = img.reshape(e, c, k)
+            errs = [close(g, r) for g, r in zip(outs, w8_grouped_gemm_plain(img, gw))]
+            err, ok = max(x for x, _ in errs), all(o for _, o in errs)
+            loop_exact = all(
+                torch.equal(outs[si][i], mixed_matmul_w8_site(
+                    x[i], grouped_section(gw, i, si), **one[i]))
+                for i in range(e) for si in range(len(ns)))
+            nbytes = (gw.codes.numel() + e * c * k * 2 * (1 + (producer == "silu"))
+                      + (e * k * 4 if producer == "plain" else 0)
+                      + e * c * sum(ns) * 2)
+            record(results, "w8_grouped", f"{name} {producer} E={e} C={c} K={k}",
+                   err, "image bit-exact (plain) or in the tie band (silu); "
+                   "outputs 2^-7|ref|+2^-8max|ref| on the kernel's image and "
+                   "bit-exact against the per-expert loop on the card",
+                   ok and ok_img and loop_exact,
+                   timer.ms(lambda: mixed_matmul_w8_grouped(x, gw, **kw)),
+                   nbytes, 2.0 * e * c * sum(ns) * k,
+                   timer.ms(lambda: mixed_matmul_w8_grouped_plain(x, gw, **kw)),
+                   timer.ms(lambda: torch.bmm(img, wd.transpose(1, 2))))
+        del gw, wd
+
+
 # ----------------------------------------------------------------- phase 3
 
 def params_to(params, device):
@@ -454,9 +535,12 @@ def params_to(params, device):
 
 
 def phase3() -> dict:
-    """Card against CPU on one 2-layer full-width stacked model: a
-    300-token prompt prefilled in chunks of 128 (flash, then paged
-    history), then 8 greedy decode steps through the residual pairs.
+    """Card against CPU on 2-layer full-width stacked models: a 300-token
+    prompt prefilled in chunks of 128 (flash, then paged history), then
+    greedy decode steps: Llama-3.1-8B, 8 steps through the residual pairs;
+    Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
+    grouped expert GEMMs (the CPU side dequantizes 1.4 G codes per layer
+    and unit).
 
     Each chunk and each decode step runs on the card and on the CPU from
     the same state: the card's KV cache, copied to the CPU just before,
@@ -469,25 +553,39 @@ def phase3() -> dict:
     every unit from one state keeps each comparison to that unit's own
     arithmetic.  The greedy token of the last chunk and of every decode
     step must be equal.  Logits: within 0.5 of the CPU's logit range.  On
-    the H100 a unit without such a crossing agreed to about 3e-7 of the
-    range, a decode step's single row with one to 0.25, a 128-row chunk
-    to about 0.12 (this phase's own printout); a kernel that computed
-    another function would move them by the order of the range."""
+    the H100 a Llama unit without such a crossing agreed to about 3e-7 of
+    the range, a decode step's single row with one to 0.25, a 128-row
+    chunk to about 0.12 (this phase's own printout); a kernel that
+    computed another function would move them by the order of the range."""
+    from micromix_tpu_torch.serve.runner import _can_pair
+    out = {}
+    cfg = llama31_8b(2)
+    out["llama"] = card_vs_cpu(cfg, 8, ("flash_attention", "paged_prefill",
+                                        "w8_stack", "w8_pair"),
+                               lambda p: _can_pair(p, cfg, 1))
+    out["mixtral"] = card_vs_cpu(mixtral_8x7b(2), 4,
+                                 ("flash_attention", "paged_prefill",
+                                  "w8_stack", "w8_grouped"),
+                                 lambda p: "experts_grouped" in p["layers"][0])
+    return out
+
+
+def card_vs_cpu(cfg, steps: int, must_launch, form_ok) -> dict:
+    """One model of phase 3: its units on the card and on the CPU."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.models.surgery import (default_calibration,
                                                    random_quantized_model,
                                                    stack_layer_projections)
     from micromix_tpu_torch.serve.kv_cache import make_cache
-    from micromix_tpu_torch.serve.runner import _can_pair, decode_step, prefill
-    cfg = llama31_8b(2)
+    from micromix_tpu_torch.serve.runner import decode_step, prefill
     calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
     gpu_params = stack_layer_projections(
         random_quantized_model(cfg, calib, seed=SEED, device=DEV))
-    if not _can_pair(gpu_params, cfg, 1):
-        fail("phase 3: the stacked model does not take the pair path")
+    if not form_ok(gpu_params):
+        fail(f"phase 3 ({cfg.arch}): the stacked model is not in its serving form")
     cpu_params = params_to(gpu_params, "cpu")
     prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 300).tolist()
-    ps, chunk, steps = 128, 128, 8
+    ps, chunk = 128, 128
     mp = -(-(len(prompt) + steps + 1) // ps)
     caches = [make_cache(mp + 1, ps, cfg.num_kv_heads, cfg.head_dim, 1, mp,
                          device=DEV) for _ in range(cfg.num_layers)]
@@ -522,21 +620,22 @@ def phase3() -> dict:
         cpu.append(c_tok)
     launches = dict(build.launches)
     tol = 0.5
-    print(f"  2-layer full width, stacked: prompt {len(prompt)} tokens in "
-          f"chunks of {chunk}, then {steps} decode steps, each unit from the "
-          f"card's state; greedy tokens card {card}, cpu {cpu}; max |logit "
-          f"diff| / max |cpu logit| per unit {['%.2e' % r for r in rels]} "
-          f"(tolerance {tol}); card launches {launches}; wall "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"  {cfg.arch}, 2-layer full width, stacked: prompt {len(prompt)} "
+          f"tokens in chunks of {chunk}, then {steps} decode steps, each unit "
+          f"from the card's state; greedy tokens card {card}, cpu {cpu}; max "
+          f"|logit diff| / max |cpu logit| per unit {['%.2e' % r for r in rels]} "
+          f"(tolerance {tol}); card launches {launches}; wall {wall:.1f}s",
+          flush=True)
     if card != cpu:
-        fail("phase 3: greedy tokens differ between the card and the CPU")
+        fail(f"phase 3 ({cfg.arch}): greedy tokens differ between the card "
+             "and the CPU")
     if max(rels) > tol:
-        fail(f"phase 3: logit error {max(rels):.3e} over {tol}")
-    missing = [n for n in ("flash_attention", "paged_prefill", "w8_stack",
-                           "w8_pair") if not launches.get(n)]
+        fail(f"phase 3 ({cfg.arch}): logit error {max(rels):.3e} over {tol}")
+    missing = [n for n in must_launch if not launches.get(n)]
     if missing:
-        fail(f"phase 3: kernels not launched on the card: {missing}")
-    return dict(logit_rel_err=rels, tokens=card, launches=launches)
+        fail(f"phase 3 ({cfg.arch}): kernels not launched on the card: {missing}")
+    return dict(logit_rel_err=rels, tokens=card, launches=launches, wall_s=wall)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -567,7 +666,7 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
                 by_kernel=per_step)
 
 
-def serve(cfg, params, reqs, **kw):
+def serve(cfg, params, reqs, phase="phase 4", **kw):
     """One engine run with the launch counters reset just before it and
     read just after it."""
     from micromix_tpu_torch.kernels import build
@@ -598,11 +697,11 @@ def serve(cfg, params, reqs, **kw):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches)
     if done != len(reqs):
-        fail(f"phase 4: {done} of {len(reqs)} requests finished with "
+        fail(f"{phase}: {done} of {len(reqs)} requests finished with "
              f"{n_new} tokens")
     for r in reqs:
         if not all(0 <= t < cfg.vocab_size for t in r.output):
-            fail("phase 4: token out of vocabulary")
+            fail(f"{phase}: token out of vocabulary")
     return eng, stats
 
 
@@ -617,16 +716,13 @@ def phase4(rng) -> dict:
         device=DEV)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    lens = ([int(rng.integers(96, 129)) for _ in range(6)]
-            + [int(rng.integers(1200, 1501)) for _ in range(2)])
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
-                    max_new_tokens=32) for i, n in enumerate(lens)]
-    eng, stats = serve(cfg, params, reqs, max_seqs=8, page_size=128,
+    eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size),
+                       max_seqs=8, page_size=128,
                        max_pages_per_seq=16, decode_chunk=8, prefill_chunk=512)
     stats["model_build_s"] = build_s
     if "qkv_stack" not in eng.params["layers"][0]:
         fail("phase 4: the default engine did not stack its params")
-    missing = [n for n in KERNELS if not stats["launches"].get(n)]
+    missing = [n for n in LLAMA_KERNELS if not stats["launches"].get(n)]
     if missing:
         fail(f"phase 4: kernels never launched on the main path: {missing}")
     if not stats["decode_steps"]["mixed"]:
@@ -665,6 +761,88 @@ def phase4(rng) -> dict:
     return dict(stacked=stats, per_consumer=stats4)
 
 
+def _traffic(rng, vocab: int):
+    """Phase 4's requests: six of 96-128 prompt tokens, two of 1200-1500,
+    32 new tokens each."""
+    from micromix_tpu_torch.serve.engine import Request
+    lens = ([int(rng.integers(96, 129)) for _ in range(6)]
+            + [int(rng.integers(1200, 1501)) for _ in range(2)])
+    return [Request(i, rng.integers(0, vocab, n).tolist(), max_new_tokens=32)
+            for i, n in enumerate(lens)]
+
+
+def phase5(rng) -> dict:
+    """Mixtral-8x7B at 32 layers with the default engine (experts grouped
+    layer by layer as the model is made, so the card never holds two
+    copies of them), then the per-expert form at 2 layers."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.serve.engine import Request
+    cfg = mixtral_8x7b(32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    codes_gib = sum(t.numel() for p in params["layers"] for t in (
+        p["experts_grouped"]["w13"].codes, p["experts_grouped"]["w2"].codes,
+        p["q"].w.codes, p["k"].w.codes, p["v"].w.codes, p["o"].w.codes)) / 2 ** 30
+    eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size), "phase 5",
+                       max_seqs=8, page_size=128, max_pages_per_seq=16,
+                       decode_chunk=8, prefill_chunk=512)
+    stats.update(model_build_s=build_s, build_peak_mem_gib=build_peak,
+                 codes_gib=codes_gib)
+    layer0 = eng.params["layers"][0]
+    if "experts_grouped" not in layer0 or "qkv_stack" not in layer0:
+        fail("phase 5: the default engine did not keep the grouped experts "
+             "and stack q|k|v")
+    missing = [n for n in MIXTRAL_KERNELS if not stats["launches"].get(n)]
+    if missing:
+        fail(f"phase 5: kernels never launched on the main path: {missing}")
+    if stats["launches"].get("w8_pair"):
+        fail("phase 5: a Mixtral decode took the residual pair")
+    if not stats["decode_steps"]["mixed"]:
+        fail("phase 5: no prefill chunk rode a decode call")
+    if stats["peak_mem_gib"] >= 80 or build_peak >= 80:
+        fail(f"phase 5: peak memory {stats['peak_mem_gib']:.1f} GiB")
+    win = stats["decode_window"] = decode_window(eng, cfg)
+    if win["by_kernel"].get("w8_grouped") != 2 * cfg.num_layers:
+        fail(f"phase 5: {win['by_kernel'].get('w8_grouped')} grouped calls per "
+             f"decode step, not 2 per layer")
+    print("  Mixtral-8x7B, default engine, 32 layers: " + json.dumps(stats),
+          flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # the per-expert form, still driven: 2 layers, 8 requests of 96-128
+    cfg2 = mixtral_8x7b(2)
+    params2 = random_quantized_model(
+        cfg2, default_calibration(cfg2, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV, group_experts=False)
+    reqs2 = [Request(i, rng.integers(0, cfg2.vocab_size,
+                                     int(rng.integers(96, 129))).tolist(),
+                     max_new_tokens=32) for i in range(8)]
+    os.environ["MICROMIX_NO_STACK"] = "1"
+    try:
+        eng2, stats2 = serve(cfg2, params2, reqs2, "phase 5", max_seqs=8,
+                             page_size=128, max_pages_per_seq=2, decode_chunk=8)
+    finally:
+        del os.environ["MICROMIX_NO_STACK"]
+    if "experts" not in eng2.params["layers"][0]:
+        fail("phase 5: MICROMIX_NO_STACK=1 grouped the experts")
+    missing = [n for n in PER_CONSUMER_KERNELS if not stats2["launches"].get(n)]
+    if missing or stats2["launches"].get("w8_grouped"):
+        fail(f"phase 5: the per-expert form launched {stats2['launches']}")
+    stats2["decode_window"] = decode_window(eng2, cfg2)
+    print("  Mixtral per-expert, 2 layers: " + json.dumps(stats2), flush=True)
+    del eng2, params2
+    torch.cuda.empty_cache()
+    return dict(grouped=stats, per_expert=stats2)
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -687,8 +865,19 @@ KERNELS = {
     "paged_prefill": ("micromix_tpu_torch/csrc/paged_prefill.cu",
                       "micromix_tpu/serve/prefill_attention.py:174",
                       "S=512 hist=1536"),
+    "w8_grouped": ("micromix_tpu_torch/csrc/w8_grouped.cu",
+                   "micromix_tpu/kernels/mixed_matmul.py:1160",
+                   "w13 plain E=8 C=8"),
 }
-# the per-consumer path (MICROMIX_NO_STACK=1) runs PR 1's five kernels
+# the kernels each path must launch: the default Llama engine (phase 4),
+# the default Mixtral engine (phase 5: experts grouped, no residual pair),
+# and the per-consumer and per-expert forms (MICROMIX_NO_STACK=1: the
+# site, the per-consumer GEMM and the attention kernels)
+LLAMA_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
+                 "flash_attention", "w8_stack", "w8_pair", "paged_prefill")
+MIXTRAL_KERNELS = ("site_fakequant", "w8_gemm", "w8_stack", "w8_grouped",
+                   "paged_decode", "append_kv", "flash_attention",
+                   "paged_prefill")
 PER_CONSUMER_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
                         "append_kv", "flash_attention")
 
@@ -741,10 +930,11 @@ def main() -> int:
     check_stack(results, timer, rng)
     check_pair(results, timer, rng)
     check_prefill(results, timer, rng)
+    check_grouped(results, timer, rng)
     del timer
     torch.cuda.empty_cache()
 
-    print("phase 3: 2-layer full-width stacked model, card against CPU",
+    print("phase 3: 2-layer full-width stacked models, card against CPU",
           flush=True)
     p3 = phase3()
     torch.cuda.empty_cache()
@@ -752,13 +942,24 @@ def main() -> int:
     print("phase 4: the stacked engine at full depth (32 layers) and the "
           "per-consumer engine at 4 layers, 8 requests each", flush=True)
     p4 = phase4(rng)
+    torch.cuda.empty_cache()
 
-    line = kernel_line(results, p4["stacked"]["launches"])
+    print("phase 5: Mixtral-8x7B, the default engine at full depth (32 "
+          "layers) and the per-expert engine at 2 layers, 8 requests each",
+          flush=True)
+    p5 = phase5(rng)
+
+    # launches on the main paths: the Llama and Mixtral default engines
+    main_launches = collections.Counter(p4["stacked"]["launches"])
+    main_launches.update(p5["grouped"]["launches"])
+    line = kernel_line(results, main_launches)
+    wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, phase3=p3, phase4=p4,
-                       kernels=line["kernels"],
-                       wall_s=time.perf_counter() - t_start), f, indent=1)
+                       phase5=p5, kernels=line["kernels"], wall_s=wall), f,
+                  indent=1)
+    print(f"chip_smoke: all phases passed in {wall:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,15 +1,17 @@
 """Carry the JAX package's quantized parameters over to the port.
 
-``from_jax_params`` takes the JAX package's quantized dense-Llama pytree
-with its leaves already turned into numpy arrays (``jax.tree.map
+``from_jax_params`` takes the JAX package's quantized Llama or Mixtral
+pytree with its leaves already turned into numpy arrays (``jax.tree.map
 (np.asarray, params)``) and returns the port's parameter dict.  It reads
 the containers by attribute name only (``w.codes``, ``w.base``,
 ``site.perm`` ...), so it needs neither ``jax`` nor ``micromix_tpu``.
 The Benes routes are dropped: they encode the same permutation as
 ``perm`` for the TPU's lanes.  A pytree that the JAX package's
 ``stack_layer_projections`` has stacked carries ``qkv_stack`` /
-``gateup_stack`` (ScaledW8Stack) in place of q/k/v and gate/up; they come
-over as the port's ``ScaledW8Stack`` with their own padding.
+``gateup_stack`` (ScaledW8Stack) in place of q/k/v and gate/up, and
+``experts_grouped`` (two GroupedW8 and the (E, K) site permutations) in
+place of ``experts``; they come over as the port's containers with their
+own padding.  A Mixtral router comes over as a bf16 ``DenseLinear``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.common import ModelConfig, QuantLinear, QuantSite
-from .mx.scaledw8 import ScaledW8, ScaledW8Stack
+from .models.common import DenseLinear, ModelConfig, QuantLinear, QuantSite
+from .mx.scaledw8 import GroupedW8, ScaledW8, ScaledW8Stack
 
 _SITES = ("attn_site", "o_site", "mlp_site", "down_site")
 _LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -50,11 +52,21 @@ def stack_from_jax(st, device) -> ScaledW8Stack:
         k4=st.k4, k6=st.k6, k8=st.k8)
 
 
+def grouped_from_jax(gw, device) -> GroupedW8:
+    """A JAX GroupedW8 (numpy leaves) -> the port's, padding kept."""
+    bases = np.asarray(gw.bases).reshape(np.asarray(gw.codes).shape[0], -1)
+    return GroupedW8(
+        codes=to_tensor(gw.codes, device),
+        bases=tuple(tuple(int(b) for b in row) for row in bases),
+        biases=tuple(None if b is None else to_tensor(b, device)
+                     for b in gw.biases),
+        sections=tuple(gw.sections), padded=tuple(gw.padded),
+        k4=gw.k4, k6=gw.k6, k8=gw.k8)
+
+
 def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     """JAX quantized params (numpy leaves) -> the port's params on ``device``."""
-    if cfg.is_moe:
-        raise NotImplementedError("only dense Llama parameters are ported")
     dev = resolve_device(device)
 
     def lin(q) -> QuantLinear:
@@ -73,12 +85,33 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
             np.asarray(s.perm, np.int32), dev)
         return QuantSite(k4=s.k4, k6=s.k6, k8=s.k8, perm=perm)
 
+    def expert(ep) -> Dict[str, Any]:
+        return {"site_in": site(ep["site_in"]), "site_down": site(ep["site_down"]),
+                **{n: lin(ep[n]) for n in ("w1", "w3", "w2")}}
+
+    def grouped(gr) -> Dict[str, Any]:
+        return {"w13": grouped_from_jax(gr["w13"], dev),
+                "w2": grouped_from_jax(gr["w2"], dev),
+                "perm": None if gr["perm"] is None else to_tensor(
+                    np.asarray(gr["perm"], np.int32), dev),
+                "site_in": site(gr["site_in"]),
+                "site_down": site(gr["site_down"])}
+
     layers = []
     for p in np_tree["layers"]:
         out = {"ln1": to_tensor(p["ln1"], dev), "ln2": to_tensor(p["ln2"], dev)}
-        out.update({n: site(p[n]) for n in _SITES})
+        out.update({n: site(p[n]) for n in _SITES if n in p})
         out.update({n: lin(p[n]) for n in _LINEARS if n in p})
         out.update({n: stack_from_jax(p[n], dev) for n in _STACKS if n in p})
+        if "router" in p:
+            r = p["router"]
+            out["router"] = DenseLinear(
+                w=to_tensor(r.w, dev),
+                bias=None if r.bias is None else to_tensor(r.bias, dev))
+        if "experts" in p:
+            out["experts"] = [expert(ep) for ep in p["experts"]]
+        if "experts_grouped" in p:
+            out["experts_grouped"] = grouped(p["experts_grouped"])
         layers.append(out)
     return {"embed": to_tensor(np_tree["embed"], dev),
             "final_ln": to_tensor(np_tree["final_ln"], dev),

@@ -18,7 +18,9 @@
 // thread keeps its 32 producer values in registers, takes the abs-max, reads
 // the UE8M0 exponent from the f32 bits, scales by 2^-e, rounds
 // half-to-even with rintf onto the segment's grid (saturating), scales back
-// and stores bf16.  The channel permutation is an indexed load x[perm[c]].
+// and stores bf16.  The channel permutation is an indexed load x[perm[c]];
+// with perm_rows > 0, row r reads permutation r / perm_rows of a (G, K)
+// array (the MoE experts' own sites, all experts' rows in one launch).
 // Built without fast-math: IEEE division, sqrtf and rintf keep the plain
 // site bit-exact with the JAX package's.
 
@@ -60,9 +62,11 @@ __global__ void site_kernel(const __nv_bfloat16* __restrict__ x,
                             const void* __restrict__ aux,
                             const int* __restrict__ perm,
                             __nv_bfloat16* __restrict__ out, int K, int k4,
-                            int k6, int k8, int producer, float eps) {
+                            int k6, int k8, int producer, int perm_rows,
+                            float eps) {
   const int row = blockIdx.x;
   const __nv_bfloat16* xr = x + static_cast<size_t>(row) * K;
+  if (perm != nullptr && perm_rows > 0) perm += static_cast<size_t>(row / perm_rows) * K;
   __shared__ float red[32];
   __shared__ float s_rvar;
 
@@ -132,14 +136,17 @@ __global__ void site_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace
 
+// perm_rows: rows per permutation of a (G, K) perm array (M / G); with a
+// single (K,) perm it is M.
 extern "C" int site_fakequant(const void* x, const void* aux, const void* perm,
                               void* out, int M, int K, int k4, int k6, int k8,
-                              int producer, float eps, void* stream) {
+                              int producer, int perm_rows, float eps,
+                              void* stream) {
   const int blocks = K / 32;
   int threads = ((blocks + 31) / 32) * 32;
   if (threads > 512) threads = 512;
   site_kernel<<<M, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), aux, static_cast<const int*>(perm),
-      static_cast<__nv_bfloat16*>(out), K, k4, k6, k8, producer, eps);
+      static_cast<__nv_bfloat16*>(out), K, k4, k6, k8, producer, perm_rows, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
-           "flash_attention", "w8_stack", "w8_pair", "paged_prefill")
+           "flash_attention", "w8_stack", "w8_pair", "paged_prefill",
+           "w8_grouped")
 # No --use_fast_math: the site kernel's bit-exactness rests on IEEE
 # division, sqrtf and rintf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -27,7 +27,8 @@ from . import build
 _PRODUCERS = {"plain": 0, "rms": 1, "silu": 2}
 _SIG = {"site_fakequant": [build.PTR, build.PTR, build.PTR, build.PTR,
                            build.INT, build.INT, build.INT, build.INT,
-                           build.INT, build.INT, build.FLOAT, build.PTR]}
+                           build.INT, build.INT, build.INT, build.FLOAT,
+                           build.PTR]}
 
 
 def site_producer_values(producer: str, x: torch.Tensor,
@@ -35,8 +36,13 @@ def site_producer_values(producer: str, x: torch.Tensor,
                          perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) in source order -> f32 pre-quantize site values in device
     order.  rms: aux = gamma (K,) in source order, the row moment is taken
-    over the unpermuted row; silu: x = gate, aux = up, no perm."""
+    over the unpermuted row; silu: x = gate, aux = up, no perm.  A plain
+    site's ``perm`` may be (G, K): one gather per group of M // G rows."""
     xf = x.to(torch.float32)
+    if perm is not None and perm.dim() == 2:
+        g, k = perm.shape
+        idx = perm.long()[:, None, :].expand(g, xf.shape[0] // g, k)
+        return torch.gather(xf.reshape(g, -1, k), 2, idx).reshape(-1, k)
     if producer == "rms":
         # sum / K as jnp.mean does (torch's mean multiplies by 1/K)
         ms = nx.div((xf * xf).sum(dim=-1, keepdim=True), xf.shape[-1])
@@ -88,13 +94,22 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
 
     producer: "plain" (optional ``perm``) | "rms" (``gamma`` (K,) f32 in
     source order, optional ``perm``) | "silu" (x = gate, ``up`` (M, K)).
-    ``perm`` (K,) int32 maps device position -> source channel.
+    ``perm`` (K,) int32 maps device position -> source channel; a plain
+    site also takes (G, K), one permutation per group of M // G rows (the
+    MoE experts' own sites).
     """
     m, k = x.shape
     if k != k4 + k6 + k8 or k % BLOCK_SIZE:
         raise ValueError(f"site width {k} != {k4}+{k6}+{k8}")
     if producer == "silu" and perm is not None:
         raise ValueError("the silu site takes no permutation")
+    groups = 1
+    if perm is not None and perm.dim() == 2:
+        groups = perm.shape[0]
+        if producer != "plain" or m % groups or perm.shape[1] != k:
+            raise ValueError(f"a per-group perm {tuple(perm.shape)} needs a "
+                             f"plain site of M % G == 0 rows, got {producer} "
+                             f"({m}, {k})")
     if not x.is_cuda:
         return fakequant_site_plain(x, k4, k6, k8, producer=producer,
                                     gamma=gamma, up=up, perm=perm, eps=eps)
@@ -112,7 +127,7 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
         raise ValueError(f"site input must be bf16, got {x.dtype}")
     if perm is not None:
         perm = perm.to(device=x.device, dtype=torch.int32).contiguous()
-        if perm.shape != (k,):
+        if perm.shape[-1] != k:
             raise ValueError(f"perm shape {tuple(perm.shape)} != ({k},)")
     build.require_cuda("fakequant_site", x, aux, perm)
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
@@ -122,6 +137,7 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
     build.launches["site_fakequant"] += 1
     rc = lib.site_fakequant(build.ptr(x), build.ptr(aux), build.ptr(perm),
                             build.ptr(out), m, k, k4, k6, k8,
-                            _PRODUCERS[producer], float(eps), build.stream())
+                            _PRODUCERS[producer], m // groups, float(eps),
+                            build.stream())
     build.check(rc, "site_fakequant")
     return out

@@ -3,17 +3,19 @@
 Counterpart of ``micromix_tpu/kernels/mixed_matmul.py`` for the ScaledW8
 weight layout: ``mixed_matmul`` (dispatch by M), ``mixed_matmul_w8`` (the
 decode GEMM, CUDA kernel ``csrc/w8_gemm.cu``), ``mixed_matmul_w8_site``,
-``mixed_matmul_w8_stack`` (``csrc/w8_stack.cu``) and
-``mixed_matmul_w8_pair`` (``csrc/w8_pair.cu``).  Each runs its kernels on
-CUDA tensors and its plain version on CPU tensors.  The split-plane MX
-GEMM and the grouped MoE kernel are not ported yet.
+``mixed_matmul_w8_stack`` (``csrc/w8_stack.cu``),
+``mixed_matmul_w8_pair`` (``csrc/w8_pair.cu``) and the MoE experts'
+``mixed_matmul_w8_grouped`` (``csrc/w8_grouped.cu``).  Each runs its
+kernels on CUDA tensors and its plain version on CPU tensors.  The
+split-plane MX GEMM is not ported yet.
 
 On the GPU a site runs as its own launch (the site kernel), whose output is
 the bf16 image the GEMMs consume: the 32-blocks of the interleaved layout
 span a whole segment of the row, so one GEMM output tile cannot cheaply own
-its site.  So ``mixed_matmul_w8_site`` and ``mixed_matmul_w8_stack`` are
-two launches each, and ``mixed_matmul_w8_pair`` four: site A, the GEMM
-that closes the residual, then the stack's site and GEMM.
+its site.  So ``mixed_matmul_w8_site``, ``mixed_matmul_w8_stack`` and
+``mixed_matmul_w8_grouped`` are two launches each, and
+``mixed_matmul_w8_pair`` four: site A, the GEMM that closes the residual,
+then the stack's site and GEMM.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import List, Optional
 
 import torch
 
-from ..mx.scaledw8 import (ScaledW8, ScaledW8Stack, dequantize_scaled_w8,
+from ..mx.scaledw8 import (GroupedW8, ScaledW8, ScaledW8Stack,
+                           dequantize_scaled_w8, grouped_section,
                            section_weight)
 from . import build
 from .fakequant import fakequant_site, fakequant_site_plain
@@ -41,7 +44,15 @@ _SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
                            build.INT, build.INT, build.INT, build.PTR]}
 _SIG_PAIR = {"w8_residual": [build.PTR] * 6 + [build.INT] * 3
              + [build.FLOAT, build.INT, build.PTR]}
-_MAX_SECTIONS = 4   # csrc/w8_stack.cu
+_SIG_GROUPED = {"w8_grouped": [build.PTR, build.PTR, build.PTR, build.INTS,
+                               build.INTS, build.FLOATS, build.PTRS,
+                               build.INT, build.INT, build.INT, build.INT,
+                               build.INT, build.PTR]}
+_MAX_SECTIONS = 4   # csrc/w8_stack.cu, csrc/w8_grouped.cu
+_MAX_GROUPS = 64    # csrc/w8_grouped.cu
+# Rows per group up to which the grouped GEMM runs (the JAX package's
+# PALLAS_FAKEQUANT_MAX_M); above, its callers dequantize and multiply.
+GROUPED_MAX_C = 128
 
 
 def w8_scale(w: ScaledW8) -> float:
@@ -307,3 +318,108 @@ def mixed_matmul_w8_pair(x_a: torch.Tensor, h_in: torch.Tensor, wa: ScaledW8,
     h_mid = w8_residual(qa, wa, h_in, bias_a)
     return h_mid, mixed_matmul_w8_stack(h_mid, stack_b, producer="rms",
                                         gamma=gamma_b, perm=perm_b, eps=eps)
+
+
+# -------------------------------------------------------------- grouped
+
+
+def w8_grouped_gemm_plain(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
+    """[(E, C, N_i)]: every group's image rows against its own sections,
+    each product in f32 rounded to bf16 (the per-expert loop's values)."""
+    return [torch.stack([mixed_matmul_w8_plain(qx[e], grouped_section(gw, e, i))
+                         for e in range(gw.groups)])
+            for i in range(gw.n_sections)]
+
+
+def w8_grouped_gemm(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
+    """The grouped GEMM: the site image qx (E, C, K) bf16, group e's rows
+    against group e's sections of ``gw``, in one launch ->
+    [(E, C, N_i) bf16].  Bit for bit the per-group loop of Kernel B."""
+    e, c, k = qx.shape
+    if gw.k != k or gw.groups != e:
+        raise ValueError(f"grouped shapes: image {tuple(qx.shape)}, weights "
+                         f"{tuple(gw.codes.shape)}")
+    if not qx.is_cuda:
+        return w8_grouped_gemm_plain(qx, gw)
+    _check_gemm_operands("w8_grouped", qx.reshape(-1, k), gw.codes)
+    n_sec = gw.n_sections
+    if c > GROUPED_MAX_C:
+        raise ValueError(f"w8_grouped takes at most {GROUPED_MAX_C} rows per "
+                         f"group, got {c}")
+    if (n_sec > _MAX_SECTIONS or e > _MAX_GROUPS
+            or any(p % _BN for p in gw.padded) or any(n % 8 for n in gw.sections)):
+        raise ValueError(f"w8_grouped takes at most {_MAX_GROUPS} groups and "
+                         f"{_MAX_SECTIONS} sections of N % 8 == 0 padded to "
+                         f"multiples of {_BN}: {e}, {gw.sections} / {gw.padded}")
+    build.require_cuda("w8_grouped", qx, gw.codes)
+    outs = [torch.empty((e, c, n), dtype=torch.bfloat16, device=qx.device)
+            for n in gw.sections]
+    if c == 0:
+        return outs
+    total = sum(gw.padded)
+    # Kernel B's split for one group's first section: the same f32 sums
+    splits = split_k(c, gw.sections[0], k)
+    partial = (torch.empty((splits, e, c, total), dtype=torch.float32,
+                           device=qx.device) if splits > 1 else None)
+    scales = [2.0 ** (b + 126) for row in gw.bases for b in row]
+    lib = build.library("w8_grouped", _SIG_GROUPED)
+    build.launches["w8_grouped"] += 1
+    rc = lib.w8_grouped(
+        build.ptr(qx), build.ptr(gw.codes), build.ptr(partial),
+        (ctypes.c_int * n_sec)(*gw.sections), (ctypes.c_int * n_sec)(*gw.padded),
+        (ctypes.c_float * len(scales))(*scales),
+        (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
+        n_sec, e, c, k, splits, build.stream())
+    build.check(rc, "w8_grouped")
+    return outs
+
+
+def _grouped_site(x, gw, producer, up, perm, eps, site):
+    """The grouped call's site: all E x C rows, each group with its own
+    ``perm`` row (plain) or its own ``up`` rows (silu) -> (E, C, K)."""
+    if producer not in ("plain", "silu"):
+        raise ValueError(f"a grouped site is plain or silu, got {producer!r}")
+    e, c, k = x.shape
+    if gw.groups != e or gw.k != k:
+        raise ValueError(f"grouped shapes: x {tuple(x.shape)}, weights "
+                         f"{tuple(gw.codes.shape)}")
+    for name, t in (("x", x), ("up", up)):
+        if t is not None and x.is_cuda and (
+                not t.is_contiguous() or t.dtype != torch.bfloat16):
+            raise ValueError(f"w8_grouped: {name} must be contiguous bf16")
+    kw = dict(producer=producer, eps=eps)
+    if producer == "silu":
+        if up is None or up.shape != x.shape:
+            raise ValueError("the silu site needs up of x's shape")
+        kw["up"] = up.reshape(-1, k)
+    elif perm is not None:
+        if perm.shape != (e, k):
+            raise ValueError(f"perm shape {tuple(perm.shape)} != ({e}, {k})")
+        kw["perm"] = perm
+    img = site(x.reshape(-1, k), *gw.segments(), **kw)
+    return img.reshape(e, c, k)
+
+
+def mixed_matmul_w8_grouped_plain(x, gw, *, producer="plain", up=None,
+                                  perm=None, eps=1e-6) -> List[torch.Tensor]:
+    qx = _grouped_site(x, gw, producer, up, perm, eps, fakequant_site_plain)
+    return w8_grouped_gemm_plain(qx, gw)
+
+
+def mixed_matmul_w8_grouped(x: torch.Tensor, gw: GroupedW8, *,
+                            producer: str = "plain",
+                            up: Optional[torch.Tensor] = None,
+                            perm: Optional[torch.Tensor] = None,
+                            eps: float = 1e-6) -> List[torch.Tensor]:
+    """[Y_i[e] = site(x[e]) . dq(W_i[e])^T for every group e], the MoE
+    experts' grouped GEMM.
+
+    x: (E, C, K) per-group pre-site activations in source order; ``gw``
+    a GroupedW8; producer "plain" with ``perm`` (E, K) int32, each group's
+    own gather, or "silu" (x = gate, ``up`` (E, C, K)).  Returns
+    [(E, C, N_i) bf16] per section, biases not applied.  Two launches on
+    the GPU: the site kernel over all E x C rows, then the grouped GEMM;
+    bit for bit the per-group loop of ``mixed_matmul_w8_site`` there.
+    """
+    qx = _grouped_site(x, gw, producer, up, perm, eps, fakequant_site)
+    return w8_grouped_gemm(qx, gw)

@@ -1,7 +1,8 @@
 """Model configuration, linear containers, RoPE and the projection sites.
 
-Counterpart of ``micromix_tpu/models/common.py`` for the dense Llama path
-with ScaledW8 weights: ``ModelConfig``, ``DenseLinear``, ``QuantLinear``,
+Counterpart of ``micromix_tpu/models/common.py`` for the Llama and
+Mixtral paths with ScaledW8 weights: ``ModelConfig``, ``DenseLinear``
+(also the MoE router), ``QuantLinear``,
 ``QuantSite``, ``rmsnorm``, the RoPE helpers (including llama3 frequency
 scaling) and the ScaledW8 legs of ``project_all``, per consumer and
 stacked.  Parameters
@@ -28,7 +29,8 @@ from ..mx.scaledw8 import ScaledW8, ScaledW8Stack, dequantize_stack
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Decoder configuration; the fields of the JAX package's ModelConfig.
-    This port runs ``arch="llama"`` (dense, no qkv bias, no window)."""
+    This port runs ``arch="llama"`` and ``arch="mixtral"`` (MoE experts,
+    dense or capacity dispatch)."""
 
     arch: str
     vocab_size: int
@@ -62,10 +64,19 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class DenseLinear:
-    """bf16 linear (the unquantized input to surgery)."""
+    """bf16 linear: the unquantized input to surgery, and the MoE router,
+    which stays bf16."""
 
     w: torch.Tensor                   # (out_features, in_features)
     bias: Optional[torch.Tensor] = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """bf16 product accumulated in f32, plus bias, rounded to bf16 (the
+        JAX package computes it outside any kernel)."""
+        y = torch.matmul(x.to(torch.float32), self.w.to(torch.float32).t())
+        if self.bias is not None:
+            y = y + self.bias.to(torch.float32)
+        return y.to(torch.bfloat16)
 
 
 @dataclasses.dataclass

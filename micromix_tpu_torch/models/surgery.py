@@ -1,19 +1,21 @@
 """Model surgery: dense bf16 parameters -> ScaledW8-quantized parameters.
 
-Counterpart of ``micromix_tpu/models/surgery.py`` for dense Llama with the
-default "auto" weight layout: each linear's input channels are permuted by
-its site's calibration reorder, the weight is quantized to MXFP4 in every
-segment, and the scaled values are packed as ScaledW8.  The down-proj
-channel permutation is baked into the gate / up weight rows, so the silu
-site needs no gather.  Codes and base are bit-identical to the JAX
-package's for the same dense weights.
+Counterpart of ``micromix_tpu/models/surgery.py`` for Llama and Mixtral
+with the default "auto" weight layout: each linear's input channels are
+permuted by its site's calibration reorder, the weight is quantized to
+MXFP4 in every segment, and the scaled values are packed as ScaledW8.
+The down-proj channel permutation is baked into the gate / up (an
+expert's w1 / w3) weight rows, so the silu site needs no gather.  The MoE
+router stays bf16.  Codes and base are bit-identical to the JAX package's
+for the same dense weights.
 
 The JAX package falls back to the split-plane layout when a tensor's
 scaled-exponent span exceeds 62; the port has no split-plane GEMM yet and
 raises instead (real and random weights span about 20).
 
 ``stack_layer_projections`` is the serving engine's init transform: each
-site's ScaledW8 consumers (q|k|v, gate|up) become one ``ScaledW8Stack``.
+site's ScaledW8 consumers (q|k|v, gate|up) become one ``ScaledW8Stack``,
+and a layer's experts one grouped form (``GroupedW8`` w1|w3 and w2).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 from ..device import resolve_device
 from ..mx import layout as lay
 from ..mx.mxtensor import quantize_mixed
-from ..mx.scaledw8 import ScaledW8, pack_scaled_w8, stack_scaled_w8
+from ..mx.scaledw8 import (ScaledW8, group_scaled_w8, pack_scaled_w8,
+                           stack_scaled_w8)
 from .common import DenseLinear, ModelConfig, QuantLinear, QuantSite
 
 ATTN_IN = "attn_in"    # -> q, k, v
@@ -89,10 +92,8 @@ def _down_row_perm(calib: SiteCalibration, k: int) -> np.ndarray:
 def quantize_layer(p: Dict[str, Any], cfg: ModelConfig,
                    calib: LayerCalib) -> Dict[str, Any]:
     """One dense decoder-layer dict -> quantized layer dict."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
     dev = p["ln1"].device
-    hid = cfg.hidden_size
+    hid, inter = cfg.hidden_size, cfg.intermediate_size
     out: Dict[str, Any] = {"ln1": p["ln1"], "ln2": p["ln2"]}
     c_attn = calib[ATTN_IN]
     out["attn_site"] = make_site(c_attn, hid, dev)
@@ -101,10 +102,26 @@ def quantize_layer(p: Dict[str, Any], cfg: ModelConfig,
     c_o = calib[O_IN]
     out["o_site"] = make_site(c_o, cfg.num_heads * cfg.head_dim, dev)
     out["o"] = quantize_linear(p["o"].w, c_o, p["o"].bias)
+    if cfg.is_moe:
+        out["router"] = p["router"]
+        experts = []
+        for e, ep in enumerate(p["experts"]):
+            c_in = calib[f"expert{e}_{MLP_IN}"]
+            c_dn = calib[f"expert{e}_{DOWN_IN}"]
+            rp = _down_row_perm(c_dn, inter)
+            experts.append({
+                "site_in": make_site(c_in, hid, dev),
+                "site_down": QuantSite(*c_dn.splits(inter)),
+                "w1": quantize_linear(ep["w1"].w, c_in, ep["w1"].bias, row_perm=rp),
+                "w3": quantize_linear(ep["w3"].w, c_in, ep["w3"].bias, row_perm=rp),
+                "w2": quantize_linear(ep["w2"].w, c_dn, ep["w2"].bias),
+            })
+        out["experts"] = experts
+        return out
     c_mlp, c_dn = calib[MLP_IN], calib[DOWN_IN]
     out["mlp_site"] = make_site(c_mlp, hid, dev)
-    out["down_site"] = QuantSite(*c_dn.splits(cfg.intermediate_size))
-    rp = _down_row_perm(c_dn, cfg.intermediate_size)
+    out["down_site"] = QuantSite(*c_dn.splits(inter))
+    rp = _down_row_perm(c_dn, inter)
     for name in ("gate", "up"):
         out[name] = quantize_linear(p[name].w, c_mlp, p[name].bias, row_perm=rp)
     out["down"] = quantize_linear(p["down"].w, c_dn, p["down"].bias)
@@ -129,45 +146,82 @@ _STACKS = (("qkv_stack", ("q", "k", "v"), "attn_site"),
            ("gateup_stack", ("gate", "up"), "mlp_site"))
 
 
+def _stackable(p, names, site_key) -> bool:
+    return isinstance(p.get(site_key), QuantSite) and all(
+        isinstance(p.get(n), QuantLinear) and isinstance(p[n].w, ScaledW8)
+        for n in names)
+
+
 def stack_layer_projections(params: Dict[str, Any],
                             memo: Optional[dict] = None) -> Dict[str, Any]:
     """Per layer, replace the q/k/v and gate/up ScaledW8 QuantLinears with
     one row-stacked ``ScaledW8Stack`` each (``qkv_stack``,
     ``gateup_stack``), so decode runs each site's consumers as one stacked
-    GEMM and prefill as one wide product, with the same values.
+    GEMM and prefill as one wide product, with the same values; and a
+    layer's per-expert dicts with their grouped form
+    (``experts_grouped``, see ``_group_experts``), so the experts run as
+    two grouped GEMMs.
 
     The per-weight entries are removed: the stack is the only copy.
     Aliased layer dicts map to one stacked dict through ``memo`` (pass one
     memo across params that share layers).  Layers whose consumers are not
-    all ScaledW8 pass through untouched; Mixtral experts raise.
+    all ScaledW8, or whose experts differ in their site budgets, keep
+    them; a layer already grouped (``random_quantized_model``) keeps its
+    ``experts_grouped``.
     """
     if memo is None:
         memo = {}
-
-    def stackable(p, names, site_key):
-        return isinstance(p.get(site_key), QuantSite) and all(
-            isinstance(p.get(n), QuantLinear) and isinstance(p[n].w, ScaledW8)
-            for n in names)
 
     def one(p):
         key = id(p)
         if key in memo:
             return memo[key]
-        if p.get("experts"):
-            raise NotImplementedError("Mixtral experts are not ported yet")
         q = dict(p)
         for stack_key, names, site_key in _STACKS:
-            if stackable(p, names, site_key):
+            if _stackable(p, names, site_key):
                 q[stack_key] = stack_scaled_w8([p[n].w for n in names],
                                                [p[n].bias for n in names])
                 for n in names:
                     del q[n]
+        experts = p.get("experts")
+        if experts and all(_stackable(ep, ("w1", "w3", "w2"), "site_in")
+                           for ep in experts) and len({
+                               (ep["site_in"].splits, ep["site_down"].splits)
+                               for ep in experts}) == 1:
+            q["experts_grouped"] = _group_experts(experts)
+            del q["experts"]
         memo[key] = q
         return q
 
     out = dict(params)
     out["layers"] = [one(p) for p in params["layers"]]
     return out
+
+
+def _group_experts(experts: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """[per-expert quantized dicts] -> the grouped serving form: every
+    expert's w1|w3 (and w2) codes in one ``GroupedW8`` each, and the
+    experts' site permutations as one (E, K) tensor, so ``moe_block`` runs
+    the whole expert loop as two grouped GEMMs."""
+
+    def stackb(name):
+        bs = [ep[name].bias for ep in experts]
+        if all(b is None for b in bs):
+            return None
+        return torch.stack(bs)
+
+    sites = [ep["site_in"] for ep in experts]
+    perm = (torch.stack([s.perm for s in sites])
+            if all(s.perm is not None for s in sites) else None)
+    return {
+        "w13": group_scaled_w8([[ep["w1"].w for ep in experts],
+                                [ep["w3"].w for ep in experts]],
+                               [stackb("w1"), stackb("w3")]),
+        "w2": group_scaled_w8([[ep["w2"].w for ep in experts]], [stackb("w2")]),
+        "perm": perm,
+        "site_in": QuantSite(*sites[0].splits),
+        "site_down": QuantSite(*experts[0]["site_down"].splits),
+    }
 
 
 def default_calibration(cfg: ModelConfig, p6: int = 0, p8: int = 0,
@@ -186,8 +240,13 @@ def default_calibration(cfg: ModelConfig, p6: int = 0, p8: int = 0,
     out = []
     for _ in range(cfg.num_layers):
         c: LayerCalib = {ATTN_IN: mk(hid), O_IN: mk(odim)}
-        c[MLP_IN] = mk(hid)
-        c[DOWN_IN] = mk(inter)
+        if cfg.is_moe:
+            for e in range(cfg.num_experts):
+                c[f"expert{e}_{MLP_IN}"] = mk(hid)
+                c[f"expert{e}_{DOWN_IN}"] = mk(inter)
+        else:
+            c[MLP_IN] = mk(hid)
+            c[DOWN_IN] = mk(inter)
         out.append(c)
     return out
 
@@ -198,8 +257,9 @@ def _bf16(a: np.ndarray, device) -> torch.Tensor:
 
 def random_dense_params(cfg: ModelConfig, seed: int = 0,
                         device=None) -> Dict[str, Any]:
-    """Seeded dense Llama parameters: the same numpy draws, in the same
-    order, as the JAX package's random_dense_params (test sizes)."""
+    """Seeded dense Llama or Mixtral parameters: the same numpy draws, in
+    the same order, as the JAX package's random_dense_params (test
+    sizes)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     hid, inter = cfg.hidden_size, cfg.intermediate_size
@@ -220,9 +280,15 @@ def random_dense_params(cfg: ModelConfig, seed: int = 0,
             "v": lin(kvdim, hid, cfg.qkv_bias),
             "o": lin(hid, odim),
         }
-        p["gate"] = lin(inter, hid)
-        p["up"] = lin(inter, hid)
-        p["down"] = lin(hid, inter)
+        if cfg.is_moe:
+            p["router"] = lin(cfg.num_experts, hid)
+            p["experts"] = [{"w1": lin(inter, hid), "w3": lin(inter, hid),
+                             "w2": lin(hid, inter)}
+                            for _ in range(cfg.num_experts)]
+        else:
+            p["gate"] = lin(inter, hid)
+            p["up"] = lin(inter, hid)
+            p["down"] = lin(hid, inter)
         return p
 
     # draw order as in the JAX package: embed, lm_head, then the layers
@@ -236,11 +302,16 @@ def random_dense_params(cfg: ModelConfig, seed: int = 0,
 
 
 def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
-                           seed: int = 0, device=None) -> Dict[str, Any]:
+                           seed: int = 0, device=None,
+                           group_experts: bool = True) -> Dict[str, Any]:
     """Full-size random model made on ``device``: each layer's dense
     weights are drawn there (torch.Generator, N(0, 1/sqrt(K)) like
     random_dense_params), quantized and freed before the next layer, so
-    peak memory is one dense layer plus the ScaledW8 codes."""
+    peak memory is one dense layer plus the ScaledW8 codes.  A Mixtral
+    layer's experts are grouped at once (``group_experts``, the engine's
+    serving form, which ``stack_layer_projections`` keeps) and the
+    per-expert codes freed, so the model never holds two copies of its
+    experts; ``group_experts=False`` keeps the per-expert form."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     hid, inter = cfg.hidden_size, cfg.intermediate_size
@@ -259,11 +330,20 @@ def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
         ones = torch.ones(hid, dtype=torch.bfloat16, device=device)
         dense = {"ln1": ones, "ln2": ones.clone(),
                  "q": lin(odim, hid), "k": lin(kvdim, hid),
-                 "v": lin(kvdim, hid), "o": lin(hid, odim),
-                 "gate": lin(inter, hid), "up": lin(inter, hid),
-                 "down": lin(hid, inter)}
-        layers.append(quantize_layer(dense, cfg, calib))
+                 "v": lin(kvdim, hid), "o": lin(hid, odim)}
+        if cfg.is_moe:
+            dense["router"] = lin(cfg.num_experts, hid)
+            dense["experts"] = [{"w1": lin(inter, hid), "w3": lin(inter, hid),
+                                 "w2": lin(hid, inter)}
+                                for _ in range(cfg.num_experts)]
+        else:
+            dense.update(gate=lin(inter, hid), up=lin(inter, hid),
+                         down=lin(hid, inter))
+        layer = quantize_layer(dense, cfg, calib)
         del dense
+        if cfg.is_moe and group_experts:
+            layer["experts_grouped"] = _group_experts(layer.pop("experts"))
+        layers.append(layer)
     return {"embed": normal((cfg.vocab_size, hid), 0.02),
             "final_ln": torch.ones(hid, dtype=torch.bfloat16, device=device),
             "lm_head": normal((cfg.vocab_size, hid), 0.02),

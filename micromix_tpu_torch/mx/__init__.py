@@ -3,8 +3,9 @@
 
 from .formats import BLOCK_SIZE, FP4, FP6, FP8, FormatInfo
 from .mxtensor import MixedTensor, dequantize_mixed_device, quantize_mixed
-from .scaledw8 import (ScaledW8, ScaledW8Stack, dequantize_scaled_w8,
-                       dequantize_stack, encode_scaled_values, pack_scaled_w8,
+from .scaledw8 import (GroupedW8, ScaledW8, ScaledW8Stack, dequantize_grouped,
+                       dequantize_scaled_w8, dequantize_stack,
+                       encode_scaled_values, group_scaled_w8, pack_scaled_w8,
                        stack_scaled_w8)
 
 __all__ = [
@@ -12,5 +13,5 @@ __all__ = [
     "MixedTensor", "quantize_mixed", "dequantize_mixed_device",
     "ScaledW8", "pack_scaled_w8", "encode_scaled_values",
     "dequantize_scaled_w8", "ScaledW8Stack", "stack_scaled_w8",
-    "dequantize_stack",
+    "dequantize_stack", "GroupedW8", "group_scaled_w8", "dequantize_grouped",
 ]

@@ -12,7 +12,9 @@ power-of-two multiply, and gives the exact bf16 operand the GEMM needs.
 
 ``ScaledW8Stack`` holds the consumers of one activation site (q|k|v, or
 gate|up) row-stacked in one code array, each section padded with zero
-codes to a multiple of the stacked GEMM's 64-row strip.
+codes to a multiple of the stacked GEMM's 64-row strip.  ``GroupedW8``
+holds such a stack for every group of a grouped GEMM (the MoE experts'
+w1|w3, or their w2), padded as the JAX package pads it.
 """
 
 from __future__ import annotations
@@ -90,14 +92,23 @@ def encode_scaled_values(vals: torch.Tensor):
     return code.to(torch.uint8), base
 
 
-def dequantize_scaled_w8(w: ScaledW8, dtype=torch.bfloat16) -> torch.Tensor:
-    """Whole-tensor decode: codes -> exact scaled values (N, K)."""
-    c = w.codes.to(_I32)
+def decode_table(base: int, device=None) -> torch.Tensor:
+    """The value of each of the 256 codes for one base, f32: the sign bit,
+    then ``(c & 0x7F) << 22`` rescaled by 2^(base+126); code 0 is +0."""
+    c = torch.arange(256, dtype=_I32, device=device)
     t = c & 0x7F
-    vals = ((t << 22) + ((w.base + 126) << 23)).view(torch.float32)
+    vals = ((t << 22) + ((base + 126) << 23)).view(torch.float32)
     vals = torch.where((c & 0x80) != 0, -vals, vals)
-    vals = torch.where(t == 0, torch.zeros_like(vals), vals)
-    return vals.to(dtype)
+    return torch.where(t == 0, torch.zeros_like(vals), vals)
+
+
+def dequantize_scaled_w8(w: ScaledW8, dtype=torch.bfloat16) -> torch.Tensor:
+    """Whole-tensor decode: codes -> exact scaled values (N, K), one table
+    lookup per code (a gather reads and writes each element once, where
+    the arithmetic takes half a dozen passes)."""
+    table = decode_table(w.base, w.codes.device).to(dtype)
+    return torch.nn.functional.embedding(w.codes.to(_I32),
+                                         table[:, None]).squeeze(-1)
 
 
 # rows of the stacked GEMM's strip (csrc/w8_stack.cu): every section is
@@ -178,3 +189,109 @@ def dequantize_stack(st: ScaledW8Stack, dtype=torch.bfloat16) -> torch.Tensor:
             ScaledW8(codes=st.codes[off:off + p], base=base), dtype))
         off += p
     return torch.cat(parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedW8:
+    """Per-group stacked ScaledW8 weights: one (E, sum padded_i, K) code
+    array for E groups (MoE experts), each group's rows holding its own
+    consumers' sections (w1|w3, or w2 alone), for the grouped GEMM
+    (``kernels/mixed_matmul.mixed_matmul_w8_grouped``).
+
+    codes: (E, sum padded_i, K) uint8, padded rows zero.
+    bases: (E, n_sections) per-group, per-section exponent offsets
+      (Python ints, ``bases[e][i]``).
+    biases: per-section optional (E, N_i) bf16 rows.
+    """
+
+    codes: torch.Tensor
+    bases: Tuple[Tuple[int, ...], ...]
+    biases: Tuple[Optional[torch.Tensor], ...]
+    sections: Tuple[int, ...]
+    padded: Tuple[int, ...]
+    k4: int = 0
+    k6: int = 0
+    k8: int = 0
+
+    @property
+    def k(self) -> int:
+        return self.codes.shape[2]
+
+    @property
+    def groups(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def n_sections(self) -> int:
+        return len(self.sections)
+
+    def segments(self) -> Tuple[int, int, int]:
+        return (self.k4, self.k6, self.k8)
+
+
+def group_strip(ns: Sequence[int]) -> int:
+    """The JAX package's grouped strip width: the widest of 512/256/128
+    that divides every 128-aligned section row count."""
+    bn = 512
+    while bn > 128 and any((-(-n // 128) * 128) % bn for n in ns):
+        bn //= 2
+    return bn
+
+
+def group_scaled_w8(sections: Sequence[Sequence[ScaledW8]],
+                    biases: Optional[Sequence] = None) -> GroupedW8:
+    """``sections[i][e]``: the ScaledW8 of consumer i in group e (all of
+    one K and segment budgets) -> GroupedW8, each section padded with zero
+    rows to a multiple of ``group_strip`` (the JAX package's padding).
+
+    A one-time copy at model-build or engine-init time, never per step.
+    """
+    sections = [list(ws) for ws in sections]
+    eg = len(sections[0])
+    first = sections[0][0]
+    k, segs = first.k, first.segments()
+    for ws in sections:
+        if len(ws) != eg or any(w.k != k or w.segments() != segs for w in ws):
+            raise ValueError("grouped weights must share groups, K and "
+                             "segment budgets")
+        if any(w.rows != ws[0].rows for w in ws):
+            raise ValueError("a section has one row count in every group")
+    ns = [ws[0].rows for ws in sections]
+    bn = group_strip(ns)
+    padded = tuple(-(-n // bn) * bn for n in ns)
+    codes = torch.zeros((eg, sum(padded), k), dtype=torch.uint8,
+                        device=first.codes.device)
+    off = 0
+    for ws, n, p in zip(sections, ns, padded):
+        for e, w in enumerate(ws):
+            codes[e, off:off + n].copy_(w.codes)
+        off += p
+    if biases is None:
+        biases = (None,) * len(sections)
+    return GroupedW8(
+        codes=codes,
+        bases=tuple(tuple(ws[e].base for ws in sections) for e in range(eg)),
+        biases=tuple(biases), sections=tuple(ns), padded=padded,
+        k4=segs[0], k6=segs[1], k8=segs[2])
+
+
+def grouped_section(gw: GroupedW8, e: int, i: int) -> ScaledW8:
+    """Group ``e``'s section ``i`` as a ScaledW8 (a view of its true rows)."""
+    off = sum(gw.padded[:i])
+    return ScaledW8(codes=gw.codes[e, off:off + gw.sections[i]],
+                    base=gw.bases[e][i], k4=gw.k4, k6=gw.k6, k8=gw.k8)
+
+
+def dequantize_grouped(gw: GroupedW8, dtype=torch.bfloat16) -> torch.Tensor:
+    """Whole-group decode to the exact values, (E, sum padded_i, K), rows
+    in padded stacked order (the prefill path's operand).  Decoded one
+    (group, section) at a time into the output, so the int32 temporaries
+    stay one section's size."""
+    out = torch.zeros(gw.codes.shape, dtype=dtype, device=gw.codes.device)
+    for e in range(gw.groups):
+        off = 0
+        for i, (n, p) in enumerate(zip(gw.sections, gw.padded)):
+            out[e, off:off + n] = dequantize_scaled_w8(grouped_section(gw, e, i),
+                                                       dtype)
+            off += p
+    return out

@@ -2,8 +2,10 @@
 
 Counterpart of ``micromix_tpu/serve/engine.py`` on one GPU, with its
 defaults and names: the parameters are stacked at init (q|k|v and gate|up
-become ``ScaledW8Stack``s, unless ``MICROMIX_NO_STACK`` is set), so decode
-runs the residual-pair path; fixed ``max_seqs`` slots; waiting requests
+become ``ScaledW8Stack``s and a Mixtral layer's experts their grouped
+form, unless ``MICROMIX_NO_STACK`` is set), so a dense model decodes
+through the residual pairs and a Mixtral through two grouped expert
+GEMMs per layer; fixed ``max_seqs`` slots; waiting requests
 are admitted into free slots; fresh prompts of at most ``prefill_chunk``
 tokens that wait together are prefilled in one call (``prefill_batch``);
 a longer or resumed context streams through the cache in chunks of
@@ -75,7 +77,10 @@ class Engine:
         self.device = resolve_device(device)
         if not os.environ.get("MICROMIX_NO_STACK"):
             # one stacked GEMM per site at decode, one wide product at
-            # prefill; MICROMIX_NO_STACK=1 keeps the per-consumer form
+            # prefill, the experts grouped; MICROMIX_NO_STACK=1 keeps the
+            # per-consumer and per-expert form.  Per-expert params are
+            # grouped into a second copy here: a full-size Mixtral comes
+            # grouped from random_quantized_model instead.
             params = stack_layer_projections(params)
         self.params = params
         self.cfg = cfg

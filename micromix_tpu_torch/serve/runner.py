@@ -1,7 +1,8 @@
 """Cache-aware model execution: prefill and batched decode steps.
 
 Counterpart of ``micromix_tpu/serve/runner.py`` for the ScaledW8 path,
-per consumer or stacked:
+per consumer or stacked, dense Llama or Mixtral (``_mlp`` picks the MoE
+block):
 
   * ``prefill`` (one sequence, from ``start_pos``) and ``prefill_batch``
     (several fresh sequences) run the causal forward over the tokens,
@@ -12,7 +13,7 @@ per consumer or stacked:
   * ``decode_step`` runs one token for every slot.  With stacked params
     (``_can_pair``) each layer is two residual pairs: (o + residual + rms +
     gate|up) and (down + residual + the next layer's rms + q|k|v); else
-    the per-site form;
+    the per-site form (always for Mixtral);
   * ``decode_multi`` runs ``n_steps`` decode + sample steps as a Python
     loop (the JAX package's lax.scan), without logit controls or logprobs;
   * ``prefill_decode`` is the piggybacked step: one slot's prefill chunk,
@@ -31,7 +32,7 @@ from ..kernels.mixed_matmul import mixed_matmul_w8_pair
 from ..models.common import (STACK_KERNEL_MAX_M, ModelConfig, QuantLinear,
                              apply_rope, lm_logits, project_all, rmsnorm,
                              rope_angles, rope_inv_freq, rope_table)
-from ..models.transformer import _down_proj_q, mlp_block, qkv_proj
+from ..models.transformer import _down_proj_q, mlp_block, moe_block, qkv_proj
 from ..mx.scaledw8 import ScaledW8, ScaledW8Stack
 from .attention import paged_decode_attention
 from .kv_cache import PagedKVCache, append_kv
@@ -48,6 +49,10 @@ def _qkv(h: torch.Tensor, p: Params, cfg: ModelConfig):
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _mlp(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    return moe_block(h, p, cfg) if cfg.is_moe else mlp_block(h, p, cfg)
 
 
 def _o_proj(attn_out: torch.Tensor, p: Params) -> torch.Tensor:
@@ -86,7 +91,7 @@ def prefill_batch(params: Params, cfg: ModelConfig, caches: Caches,
                   v.reshape(b * s, nkv, hd))
         out = flash_attention(q, k, v, sliding_window=cfg.sliding_window)
         h = h + _o_proj(out.reshape(b, s, -1), p)
-        h = h + mlp_block(h, p, cfg)
+        h = h + _mlp(h, p, cfg)
     return _logits_at(h, params, cfg, last_idx), caches
 
 
@@ -124,7 +129,7 @@ def prefill(params: Params, cfg: ModelConfig, caches: Caches,
         else:
             out = flash_attention(q, k, v, sliding_window=cfg.sliding_window)
         h = h + _o_proj(out.reshape(b, s, -1), p)
-        h = h + mlp_block(h, p, cfg)
+        h = h + _mlp(h, p, cfg)
     last = [s - 1 if last_idx is None else last_idx]
     return _logits_at(h, params, cfg, last), caches
 
@@ -230,7 +235,7 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
         q, k, v = _qkv(h, p, cfg)                       # (B, 1, H, D)
         out = attend(q[:, 0], k[:, 0], v[:, 0], cache)
         h = h + _o_proj(out[:, None], p)
-        h = h + mlp_block(h, p, cfg)
+        h = h + _mlp(h, p, cfg)
     h = rmsnorm(h[:, 0], params["final_ln"], cfg.rms_eps)
     return lm_logits(h, params["lm_head"]), caches
 

@@ -7,9 +7,11 @@ not have).
 Tolerances as in the CPU parity tests: site images bit-exact for the
 plain producer and within the RNE tie band for rms / silu; GEMM and
 attention outputs within 2^-7 |ref| + 2^-8 max|ref|; KV pages bit-exact;
-the pair's h_mid bit-exact.  Stacked outputs behind an rms site are
-compared on the kernel's own site image (``w8_stack_gemm``), so a tie the
-site kernel moved does not count against the GEMM.
+the pair's h_mid bit-exact; the grouped GEMM bit-exact against the
+per-expert loop of the site and Kernel B (the same split of K, the same
+f32 sums).  Stacked outputs behind an rms site are compared on the
+kernel's own site image (``w8_stack_gemm``), so a tie the site kernel
+moved does not count against the GEMM.
 """
 
 import numpy as np
@@ -23,12 +25,15 @@ from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
 from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain)
 from micromix_tpu_torch.kernels.mixed_matmul import (
-    mixed_matmul_w8, mixed_matmul_w8_pair, mixed_matmul_w8_pair_plain,
-    mixed_matmul_w8_plain, mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain,
-    w8_residual, w8_residual_plain, w8_stack_gemm, w8_stack_gemm_plain)
+    mixed_matmul_w8, mixed_matmul_w8_grouped, mixed_matmul_w8_pair,
+    mixed_matmul_w8_pair_plain, mixed_matmul_w8_plain, mixed_matmul_w8_site,
+    mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_grouped_gemm,
+    w8_grouped_gemm_plain, w8_residual, w8_residual_plain, w8_stack_gemm,
+    w8_stack_gemm_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
 from micromix_tpu_torch.mx.mxtensor import quantize_mixed
-from micromix_tpu_torch.mx.scaledw8 import pack_scaled_w8, stack_scaled_w8
+from micromix_tpu_torch.mx.scaledw8 import (group_scaled_w8, pack_scaled_w8,
+                                            stack_scaled_w8)
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
                                                     append_kv_plain)
 from micromix_tpu_torch.serve.attention import (paged_decode_attention,
@@ -253,6 +258,53 @@ def test_paged_prefill_kernel(dev, start, s, window, d, ps):
     got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
     assert build.launches["paged_prefill"] == before + 1
     _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
+
+
+@pytest.mark.parametrize("c", [1, 8, 100, 128])
+@pytest.mark.parametrize("producer", ["plain", "silu"])
+def test_w8_grouped_kernel(dev, c, producer):
+    """Kernel I: 3 experts; plain: sections of 200 and 120 rows (both
+    padded to 256 and 128) behind each expert's own permutation; silu: one
+    section of 256.  Against the plain version on the kernel's own image,
+    and against the per-expert loop of the site kernel and Kernel B, bit
+    for bit."""
+    e = 3
+    ns = (200, 120) if producer == "plain" else (256,)
+    secs = [[_w8(dev, n, K) for _ in range(e)] for n in ns]
+    gw = group_scaled_w8(secs)
+    assert gw.padded == ((256, 128) if producer == "plain" else (256,))
+    x = (torch.randn(e, c, K, device=dev) * 4).to(torch.bfloat16)
+    if producer == "plain":
+        perm = torch.stack([torch.from_numpy(compose_segmented(
+            np.random.default_rng(i).permutation(K), *SPLITS)) for i in range(e)]).to(dev)
+        kw = dict(perm=perm)
+        site_kw = [dict(perm=perm[i]) for i in range(e)]
+    else:
+        up = torch.randn(e, c, K, device=dev).to(torch.bfloat16)
+        kw = dict(producer="silu", up=up)
+        site_kw = [dict(producer="silu", up=up[i]) for i in range(e)]
+    before = dict(build.launches)
+    got = mixed_matmul_w8_grouped(x, gw, **kw)
+    assert build.launches["w8_grouped"] == before.get("w8_grouped", 0) + 1
+    assert build.launches["site_fakequant"] == before.get("site_fakequant", 0) + 1
+    img = torch.stack([fakequant_site(x[i], *SPLITS, **site_kw[i]) for i in range(e)])
+    for g, r in zip(w8_grouped_gemm(img, gw), w8_grouped_gemm_plain(img, gw)):
+        assert g.shape == r.shape
+        _close(g, r)
+    for i in range(e):
+        for si, ws in enumerate(secs):
+            assert torch.equal(got[si][i], mixed_matmul_w8_site(x[i], ws[i], **site_kw[i]))
+
+
+def test_w8_grouped_refuses(dev):
+    gw = group_scaled_w8([[_w8(dev, 128, K) for _ in range(2)]])
+    with pytest.raises(ValueError):               # over 128 rows per group
+        w8_grouped_gemm(torch.zeros(2, 129, K, dtype=torch.bfloat16, device=dev), gw)
+    with pytest.raises(ValueError):               # not bf16
+        w8_grouped_gemm(torch.zeros(2, 8, K, device=dev), gw)
+    with pytest.raises(ValueError):               # not contiguous
+        mixed_matmul_w8_grouped(
+            torch.zeros(8, 2, K, dtype=torch.bfloat16, device=dev).transpose(0, 1), gw)
 
 
 def test_wrappers_refuse_mixed_devices(dev):

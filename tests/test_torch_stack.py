@@ -183,7 +183,8 @@ def test_pair_matches_pallas(rng, case):
 def test_stack_layer_projections_and_both_conversion_routes():
     """The port's own stacking of per-consumer params and the conversion
     of a JAX-stacked pytree give the same per-section outputs; stacking
-    removes the per-weight entries and keeps aliased layers shared."""
+    removes the per-weight entries, keeps aliased layers shared, and
+    leaves experts it cannot group as they are."""
     jcfg = _llama_cfg(num_layers=1)
     tcfg = ModelConfig(**dataclasses.asdict(jcfg))
     jq = jsurg.quantize_model(jsurg.random_dense_params(jcfg, seed=3), jcfg,
@@ -214,8 +215,10 @@ def test_stack_layer_projections_and_both_conversion_routes():
             0, 1, (3, jcfg.hidden_size)).astype(np.float32)).to(torch.bfloat16)
         for ya, yb in zip(w8_stack_gemm(qx, a), w8_stack_gemm(qx, b)):
             np.testing.assert_array_equal(_f32(ya), _f32(yb))
-    with pytest.raises(NotImplementedError):
-        tsurg.stack_layer_projections({"layers": [{"experts": [{}]}]})
+    # experts that are not all ScaledW8 keep their per-expert form (a
+    # Mixtral's are grouped: tests/test_torch_moe.py)
+    odd = {"layers": [{"experts": [{}]}]}
+    assert tsurg.stack_layer_projections(odd)["layers"][0] == {"experts": [{}]}
 
 
 @pytest.mark.parametrize("pair", [True, False])
