@@ -5,21 +5,23 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's nine CUDA kernels from ``micromix_tpu_torch/csrc/``
+It builds the port's twelve CUDA kernels from ``micromix_tpu_torch/csrc/``
 and runs these phases; any failure exits non-zero before the result line.
 
   0. the card's name and power limit, torch / CUDA / nvcc versions;
   1. build the kernels (one nvcc per source, all at once);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the Llama-3.1-8B and Mixtral-8x7B main paths, with its
-     median time (CUDA events, L2 flushed before each launch), its bound
-     (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever is
-     larger), the plain version's time and, where one PyTorch call
-     computes the same function, that call's time;
-  3. 2-layer full-width models from one seed, stacked, Llama-3.1-8B and
-     then Mixtral-8x7B (experts grouped): a 300-token prompt prefilled in
-     chunks of 128 (flash, then paged history) and 8 (Mixtral: 4) greedy
-     decode steps (Llama: through the residual pairs), each chunk and step
+     shapes of the Llama-3.1-8B (ScaledW8 and split-plane layouts) and
+     Mixtral-8x7B main paths, with its median time (CUDA events, L2
+     flushed before each launch), its bound (bytes over 3.35 TB/s or
+     operations over 989 TFLOP/s, whichever is larger), the plain
+     version's time and, where one PyTorch call computes the same
+     function, that call's time;
+  3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
+     (ScaledW8), Mixtral-8x7B (experts grouped) and Llama-3.1-8B in the
+     split-plane layout: a 300-token prompt prefilled in chunks of 128
+     (flash, then paged history) and 8 (Mixtral: 4) greedy decode steps
+     (ScaledW8 Llama: through the residual pairs), each chunk and step
      with the kernels on the card and with the plain versions on the CPU
      from the same cache state; the greedy tokens must be equal;
   4. serving Llama-3.1-8B at full depth (32 layers, random weights made on
@@ -31,15 +33,22 @@ and runs these phases; any failure exits non-zero before the result line.
   5. serving Mixtral-8x7B at full depth (32 layers, random weights made
      on the card and grouped layer by layer) with the default engine and
      phase 4's traffic; then the per-expert engine (``MICROMIX_NO_STACK=1``)
-     at 2 layers answers 8 requests of 96-128 tokens.
+     at 2 layers answers 8 requests of 96-128 tokens;
+  6. serving Llama-3.1-8B in the split-plane layout
+     (``random_quantized_model(layout="splitplane")``) at 32 layers with
+     the default engine and phase 4's kind of traffic (one long prompt's
+     last chunk pads to 256 rows, the other's to 512, so both sides of
+     the 512-row dequantize threshold run); then the per-consumer engine
+     at 4 layers, 8 requests of 96-128 tokens.
 
-In phases 4 and 5 every kernel launch counter is reset just before each
+In phases 4 to 6 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
-(and the default Mixtral run no residual pair).  Kernel launches per
-decode step and layer are counted for every form.  It prints the
-per-kernel JSON line, and last ``{"ok": true, "device": ...}``.
-Per-shape results also go to ``chiprun_out/chip_smoke.json``.  Without a
-CUDA device it exits with status 2 and prints no result.
+(the default Mixtral run no residual pair, the split-plane runs no
+ScaledW8 kernel).  Kernel launches per decode step and layer are counted
+for every form.  It prints the per-kernel JSON line, and last
+``{"ok": true, "device": ...}``.  Per-shape results also go to
+``chiprun_out/chip_smoke.json``.  Without a CUDA device it exits with
+status 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -516,6 +525,139 @@ def check_grouped(results, timer, rng):
         del gw, wd
 
 
+MX_FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
+
+
+def _mx_bytes(t) -> int:
+    return sum(getattr(t, f).numel() for f in MX_FIELDS)
+
+
+def _sp_weight(n, k, splits, fp4_only=True):
+    from micromix_tpu_torch.mx.mxtensor import quantize_mixed
+    return quantize_mixed(torch.randn(n, k, device=DEV) / k ** 0.5, *splits,
+                          weight_fp4_only=fp4_only, pack_fp4=True)
+
+
+def _sp_site_kw(rng, producer, m, k, splits) -> dict:
+    if producer == "silu":
+        return dict(producer="silu",
+                    up=torch.randn(m, k, device=DEV).to(torch.bfloat16))
+    kw = dict(perm=_perm(rng, k, splits))
+    if producer == "rms":
+        kw.update(producer="rms", gamma=1.0 + 0.1 * torch.randn(k, device=DEV),
+                  eps=1e-5)
+    return kw
+
+
+def check_quantize(results, timer, rng):
+    """Kernel J at the per-consumer decode site (rms, M=8, with the
+    gather) and the silu site of a 256-row prefill chunk.  Codes and scale
+    bytes bit-exact against the plain version on the card: the rms input
+    lies on a grid of 1/4 below 8, so its row moment is exact in any
+    summation order; silu's values are the same f32 operations in both.
+    And on any input the decoded codes equal the site kernel's image."""
+    from micromix_tpu_torch.kernels.fakequant import fakequant_site
+    from micromix_tpu_torch.kernels.quantize import (quantize_mixed,
+                                                     quantize_mixed_plain)
+    from micromix_tpu_torch.mx.mxtensor import dequantize_mixed_device
+    for producer, m, k, splits in (("rms", 8, 4096, SPLIT_4096),
+                                   ("silu", 256, 14336, SPLIT_14336)):
+        if producer == "rms":
+            x = (torch.randint(-31, 32, (m, k), device=DEV) / 4.0).to(torch.bfloat16)
+        else:
+            x = _site_input(m, k)
+        kw = _sp_site_kw(rng, producer, m, k, splits)
+        got = quantize_mixed(x, *splits, **kw)
+        ref = quantize_mixed_plain(x, *splits, **kw)
+        diff = sum(int((getattr(got, f) != getattr(ref, f)).sum()) for f in MX_FIELDS)
+        xs = _site_input(m, k)
+        img_ok = torch.equal(dequantize_mixed_device(quantize_mixed(xs, *splits, **kw)),
+                             fakequant_site(xs, *splits, **kw))
+        nbytes = (m * k * 2 * (2 if producer == "silu" else 1)
+                  + (k * 8 if producer == "rms" else 0) + _mx_bytes(got))
+        record(results, "mx_quantize", f"{producer} M={m} K={k}", float(diff),
+               "differing code and scale bytes: 0 (bit-exact); decoded codes "
+               "== the site kernel's image", diff == 0 and img_ok,
+               timer.ms(lambda: quantize_mixed(x, *splits, **kw)), nbytes, 0.0,
+               timer.ms(lambda: quantize_mixed_plain(x, *splits, **kw)))
+
+
+def check_sp_gemm(results, timer):
+    """Kernel K on per-consumer decode shapes (fp4-only and symmetric
+    weights; a split whose fp4 plane boundary, 1984, is no multiple of
+    128) and on a 256-row prefill chunk's down projection."""
+    from micromix_tpu_torch.kernels.mixed_matmul import (mixed_matmul_sp,
+                                                         mixed_matmul_sp_plain)
+    from micromix_tpu_torch.kernels.quantize import quantize_mixed
+    from micromix_tpu_torch.mx.mxtensor import dequantize_mixed_device
+    for m, n, k, splits, fp4_only, note in (
+            (8, 14336, 4096, SPLIT_4096, True, "fp4-only"),
+            (8, 14336, 4096, SPLIT_4096, False, "symmetric"),
+            (8, 4096, 4096, (3968, 128, 0), True, "k4%256=128"),
+            (256, 4096, 14336, SPLIT_14336, True, "tail-chunk down")):
+        w = _sp_weight(n, k, splits, fp4_only)
+        a = quantize_mixed(_site_input(m, k), *splits)
+        err, ok = close(mixed_matmul_sp(a, w), mixed_matmul_sp_plain(a, w))
+        ad, wd = dequantize_mixed_device(a), dequantize_mixed_device(w)
+        record(results, "sp_gemm", f"M={m} N={n} K={k} {note}", err,
+               "2^-7|ref|+2^-8max|ref|", ok,
+               timer.ms(lambda: mixed_matmul_sp(a, w)),
+               _mx_bytes(a) + _mx_bytes(w) + m * n * 2, 2.0 * m * n * k,
+               timer.ms(lambda: mixed_matmul_sp_plain(a, w)),
+               timer.ms(lambda: torch.matmul(ad, wd.t())))
+        del w, wd
+
+
+def check_sp_stack(results, timer, rng):
+    """Kernel L behind the site kernel at the stacked decode sites (M=8):
+    q|k|v and gate|up (rms), o (plain, with the gather) and down (silu),
+    split-plane weights.  The site image in the tie band of the plain
+    site, the outputs against the plain GEMM on the kernel's own image,
+    and bit for bit against Kernel J followed by Kernel K on each section
+    (the fakequant-direct equivalence)."""
+    from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
+                                                      fakequant_site_plain)
+    from micromix_tpu_torch.kernels.mixed_matmul import (
+        mixed_matmul_sp, mixed_matmul_sp_stack, mixed_matmul_sp_stack_plain,
+        sp_stack_gemm_plain)
+    from micromix_tpu_torch.kernels.quantize import quantize_mixed
+    from micromix_tpu_torch.mx.mxtensor import (dequantize_mixed_device,
+                                                section_mixed, stack_split_plane)
+    m = 8
+    for name, k, splits, ns, producer in (
+            ("q|k|v", 4096, SPLIT_4096, (4096, 1024, 1024), "rms"),
+            ("gate|up", 4096, SPLIT_4096, (14336, 14336), "rms"),
+            ("o", 4096, SPLIT_4096, (4096,), "plain"),
+            ("down", 14336, SPLIT_14336, (4096,), "silu")):
+        st = stack_split_plane([_sp_weight(n, k, splits) for n in ns])
+        x = _site_input(m, k)
+        kw = _sp_site_kw(rng, producer, m, k, splits)
+        outs = mixed_matmul_sp_stack(x, st, **kw)
+        img = fakequant_site(x, *splits, **kw)
+        ref_img = fakequant_site_plain(x, *splits, **kw)
+        ok_img = (torch.equal(img, ref_img) if producer == "plain"
+                  else tie_band(img, ref_img, splits)[1])
+        errs = [close(g, r) for g, r in zip(outs, sp_stack_gemm_plain(img, st))]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+        codes = quantize_mixed(x, *splits, **kw)
+        exact = all(torch.equal(o, mixed_matmul_sp(codes, section_mixed(st, i)))
+                    for i, o in enumerate(outs))
+        wd = dequantize_mixed_device(st.mt)
+        nbytes = (_mx_bytes(st.mt) + m * k * 2 * (1 + (producer == "silu"))
+                  + {"rms": k * 8, "plain": k * 4, "silu": 0}[producer]
+                  + m * sum(ns) * 2)
+        record(results, "sp_stack", f"{name} {producer} M={m} K={k}", err,
+               "image in the tie band (bit-exact for plain); outputs "
+               "2^-7|ref|+2^-8max|ref| on the kernel's image and bit-exact "
+               "against Kernel J + Kernel K per section",
+               ok and ok_img and exact,
+               timer.ms(lambda: mixed_matmul_sp_stack(x, st, **kw)), nbytes,
+               2.0 * m * sum(ns) * k,
+               timer.ms(lambda: mixed_matmul_sp_stack_plain(x, st, **kw)),
+               timer.ms(lambda: torch.matmul(img, wd.t())))
+        del st, wd
+
+
 # ----------------------------------------------------------------- phase 3
 
 def params_to(params, device):
@@ -557,6 +699,7 @@ def phase3() -> dict:
     the range, a decode step's single row with one to 0.25, a 128-row
     chunk to about 0.12 (this phase's own printout); a kernel that
     computed another function would move them by the order of the range."""
+    from micromix_tpu_torch.mx.mxtensor import SplitPlaneStack
     from micromix_tpu_torch.serve.runner import _can_pair
     out = {}
     cfg = llama31_8b(2)
@@ -567,10 +710,15 @@ def phase3() -> dict:
                                  ("flash_attention", "paged_prefill",
                                   "w8_stack", "w8_grouped"),
                                  lambda p: "experts_grouped" in p["layers"][0])
+    out["llama_splitplane"] = card_vs_cpu(
+        cfg, 8, ("flash_attention", "paged_prefill", "site_fakequant",
+                 "sp_stack"),
+        lambda p: (isinstance(p["layers"][0]["qkv_stack"], SplitPlaneStack)
+                   and not _can_pair(p, cfg, 1)), layout="splitplane")
     return out
 
 
-def card_vs_cpu(cfg, steps: int, must_launch, form_ok) -> dict:
+def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
     """One model of phase 3: its units on the card and on the CPU."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.models.surgery import (default_calibration,
@@ -580,9 +728,10 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok) -> dict:
     from micromix_tpu_torch.serve.runner import decode_step, prefill
     calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
     gpu_params = stack_layer_projections(
-        random_quantized_model(cfg, calib, seed=SEED, device=DEV))
+        random_quantized_model(cfg, calib, seed=SEED, device=DEV, layout=layout))
+    name = f"{cfg.arch} ({layout})"
     if not form_ok(gpu_params):
-        fail(f"phase 3 ({cfg.arch}): the stacked model is not in its serving form")
+        fail(f"phase 3 ({name}): the stacked model is not in its serving form")
     cpu_params = params_to(gpu_params, "cpu")
     prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 300).tolist()
     ps, chunk = 128, 128
@@ -621,20 +770,20 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok) -> dict:
     launches = dict(build.launches)
     tol = 0.5
     wall = time.perf_counter() - t0
-    print(f"  {cfg.arch}, 2-layer full width, stacked: prompt {len(prompt)} "
+    print(f"  {name}, 2-layer full width, stacked: prompt {len(prompt)} "
           f"tokens in chunks of {chunk}, then {steps} decode steps, each unit "
           f"from the card's state; greedy tokens card {card}, cpu {cpu}; max "
           f"|logit diff| / max |cpu logit| per unit {['%.2e' % r for r in rels]} "
           f"(tolerance {tol}); card launches {launches}; wall {wall:.1f}s",
           flush=True)
     if card != cpu:
-        fail(f"phase 3 ({cfg.arch}): greedy tokens differ between the card "
+        fail(f"phase 3 ({name}): greedy tokens differ between the card "
              "and the CPU")
     if max(rels) > tol:
-        fail(f"phase 3 ({cfg.arch}): logit error {max(rels):.3e} over {tol}")
+        fail(f"phase 3 ({name}): logit error {max(rels):.3e} over {tol}")
     missing = [n for n in must_launch if not launches.get(n)]
     if missing:
-        fail(f"phase 3 ({cfg.arch}): kernels not launched on the card: {missing}")
+        fail(f"phase 3 ({name}): kernels not launched on the card: {missing}")
     return dict(logit_rel_err=rels, tokens=card, launches=launches, wall_s=wall)
 
 
@@ -761,12 +910,13 @@ def phase4(rng) -> dict:
     return dict(stacked=stats, per_consumer=stats4)
 
 
-def _traffic(rng, vocab: int):
-    """Phase 4's requests: six of 96-128 prompt tokens, two of 1200-1500,
-    32 new tokens each."""
+def _traffic(rng, vocab: int, long_lens=None):
+    """Phase 4's requests: six of 96-128 prompt tokens, two of 1200-1500
+    (``long_lens`` when given), 32 new tokens each."""
     from micromix_tpu_torch.serve.engine import Request
     lens = ([int(rng.integers(96, 129)) for _ in range(6)]
-            + [int(rng.integers(1200, 1501)) for _ in range(2)])
+            + (list(long_lens) if long_lens else
+               [int(rng.integers(1200, 1501)) for _ in range(2)]))
     return [Request(i, rng.integers(0, vocab, n).tolist(), max_new_tokens=32)
             for i, n in enumerate(lens)]
 
@@ -843,6 +993,92 @@ def phase5(rng) -> dict:
     return dict(grouped=stats, per_expert=stats2)
 
 
+def phase6() -> dict:
+    """Llama-3.1-8B in the split-plane layout: the default engine at 32
+    layers (SplitPlaneStacks, the unpaired decode loop), then the
+    per-consumer engine at 4 layers.  Its own generator: the long prompts
+    are 1200-1280 tokens (last chunk padded to 256 rows: the silu quantize
+    and Kernel K) and 1281-1500 (padded to 512: both operands dequantized,
+    one dense product)."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.mx.mxtensor import SplitPlaneStack
+    from micromix_tpu_torch.serve.engine import Request
+    from micromix_tpu_torch.serve.runner import _can_pair
+    rng = np.random.default_rng(SEED + 6)
+    cfg = llama31_8b(32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV, layout="splitplane")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ws = [p[n].w for p in params["layers"]
+          for n in ("q", "k", "v", "o", "gate", "up", "down")]
+    code_bytes = sum(_mx_bytes(w) for w in ws)
+    w8_bytes = sum(w.rows * w.k for w in ws)     # ScaledW8: a byte a weight
+    long_lens = (int(rng.integers(1200, 1281)), int(rng.integers(1281, 1501)))
+    eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size, long_lens),
+                       "phase 6", max_seqs=8, page_size=128,
+                       max_pages_per_seq=16, decode_chunk=8, prefill_chunk=512)
+    stats.update(model_build_s=build_s, build_peak_mem_gib=build_peak,
+                 code_bytes=code_bytes, scaledw8_code_bytes=w8_bytes,
+                 code_bytes_ratio=code_bytes / w8_bytes)
+    if not isinstance(eng.params["layers"][0].get("qkv_stack"), SplitPlaneStack):
+        fail("phase 6: the default engine did not build SplitPlaneStacks")
+    if _can_pair(eng.params, cfg, 8):
+        fail("phase 6: split-plane params took the residual pair")
+    missing = [n for n in SPLITPLANE_KERNELS if not stats["launches"].get(n)]
+    w8 = [n for n in stats["launches"] if n.startswith("w8_")]
+    if missing or w8:
+        fail(f"phase 6: kernels not launched {missing}, ScaledW8 kernels "
+             f"launched {w8}")
+    if not stats["decode_steps"]["mixed"]:
+        fail("phase 6: no prefill chunk rode a decode call")
+    if code_bytes > 0.6 * w8_bytes:
+        fail(f"phase 6: split-plane codes {code_bytes} B over 0.6x the "
+             f"ScaledW8 model's {w8_bytes} B")
+    stats["decode_window"] = decode_window(eng, cfg)
+    print("  split-plane, stacked, 32 layers: " + json.dumps(stats), flush=True)
+    del eng, params, ws
+    torch.cuda.empty_cache()
+
+    cfg4 = llama31_8b(4)
+    params4 = random_quantized_model(
+        cfg4, default_calibration(cfg4, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV, layout="splitplane")
+    reqs4 = [Request(i, rng.integers(0, cfg4.vocab_size,
+                                     int(rng.integers(96, 129))).tolist(),
+                     max_new_tokens=32) for i in range(8)]
+    os.environ["MICROMIX_NO_STACK"] = "1"
+    try:
+        eng4, stats4 = serve(cfg4, params4, reqs4, "phase 6", max_seqs=8,
+                             page_size=128, max_pages_per_seq=2, decode_chunk=8)
+    finally:
+        del os.environ["MICROMIX_NO_STACK"]
+    if "qkv_stack" in eng4.params["layers"][0]:
+        fail("phase 6: MICROMIX_NO_STACK=1 still stacked the params")
+    missing = [n for n in SPLITPLANE_PER_CONSUMER_KERNELS
+               if not stats4["launches"].get(n)]
+    w8 = [n for n in stats4["launches"] if n.startswith("w8_")]
+    if missing or w8:
+        fail(f"phase 6: per-consumer kernels not launched {missing}, "
+             f"ScaledW8 kernels launched {w8}")
+    stats4["decode_window"] = decode_window(eng4, cfg4)
+    print("  split-plane, per-consumer, 4 layers: " + json.dumps(stats4),
+          flush=True)
+    print(f"  kernel launches per decode step and layer: stacked "
+          f"{stats['decode_window']['kernel_launches_per_layer_step']:.2f}, "
+          f"per-consumer "
+          f"{stats4['decode_window']['kernel_launches_per_layer_step']:.2f}",
+          flush=True)
+    del eng4, params4
+    torch.cuda.empty_cache()
+    return dict(stacked=stats, per_consumer=stats4)
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -868,6 +1104,14 @@ KERNELS = {
     "w8_grouped": ("micromix_tpu_torch/csrc/w8_grouped.cu",
                    "micromix_tpu/kernels/mixed_matmul.py:1160",
                    "w13 plain E=8 C=8"),
+    "mx_quantize": ("micromix_tpu_torch/csrc/mx_quantize.cu",
+                    "micromix_tpu/kernels/quantize.py:65", "rms M=8 K=4096"),
+    "sp_gemm": ("micromix_tpu_torch/csrc/sp_gemm.cu",
+                "micromix_tpu/kernels/mixed_matmul.py:1263",
+                "M=8 N=14336 K=4096 fp4-only"),
+    "sp_stack": ("micromix_tpu_torch/csrc/sp_stack.cu",
+                 "micromix_tpu/kernels/mixed_matmul.py:992",
+                 "gate|up rms M=8"),
 }
 # the kernels each path must launch: the default Llama engine (phase 4),
 # the default Mixtral engine (phase 5: experts grouped, no residual pair),
@@ -880,6 +1124,15 @@ MIXTRAL_KERNELS = ("site_fakequant", "w8_gemm", "w8_stack", "w8_grouped",
                    "paged_prefill")
 PER_CONSUMER_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
                         "append_kv", "flash_attention")
+# the split-plane engines (phase 6): the default one stacks q|k|v and
+# gate|up (A + L at decode; J + K for a 256-row chunk's down), the
+# per-consumer one quantizes each site with J for K (o and down: A + L)
+SPLITPLANE_KERNELS = ("site_fakequant", "sp_stack", "sp_gemm", "mx_quantize",
+                      "paged_decode", "append_kv", "flash_attention",
+                      "paged_prefill")
+SPLITPLANE_PER_CONSUMER_KERNELS = ("mx_quantize", "sp_gemm", "sp_stack",
+                                   "site_fakequant", "paged_decode",
+                                   "append_kv", "flash_attention")
 
 
 def kernel_line(results, launches) -> dict:
@@ -931,6 +1184,9 @@ def main() -> int:
     check_pair(results, timer, rng)
     check_prefill(results, timer, rng)
     check_grouped(results, timer, rng)
+    check_quantize(results, timer, rng)
+    check_sp_gemm(results, timer)
+    check_sp_stack(results, timer, rng)
     del timer
     torch.cuda.empty_cache()
 
@@ -948,16 +1204,25 @@ def main() -> int:
           "layers) and the per-expert engine at 2 layers, 8 requests each",
           flush=True)
     p5 = phase5(rng)
+    torch.cuda.empty_cache()
 
-    # launches on the main paths: the Llama and Mixtral default engines
+    print("phase 6: split-plane Llama-3.1-8B, the default engine at full "
+          "depth (32 layers) and the per-consumer engine at 4 layers, 8 "
+          "requests each", flush=True)
+    p6 = phase6()
+
+    # launches on the main paths: the Llama, Mixtral and split-plane
+    # Llama default engines
     main_launches = collections.Counter(p4["stacked"]["launches"])
     main_launches.update(p5["grouped"]["launches"])
+    main_launches.update(p6["stacked"]["launches"])
     line = kernel_line(results, main_launches)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, phase3=p3, phase4=p4,
-                       phase5=p5, kernels=line["kernels"], wall_s=wall), f,
+                       phase5=p5, phase6=p6, kernels=line["kernels"],
+                       wall_s=wall), f,
                   indent=1)
     print(f"chip_smoke: all phases passed in {wall:.1f}s", flush=True)
     print(json.dumps(line), flush=True)

@@ -1,7 +1,8 @@
 """micromix_tpu_torch: the PyTorch and CUDA port of ``micromix_tpu``.
 
-Serves a ScaledW8-quantized dense Llama (prefill + paged int4-KV decode)
-on one NVIDIA H100, holding the JAX package's numerics.  Module names
+Serves a quantized dense Llama or a Mixtral, weights in the ScaledW8 or
+the split-plane layout (prefill + paged int4-KV decode), on one NVIDIA
+H100, holding the JAX package's numerics.  Module names
 follow the JAX package (``mx``, ``ops``, ``kernels``, ``models``,
 ``serve``).  Every TPU kernel of this path is a hand-written CUDA kernel
 under ``csrc/``, built with ``nvcc`` on first use; on CPU tensors each

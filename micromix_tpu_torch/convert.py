@@ -4,11 +4,14 @@
 pytree with its leaves already turned into numpy arrays (``jax.tree.map
 (np.asarray, params)``) and returns the port's parameter dict.  It reads
 the containers by attribute name only (``w.codes``, ``w.base``,
-``site.perm`` ...), so it needs neither ``jax`` nor ``micromix_tpu``.
+``w.fp4`` ..., ``site.perm``), so it needs neither ``jax`` nor
+``micromix_tpu``.  Weights come over as ScaledW8 or as split-plane
+``MixedTensor`` (``fp4_packed`` and ``fp4_only`` kept).
 The Benes routes are dropped: they encode the same permutation as
 ``perm`` for the TPU's lanes.  A pytree that the JAX package's
 ``stack_layer_projections`` has stacked carries ``qkv_stack`` /
-``gateup_stack`` (ScaledW8Stack) in place of q/k/v and gate/up, and
+``gateup_stack`` (ScaledW8Stack or SplitPlaneStack) in place of q/k/v
+and gate/up, and
 ``experts_grouped`` (two GroupedW8 and the (E, K) site permutations) in
 place of ``experts``; they come over as the port's containers with their
 own padding.  A Mixtral router comes over as a bf16 ``DenseLinear``.
@@ -23,6 +26,7 @@ import torch
 
 from .device import resolve_device
 from .models.common import DenseLinear, ModelConfig, QuantLinear, QuantSite
+from .mx.mxtensor import MixedTensor, SplitPlaneStack
 from .mx.scaledw8 import GroupedW8, ScaledW8, ScaledW8Stack
 
 _SITES = ("attn_site", "o_site", "mlp_site", "down_site")
@@ -38,11 +42,40 @@ def to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def stack_from_jax(st, device) -> ScaledW8Stack:
-    """A JAX ScaledW8Stack (numpy leaves) -> the port's, padding kept."""
-    if not all(hasattr(st, a) for a in ("codes", "bases", "padded")):
+def mixed_from_jax(t, device) -> MixedTensor:
+    """A JAX MixedTensor (numpy leaves) -> the port's."""
+    return MixedTensor(
+        **{f: to_tensor(np.asarray(getattr(t, f), np.uint8), device)
+           for f in ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")},
+        fp4_packed=bool(t.fp4_packed), fp4_only=bool(t.fp4_only))
+
+
+def weight_from_jax(w, device):
+    """A JAX ScaledW8 or split-plane MixedTensor (numpy leaves) -> the
+    port's."""
+    if hasattr(w, "codes") and hasattr(w, "base"):
+        return ScaledW8(codes=to_tensor(w.codes, device),
+                        base=int(np.asarray(w.base).reshape(-1)[0]),
+                        k4=w.k4, k6=w.k6, k8=w.k8)
+    if hasattr(w, "fp4") and hasattr(w, "fp4_packed"):
+        return mixed_from_jax(w, device)
+    raise NotImplementedError(f"no port of weights of type {type(w).__name__}")
+
+
+def stack_from_jax(st, device):
+    """A JAX ScaledW8Stack or SplitPlaneStack (numpy leaves) -> the
+    port's, padding kept."""
+    split_plane = hasattr(st, "mt")
+    if not split_plane and not all(hasattr(st, a)
+                                   for a in ("codes", "bases", "padded")):
         raise NotImplementedError(
-            f"only ScaledW8 stacks are ported, got {type(st).__name__}")
+            f"no port of stacks of type {type(st).__name__}")
+    biases = tuple(None if b is None else to_tensor(b, device)
+                   for b in st.biases)
+    if split_plane:
+        return SplitPlaneStack(mt=mixed_from_jax(st.mt, device), biases=biases,
+                               sections=tuple(st.sections),
+                               padded=tuple(st.padded))
     return ScaledW8Stack(
         codes=to_tensor(st.codes, device),
         bases=tuple(int(b) for b in np.asarray(st.bases).reshape(-1)),
@@ -70,15 +103,8 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
 
     def lin(q) -> QuantLinear:
-        w = q.w
-        if not hasattr(w, "codes") or not hasattr(w, "base"):
-            raise NotImplementedError(
-                f"only ScaledW8 weights are ported, got {type(w).__name__}")
-        sw = ScaledW8(codes=to_tensor(w.codes, dev),
-                      base=int(np.asarray(w.base).reshape(-1)[0]),
-                      k4=w.k4, k6=w.k6, k8=w.k8)
-        return QuantLinear(w=sw, bias=None if q.bias is None
-                           else to_tensor(q.bias, dev))
+        return QuantLinear(w=weight_from_jax(q.w, dev), bias=None
+                           if q.bias is None else to_tensor(q.bias, dev))
 
     def site(s) -> QuantSite:
         perm = None if s.perm is None else to_tensor(

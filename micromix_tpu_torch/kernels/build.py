@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
            "flash_attention", "w8_stack", "w8_pair", "paged_prefill",
-           "w8_grouped")
+           "w8_grouped", "mx_quantize", "sp_gemm", "sp_stack")
 # No --use_fast_math: the site kernel's bit-exactness rests on IEEE
 # division, sqrtf and rintf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

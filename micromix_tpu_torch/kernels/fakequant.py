@@ -56,23 +56,26 @@ def site_producer_values(producer: str, x: torch.Tensor,
     return xf[:, perm] if perm is not None else xf
 
 
-def fakequant_values(y: torch.Tensor, k4: int, k6: int, k8: int) -> torch.Tensor:
-    """f32 site values (M, K), device layout -> bf16 grid image.
+def grid_blocks(y: torch.Tensor, k4: int, k6: int, k8: int):
+    """f32 site values (M, K), device layout -> for each non-empty segment
+    (fmt, q (M, 32, nb) grid values, e (M, nb) block scale exponents).
 
     Block b of a segment holds columns {b + i*nb}: reshaping to
     (M, 32, nb) makes the 32 members of each block one axis.
     """
-    parts = []
     off = 0
     for kseg, fmt in ((k4, FP4), (k6, FP6), (k8, FP8)):
-        if not kseg:
-            continue
-        nb = kseg // BLOCK_SIZE
-        xb = y[:, off:off + kseg].reshape(-1, BLOCK_SIZE, nb)
-        e = nx.block_scale_exponent(xb.abs().amax(dim=-2), fmt)    # (M, nb)
-        q = nx.quantize_to_grid(xb * nx.exp2i(-e)[:, None, :], fmt)
-        parts.append((q * nx.exp2i(e)[:, None, :]).reshape(-1, kseg))
+        if kseg:
+            xb = y[:, off:off + kseg].reshape(-1, BLOCK_SIZE, kseg // BLOCK_SIZE)
+            e = nx.block_scale_exponent(xb.abs().amax(dim=-2), fmt)
+            yield fmt, nx.quantize_to_grid(xb * nx.exp2i(-e)[:, None, :], fmt), e
         off += kseg
+
+
+def fakequant_values(y: torch.Tensor, k4: int, k6: int, k8: int) -> torch.Tensor:
+    """f32 site values (M, K), device layout -> bf16 grid image."""
+    parts = [(q * nx.exp2i(e)[:, None, :]).reshape(q.shape[0], -1)
+             for _, q, e in grid_blocks(y, k4, k6, k8)]
     out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return out.to(torch.bfloat16)
 

@@ -1,21 +1,24 @@
-"""ScaledW8 GEMMs: per consumer, stacked, and the residual pair.
+"""The MX GEMMs: ScaledW8 (per consumer, stacked, the residual pair, the
+MoE experts' grouped form) and split-plane (per consumer and stacked).
 
-Counterpart of ``micromix_tpu/kernels/mixed_matmul.py`` for the ScaledW8
-weight layout: ``mixed_matmul`` (dispatch by M), ``mixed_matmul_w8`` (the
+Counterpart of ``micromix_tpu/kernels/mixed_matmul.py``: ``mixed_matmul``
+(dispatch by weight layout and M), for ScaledW8 ``mixed_matmul_w8`` (the
 decode GEMM, CUDA kernel ``csrc/w8_gemm.cu``), ``mixed_matmul_w8_site``,
 ``mixed_matmul_w8_stack`` (``csrc/w8_stack.cu``),
-``mixed_matmul_w8_pair`` (``csrc/w8_pair.cu``) and the MoE experts'
-``mixed_matmul_w8_grouped`` (``csrc/w8_grouped.cu``).  Each runs its
-kernels on CUDA tensors and its plain version on CPU tensors.  The
-split-plane MX GEMM is not ported yet.
+``mixed_matmul_w8_pair`` (``csrc/w8_pair.cu``) and
+``mixed_matmul_w8_grouped`` (``csrc/w8_grouped.cu``); for split-plane
+weights (``MixedTensor``, fp4 packed) ``mixed_matmul_sp`` (MX activation
+codes, ``csrc/sp_gemm.cu``) and ``mixed_matmul_sp_stack``
+(``csrc/sp_stack.cu``).  Each runs its kernels on CUDA tensors and its
+plain version on CPU tensors.
 
 On the GPU a site runs as its own launch (the site kernel), whose output is
 the bf16 image the GEMMs consume: the 32-blocks of the interleaved layout
 span a whole segment of the row, so one GEMM output tile cannot cheaply own
-its site.  So ``mixed_matmul_w8_site``, ``mixed_matmul_w8_stack`` and
-``mixed_matmul_w8_grouped`` are two launches each, and
-``mixed_matmul_w8_pair`` four: site A, the GEMM that closes the residual,
-then the stack's site and GEMM.
+its site.  So ``mixed_matmul_w8_site``, ``mixed_matmul_w8_stack``,
+``mixed_matmul_w8_grouped`` and ``mixed_matmul_sp_stack`` are two launches
+each, and ``mixed_matmul_w8_pair`` four: site A, the GEMM that closes the
+residual, then the stack's site and GEMM.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import List, Optional
 
 import torch
 
+from ..mx.mxtensor import (MixedTensor, SplitPlaneStack,
+                           dequantize_mixed_device, section_mixed)
 from ..mx.scaledw8 import (GroupedW8, ScaledW8, ScaledW8Stack,
                            dequantize_scaled_w8, grouped_section,
                            section_weight)
@@ -119,14 +124,28 @@ def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
     return out
 
 
-def mixed_matmul(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
-    """Y = A . dq(W)^T for a ScaledW8 weight and the bf16 activation image.
+def mixed_matmul(a, w) -> torch.Tensor:
+    """Y (M, N) bf16 = dq(A) . dq(W)^T.
 
-    Below ``W8_PREFILL_DEQUANT_THRESHOLD`` rows the ScaledW8 GEMM; from it
-    on, a one-shot dequant to bf16 and one dense product.
+    ScaledW8 ``w``: ``a`` is the bf16 activation image (or a MixedTensor,
+    decoded to it); below ``W8_PREFILL_DEQUANT_THRESHOLD`` rows the
+    ScaledW8 GEMM, from it on a one-shot dequant to bf16 and one dense
+    product.  Split-plane ``w`` (MixedTensor): ``a`` a MixedTensor of
+    activation codes; below ``PREFILL_DEQUANT_THRESHOLD`` rows the
+    split-plane GEMM, from it on both operands dequantized and one dense
+    product.
     """
+    if isinstance(w, MixedTensor):
+        if a.rows >= PREFILL_DEQUANT_THRESHOLD:
+            if not a.fp4.is_cuda:
+                return mixed_matmul_sp_plain(a, w)
+            return torch.matmul(dequantize_mixed_device(a),
+                                dequantize_mixed_device(w).t())
+        return mixed_matmul_sp(a, w)
     if not isinstance(w, ScaledW8):
-        raise TypeError("only the ScaledW8 weight layout is ported")
+        raise TypeError(f"no GEMM for weights of type {type(w).__name__}")
+    if isinstance(a, MixedTensor):
+        a = dequantize_mixed_device(a)
     if a.shape[0] >= W8_PREFILL_DEQUANT_THRESHOLD:
         if not a.is_cuda:
             return mixed_matmul_w8_plain(a, w)
@@ -423,3 +442,168 @@ def mixed_matmul_w8_grouped(x: torch.Tensor, gw: GroupedW8, *,
     """
     qx = _grouped_site(x, gw, producer, up, perm, eps, fakequant_site)
     return w8_grouped_gemm(qx, gw)
+
+
+# ---------------------------------------------------------- split-plane
+
+# From this M on, a split-plane product dequantizes both operands and
+# multiplies them in one dense product (the JAX package's
+# PREFILL_DEQUANT_THRESHOLD, not the ScaledW8 one); below, Kernel K.
+PREFILL_DEQUANT_THRESHOLD = 512
+
+_MX_FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
+_SIG_SP = {"sp_gemm": [build.PTRS, build.PTRS, build.PTR, build.PTR]
+           + [build.INT] * 7 + [build.PTR]}
+_SIG_SP_STACK = {"sp_stack": [build.PTR, build.PTRS, build.PTR, build.INTS,
+                              build.INTS, build.PTRS] + [build.INT] * 7
+                 + [build.PTR]}
+
+
+def sp_split_k(m: int, k: int) -> int:
+    """K splits of the split-plane GEMMs: the fewest that leave each split
+    at most 8 (M <= 16) or 32 (above) steps of 128 columns.  A function
+    of M and K only, so Kernels K and L, given the same M and K, sum every
+    output element in the same order."""
+    steps = k // _BK
+    most = 8 if m <= 16 else 32
+    return next(d for d in range(1, steps + 1)
+                if steps % d == 0 and steps // d <= most)
+
+
+def _mx_ptrs(t: MixedTensor):
+    return (ctypes.c_void_p * 6)(*[build.ptr(getattr(t, f)) for f in _MX_FIELDS])
+
+
+def _check_sp_weight(name: str, w: MixedTensor, k: int) -> None:
+    if w.k != k:
+        raise ValueError(f"K mismatch: activation {k}, weight {w.k}")
+    if any(s % _BK for s in w.segments()) or (w.segments()[0] and not w.fp4_packed):
+        raise ValueError(f"{name} takes segments of multiples of {_BK} "
+                         f"columns, fp4 packed: {w.segments()}")
+
+
+def _require_mx(name: str, a: Optional[MixedTensor], w: MixedTensor) -> None:
+    """Codes on one CUDA device, contiguous and 16-byte aligned (loaded 16
+    bytes at a time), and so are the weight's scale bytes (staged 16 bytes
+    at a time); the activation's scale bytes on it and contiguous."""
+    ts = [t for t in (a, w) if t is not None]
+    build.require_cuda(name, *[getattr(t, f) for t in ts for f in _MX_FIELDS[:3]],
+                       w.sf4, w.sf6, w.sf8)
+    if a is not None:
+        for sf in (a.sf4, a.sf6, a.sf8):
+            if sf.device != a.fp4.device or not sf.is_contiguous():
+                raise ValueError(f"{name}: scales on {sf.device} or "
+                                 "non-contiguous")
+
+
+def mixed_matmul_sp_plain(a: MixedTensor, w: MixedTensor) -> torch.Tensor:
+    """dq(A) . dq(W)^T in f32, rounded to bf16 (the kernel's function)."""
+    return torch.matmul(dequantize_mixed_device(a, torch.float32),
+                        dequantize_mixed_device(w, torch.float32).t()
+                        ).to(torch.bfloat16)
+
+
+def mixed_matmul_sp(a: MixedTensor, w: MixedTensor) -> torch.Tensor:
+    """Kernel K: Y (M, N) bf16 = dq(A codes) . dq(W)^T, f32 accumulation.
+    ``a``: activation codes (fp4 unpacked, ``kernels.quantize``); ``w``:
+    a split-plane weight, fp4 packed, FP4 or FP6/FP8 codes in the fp6 and
+    fp8 segments (``fp4_only``)."""
+    if a.segments() != w.segments() or a.fp4_packed:
+        raise ValueError(f"activation segments {a.segments()} (packed "
+                         f"{a.fp4_packed}) vs weight {w.segments()}")
+    if not a.fp4.is_cuda:
+        return mixed_matmul_sp_plain(a, w)
+    m, n, k = a.rows, w.rows, a.k
+    _check_sp_weight("sp_gemm", w, k)
+    if n % 8:
+        raise ValueError(f"sp_gemm needs N % 8 == 0, got {n}")
+    _require_mx("sp_gemm", a, w)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.fp4.device)
+    if m == 0:
+        return out
+    splits = sp_split_k(m, k)
+    partial = _partials(splits, m, n, out.device)
+    lib = build.library("sp_gemm", _SIG_SP)
+    build.launches["sp_gemm"] += 1
+    rc = lib.sp_gemm(_mx_ptrs(a), _mx_ptrs(w), build.ptr(out),
+                     build.ptr(partial), m, n, *w.segments(),
+                     int(w.fp4_only), splits, build.stream())
+    build.check(rc, "sp_gemm")
+    return out
+
+
+def sp_stack_gemm_plain(qx: torch.Tensor, st: SplitPlaneStack) -> List[torch.Tensor]:
+    """[qx . dq(W_i)^T in f32, rounded to bf16] for every section."""
+    qf = qx.to(torch.float32)
+    return [torch.matmul(qf, dequantize_mixed_device(
+        section_mixed(st, i), torch.float32).t()).to(torch.bfloat16)
+        for i in range(st.n_sections)]
+
+
+def sp_stack_gemm(qx: torch.Tensor, st: SplitPlaneStack) -> List[torch.Tensor]:
+    """Kernel L: the site image qx (M, K) bf16 against every section of
+    ``st`` in one launch -> [(M, N_i) bf16]; each section's output equals
+    Kernel K's on the codes qx encodes, bit for bit."""
+    m, k = qx.shape
+    if not qx.is_cuda:
+        if st.k != k:
+            raise ValueError(f"K mismatch: activation {k}, stack {st.k}")
+        return sp_stack_gemm_plain(qx, st)
+    _check_sp_weight("sp_stack", st.mt, k)
+    n_sec = st.n_sections
+    if (qx.dtype != torch.bfloat16 or n_sec > _MAX_SECTIONS
+            or any(p % _BN for p in st.padded) or any(n % 8 for n in st.sections)):
+        raise ValueError(f"sp_stack takes a bf16 image and at most "
+                         f"{_MAX_SECTIONS} sections of N % 8 == 0 padded to "
+                         f"multiples of {_BN}: {st.sections} / {st.padded}")
+    qx = qx.contiguous()
+    build.require_cuda("sp_stack", qx)
+    _require_mx("sp_stack", None, st.mt)
+    outs = [torch.empty((m, n), dtype=torch.bfloat16, device=qx.device)
+            for n in st.sections]
+    if m == 0:
+        return outs
+    total = sum(st.padded)
+    splits = sp_split_k(m, k)
+    partial = _partials(splits, m, total, qx.device)
+    lib = build.library("sp_stack", _SIG_SP_STACK)
+    build.launches["sp_stack"] += 1
+    rc = lib.sp_stack(
+        build.ptr(qx), _mx_ptrs(st.mt), build.ptr(partial),
+        (ctypes.c_int * n_sec)(*st.sections), (ctypes.c_int * n_sec)(*st.padded),
+        (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
+        n_sec, m, *st.segments(), int(st.mt.fp4_only), splits, build.stream())
+    build.check(rc, "sp_stack")
+    return outs
+
+
+def _sp_site_kw(producer, gamma, up, perm, eps) -> dict:
+    if producer not in ("plain", "rms", "silu"):
+        raise ValueError(f"a split-plane site is plain, rms or silu, got {producer!r}")
+    return dict(producer=producer, gamma=gamma, up=up, perm=perm, eps=eps)
+
+
+def mixed_matmul_sp_stack_plain(x, st, *, producer="plain", gamma=None,
+                                up=None, perm=None, eps=1e-6) -> List[torch.Tensor]:
+    qx = fakequant_site_plain(x, *st.segments(),
+                              **_sp_site_kw(producer, gamma, up, perm, eps))
+    return sp_stack_gemm_plain(qx, st)
+
+
+def mixed_matmul_sp_stack(x: torch.Tensor, st: SplitPlaneStack, *,
+                          producer: str = "plain",
+                          gamma: Optional[torch.Tensor] = None,
+                          up: Optional[torch.Tensor] = None,
+                          perm: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> List[torch.Tensor]:
+    """[Y_i = fakequant_site(x) . dq(W_i)^T for the sections of ``st``].
+
+    ``x``, ``gamma``, ``up`` and ``perm`` as in ``fakequant_site``
+    (producer "plain", "rms" or "silu").  Biases are not applied.  Two
+    launches on the GPU: the site kernel (Kernel A), then Kernel L.  Equal
+    to the activation quantize (Kernel J) followed by Kernel K on each
+    section, bit for bit: the site image is the exact decode of J's codes.
+    """
+    qx = fakequant_site(x, *st.segments(),
+                        **_sp_site_kw(producer, gamma, up, perm, eps))
+    return sp_stack_gemm(qx, st)

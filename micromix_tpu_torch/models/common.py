@@ -1,11 +1,13 @@
 """Model configuration, linear containers, RoPE and the projection sites.
 
 Counterpart of ``micromix_tpu/models/common.py`` for the Llama and
-Mixtral paths with ScaledW8 weights: ``ModelConfig``, ``DenseLinear``
-(also the MoE router), ``QuantLinear``,
-``QuantSite``, ``rmsnorm``, the RoPE helpers (including llama3 frequency
-scaling) and the ScaledW8 legs of ``project_all``, per consumer and
-stacked.  Parameters
+Mixtral paths with ScaledW8 or split-plane weights: ``ModelConfig``,
+``DenseLinear`` (also the MoE router), ``QuantLinear``, ``QuantSite``,
+``rmsnorm``, the RoPE helpers (including llama3 frequency scaling) and
+the legs of ``project_all``: ScaledW8 per consumer, split-plane per
+consumer (the MX quantize, then one split-plane GEMM per consumer), a
+single split-plane consumer wrapped as a one-section stack, and the
+stacked legs of both layouts.  Parameters
 are plain dicts of tensors and these small dataclasses; every bf16 rounding
 point of the JAX code is kept (rmsnorm output, RoPE output, GEMM outputs,
 bf16 residual adds).
@@ -15,15 +17,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 
 from ..kernels.fakequant import fakequant_site
-from ..kernels.mixed_matmul import (mixed_matmul, mixed_matmul_w8_site,
+from ..kernels.mixed_matmul import (mixed_matmul, mixed_matmul_sp_stack,
+                                    mixed_matmul_w8_site,
                                     mixed_matmul_w8_stack)
+from ..mx.mxtensor import (MixedTensor, SplitPlaneStack,
+                           dequantize_mixed_device, stack_split_plane)
 from ..mx.numerics import div
 from ..mx.scaledw8 import ScaledW8, ScaledW8Stack, dequantize_stack
+from ..ops.quantize_ops import reorder_quantize_x, rmsnorm_quantize_x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,13 +87,15 @@ class DenseLinear:
 
 @dataclasses.dataclass
 class QuantLinear:
-    """ScaledW8-quantized linear plus optional bf16 bias."""
+    """MX-quantized linear (ScaledW8, or a split-plane MixedTensor) plus
+    optional bf16 bias."""
 
-    w: ScaledW8
+    w: Union[ScaledW8, MixedTensor]
     bias: Optional[torch.Tensor] = None
 
-    def __call__(self, qx: torch.Tensor) -> torch.Tensor:
-        """qx: the exact bf16 image of the quantized activation."""
+    def __call__(self, qx) -> torch.Tensor:
+        """qx: a MixedTensor of activation codes, or, for a ScaledW8
+        weight, the exact bf16 image of the quantized activation."""
         return add_bias(mixed_matmul(qx, self.w), self.bias)
 
 
@@ -196,17 +204,35 @@ def lm_logits(h: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
 STACK_KERNEL_MAX_M = 128
 
 
+def _site_kw(site: QuantSite, norm_gamma, rms_eps: float) -> dict:
+    kw = dict(perm=site.perm)
+    if norm_gamma is not None:
+        kw.update(producer="rms", gamma=norm_gamma, eps=rms_eps)
+    return kw
+
+
+def _sp_fusable(linears) -> bool:
+    """One split-plane consumer whose rows are 128-aligned and fp4
+    packed: it wraps into a one-section stack without a copy."""
+    if len(linears) != 1 or not isinstance(linears[0].w, MixedTensor):
+        return False
+    w = linears[0].w
+    return (w.fp4_packed or w.k4 == 0) and w.rows % 128 == 0
+
+
 def project_all(x: torch.Tensor, site: QuantSite,
                 linears: Optional[List[QuantLinear]],
                 norm_gamma: Optional[torch.Tensor] = None,
                 rms_eps: float = 1e-6,
-                stack: Optional[ScaledW8Stack] = None) -> List[torch.Tensor]:
-    """[rmsnorm ->] site fakequant -> every ScaledW8 consumer of the site.
+                stack=None) -> List[torch.Tensor]:
+    """[rmsnorm ->] the site's quantize -> every consumer of the site.
 
-    x (..., K) -> [(..., N_i)].  The site runs once; its bf16 image feeds
-    the sibling consumers (q/k/v, gate/up).  ``stack``: the consumers
-    row-stacked (``stack_layer_projections``); ``linears`` is then ignored
-    and the stacked leg runs, with the same values.
+    x (..., K) -> [(..., N_i)].  The site runs once and feeds the sibling
+    consumers (q/k/v, gate/up): ScaledW8 consumers take its bf16 image,
+    split-plane ones its MX codes; a single split-plane consumer (o) runs
+    as a one-section stack.  ``stack``: the consumers row-stacked
+    (``stack_layer_projections``, a ScaledW8Stack or SplitPlaneStack);
+    ``linears`` is then ignored and the stacked leg runs.
     """
     lead = x.shape[:-1]
     if stack is not None:
@@ -214,36 +240,49 @@ def project_all(x: torch.Tensor, site: QuantSite,
     x2d = x.reshape(-1, x.shape[-1])
     if linears[0].w.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs weight {linears[0].w.segments()}")
-    kw = dict(perm=site.perm)
-    if norm_gamma is not None:
-        kw.update(producer="rms", gamma=norm_gamma, eps=rms_eps)
-    first, rest = linears[0], linears[1:]
-    y0, qx = mixed_matmul_w8_site(x2d, first.w, emit_qx=True, **kw)
-    outs = [add_bias(y0, first.bias)] + [lin(qx) for lin in rest]
+    if all(isinstance(lin.w, ScaledW8) for lin in linears):
+        first, rest = linears[0], linears[1:]
+        y0, qx = mixed_matmul_w8_site(x2d, first.w, emit_qx=True,
+                                      **_site_kw(site, norm_gamma, rms_eps))
+        outs = [add_bias(y0, first.bias)] + [lin(qx) for lin in rest]
+    elif _sp_fusable(linears):
+        st = stack_split_plane([linears[0].w], [linears[0].bias])
+        return _project_stack(x, site, st, norm_gamma, rms_eps, lead)
+    else:
+        if norm_gamma is not None:
+            qx = rmsnorm_quantize_x(x2d, norm_gamma, site.perm, *site.splits,
+                                    eps=rms_eps)
+        else:
+            qx = reorder_quantize_x(x2d, site.perm, *site.splits)
+        outs = [lin(qx) for lin in linears]
     return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
-def _project_stack(x, site: QuantSite, stack: ScaledW8Stack, norm_gamma,
-                   rms_eps: float, lead) -> List[torch.Tensor]:
-    """project_all's stacked leg: the stacked GEMM at up to
-    ``STACK_KERNEL_MAX_M`` rows; above, the site, one dequantized stack
-    and one dense product.  Biases are added per section afterwards."""
+def _project_stack(x, site: QuantSite, stack, norm_gamma, rms_eps: float,
+                   lead) -> List[torch.Tensor]:
+    """project_all's stacked leg: the stacked GEMM (ScaledW8 or
+    split-plane) at up to ``STACK_KERNEL_MAX_M`` rows; above, the site,
+    one dequantized stack and one dense product.  Biases are added per
+    section afterwards."""
     if stack.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs stack {stack.segments()}")
+    split_plane = isinstance(stack, SplitPlaneStack)
     x2d = x.reshape(-1, x.shape[-1])
-    kw = dict(perm=site.perm)
-    if norm_gamma is not None:
-        kw.update(producer="rms", gamma=norm_gamma, eps=rms_eps)
+    kw = _site_kw(site, norm_gamma, rms_eps)
     if x2d.shape[0] <= STACK_KERNEL_MAX_M:
-        outs = mixed_matmul_w8_stack(x2d, stack, **kw)
+        fn = mixed_matmul_sp_stack if split_plane else mixed_matmul_w8_stack
+        outs = fn(x2d, stack, **kw)
     else:
         qx = fakequant_site(x2d, *stack.segments(), **kw)
+
+        def dense(dtype):
+            return (dequantize_mixed_device(stack.mt, dtype) if split_plane
+                    else dequantize_stack(stack, dtype))
         if qx.is_cuda:
-            y = torch.matmul(qx, dequantize_stack(stack).t())
+            y = torch.matmul(qx, dense(torch.bfloat16).t())
         else:       # f32 product, rounded once (the plain versions' form)
             y = torch.matmul(qx.to(torch.float32),
-                             dequantize_stack(stack, torch.float32).t()
-                             ).to(torch.bfloat16)
+                             dense(torch.float32).t()).to(torch.bfloat16)
         outs, off = [], 0
         for n, p in zip(stack.sections, stack.padded):
             outs.append(y[:, off:off + n])

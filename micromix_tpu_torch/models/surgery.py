@@ -1,26 +1,28 @@
-"""Model surgery: dense bf16 parameters -> ScaledW8-quantized parameters.
+"""Model surgery: dense bf16 parameters -> MX-quantized parameters.
 
-Counterpart of ``micromix_tpu/models/surgery.py`` for Llama and Mixtral
-with the default "auto" weight layout: each linear's input channels are
-permuted by its site's calibration reorder, the weight is quantized to
-MXFP4 in every segment, and the scaled values are packed as ScaledW8.
-The down-proj channel permutation is baked into the gate / up (an
-expert's w1 / w3) weight rows, so the silu site needs no gather.  The MoE
-router stays bf16.  Codes and base are bit-identical to the JAX package's
-for the same dense weights.
-
-The JAX package falls back to the split-plane layout when a tensor's
-scaled-exponent span exceeds 62; the port has no split-plane GEMM yet and
-raises instead (real and random weights span about 20).
+Counterpart of ``micromix_tpu/models/surgery.py`` for Llama and Mixtral:
+each linear's input channels are permuted by its site's calibration
+reorder and the weight is quantized per 32-block, MXFP4 in every segment
+(``weight_fp4_only``, the default) or MXFP4/6/8 by segment.  The weight
+layout (``layout``): "auto" packs fp4-only weights as ScaledW8 (one byte
+a weight) and keeps the others split-plane, as it keeps a weight whose
+scaled-exponent span exceeds 62; "splitplane" keeps every weight as a
+split-plane ``MixedTensor`` (fp4 packed two to a byte: about 0.59 bytes a
+weight, the capacity-first choice).  The down-proj channel permutation
+is baked into the gate / up (an expert's w1 / w3) weight rows, so the
+silu site needs no gather.  The MoE router stays bf16.  Codes, scales and
+base are bit-identical to the JAX package's for the same dense weights.
 
 ``stack_layer_projections`` is the serving engine's init transform: each
-site's ScaledW8 consumers (q|k|v, gate|up) become one ``ScaledW8Stack``,
-and a layer's experts one grouped form (``GroupedW8`` w1|w3 and w2).
+site's consumers (q|k|v, gate|up) become one ``ScaledW8Stack`` or
+``SplitPlaneStack``, and a layer's ScaledW8 experts one grouped form
+(``GroupedW8`` w1|w3 and w2).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +30,8 @@ import torch
 
 from ..device import resolve_device
 from ..mx import layout as lay
-from ..mx.mxtensor import quantize_mixed
+from ..mx.mxtensor import (MixedTensor, pack_mixed, quantize_mixed,
+                           stack_split_plane)
 from ..mx.scaledw8 import (ScaledW8, group_scaled_w8, pack_scaled_w8,
                            stack_scaled_w8)
 from .common import DenseLinear, ModelConfig, QuantLinear, QuantSite
@@ -64,11 +67,31 @@ def make_site(calib: SiteCalibration, k: int, device=None) -> QuantSite:
                      perm=torch.as_tensor(perm, dtype=torch.int32, device=device))
 
 
+LAYOUTS = ("auto", "splitplane")
+
+
+def _weight_layout(wq: MixedTensor, layout: str):
+    """An unpacked MixedTensor -> the layout's weight: "auto" packs an
+    fp4-only weight as ScaledW8 unless its scaled-exponent span exceeds 62
+    (then, like every other weight, it stays split-plane, fp4 packed)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    if layout == "auto" and wq.fp4_only:
+        try:
+            return pack_scaled_w8(wq)
+        except ValueError:
+            pass
+    return pack_mixed(wq)
+
+
 def quantize_linear(w: torch.Tensor, calib: SiteCalibration,
                     bias: Optional[torch.Tensor] = None, *,
-                    row_perm: Optional[np.ndarray] = None) -> QuantLinear:
-    """w (N, K) dense -> QuantLinear with ScaledW8 codes (input channels
-    permuted by the calibration, rows by ``row_perm`` when given)."""
+                    row_perm: Optional[np.ndarray] = None,
+                    weight_fp4_only: bool = True,
+                    layout: str = "auto") -> QuantLinear:
+    """w (N, K) dense -> QuantLinear (input channels permuted by the
+    calibration, rows by ``row_perm`` when given), ScaledW8 or split-plane
+    as ``layout`` and ``weight_fp4_only`` give."""
     k4, k6, k8 = calib.splits(w.shape[1])
     idx = torch.as_tensor(np.asarray(calib.reorder_index), dtype=torch.long,
                           device=w.device)
@@ -79,8 +102,8 @@ def quantize_linear(w: torch.Tensor, calib: SiteCalibration,
         wp = wp[rows]
         if bias is not None:
             bias = bias[rows]
-    wq = quantize_mixed(wp, k4, k6, k8, weight_fp4_only=True)
-    return QuantLinear(w=pack_scaled_w8(wq),
+    wq = quantize_mixed(wp, k4, k6, k8, weight_fp4_only=weight_fp4_only)
+    return QuantLinear(w=_weight_layout(wq, layout),
                        bias=None if bias is None else bias.to(torch.bfloat16))
 
 
@@ -89,19 +112,22 @@ def _down_row_perm(calib: SiteCalibration, k: int) -> np.ndarray:
     return lay.compose_segmented(calib.reorder_index, *calib.splits(k))
 
 
-def quantize_layer(p: Dict[str, Any], cfg: ModelConfig,
-                   calib: LayerCalib) -> Dict[str, Any]:
+def quantize_layer(p: Dict[str, Any], cfg: ModelConfig, calib: LayerCalib, *,
+                   weight_fp4_only: bool = True,
+                   layout: str = "auto") -> Dict[str, Any]:
     """One dense decoder-layer dict -> quantized layer dict."""
+    ql = functools.partial(quantize_linear, weight_fp4_only=weight_fp4_only,
+                           layout=layout)
     dev = p["ln1"].device
     hid, inter = cfg.hidden_size, cfg.intermediate_size
     out: Dict[str, Any] = {"ln1": p["ln1"], "ln2": p["ln2"]}
     c_attn = calib[ATTN_IN]
     out["attn_site"] = make_site(c_attn, hid, dev)
     for name in ("q", "k", "v"):
-        out[name] = quantize_linear(p[name].w, c_attn, p[name].bias)
+        out[name] = ql(p[name].w, c_attn, p[name].bias)
     c_o = calib[O_IN]
     out["o_site"] = make_site(c_o, cfg.num_heads * cfg.head_dim, dev)
-    out["o"] = quantize_linear(p["o"].w, c_o, p["o"].bias)
+    out["o"] = ql(p["o"].w, c_o, p["o"].bias)
     if cfg.is_moe:
         out["router"] = p["router"]
         experts = []
@@ -112,9 +138,9 @@ def quantize_layer(p: Dict[str, Any], cfg: ModelConfig,
             experts.append({
                 "site_in": make_site(c_in, hid, dev),
                 "site_down": QuantSite(*c_dn.splits(inter)),
-                "w1": quantize_linear(ep["w1"].w, c_in, ep["w1"].bias, row_perm=rp),
-                "w3": quantize_linear(ep["w3"].w, c_in, ep["w3"].bias, row_perm=rp),
-                "w2": quantize_linear(ep["w2"].w, c_dn, ep["w2"].bias),
+                "w1": ql(ep["w1"].w, c_in, ep["w1"].bias, row_perm=rp),
+                "w3": ql(ep["w3"].w, c_in, ep["w3"].bias, row_perm=rp),
+                "w2": ql(ep["w2"].w, c_dn, ep["w2"].bias),
             })
         out["experts"] = experts
         return out
@@ -123,13 +149,14 @@ def quantize_layer(p: Dict[str, Any], cfg: ModelConfig,
     out["down_site"] = QuantSite(*c_dn.splits(inter))
     rp = _down_row_perm(c_dn, inter)
     for name in ("gate", "up"):
-        out[name] = quantize_linear(p[name].w, c_mlp, p[name].bias, row_perm=rp)
-    out["down"] = quantize_linear(p["down"].w, c_dn, p["down"].bias)
+        out[name] = ql(p[name].w, c_mlp, p[name].bias, row_perm=rp)
+    out["down"] = ql(p["down"].w, c_dn, p["down"].bias)
     return out
 
 
 def quantize_model(params: Dict[str, Any], cfg: ModelConfig,
-                   calibs: List[LayerCalib]) -> Dict[str, Any]:
+                   calibs: List[LayerCalib], *, weight_fp4_only: bool = True,
+                   layout: str = "auto") -> Dict[str, Any]:
     """Dense model dict -> quantized model dict (embed / norms / head stay
     bf16).  Each layer is quantized on the device its weights lie on."""
     assert len(calibs) == cfg.num_layers
@@ -137,7 +164,8 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig,
         "embed": params["embed"],
         "final_ln": params["final_ln"],
         "lm_head": params["lm_head"],
-        "layers": [quantize_layer(p, cfg, c)
+        "layers": [quantize_layer(p, cfg, c, weight_fp4_only=weight_fp4_only,
+                                  layout=layout)
                    for p, c in zip(params["layers"], calibs)],
     }
 
@@ -146,28 +174,38 @@ _STACKS = (("qkv_stack", ("q", "k", "v"), "attn_site"),
            ("gateup_stack", ("gate", "up"), "mlp_site"))
 
 
-def _stackable(p, names, site_key) -> bool:
-    return isinstance(p.get(site_key), QuantSite) and all(
-        isinstance(p.get(n), QuantLinear) and isinstance(p[n].w, ScaledW8)
-        for n in names)
+def _stacker(p, names, site_key):
+    """The stack builder for a site's consumers: ``stack_scaled_w8`` when
+    all are ScaledW8, ``stack_split_plane`` when all are split-plane with
+    the fp4 segment packed, else None."""
+    if not isinstance(p.get(site_key), QuantSite) or not all(
+            isinstance(p.get(n), QuantLinear) for n in names):
+        return None
+    ws = [p[n].w for n in names]
+    if all(isinstance(w, ScaledW8) for w in ws):
+        return stack_scaled_w8
+    if all(isinstance(w, MixedTensor) and (w.fp4_packed or w.k4 == 0)
+           for w in ws):
+        return stack_split_plane
+    return None
 
 
 def stack_layer_projections(params: Dict[str, Any],
                             memo: Optional[dict] = None) -> Dict[str, Any]:
-    """Per layer, replace the q/k/v and gate/up ScaledW8 QuantLinears with
-    one row-stacked ``ScaledW8Stack`` each (``qkv_stack``,
-    ``gateup_stack``), so decode runs each site's consumers as one stacked
-    GEMM and prefill as one wide product, with the same values; and a
-    layer's per-expert dicts with their grouped form
-    (``experts_grouped``, see ``_group_experts``), so the experts run as
-    two grouped GEMMs.
+    """Per layer, replace the q/k/v and gate/up QuantLinears with one
+    row-stacked ``ScaledW8Stack`` or ``SplitPlaneStack`` each
+    (``qkv_stack``, ``gateup_stack``), so decode runs each site's
+    consumers as one stacked GEMM and prefill as one wide product, with
+    the same values; and a layer's per-expert ScaledW8 dicts with their
+    grouped form (``experts_grouped``, see ``_group_experts``), so the
+    experts run as two grouped GEMMs.
 
     The per-weight entries are removed: the stack is the only copy.
     Aliased layer dicts map to one stacked dict through ``memo`` (pass one
-    memo across params that share layers).  Layers whose consumers are not
-    all ScaledW8, or whose experts differ in their site budgets, keep
-    them; a layer already grouped (``random_quantized_model``) keeps its
-    ``experts_grouped``.
+    memo across params that share layers).  Layers whose consumers mix
+    layouts, and experts that are not all ScaledW8 or differ in their site
+    budgets, keep them; a layer already grouped
+    (``random_quantized_model``) keeps its ``experts_grouped``.
     """
     if memo is None:
         memo = {}
@@ -178,14 +216,14 @@ def stack_layer_projections(params: Dict[str, Any],
             return memo[key]
         q = dict(p)
         for stack_key, names, site_key in _STACKS:
-            if _stackable(p, names, site_key):
-                q[stack_key] = stack_scaled_w8([p[n].w for n in names],
-                                               [p[n].bias for n in names])
+            mk = _stacker(p, names, site_key)
+            if mk is not None:
+                q[stack_key] = mk([p[n].w for n in names],
+                                  [p[n].bias for n in names])
                 for n in names:
                     del q[n]
         experts = p.get("experts")
-        if experts and all(_stackable(ep, ("w1", "w3", "w2"), "site_in")
-                           for ep in experts) and len({
+        if experts and all(_groupable(ep) for ep in experts) and len({
                                (ep["site_in"].splits, ep["site_down"].splits)
                                for ep in experts}) == 1:
             q["experts_grouped"] = _group_experts(experts)
@@ -196,6 +234,11 @@ def stack_layer_projections(params: Dict[str, Any],
     out = dict(params)
     out["layers"] = [one(p) for p in params["layers"]]
     return out
+
+
+def _groupable(ep) -> bool:
+    """Experts are grouped only when ScaledW8, as in the JAX package."""
+    return _stacker(ep, ("w1", "w3", "w2"), "site_in") is stack_scaled_w8
 
 
 def _group_experts(experts: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -303,15 +346,18 @@ def random_dense_params(cfg: ModelConfig, seed: int = 0,
 
 def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
                            seed: int = 0, device=None,
-                           group_experts: bool = True) -> Dict[str, Any]:
+                           group_experts: bool = True,
+                           weight_fp4_only: bool = True,
+                           layout: str = "auto") -> Dict[str, Any]:
     """Full-size random model made on ``device``: each layer's dense
     weights are drawn there (torch.Generator, N(0, 1/sqrt(K)) like
-    random_dense_params), quantized and freed before the next layer, so
-    peak memory is one dense layer plus the ScaledW8 codes.  A Mixtral
-    layer's experts are grouped at once (``group_experts``, the engine's
-    serving form, which ``stack_layer_projections`` keeps) and the
-    per-expert codes freed, so the model never holds two copies of its
-    experts; ``group_experts=False`` keeps the per-expert form."""
+    random_dense_params), quantized (``layout``, ``weight_fp4_only`` as in
+    ``quantize_linear``) and freed before the next layer, so peak memory
+    is one dense layer plus the codes.  A Mixtral layer's ScaledW8 experts
+    are grouped at once (``group_experts``, the engine's serving form,
+    which ``stack_layer_projections`` keeps) and the per-expert codes
+    freed, so the model never holds two copies of its experts;
+    ``group_experts=False`` keeps the per-expert form."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     hid, inter = cfg.hidden_size, cfg.intermediate_size
@@ -339,9 +385,11 @@ def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
         else:
             dense.update(gate=lin(inter, hid), up=lin(inter, hid),
                          down=lin(hid, inter))
-        layer = quantize_layer(dense, cfg, calib)
+        layer = quantize_layer(dense, cfg, calib,
+                               weight_fp4_only=weight_fp4_only, layout=layout)
         del dense
-        if cfg.is_moe and group_experts:
+        if cfg.is_moe and group_experts and all(
+                _groupable(ep) for ep in layer["experts"]):
             layer["experts_grouped"] = _group_experts(layer.pop("experts"))
         layers.append(layer)
     return {"embed": normal((cfg.vocab_size, hid), 0.02),

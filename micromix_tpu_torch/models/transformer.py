@@ -1,11 +1,12 @@
 """Full-sequence decoder forward for a quantized Llama or Mixtral.
 
 Counterpart of ``micromix_tpu/models/transformer.py`` (``forward``,
-``attention_block``, ``mlp_block``, the ScaledW8 branch of
-``_down_proj_q``, and the Mixtral ``moe_block`` with dense or capacity
+``attention_block``, ``mlp_block``, the ScaledW8 and split-plane branches
+of ``_down_proj_q``, and the Mixtral ``moe_block`` with dense or capacity
 dispatch); layers carry per-consumer q/k/v and gate/up or their stacks
-(``qkv_stack``, ``gateup_stack``), and per-expert dicts (``experts``) or
-their grouped form (``experts_grouped``).  Prefill attention goes through
+(``qkv_stack``, ``gateup_stack``: ScaledW8Stack or SplitPlaneStack), and
+per-expert dicts (``experts``) or, for ScaledW8 experts, their grouped
+form (``experts_grouped``).  Prefill attention goes through
 ``flash_attention``: the CUDA kernel on the GPU, its plain f32 version on
 the CPU.  The expert-parallel forms and calibration taps are not ported.
 """
@@ -18,11 +19,16 @@ import torch
 
 from ..kernels.fakequant import fakequant_site
 from ..kernels.flash_attention import flash_attention
-from ..kernels.mixed_matmul import (GROUPED_MAX_C, mixed_matmul_w8_grouped,
+from ..kernels.mixed_matmul import (GROUPED_MAX_C, mixed_matmul,
+                                    mixed_matmul_sp_stack,
+                                    mixed_matmul_w8_grouped,
                                     mixed_matmul_w8_site, w8_grouped_gemm_plain)
-from ..mx.scaledw8 import GroupedW8, dequantize_grouped
-from .common import (ModelConfig, QuantLinear, QuantSite, add_bias, apply_rope,
-                     lm_logits, project_all, rmsnorm, rope_table)
+from ..mx.mxtensor import stack_split_plane
+from ..mx.scaledw8 import GroupedW8, ScaledW8, dequantize_grouped
+from ..ops.quantize_ops import silu_mul_quantize_x
+from .common import (STACK_KERNEL_MAX_M, ModelConfig, QuantLinear, QuantSite,
+                     _sp_fusable, add_bias, apply_rope, lm_logits, project_all,
+                     rmsnorm, rope_table)
 
 Params = Dict[str, Any]
 
@@ -58,13 +64,24 @@ def mlp_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _down_proj_q(g: torch.Tensor, u: torch.Tensor, site: QuantSite,
                  down: QuantLinear) -> torch.Tensor:
-    """silu(g) * u -> site fakequant -> ``down`` (ScaledW8); keeps g's
-    leading shape."""
+    """silu(g) * u -> the silu site -> ``down``; keeps g's leading shape.
+
+    ScaledW8: the site image and the ScaledW8 GEMM, at every M.
+    Split-plane, up to ``STACK_KERNEL_MAX_M`` rows with 128-aligned rows:
+    the site and the stacked GEMM on a one-section stack (no copy); else
+    the MX quantize and ``mixed_matmul`` (the split-plane GEMM below 512
+    rows, one dense product from 512)."""
     lead = g.shape[:-1]
     if down.w.segments() != site.splits:
         raise ValueError(f"down site {site.splits} vs weight {down.w.segments()}")
-    y = mixed_matmul_w8_site(g.reshape(-1, g.shape[-1]), down.w,
-                             producer="silu", up=u.reshape(-1, u.shape[-1]))
+    g2d, u2d = g.reshape(-1, g.shape[-1]), u.reshape(-1, u.shape[-1])
+    if isinstance(down.w, ScaledW8):
+        y = mixed_matmul_w8_site(g2d, down.w, producer="silu", up=u2d)
+    elif _sp_fusable([down]) and g2d.shape[0] <= STACK_KERNEL_MAX_M:
+        (y,) = mixed_matmul_sp_stack(g2d, stack_split_plane([down.w]),
+                                     producer="silu", up=u2d)
+    else:
+        y = mixed_matmul(silu_mul_quantize_x(g2d, u2d, *site.splits), down.w)
     y = add_bias(y, down.bias)
     return y.reshape(*lead, y.shape[-1])
 

@@ -102,3 +102,34 @@ def quantize_blocks(x: torch.Tensor, fmt: FormatInfo):
     q = quantize_to_grid(xb * exp2i(-e)[..., None], fmt)
     codes = encode(q, fmt).reshape(x.shape)
     return codes, (e + UE8M0_BIAS).to(torch.uint8)
+
+
+def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
+                      fmt: FormatInfo) -> torch.Tensor:
+    """codes (..., K) u8 in canonical order, scales (..., K//32) -> f32."""
+    vals = decode(codes, fmt)
+    vb = vals.reshape(*vals.shape[:-1], scales.shape[-1], BLOCK_SIZE)
+    scale = exp2i(scales.to(_I32) - UE8M0_BIAS)
+    return (vb * scale[..., None]).reshape(vals.shape)
+
+
+def decode_table(fmt: FormatInfo, device=None) -> torch.Tensor:
+    """The f32 value of each of the 256 byte codes (``decode`` of each)."""
+    return decode(torch.arange(256, dtype=_I32, device=device), fmt)
+
+
+# fp4 split-plane packing: byte j holds device column j in its low nibble
+# and column j + K/2 in its high nibble, so each nibble plane is a
+# contiguous half of the row, and both use the same scale row (column c
+# belongs to scale block c % nb, and K/2 = 16 nb).
+
+
+def pack_fp4(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 fp4 codes (..., K) -> split-plane packed uint8 (..., K//2)."""
+    h = codes.shape[-1] // 2
+    return (codes[..., :h] & 0xF) | ((codes[..., h:] & 0xF) << 4)
+
+
+def unpack_fp4(packed: torch.Tensor) -> torch.Tensor:
+    """Split-plane packed uint8 (..., K//2) -> uint8 fp4 codes (..., K)."""
+    return torch.cat([packed & 0xF, packed >> 4], dim=-1)

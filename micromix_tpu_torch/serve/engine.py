@@ -2,10 +2,12 @@
 
 Counterpart of ``micromix_tpu/serve/engine.py`` on one GPU, with its
 defaults and names: the parameters are stacked at init (q|k|v and gate|up
-become ``ScaledW8Stack``s and a Mixtral layer's experts their grouped
-form, unless ``MICROMIX_NO_STACK`` is set), so a dense model decodes
-through the residual pairs and a Mixtral through two grouped expert
-GEMMs per layer; fixed ``max_seqs`` slots; waiting requests
+become ``ScaledW8Stack``s or, for split-plane weights,
+``SplitPlaneStack``s, and a Mixtral layer's ScaledW8 experts their
+grouped form, unless ``MICROMIX_NO_STACK`` is set), so a dense ScaledW8
+model decodes through the residual pairs, a split-plane one through one
+stacked split-plane GEMM per site, and a Mixtral through two grouped
+expert GEMMs per layer; fixed ``max_seqs`` slots; waiting requests
 are admitted into free slots; fresh prompts of at most ``prefill_chunk``
 tokens that wait together are prefilled in one call (``prefill_batch``);
 a longer or resumed context streams through the cache in chunks of

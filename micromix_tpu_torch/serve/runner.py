@@ -1,8 +1,8 @@
 """Cache-aware model execution: prefill and batched decode steps.
 
-Counterpart of ``micromix_tpu/serve/runner.py`` for the ScaledW8 path,
-per consumer or stacked, dense Llama or Mixtral (``_mlp`` picks the MoE
-block):
+Counterpart of ``micromix_tpu/serve/runner.py`` for ScaledW8 and
+split-plane weights, per consumer or stacked, dense Llama or Mixtral
+(``_mlp`` picks the MoE block):
 
   * ``prefill`` (one sequence, from ``start_pos``) and ``prefill_batch``
     (several fresh sequences) run the causal forward over the tokens,
@@ -10,10 +10,11 @@ block):
     ``last_idx``; with ``hist_len`` the chunk also attends over the
     sequence's quantized history (``paged_prefill_attention``), without it
     only over itself (``flash_attention``);
-  * ``decode_step`` runs one token for every slot.  With stacked params
-    (``_can_pair``) each layer is two residual pairs: (o + residual + rms +
-    gate|up) and (down + residual + the next layer's rms + q|k|v); else
-    the per-site form (always for Mixtral);
+  * ``decode_step`` runs one token for every slot.  With stacked ScaledW8
+    params (``_can_pair``) each layer is two residual pairs: (o + residual
+    + rms + gate|up) and (down + residual + the next layer's rms +
+    q|k|v); else the per-site form (always for Mixtral, and for
+    split-plane weights, stacked or not);
   * ``decode_multi`` runs ``n_steps`` decode + sample steps as a Python
     loop (the JAX package's lax.scan), without logit controls or logprobs;
   * ``prefill_decode`` is the piggybacked step: one slot's prefill chunk,

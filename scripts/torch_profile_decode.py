@@ -2,26 +2,29 @@
 """Where a decode step of the PyTorch/CUDA port spends its time, on one GPU.
 
 Builds the model of ``chip_smoke.py`` phase 4 (``--model llama``:
-Llama-3.1-8B) or phase 5 (``--model mixtral``: Mixtral-8x7B, experts
-grouped as the model is made), 32 layers, random ScaledW8 weights from
+Llama-3.1-8B), phase 6 (``--model llama --layout splitplane``: the same
+in the split-plane layout) or phase 5 (``--model mixtral``: Mixtral-8x7B,
+experts grouped as the model is made), 32 layers, random weights from
 seed 0, K split 3584/256/256; fills 8 slots with 128-token prompts, and
 profiles ``--steps`` greedy decode steps (``decode_multi``) with
 ``torch.profiler``, for each parameter form named by ``--forms``:
-"stacked" (the default engine's form: q|k|v and gate|up stacked with
-residual-pair decode, or q|k|v stacked and the experts grouped) and
-"per-consumer" (the form that ``MICROMIX_NO_STACK=1`` keeps; Llama only:
-a full-depth Mixtral holds one copy of its experts).  Prints one JSON
+"stacked" (the default engine's form: q|k|v and gate|up stacked, with
+residual-pair decode for ScaledW8 weights, or q|k|v stacked and the
+experts grouped) and "per-consumer" (the form that
+``MICROMIX_NO_STACK=1`` keeps; Llama only: a full-depth Mixtral holds
+one copy of its experts).  Prints one JSON
 object per model: for each form host wall ms per step, device busy ms
 per step (sum of kernel times on the one stream), the device's idle
 share, CUDA kernel launches per step (all of them, PyTorch's own
 included), the kernels that take the most device time, and the PyTorch
 operators that take the most host time (their own CPU time).  Also writes
-them to ``chiprun_out/profile_decode_<model>.json``.
+them to ``chiprun_out/profile_decode_<model>[_splitplane].json``.
 
 Run from the repository root on the GPU machine:
 
     python3 scripts/torch_profile_decode.py [--model llama|mixtral] \
-        [--steps 8] [--layers 32] [--forms stacked per-consumer]
+        [--layout auto|splitplane] [--steps 8] [--layers 32] \
+        [--forms stacked per-consumer]
 """
 
 from __future__ import annotations
@@ -102,6 +105,8 @@ def profile_form(params, cfg, steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="llama", choices=["llama", "mixtral"])
+    ap.add_argument("--layout", default="auto", choices=["auto", "splitplane"],
+                    help="weight layout (splitplane: Llama only)")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--forms", nargs="+", default=None,
@@ -113,23 +118,26 @@ def main() -> int:
         return 2
     forms = args.forms or (["stacked", "per-consumer"] if args.model == "llama"
                            else ["stacked"])
-    if args.model == "mixtral" and "per-consumer" in forms:
-        ap.error("the Mixtral model is made grouped: only the stacked form")
+    if args.model == "mixtral" and ("per-consumer" in forms
+                                    or args.layout != "auto"):
+        ap.error("the Mixtral model is made grouped, ScaledW8: only the "
+                 "stacked form and the auto layout")
     cfg = (llama31_8b if args.model == "llama" else mixtral_8x7b)(args.layers)
     params = random_quantized_model(
         cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
-        device="cuda")
+        device="cuda", layout=args.layout)
     out = dict(device=torch.cuda.get_device_name(0), model=args.model,
-               layers=cfg.num_layers, batch=8, context=128, steps=args.steps,
-               forms={})
+               layout=args.layout, layers=cfg.num_layers, batch=8, context=128,
+               steps=args.steps, forms={})
     for form in forms:
         p = stack_layer_projections(params) if form == "stacked" else params
         out["forms"][form] = profile_form(p, cfg, args.steps)
         del p
         torch.cuda.empty_cache()
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", f"profile_decode_{args.model}.json"),
-              "w") as f:
+    suffix = "_splitplane" if args.layout == "splitplane" else ""
+    with open(os.path.join("chiprun_out",
+                           f"profile_decode_{args.model}{suffix}.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

@@ -9,7 +9,14 @@ plain producer and within the RNE tie band for rms / silu; GEMM and
 attention outputs within 2^-7 |ref| + 2^-8 max|ref|; KV pages bit-exact;
 the pair's h_mid bit-exact; the grouped GEMM bit-exact against the
 per-expert loop of the site and Kernel B (the same split of K, the same
-f32 sums).  Stacked outputs behind an rms site are compared on the
+f32 sums).  The MX quantize (Kernel J): codes and scale bytes bit-exact
+against the plain version for the plain and silu producers (on the H100
+PyTorch's sigmoid gave the kernel's 1 / (1 + expf(-x)) bit for bit),
+and for rms on inputs whose row moment is exact in any order;
+its decoded codes equal the site kernel's image, bit for bit, for every
+producer (shared arithmetic).  The
+stacked split-plane GEMM (Kernel L) equals Kernel J followed by the
+split-plane GEMM (Kernel K) on every section, bit for bit.  Stacked outputs behind an rms site are compared on the
 kernel's own site image (``w8_stack_gemm``), so a tie the site kernel
 moved does not count against the GEMM.
 """
@@ -25,13 +32,18 @@ from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
 from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain)
 from micromix_tpu_torch.kernels.mixed_matmul import (
-    mixed_matmul_w8, mixed_matmul_w8_grouped, mixed_matmul_w8_pair,
+    mixed_matmul_sp, mixed_matmul_sp_plain, mixed_matmul_sp_stack,
+    sp_stack_gemm, sp_stack_gemm_plain, mixed_matmul_w8, mixed_matmul_w8_grouped, mixed_matmul_w8_pair,
     mixed_matmul_w8_pair_plain, mixed_matmul_w8_plain, mixed_matmul_w8_site,
     mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_grouped_gemm,
     w8_grouped_gemm_plain, w8_residual, w8_residual_plain, w8_stack_gemm,
     w8_stack_gemm_plain)
+from micromix_tpu_torch.kernels.quantize import (quantize_mixed as mx_quantize,
+                                                 quantize_mixed_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
-from micromix_tpu_torch.mx.mxtensor import quantize_mixed
+from micromix_tpu_torch.mx.mxtensor import (dequantize_mixed_device,
+                                            quantize_mixed, section_mixed,
+                                            stack_split_plane)
 from micromix_tpu_torch.mx.scaledw8 import (group_scaled_w8, pack_scaled_w8,
                                             stack_scaled_w8)
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
@@ -312,3 +324,108 @@ def test_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         fakequant_site(x, *SPLITS, perm=None, producer="rms",
                        gamma=torch.ones(K))             # gamma on the CPU
+
+
+FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
+
+
+def _exact_moment_input(dev, m, k):
+    """bf16 rows on a grid of 1/4 below 8 in magnitude: every square and
+    partial sum of the row moment is exact in f32, so any summation order
+    gives the same rvar."""
+    return (torch.randint(-31, 32, (m, k), device=dev) / 4.0).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 130])
+@pytest.mark.parametrize("producer", ["plain", "rms", "silu"])
+@pytest.mark.parametrize("splits", [SPLITS, (384, 128, 0)])
+def test_mx_quantize_kernel(dev, m, producer, splits):
+    k = sum(splits)
+    x = _exact_moment_input(dev, m, k) if producer == "rms" else \
+        (torch.randn(m, k, device=dev) * 4).to(torch.bfloat16)
+    x[0, :64] = 0.0
+    kw = {}
+    if producer == "silu":
+        kw["up"] = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    else:
+        kw["perm"] = torch.from_numpy(compose_segmented(
+            np.random.default_rng(m).permutation(k), *splits)).to(dev)
+    if producer == "rms":
+        kw["gamma"] = torch.rand(k, device=dev) + 0.5
+    if producer != "plain":
+        kw.update(producer=producer, eps=1e-5)
+    before = build.launches["mx_quantize"]
+    got = mx_quantize(x, *splits, **kw)
+    assert build.launches["mx_quantize"] == before + 1
+    assert torch.equal(dequantize_mixed_device(got), fakequant_site(x, *splits, **kw))
+    ref = quantize_mixed_plain(x, *splits, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def _sp_weight(dev, n, splits, fp4_only=True):
+    return quantize_mixed(torch.randn(n, sum(splits), device=dev) * 0.05, *splits,
+                          weight_fp4_only=fp4_only, pack_fp4=True)
+
+
+@pytest.mark.parametrize("m", [1, 8, 100, 300])
+@pytest.mark.parametrize("splits,n,fp4_only", [
+    (SPLITS, 200, True), (SPLITS, 64, False), ((384, 128, 0), 136, True),
+    ((1792, 128, 128), 72, False)])
+def test_sp_gemm_kernel(dev, m, splits, n, fp4_only):
+    """Kernel K against its plain version; (1792, 128, 128) splits K at
+    decode M and its fp4 plane boundary (896) is no multiple of 128."""
+    a = mx_quantize((torch.randn(m, sum(splits), device=dev) * 3).to(torch.bfloat16),
+                    *splits)
+    w = _sp_weight(dev, n, splits, fp4_only)
+    before = build.launches["sp_gemm"]
+    got = mixed_matmul_sp(a, w)
+    assert build.launches["sp_gemm"] == before + 1
+    _close(got, mixed_matmul_sp_plain(a, w))
+
+
+@pytest.mark.parametrize("m", [1, 8, 100])
+@pytest.mark.parametrize("producer", ["plain", "rms", "silu"])
+def test_sp_stack_kernel(dev, m, producer):
+    """Kernel L against its plain version on the site kernel's image, and
+    against Kernel J + Kernel K on every section, bit for bit; sections
+    of 256, 120 and 128 rows (padded to 256, 128, 128)."""
+    splits = (1792, 128, 128)
+    k = sum(splits)
+    ns = (256,) if producer == "silu" else (256, 120, 128)
+    st = stack_split_plane([_sp_weight(dev, n, splits, fp4_only=False) for n in ns])
+    x = (torch.randn(m, k, device=dev) * 4).to(torch.bfloat16)
+    kw = {}
+    if producer == "silu":
+        kw = dict(producer="silu", up=torch.randn(m, k, device=dev).to(torch.bfloat16))
+    else:
+        kw["perm"] = torch.from_numpy(compose_segmented(
+            np.random.default_rng(m).permutation(k), *splits)).to(dev)
+        if producer == "rms":
+            kw.update(producer="rms", gamma=torch.rand(k, device=dev) + 0.5, eps=1e-5)
+    before = dict(build.launches)
+    got = mixed_matmul_sp_stack(x, st, **kw)
+    assert build.launches["sp_stack"] == before.get("sp_stack", 0) + 1
+    assert build.launches["site_fakequant"] == before.get("site_fakequant", 0) + 1
+    img = fakequant_site(x, *splits, **kw)
+    for g, r in zip(got, sp_stack_gemm_plain(img, st)):
+        assert g.shape == r.shape
+        _close(g, r)
+    codes = mx_quantize(x, *splits, **kw)
+    for i, g in enumerate(got):
+        assert torch.equal(g, mixed_matmul_sp(codes, section_mixed(st, i)))
+    for g, h in zip(sp_stack_gemm(img, st), got):
+        assert torch.equal(g, h)
+
+
+def test_sp_kernels_refuse(dev):
+    w = _sp_weight(dev, 64, SPLITS)
+    a = mx_quantize(torch.zeros(2, K, dtype=torch.bfloat16, device=dev), *SPLITS)
+    with pytest.raises(ValueError):               # N % 8
+        mixed_matmul_sp(a, _sp_weight(dev, 60, SPLITS))
+    with pytest.raises(ValueError):               # packed activation
+        mixed_matmul_sp(quantize_mixed(torch.zeros(2, K, device=dev), *SPLITS,
+                                       pack_fp4=True), w)
+    with pytest.raises(ValueError):               # more than 4 sections
+        sp_stack_gemm(torch.zeros(2, K, dtype=torch.bfloat16, device=dev),
+                      stack_split_plane([w] * 5))

@@ -102,10 +102,11 @@ def test_from_jax_params_equals_port_surgery(models):
         for name in SITES:
             a, b = cl[name].perm, tl[name].perm
             assert (a is None and b is None) or torch.equal(a, b), name
-    # stacks come over when they are ScaledW8 (tests/test_torch_stack.py);
-    # a split-plane stack (its codes live in ``mt``) is not ported
+    # ScaledW8 and split-plane stacks come over (tests/test_torch_stack.py,
+    # tests/test_torch_splitplane.py); a container of neither kind raises
     tree = jax.tree.map(np.asarray, jparams)
-    tree["layers"] = [dict(tree["layers"][0], qkv_stack=types.SimpleNamespace(mt=None))]
+    tree["layers"] = [dict(tree["layers"][0],
+                           qkv_stack=types.SimpleNamespace(biases=(None,)))]
     with pytest.raises(NotImplementedError):
         from_jax_params(tree, tcfg, device="cpu")
 
