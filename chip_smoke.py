@@ -319,7 +319,7 @@ def check_flash(results, timer):
         flash_attention, flash_attention_plain)
     dev = DEV
     h, hkv, d = 32, 8, 128
-    for b, s in ((1, 128), (8, 128), (1, 2048)):
+    for b, s in ((1, 128), (8, 128), (1, 2048), (1, 4096)):
         q = torch.randn(b, s, h, d, device=dev).to(torch.bfloat16)
         k = torch.randn(b, s, hkv, d, device=dev).to(torch.bfloat16)
         v = torch.randn(b, s, hkv, d, device=dev).to(torch.bfloat16)
@@ -585,7 +585,8 @@ def check_quantize(results, timer, rng):
 def check_sp_gemm(results, timer):
     """Kernel K on per-consumer decode shapes (fp4-only and symmetric
     weights; a split whose fp4 plane boundary, 1984, is no multiple of
-    128) and on a 256-row prefill chunk's down projection."""
+    128) and on prefill chunks' down projections of 128, 256 and 511 rows
+    (one, two and four 128-row tiles)."""
     from micromix_tpu_torch.kernels.mixed_matmul import (mixed_matmul_sp,
                                                          mixed_matmul_sp_plain)
     from micromix_tpu_torch.kernels.quantize import quantize_mixed
@@ -594,7 +595,9 @@ def check_sp_gemm(results, timer):
             (8, 14336, 4096, SPLIT_4096, True, "fp4-only"),
             (8, 14336, 4096, SPLIT_4096, False, "symmetric"),
             (8, 4096, 4096, (3968, 128, 0), True, "k4%256=128"),
-            (256, 4096, 14336, SPLIT_14336, True, "tail-chunk down")):
+            (256, 4096, 14336, SPLIT_14336, True, "tail-chunk down"),
+            (128, 4096, 14336, SPLIT_14336, True, "chunk down"),
+            (511, 4096, 14336, SPLIT_14336, True, "chunk down")):
         w = _sp_weight(n, k, splits, fp4_only)
         a = quantize_mixed(_site_input(m, k), *splits)
         err, ok = close(mixed_matmul_sp(a, w), mixed_matmul_sp_plain(a, w))
@@ -611,7 +614,8 @@ def check_sp_gemm(results, timer):
 def check_sp_stack(results, timer, rng):
     """Kernel L behind the site kernel at the stacked decode sites (M=8):
     q|k|v and gate|up (rms), o (plain, with the gather) and down (silu),
-    split-plane weights.  The site image in the tie band of the plain
+    split-plane weights; and q|k|v and gate|up at a 128-row prefill
+    chunk (one 128-row tile).  The site image in the tie band of the plain
     site, the outputs against the plain GEMM on the kernel's own image,
     and bit for bit against Kernel J followed by Kernel K on each section
     (the fakequant-direct equivalence)."""
@@ -623,12 +627,13 @@ def check_sp_stack(results, timer, rng):
     from micromix_tpu_torch.kernels.quantize import quantize_mixed
     from micromix_tpu_torch.mx.mxtensor import (dequantize_mixed_device,
                                                 section_mixed, stack_split_plane)
-    m = 8
-    for name, k, splits, ns, producer in (
-            ("q|k|v", 4096, SPLIT_4096, (4096, 1024, 1024), "rms"),
-            ("gate|up", 4096, SPLIT_4096, (14336, 14336), "rms"),
-            ("o", 4096, SPLIT_4096, (4096,), "plain"),
-            ("down", 14336, SPLIT_14336, (4096,), "silu")):
+    for name, k, splits, ns, producer, m in (
+            ("q|k|v", 4096, SPLIT_4096, (4096, 1024, 1024), "rms", 8),
+            ("gate|up", 4096, SPLIT_4096, (14336, 14336), "rms", 8),
+            ("o", 4096, SPLIT_4096, (4096,), "plain", 8),
+            ("down", 14336, SPLIT_14336, (4096,), "silu", 8),
+            ("q|k|v", 4096, SPLIT_4096, (4096, 1024, 1024), "rms", 128),
+            ("gate|up", 4096, SPLIT_4096, (14336, 14336), "rms", 128)):
         st = stack_split_plane([_sp_weight(n, k, splits) for n in ns])
         x = _site_input(m, k)
         kw = _sp_site_kw(rng, producer, m, k, splits)

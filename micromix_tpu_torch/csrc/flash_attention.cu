@@ -5,183 +5,124 @@
 // bf16; query head h reads KV head h / (H / Hkv).
 //
 // Bound on the H100: operations at prefill lengths (about 2 S^2 D H
-// multiply-adds under the causal mask against 2 S D (H + 2 Hkv) bytes).
-// This first kernel does its math on the CUDA cores in f32, as
-// _flash_kernel casts its operands to f32, so it runs far below the
-// 989 TFLOP/s bf16 tensor-core peak; a tensor-core kernel is later work.
+// multiply-adds under the causal mask against 2 S D (H + 2 Hkv) bytes):
+// the bf16 tensor cores, 989 TFLOP/s.
 //
-// Design: one block of 128 threads per (64-row q tile, head, batch).  The
-// q tile is held transposed in shared memory, scaled by 1/sqrt(D).  The
-// block loops over 64-row K/V tiles up to the diagonal (from the window
-// floor when a window is set); each thread scores a 4 x 8 patch, the 8
-// threads of a row group share the online max and denominator through warp
-// shuffles, and each thread folds P.V into a 4 x D/8 accumulator.  A
-// ragged S is masked, not padded.  Fully masked entries score -1e30 as in
-// the JAX kernel, and the output divides by max(den, 1e-30).
+// Design: the tensor-core tile of flash_tile.cuh.  One block of 4 warps
+// per (64-row query tile, head, batch), the longest rows first; each warp
+// holds its 16 query rows as A fragments.  64-key K/V tiles pass through
+// a 2-stage cp.async ring in shared memory, tile t + 1's copy in flight
+// while tile t computes; S = Q K^T and O += P V run on mma.sync, P split
+// into two bf16 halves (the JAX kernel multiplies f32 probabilities by
+// f32 V).  The softmax scale multiplies S in f32.  The block loops from
+// the window floor (0 without a window) up to the diagonal, masking only
+// the tiles that cross the diagonal or the window edge.  A ragged S is
+// masked, not padded: rows beyond S load as zero and are not stored.
+// Fully masked entries score -1e30 as in the JAX kernel, and the output
+// divides by max(den, 1e-30).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tile.cuh"
 
 namespace {
 
+using fa::BK;
 constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 128;
-constexpr float NEG = -1e30f;
+constexpr int WARPS = BQ / 16;
+constexpr int THREADS = WARPS * 32;
+static_assert(BQ == BK, "the diagonal tile is the block's own index");
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
              int S, int H, int Hkv, int window, float scale) {
-  constexpr int DT = D / 8;  // output dims per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;             // [D][BQ]
-  float* Kt = Qt + D * BQ;      // [D][BK]
-  float* Vs = Kt + D * BK;      // [BK][D]
-  float* Pt = Vs + BK * D;      // [BK][BQ]
+  constexpr int LD = fa::Tile<D>::LD;
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  __nv_bfloat16* Ks = smem;              // [2][BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
+  __nv_bfloat16* Qs = Vs + BK * LD;      // the query tile, in V's stage 1
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int iq = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Hkv);
-  const int tid = threadIdx.x, rg = tid / 8, cg = tid % 8;
   const int q0 = iq * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t qstride = static_cast<size_t>(H) * D, kstride = static_cast<size_t>(Hkv) * D;
+  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * S * H + h) * D;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * S * Hkv + kvh) * D;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * S * Hkv + kvh) * D;
 
-  for (int idx = tid; idx < BQ * (D / 8); idx += THREADS) {
-    const int r = idx % BQ, c8 = (idx / BQ) * 8;
-    const int row = q0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      raw = *reinterpret_cast<const uint4*>(q + ((static_cast<size_t>(b) * S + row) * H + h) * D + c8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Qt[(c8 + i) * BQ + r] = __bfloat162float(e[i]) * scale;
-  }
-
-  float m[4], den[4], acc[4][DT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    den[i] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) acc[i][d] = 0.0f;
-  }
-
-  const int hi = (q0 + BQ - 1) / BK + 1;
+  const int hi = iq + 1;  // causal: key tiles up to the diagonal
   const int lo = window > 0 ? max((q0 - window + 1) / BK, 0) : 0;
+
+  auto load_kv = [&](int jk, int stage) {
+    fa::load_rows<D, BK, THREADS>(Ks + stage * BK * LD, kb, kstride, jk * BK, S);
+    fa::load_rows<D, BK, THREADS>(Vs + stage * BK * LD, vb, kstride, jk * BK, S);
+    ptx::cp_async_commit();
+  };
+
+  // the query tile and the first K/V tile; the query fragments leave
+  // shared memory before tile lo + 1 lands in V's stage 1
+  fa::load_rows<D, BQ, THREADS>(Qs, qb, qstride, q0, S);
+  load_kv(lo, 0);
+  ptx::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  fa::load_q<D>(Qs, qf);
+  __syncthreads();
+
+  fa::Softmax<D> sm;
+  sm.init();
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
   for (int jk = lo; jk < hi; ++jk) {
+    const int st = (jk - lo) & 1;
+    if (jk + 1 < hi) {
+      load_kv(jk + 1, st ^ 1);
+      ptx::cp_async_wait<1>();
+    } else {
+      ptx::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float s[BK / 8][4];
+    fa::scores<D>(qf, Ks + st * BK * LD, s);
     const int k0 = jk * BK;
-    __syncthreads();
-    // K is stored transposed (token-fast: conflict-free stores), V
-    // row-major (dim-fast: neighbouring threads read neighbouring bytes)
-    for (int idx = tid; idx < BK * (D / 8); idx += THREADS) {
-      const int r = idx % BK, c8 = (idx / BK) * 8;
-      const int col = k0 + r;
-      uint4 kr = make_uint4(0, 0, 0, 0);
-      if (col < S)
-        kr = *reinterpret_cast<const uint4*>(
-            k + ((static_cast<size_t>(b) * S + col) * Hkv + kvh) * D + c8);
-      const __nv_bfloat16* ke = reinterpret_cast<const __nv_bfloat16*>(&kr);
+    const bool edge = k0 + BK - 1 > q0 || (window > 0 && k0 <= q0 + BQ - 1 - window);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Kt[(c8 + i) * BK + r] = __bfloat162float(ke[i]);
-    }
-    for (int idx = tid; idx < BK * (D / 8); idx += THREADS) {
-      const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-      const int col = k0 + r;
-      uint4 vr = make_uint4(0, 0, 0, 0);
-      if (col < S)
-        vr = *reinterpret_cast<const uint4*>(
-            v + ((static_cast<size_t>(b) * S + col) * Hkv + kvh) * D + c8);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
+    for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Vs[r * D + c8 + i] = __bfloat162float(ve[i]);
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&Qt[d * BQ + rg * 4]);
-      const float4 k0v = *reinterpret_cast<const float4*>(&Kt[d * BK + cg * 8]);
-      const float4 k1v = *reinterpret_cast<const float4*>(&Kt[d * BK + cg * 8 + 4]);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[8] = {k0v.x, k0v.y, k0v.z, k0v.w, k1v.x, k1v.y, k1v.z, k1v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] += qa[i] * ka[j];
-    }
-
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + cg * 8 + j;
-        bool allow = col <= row && col < S;
-        if (window > 0) allow = allow && col > row - window;
-        if (!allow) s[i][j] = NEG;
-        mx = fmaxf(mx, s[i][j]);
+      for (int r = 0; r < 4; ++r) {
+        float x = s[nt][r] * scale;
+        if (edge) {
+          const int row = row0 + (r >> 1) * 8, col = k0 + nt * 8 + t4 * 2 + (r & 1);
+          bool allow = col <= row;
+          if (window > 0) allow = allow && col > row - window;
+          if (!allow) x = fa::NEG;
+        }
+        s[nt][r] = x;
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      corr[i] = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        Pt[(cg * 8 + j) * BQ + rg * 4 + i] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      den[i] = den[i] * corr[i] + sum;
-      m[i] = m_new;
-    }
+    sm.update(s);
+    sm.pv(s, Vs + st * BK * LD);
     __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int d = 0; d < DT; ++d) acc[i][d] *= corr[i];
-    for (int c = 0; c < BK; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&Pt[c * BQ + rg * 4]);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      float va[DT];
-#pragma unroll
-      for (int d = 0; d < DT; d += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(&Vs[c * D + cg * DT + d]);
-        va[d] = t.x; va[d + 1] = t.y; va[d + 2] = t.z; va[d + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int d = 0; d < DT; ++d) acc[i][d] += pa[i] * va[d];
-    }
   }
 
+  sm.finish();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + half * 8;
     if (row >= S) continue;
-    __nv_bfloat16* o = out + ((static_cast<size_t>(b) * S + row) * H + h) * D + cg * DT;
+    __nv_bfloat16* o = out + (static_cast<size_t>(b) * S + row) * qstride + h * D + t4 * 2;
 #pragma unroll
-    for (int d = 0; d < DT; ++d) o[d] = __float2bfloat16_rn(acc[i][d] / fmaxf(den[i], 1e-30f));
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(o + dt * 8) =
+          __floats2bfloat162_rn(sm.o[dt][2 * half], sm.o[dt][2 * half + 1]);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int H, int Hkv, int window, float scale, cudaStream_t stream) {
-  const int smem = (2 * D * BQ + BK * D + BK * BQ) * static_cast<int>(sizeof(float));
+  const int smem = 4 * BK * fa::Tile<D>::LD * static_cast<int>(sizeof(__nv_bfloat16));
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

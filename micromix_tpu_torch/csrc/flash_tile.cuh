@@ -1,0 +1,191 @@
+// The tensor-core flash-attention tile (FlashAttention-2 style) on
+// mma.sync m16n8k16 bf16 with f32 accumulation.  Kernel E
+// (flash_attention.cu) runs it; it is written so that a kernel whose K/V
+// tiles come from elsewhere (Kernel H's dequantized int4 pages) can run it
+// on its own shared-memory tiles.
+//
+// A block has WARPS warps; warp w owns query rows [16 w, 16 w + 16) of the
+// block's tile.  Shared-memory tiles are bf16, row-major, LD = D + 8
+// elements a row: the 16-byte pad puts the eight rows an ldmatrix reads
+// in distinct banks.
+//
+//   load_q    the warp's 16 x D query rows into A fragments (unscaled bf16)
+//   scores    S (16 x BK) = Q K^T from a K tile [BK][LD], f32 in registers
+//   Softmax   the online max / denominator on those registers (quad
+//             shuffles) and O += P V from a V tile [BK][LD] (ldmatrix.trans)
+//
+// Numerics, held to the JAX kernel's f32 arithmetic: bf16 x bf16 products
+// are exact in f32, so S differs from (q * scale) . k in f32 only in the
+// order of the sums and in where the scale's one rounding falls.  P is not
+// rounded to one bf16 before P.V: it is split into hi = bf16(p) and
+// lo = bf16(p - hi) and both halves go through the tensor cores, so the
+// probabilities keep about 16 bits and every product stays exact.
+
+#pragma once
+
+#include "ptx.cuh"
+
+namespace fa {
+
+constexpr int BK = 64;           // keys a tile
+constexpr int PAD = 8;           // bf16 elements of row padding
+constexpr float NEG = -1e30f;    // score of a masked entry, as the JAX kernel
+
+template <int D>
+struct Tile {
+  static constexpr int LD = D + PAD;
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> bf16 pairs hi = (bf16(x), bf16(y)) and lo = the remainders
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// Copy rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix whose row r starts
+// at src + r * stride elements into a [ROWS][LD] tile, rows at or beyond
+// `valid` zero-filled.  cp.async: the caller commits and waits.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t stride, int r0, int valid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r0 + r < valid;
+    const __nv_bfloat16* s = ok ? src + static_cast<size_t>(r0 + r) * stride + c : src;
+    ptx::cp_async16(dst + r * Tile<D>::LD + c, s, ok);
+  }
+}
+
+// ------------------------------------------------------------------ tile
+
+// The warp's A fragments of its 16 query rows: qf[kk] covers dims
+// [16 kk, 16 kk + 16).  Qs is the block's [rows][LD] query tile.
+template <int D>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* Qs, uint32_t (&qf)[D / 16][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const __nv_bfloat16* p = Qs + (warp * 16 + (lane & 15)) * Tile<D>::LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ptx::ldmatrix_x4(qf[kk], p + kk * 16);
+}
+
+// s[nt][r]: row g (r < 2) or g + 8 of the warp's rows, key 8 nt + 2 t4
+// (+1 for odd r) of the tile, g = lane / 4, t4 = lane % 4.
+template <int D>
+__device__ __forceinline__ void scores(const uint32_t (&qf)[D / 16][4],
+                                       const __nv_bfloat16* Ks, float (&s)[BK / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] = 0.0f;
+  // ldmatrix x4 over keys [16 np, 16 np + 16) and dims [16 kk, 16 kk + 16):
+  // b[0], b[1] the fragment of keys 16 np + 0..7, b[2], b[3] of 8..15
+  const __nv_bfloat16* p =
+      Ks + ((lane & 7) + ((lane >> 4) << 3)) * Tile<D>::LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < BK / 16; ++np) {
+      uint32_t b[4];
+      ptx::ldmatrix_x4(b, p + np * 16 * Tile<D>::LD + kk * 16);
+      ptx::mma(s[2 * np], qf[kk], b[0], b[1]);
+      ptx::mma(s[2 * np + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Online softmax state and output accumulator of the warp's 16 rows
+// (this thread's rows g and g + 8: index 0 and 1).
+template <int D>
+struct Softmax {
+  float o[D / 8][4];  // o[dt][r]: dim 8 dt + 2 t4 (+1 odd r), row as s
+  float m[2], den[2];  // den: this thread's share of the row sum
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[dt][r] = 0.0f;
+    m[0] = m[1] = NEG;
+    den[0] = den[1] = 0.0f;
+  }
+
+  // s: scaled and masked scores of one tile -> probabilities e (in
+  // place), with m, den and o rescaled as the JAX kernel's body does.
+  __device__ __forceinline__ void update(float (&s)[BK / 8][4]) {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) mx[r >> 1] = fmaxf(mx[r >> 1], s[nt][r]);
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[nt][r] = expf(s[nt][r] - m[r >> 1]);
+        sum[r >> 1] += s[nt][r];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) den[i] = den[i] * corr[i] + sum[i];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[dt][r] *= corr[r >> 1];
+  }
+
+  // o += e . V for one tile, e split into two bf16 halves.  The score
+  // accumulators of key tiles 2 kk and 2 kk + 1 are the A fragment of
+  // keys [16 kk, 16 kk + 16).
+  __device__ __forceinline__ void pv(const float (&e)[BK / 8][4], const __nv_bfloat16* Vs) {
+    const int lane = threadIdx.x & 31;
+    const __nv_bfloat16* p = Vs + (lane & 15) * Tile<D>::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split2(e[2 * kk][0], e[2 * kk][1], hi[0], lo[0]);
+      split2(e[2 * kk][2], e[2 * kk][3], hi[1], lo[1]);
+      split2(e[2 * kk + 1][0], e[2 * kk + 1][1], hi[2], lo[2]);
+      split2(e[2 * kk + 1][2], e[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];  // dims 16 dp + 0..7: b[0], b[1]; + 8..15: b[2], b[3]
+        ptx::ldmatrix_x4_trans(b, p + kk * 16 * Tile<D>::LD + dp * 16);
+        ptx::mma(o[2 * dp], hi, b[0], b[1]);
+        ptx::mma(o[2 * dp], lo, b[0], b[1]);
+        ptx::mma(o[2 * dp + 1], hi, b[2], b[3]);
+        ptx::mma(o[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+
+  // The row sums over the quad; then out = o / max(den, 1e-30).
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      den[i] += __shfl_xor_sync(0xffffffffu, den[i], 1);
+      den[i] += __shfl_xor_sync(0xffffffffu, den[i], 2);
+      den[i] = fmaxf(den[i], 1e-30f);
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[dt][r] /= den[r >> 1];
+  }
+};
+
+}  // namespace fa

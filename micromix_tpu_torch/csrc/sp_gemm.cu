@@ -9,36 +9,58 @@
 //
 // Bound on the H100: bytes at decode M (the weight's 0.59 bytes an element
 // dominate: 14336 x 4096 is 34.9 MB, 10.4 us at 3.35 TB/s), operations
-// only from M in the hundreds (the prefill chunks of 129-511 rows that
-// reach it).
+// from M in the hundreds (the prefill chunks of 129-511 rows that reach
+// it).
 //
-// Design (simple, not yet tuned): the tile of sp_tile.cuh, a block of 4
-// warps on a 64-row strip of W and BM = 16 or 64 rows of A, decoding both
-// operands into shared memory at every 128-column step, mma.sync bf16 with
-// f32 accumulation.  K is split over gridDim.z as the wrapper asks
+// Design: a first launch decodes the activation codes once into their
+// bf16 image (M, K) in scratch, so no block decodes A again; then the tile
+// of sp_tile.cuh (Kernel L's, on that image): a block of 4 warps on a
+// 64-row strip of W and BM = 16 or 64 rows of A, or of 8 warps on 128 x
+// 128, the weight decoded with integer ops and a bf16x2 scale multiply at
+// every 128-column step, a cp.async ring, mma.sync bf16 with f32
+// accumulation.  K is split over gridDim.z as the wrapper asks
 // (sp_split_k: a function of M and K only, so that Kernel L, given the
-// same M and K, sums every output in the same order); a second kernel
-// adds the f32 partials in a fixed order.
+// same M and K, sums every output in the same order); a last kernel adds
+// the f32 partials in a fixed order.
 
 #include "sp_tile.cuh"
 
 namespace {
 
-using sp::BN;
+
+// The activation codes -> their bf16 image in device order, 16 codes a
+// thread (the decode of the weight tile; the activation's scale rows are
+// read byte by byte).
+__global__ void decode_codes(sp::Operand a, sp::Segs s, __nv_bfloat16* __restrict__ img,
+                             int M) {
+  const int K = s.k(), chunks = K / 16;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(M) * chunks) return;
+  const int m = static_cast<int>(i / chunks), col = static_cast<int>(i % chunks) * 16;
+  const int seg = col < s.k4 ? 0 : (col < s.k4 + s.k6 ? 1 : 2);
+  const int width = sp::seg_width(s, seg), scol = col - sp::seg_offset(s, seg);
+  const int nb = width / 32;
+  const uint4 codes = *reinterpret_cast<const uint4*>(sp::pick(a.c, seg) +
+                                                      static_cast<size_t>(m) * width + scol);
+  const uint4 sc = sp::gather16(sp::pick(a.s, seg) + static_cast<size_t>(m) * nb, scol % nb, nb);
+  uint32_t v[8];
+  sp::decode16(codes, sc, seg, v);
+  uint4* d = reinterpret_cast<uint4*>(img + static_cast<size_t>(m) * K + col);
+  d[0] = make_uint4(v[0], v[1], v[2], v[3]);
+  d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+}
 
 template <int BM>
-__global__ void __launch_bounds__(sp::THREADS)
-sp_gemm_kernel(sp::Operand a, sp::Operand w, sp::Segs s,
+__global__ void __launch_bounds__(sp::Tile<BM>::THREADS)
+sp_gemm_kernel(const __nv_bfloat16* __restrict__ A, sp::Operand w, sp::Segs s,
                __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
                int M, int N, int t_chunk) {
-  extern __shared__ __align__(16) uint8_t sw[];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int n0 = blockIdx.x * sp::Tile<BM>::BN, m0 = blockIdx.y * BM;
   const int tbeg = blockIdx.z * t_chunk;
-  sp::stage_scales(sw, w, s, N, n0);
-  sp::CodesA<BM> src{a, M, m0, s};
-  float acc[BM / 16][2][4];
-  sp::mainloop<BM>(src, w, sw, s, N, n0, tbeg, tbeg + t_chunk, acc);
-  w8::for_each_pair<BM>(acc, m0, n0, [&](int m, int n, float c0, float c1) {
+  float acc[sp::Tile<BM>::MT][sp::Tile<BM>::NT][4];
+  sp::mainloop<BM>(A, M, m0, w, smem, s, N, n0, tbeg, tbeg + t_chunk, acc);
+  sp::for_each_pair<BM>(acc, m0, n0, [&](int m, int n, float c0, float c1) {
     if (m >= M || n >= N) return;
     if (partial == nullptr) {
       *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
@@ -60,14 +82,28 @@ __global__ void sum_partials(const float* __restrict__ partial,
   out[i] = __float2bfloat16_rn(acc);
 }
 
-int allowed16 = 0, allowed64 = 0;
+template <int BM>
+cudaError_t launch_gemm(const __nv_bfloat16* A, const sp::Operand& w, const sp::Segs& s,
+                        __nv_bfloat16* Y, float* p, int M, int N, int splits,
+                        cudaStream_t st) {
+  static int allowed = 0;
+  const int smem = sp::tile_smem<BM>(s);
+  constexpr int BN = sp::Tile<BM>::BN;
+  cudaError_t err = sp::allow_dynamic_smem(sp_gemm_kernel<BM>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  sp_gemm_kernel<BM><<<grid, sp::Tile<BM>::THREADS, smem, st>>>(A, w, s, Y, p, M, N,
+                                                     s.steps() / splits);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // a / w: 6 pointers each, codes of the fp4, fp6, fp8 segments then their
 // scales (A: (M, kseg) codes; W: (N, k4/2) packed, (N, k6), (N, k8));
-// partial: f32 (splits, M, N) scratch when splits > 1, else unused.
-extern "C" int sp_gemm(const void* const* a, const void* const* w, void* out,
+// image: bf16 (M, K) scratch for the decoded activation; partial: f32
+// (splits, M, N) scratch when splits > 1, else unused.
+extern "C" int sp_gemm(const void* const* a, const void* const* w, void* image, void* out,
                        void* partial, int M, int N, int k4, int k6, int k8,
                        int fp4_only, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -79,23 +115,17 @@ extern "C" int sp_gemm(const void* const* a, const void* const* w, void* out,
     wo.s[i] = static_cast<const uint8_t*>(w[3 + i]);
   }
   const sp::Segs s{k4, k6, k8, fp4_only};
-  const int t_chunk = s.steps() / splits;
-  const int smem = BN * s.nbt();
+  auto* img = static_cast<__nv_bfloat16*>(image);
+  const size_t chunks = static_cast<size_t>(M) * (s.k() / 16);
+  decode_codes<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, st>>>(ao, s, img, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   float* p = splits > 1 ? static_cast<float*>(partial) : nullptr;
   auto* Y = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  if (w8::block_m(M) == 16) {
-    err = sp::allow_dynamic_smem(sp_gemm_kernel<16>, smem, allowed16);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + BN - 1) / BN, (M + 15) / 16, splits);
-    sp_gemm_kernel<16><<<grid, sp::THREADS, smem, st>>>(ao, wo, s, Y, p, M, N, t_chunk);
-  } else {
-    err = sp::allow_dynamic_smem(sp_gemm_kernel<64>, smem, allowed64);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + BN - 1) / BN, (M + 63) / 64, splits);
-    sp_gemm_kernel<64><<<grid, sp::THREADS, smem, st>>>(ao, wo, s, Y, p, M, N, t_chunk);
-  }
-  err = cudaGetLastError();
+  const int bm = sp::block_m(M);
+  if (bm == 16) err = launch_gemm<16>(img, wo, s, Y, p, M, N, splits, st);
+  else if (bm == 64) err = launch_gemm<64>(img, wo, s, Y, p, M, N, splits, st);
+  else err = launch_gemm<128>(img, wo, s, Y, p, M, N, splits, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t mn = static_cast<size_t>(M) * N;
   sum_partials<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(p, Y, mn, splits);

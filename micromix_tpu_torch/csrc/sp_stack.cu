@@ -12,8 +12,9 @@
 // 3.35 TB/s; q|k|v 14.9 MB, 4.5 us).
 //
 // Design: Kernel F's (w8_stack.cu) section ownership on the tile of
-// sp_tile.cuh: 64-row strips of the stacked arrays, each section padded to
-// a multiple of 128 rows, so a strip lies in one section; the block reads
+// sp_tile.cuh (BM = 16, 64 or 128 rows, sp::block_m): 64-row strips (128
+// beside 128 rows) of the stacked arrays, each section padded to a
+// multiple of 128 rows, so a strip lies in one section; the block reads
 // its section from the strip index and writes only that section's true
 // rows.  A is the site image, read as bf16.  K is split over gridDim.z as
 // the wrapper asks (the same split as Kernel K for the same M and K) and
@@ -25,7 +26,6 @@
 
 namespace {
 
-using sp::BN;
 constexpr int MAX_SEC = 4;
 
 struct Sections {
@@ -54,23 +54,21 @@ __device__ __forceinline__ sp::Operand rows_from(const sp::Operand& w,
 }
 
 template <int BM>
-__global__ void __launch_bounds__(sp::THREADS)
+__global__ void __launch_bounds__(sp::Tile<BM>::THREADS)
 sp_stack_kernel(const __nv_bfloat16* __restrict__ A, sp::Operand w, sp::Segs s,
                 Sections sec, float* __restrict__ partial, int M, int total,
                 int t_chunk) {
-  extern __shared__ __align__(16) uint8_t sw[];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int n0 = blockIdx.x * sp::Tile<BM>::BN, m0 = blockIdx.y * BM;
   const int tbeg = blockIdx.z * t_chunk;
   const int si = section_of(sec, n0);
   const int start = sec.start[si], rows = sec.rows[si];
   const int local0 = n0 - start;
   const sp::Operand ws = rows_from(w, s, start);
-  sp::stage_scales(sw, ws, s, rows, local0);
-  sp::ImageA<BM> src{A, M, s.k(), m0, s};
-  float acc[BM / 16][2][4];
-  sp::mainloop<BM>(src, ws, sw, s, rows, local0, tbeg, tbeg + t_chunk, acc);
+  float acc[sp::Tile<BM>::MT][sp::Tile<BM>::NT][4];
+  sp::mainloop<BM>(A, M, m0, ws, smem, s, rows, local0, tbeg, tbeg + t_chunk, acc);
   __nv_bfloat16* out = sec.out[si];
-  w8::for_each_pair<BM>(acc, m0, local0, [&](int m, int n, float c0, float c1) {
+  sp::for_each_pair<BM>(acc, m0, local0, [&](int m, int n, float c0, float c1) {
     if (m >= M || n >= rows) return;
     if (partial == nullptr) {
       *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * rows + n) =
@@ -97,13 +95,26 @@ __global__ void sum_stack_partials(const float* __restrict__ partial,
   sec.out[s][static_cast<size_t>(m) * sec.rows[s] + n] = __float2bfloat16_rn(acc);
 }
 
-int allowed16 = 0, allowed64 = 0;
+template <int BM>
+cudaError_t launch_stack(const __nv_bfloat16* A, const sp::Operand& w, const sp::Segs& s,
+                         const Sections& sec, float* p, int M, int total, int splits,
+                         cudaStream_t st) {
+  static int allowed = 0;
+  const int smem = sp::tile_smem<BM>(s);
+  constexpr int BN = sp::Tile<BM>::BN;
+  cudaError_t err = sp::allow_dynamic_smem(sp_stack_kernel<BM>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(total / BN, (M + BM - 1) / BM, splits);
+  sp_stack_kernel<BM><<<grid, sp::Tile<BM>::THREADS, smem, st>>>(A, w, s, sec, p, M, total,
+                                                      s.steps() / splits);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // w: 6 pointers, the stacked codes of the fp4 (packed), fp6, fp8 segments
 // then their scales; rows / padded / outs: n_sec host values (n_sec <= 4),
-// padded rows multiples of 64 and rows even.  partial: f32
+// padded rows multiples of 128 (the widest strip) and rows even.  partial: f32
 // (splits, M, sum padded) scratch when splits > 1, else unused.
 extern "C" int sp_stack(const void* a, const void* const* w, void* partial,
                         const int* rows, const int* padded, void* const* outs,
@@ -126,23 +137,13 @@ extern "C" int sp_stack(const void* a, const void* const* w, void* partial,
     wo.s[i] = static_cast<const uint8_t*>(w[3 + i]);
   }
   const sp::Segs s{k4, k6, k8, fp4_only};
-  const int t_chunk = s.steps() / splits;
-  const int smem = BN * s.nbt();
   float* p = splits > 1 ? static_cast<float*>(partial) : nullptr;
   const auto* A = static_cast<const __nv_bfloat16*>(a);
+  const int bm = sp::block_m(M);
   cudaError_t err;
-  if (w8::block_m(M) == 16) {
-    err = sp::allow_dynamic_smem(sp_stack_kernel<16>, smem, allowed16);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(total / BN, (M + 15) / 16, splits);
-    sp_stack_kernel<16><<<grid, sp::THREADS, smem, st>>>(A, wo, s, sec, p, M, total, t_chunk);
-  } else {
-    err = sp::allow_dynamic_smem(sp_stack_kernel<64>, smem, allowed64);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(total / BN, (M + 63) / 64, splits);
-    sp_stack_kernel<64><<<grid, sp::THREADS, smem, st>>>(A, wo, s, sec, p, M, total, t_chunk);
-  }
-  err = cudaGetLastError();
+  if (bm == 16) err = launch_stack<16>(A, wo, s, sec, p, M, total, splits, st);
+  else if (bm == 64) err = launch_stack<64>(A, wo, s, sec, p, M, total, splits, st);
+  else err = launch_stack<128>(A, wo, s, sec, p, M, total, splits, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t mn = static_cast<size_t>(M) * total;
   sum_stack_partials<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(

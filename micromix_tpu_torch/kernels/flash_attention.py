@@ -2,8 +2,10 @@
 
 Counterpart of ``micromix_tpu/kernels/flash_attention.py``:
 ``flash_attention`` runs the CUDA kernel (``csrc/flash_attention.cu``) on
-CUDA tensors and its plain version on CPU tensors.  Both do the math in
-f32, as the JAX kernel casts its operands, and round the output to bf16.
+CUDA tensors and its plain version on CPU tensors.  Both keep the JAX
+kernel's f32 arithmetic (exact bf16 products, f32 sums, probabilities
+carried to about 16 bits into P.V) and round the output to bf16.
+``flash_attention_hsd`` is the single-sequence (H, S, D) entry point.
 """
 
 from __future__ import annotations
@@ -73,3 +75,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              build.stream())
     build.check(rc, "flash_attention")
     return out
+
+
+def flash_attention_hsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Single-sequence form: q (H, S, D), k/v (Hkv, S, D) -> (H, S, D)."""
+    return flash_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                           v.transpose(0, 1)[None],
+                           sliding_window=sliding_window)[0].transpose(0, 1)

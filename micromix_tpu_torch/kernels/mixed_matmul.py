@@ -450,9 +450,12 @@ def mixed_matmul_w8_grouped(x: torch.Tensor, gw: GroupedW8, *,
 # multiplies them in one dense product (the JAX package's
 # PREFILL_DEQUANT_THRESHOLD, not the ScaledW8 one); below, Kernel K.
 PREFILL_DEQUANT_THRESHOLD = 512
+# the widest weight strip of the split-plane tile (csrc/sp_tile.cuh, at
+# 128 rows); stacks pad their sections to multiples of it
+_SP_STRIP = 128
 
 _MX_FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
-_SIG_SP = {"sp_gemm": [build.PTRS, build.PTRS, build.PTR, build.PTR]
+_SIG_SP = {"sp_gemm": [build.PTRS, build.PTRS, build.PTR, build.PTR, build.PTR]
            + [build.INT] * 7 + [build.PTR]}
 _SIG_SP_STACK = {"sp_stack": [build.PTR, build.PTRS, build.PTR, build.INTS,
                               build.INTS, build.PTRS] + [build.INT] * 7
@@ -461,11 +464,13 @@ _SIG_SP_STACK = {"sp_stack": [build.PTR, build.PTRS, build.PTR, build.INTS,
 
 def sp_split_k(m: int, k: int) -> int:
     """K splits of the split-plane GEMMs: the fewest that leave each split
-    at most 8 (M <= 16) or 32 (above) steps of 128 columns.  A function
-    of M and K only, so Kernels K and L, given the same M and K, sum every
-    output element in the same order."""
+    at most 8 (M <= 16), 32 (M <= 64), 16 (M <= 128: a single 128-row
+    tile, whose blocks have an SM each, so K is split further to fill the
+    card) or 64 (above) steps of 128 columns.  A function of M and K only,
+    so Kernels K and L, given the same M and K, sum every output element
+    in the same order."""
     steps = k // _BK
-    most = 8 if m <= 16 else 32
+    most = 8 if m <= 16 else 32 if m <= 64 else 16 if m <= 128 else 64
     return next(d for d in range(1, steps + 1)
                 if steps % d == 0 and steps // d <= most)
 
@@ -523,9 +528,10 @@ def mixed_matmul_sp(a: MixedTensor, w: MixedTensor) -> torch.Tensor:
         return out
     splits = sp_split_k(m, k)
     partial = _partials(splits, m, n, out.device)
+    image = torch.empty((m, k), dtype=torch.bfloat16, device=out.device)
     lib = build.library("sp_gemm", _SIG_SP)
     build.launches["sp_gemm"] += 1
-    rc = lib.sp_gemm(_mx_ptrs(a), _mx_ptrs(w), build.ptr(out),
+    rc = lib.sp_gemm(_mx_ptrs(a), _mx_ptrs(w), build.ptr(image), build.ptr(out),
                      build.ptr(partial), m, n, *w.segments(),
                      int(w.fp4_only), splits, build.stream())
     build.check(rc, "sp_gemm")
@@ -552,10 +558,11 @@ def sp_stack_gemm(qx: torch.Tensor, st: SplitPlaneStack) -> List[torch.Tensor]:
     _check_sp_weight("sp_stack", st.mt, k)
     n_sec = st.n_sections
     if (qx.dtype != torch.bfloat16 or n_sec > _MAX_SECTIONS
-            or any(p % _BN for p in st.padded) or any(n % 8 for n in st.sections)):
+            or any(p % _SP_STRIP for p in st.padded)
+            or any(n % 8 for n in st.sections)):
         raise ValueError(f"sp_stack takes a bf16 image and at most "
                          f"{_MAX_SECTIONS} sections of N % 8 == 0 padded to "
-                         f"multiples of {_BN}: {st.sections} / {st.padded}")
+                         f"multiples of {_SP_STRIP}: {st.sections} / {st.padded}")
     qx = qx.contiguous()
     build.require_cuda("sp_stack", qx)
     _require_mx("sp_stack", None, st.mt)

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .append_kernel import append_kv_kernel
 
 # 1 / (2^bits - 1) rounded to f32, as XLA's constant folding computes it
@@ -58,9 +59,11 @@ class PagedKVCache:
 
 def make_cache(n_pages: int, page_size: int, n_kv: int, head_dim: int,
                max_seqs: int, max_pages_per_seq: int, bits: int = 4,
-               device="cpu") -> PagedKVCache:
+               device=None) -> PagedKVCache:
+    """An empty cache on ``device`` (default the GPU; raises without one)."""
     if bits not in (4, 8):
         raise ValueError(f"kv bits {bits}: the port keeps int4 / int8 pages")
+    device = resolve_device(device)
     dq = head_dim // 2 if bits == 4 else head_dim
 
     def z8():

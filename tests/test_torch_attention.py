@@ -26,12 +26,14 @@ import jax.numpy as jnp
 import torch
 
 from micromix_tpu.kernels.flash_attention import flash_attention as j_flash
+from micromix_tpu.kernels.flash_attention import flash_attention_hsd as j_flash_hsd
 from micromix_tpu.models.common import rope_inv_freq as j_inv_freq
 from micromix_tpu.serve import kv_cache as jkv
 from micromix_tpu.serve.append_kernel import append_kv_kernel as j_append_kernel
 from micromix_tpu.serve.attention import paged_decode_attention as j_decode
 from micromix_tpu.serve.attention import paged_decode_attention_xla as j_decode_xla
-from micromix_tpu_torch.kernels.flash_attention import flash_attention
+from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                        flash_attention_hsd)
 from micromix_tpu_torch.serve import kv_cache as tkv
 from micromix_tpu_torch.serve.append_kernel import append_kv_kernel
 from micromix_tpu_torch.serve.attention import (
@@ -64,6 +66,21 @@ def test_flash_attention_matches_pallas(rng, window):
     (jq, tq), (jk, tk), (jv, tv) = _bf16_pair(q), _bf16_pair(k), _bf16_pair(v)
     ref = _f32(j_flash(jq, jk, jv, sliding_window=window, interpret=True))
     _close(_f32(flash_attention(tq, tk, tv, sliding_window=window)), ref)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 20), (128, None),
+                                      (128, 20)])
+def test_flash_attention_hsd_matches_pallas(rng, d, window):
+    """The single-sequence (H, S, D) entry point against the JAX one, in
+    the attention tolerance above."""
+    s, h, hkv = 45, 4, 2                        # ragged S, GQA group 2
+    q, k, v = (rng.normal(0, 1, (hh, s, d)).astype(np.float32)
+               for hh in (h, hkv, hkv))
+    (jq, tq), (jk, tk), (jv, tv) = _bf16_pair(q), _bf16_pair(k), _bf16_pair(v)
+    ref = _f32(j_flash_hsd(jq, jk, jv, sliding_window=window, interpret=True))
+    got = flash_attention_hsd(tq, tk, tv, sliding_window=window)
+    assert got.shape == (h, s, d) and got.dtype == torch.bfloat16
+    _close(_f32(got), ref)
 
 
 def test_kv_quantize_bit_exact(rng):

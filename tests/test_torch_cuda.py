@@ -41,9 +41,11 @@ from micromix_tpu_torch.kernels.mixed_matmul import (
 from micromix_tpu_torch.kernels.quantize import (quantize_mixed as mx_quantize,
                                                  quantize_mixed_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
-from micromix_tpu_torch.mx.mxtensor import (dequantize_mixed_device,
+from micromix_tpu_torch.mx.mxtensor import (MixedTensor,
+                                            dequantize_mixed_device,
                                             quantize_mixed, section_mixed,
                                             stack_split_plane)
+from micromix_tpu_torch.mx.numerics import pack_fp4
 from micromix_tpu_torch.mx.scaledw8 import (group_scaled_w8, pack_scaled_w8,
                                             stack_scaled_w8)
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
@@ -166,11 +168,15 @@ def test_append_kernel(dev):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("s,window", [(1, None), (65, None), (130, None),
-                                      (130, 40)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize("window", [None, 40, 100])
+@pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_kernel(dev, s, window, d):
-    b, h, hkv = 2, 4, 2
+def test_flash_kernel(dev, s, window, group, d):
+    """Kernel E around its 64-row tiles (ragged S, one and several tiles,
+    the window edge inside and across tiles), GQA groups 1, 4 and 8."""
+    b, h = 2, 8
+    hkv = h // group
     q = torch.randn(b, s, h, d, device=dev).to(torch.bfloat16)
     k = torch.randn(b, s, hkv, d, device=dev).to(torch.bfloat16)
     v = torch.randn(b, s, hkv, d, device=dev).to(torch.bfloat16)
@@ -368,7 +374,7 @@ def _sp_weight(dev, n, splits, fp4_only=True):
                           weight_fp4_only=fp4_only, pack_fp4=True)
 
 
-@pytest.mark.parametrize("m", [1, 8, 100, 300])
+@pytest.mark.parametrize("m", [1, 8, 65, 100, 128, 129, 256, 300, 511])
 @pytest.mark.parametrize("splits,n,fp4_only", [
     (SPLITS, 200, True), (SPLITS, 64, False), ((384, 128, 0), 136, True),
     ((1792, 128, 128), 72, False)])
@@ -384,7 +390,7 @@ def test_sp_gemm_kernel(dev, m, splits, n, fp4_only):
     _close(got, mixed_matmul_sp_plain(a, w))
 
 
-@pytest.mark.parametrize("m", [1, 8, 100])
+@pytest.mark.parametrize("m", [1, 8, 100, 128])
 @pytest.mark.parametrize("producer", ["plain", "rms", "silu"])
 def test_sp_stack_kernel(dev, m, producer):
     """Kernel L against its plain version on the site kernel's image, and
@@ -416,6 +422,85 @@ def test_sp_stack_kernel(dev, m, producer):
         assert torch.equal(g, mixed_matmul_sp(codes, section_mixed(st, i)))
     for g, h in zip(sp_stack_gemm(img, st), got):
         assert torch.equal(g, h)
+
+
+ONE = (0x2, 0x0C, 0x38)   # 1.0 in e2m1, e3m2, e4m3
+
+
+def _one_hot(dev, splits, packed):
+    """K rows, row i the one-hot of device column i: the code of 1.0 in
+    its segment's grid, scale byte 127 (2^0); fp4 packed for a weight."""
+    k = sum(splits)
+    parts, scales, off = [], [], 0
+    for kseg, one in zip(splits, ONE):
+        c = torch.zeros(k, kseg, dtype=torch.uint8)
+        c[torch.arange(off, off + kseg), torch.arange(kseg)] = one
+        parts.append(c)
+        scales.append(torch.full((k, kseg // 32), 127, dtype=torch.uint8))
+        off += kseg
+    if packed:
+        parts[0] = pack_fp4(parts[0])
+    return MixedTensor(*[t.to(dev) for t in parts + scales], fp4_packed=packed)
+
+
+def _all_codes(dev, splits, n, fp4_only, packed):
+    """n rows holding every code of each segment's grid beside every scale
+    byte 0..254 (byte (row * nb + block) % 255): fp4 code (column // nb)
+    % 16 in the low plane and shifted by the row in the high one; FP6 / FP8
+    codes (column // nb + 32 * row) mod 64 / 256.  Codes whose value
+    overflows bf16 at their scale are set to 0, since one infinity would
+    turn a whole output row into NaN."""
+    k4, k6, k8 = splits
+    row = torch.arange(n)[:, None]
+    parts, scales = [], []
+    for seg, kseg in enumerate(splits):
+        nb = kseg // 32
+        col = torch.arange(kseg)[None, :]
+        member = col // nb                  # column c is in scale block c % nb
+        if seg == 0 or fp4_only:
+            code = (member + row * (col >= k4 // 2 if seg == 0 else 1)) % 16
+        else:
+            code = (member + 32 * row) % (64 if seg == 1 else 256)
+        parts.append(code.to(torch.uint8))
+        scales.append(((row * nb + torch.arange(nb)[None, :]) % 255).to(torch.uint8))
+    t = MixedTensor(*[x.to(dev) for x in parts + scales], fp4_only=fp4_only)
+    over = torch.isinf(dequantize_mixed_device(t))
+    off = 0
+    for seg, kseg in enumerate(splits):
+        parts[seg][over[:, off:off + kseg].cpu()] = 0
+        off += kseg
+    if packed:
+        parts[0] = pack_fp4(parts[0])
+    return MixedTensor(*[x.to(dev) for x in parts + scales], fp4_packed=packed,
+                       fp4_only=fp4_only)
+
+
+@pytest.mark.parametrize("side,fp4_only", [("weight", True), ("weight", False),
+                                           ("activation", False)])
+def test_sp_decode_exact(dev, side, fp4_only):
+    """Kernel K's decode, bit for bit: one operand one-hot, so each output
+    is one product by 1.0 plus zeros and K returns the other operand's
+    dequantize_mixed_device image exactly (a -0 comes out as +0, which
+    torch.equal counts equal), over every code and scale byte 0..254.  On
+    the weight side Kernel L on the identity image gives the same."""
+    splits = (256, 128, 128)
+    k = sum(splits)
+    if side == "weight":
+        w = _all_codes(dev, splits, 512, fp4_only, packed=True)
+        a = _one_hot(dev, splits, packed=False)
+        assert torch.equal(dequantize_mixed_device(a),
+                           torch.eye(k, dtype=torch.bfloat16, device=dev))
+        ref = dequantize_mixed_device(w).t()
+        got = mixed_matmul_sp(a, w)
+        assert torch.equal(sp_stack_gemm(torch.eye(k, dtype=torch.bfloat16, device=dev),
+                                         stack_split_plane([w]))[0], ref)
+    else:                                   # activations: MX grids per segment
+        a = _all_codes(dev, splits, 512, False, packed=False)
+        w = _one_hot(dev, splits, packed=True)
+        ref = dequantize_mixed_device(a)
+        got = mixed_matmul_sp(a, w)
+    assert not torch.isnan(ref).any()
+    assert torch.equal(got, ref)
 
 
 def test_sp_kernels_refuse(dev):

@@ -350,7 +350,7 @@ def test_tiny_mixtral_prefill_and_decode_match_jax(jax_tpu_runner):
     jc = [dataclasses.replace(jkv.make_cache(4, ps, nkv, hd, 1, mp),
                               page_table=jnp.asarray(row[None]))
           for _ in range(jcfg.num_layers)]
-    tc = [tkv.make_cache(4, ps, nkv, hd, 1, mp) for _ in range(jcfg.num_layers)]
+    tc = [tkv.make_cache(4, ps, nkv, hd, 1, mp, device="cpu") for _ in range(jcfg.num_layers)]
     for c in tc:
         c.page_table[0] = torch.from_numpy(row)
     jlog, jc = jax.jit(lambda p, c, t: jrunner.prefill(

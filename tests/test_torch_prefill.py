@@ -146,7 +146,7 @@ def test_chunked_prefill_and_paired_decode_match_jax(model, jax_tpu_runner):
     jc = [dataclasses.replace(jkv.make_cache(9, PS, nkv, hd, 2, mp),
                               page_table=jnp.zeros((2, mp), jnp.int32).at[0].set(row))
           for _ in range(jcfg.num_layers)]
-    tc = [tkv.make_cache(9, PS, nkv, hd, 2, mp) for _ in range(jcfg.num_layers)]
+    tc = [tkv.make_cache(9, PS, nkv, hd, 2, mp, device="cpu") for _ in range(jcfg.num_layers)]
     for c in tc:
         c.page_table[0] = torch.from_numpy(row)
     jfns = {}

@@ -78,7 +78,7 @@ def test_prefill_and_decode_multi_greedy_tokens_match_jax(model,
         jkv.make_cache(6, PS, nkv, hd, 2, MP),
         page_table=jnp.zeros((2, MP), jnp.int32).at[0].set(row))
         for _ in range(n_layers)]
-    tc = [tkv.make_cache(6, PS, nkv, hd, 2, MP) for _ in range(n_layers)]
+    tc = [tkv.make_cache(6, PS, nkv, hd, 2, MP, device="cpu") for _ in range(n_layers)]
     for c in tc:
         c.page_table[0] = torch.from_numpy(row)
 
@@ -213,6 +213,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_make_cache_defaults_to_cuda(monkeypatch):
+    """``make_cache`` without a device asks for the GPU and raises where
+    there is none; ``device="cpu"`` still gives a CPU cache."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkv.make_cache(4, PS, 2, 16, 2, MP)
+    cache = tkv.make_cache(4, PS, 2, 16, 2, MP, device="cpu")
+    assert all(t.device.type == "cpu" for t in
+               (cache.k_codes, cache.v_sz, cache.page_table, cache.lengths))
 
 
 def test_port_imports_without_jax_or_the_jax_package():

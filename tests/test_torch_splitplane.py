@@ -257,8 +257,9 @@ def test_mixed_matmul_dispatch_and_splits(rng):
         rng.normal(0, 1, (512, 512)).astype(np.float32)), *SPLITS)
     w = _weight(rng, 64, SPLITS)
     assert torch.equal(mixed_matmul(a, w), mixed_matmul_sp_plain(a, w))
-    assert [sp_split_k(m, k) for m, k in ((8, 4096), (8, 14336), (256, 14336),
-                                          (256, 4096), (1, 512))] == [4, 14, 4, 1, 1]
+    assert [sp_split_k(m, k) for m, k in (
+        (8, 4096), (8, 14336), (64, 14336), (128, 14336), (128, 4096),
+        (256, 14336), (256, 4096), (1, 512))] == [4, 14, 4, 7, 2, 2, 1, 1]
     with pytest.raises(TypeError):
         mixed_matmul(a, object())
 
@@ -455,7 +456,7 @@ def test_prefill_and_decode_greedy_match_jax(model, monkeypatch):
     jc = [dataclasses.replace(jkv.make_cache(6, PS, nkv, hd, 2, MP),
                               page_table=jnp.zeros((2, MP), jnp.int32).at[0].set(row))
           for _ in range(jcfg.num_layers)]
-    tc = [tkv.make_cache(6, PS, nkv, hd, 2, MP) for _ in range(jcfg.num_layers)]
+    tc = [tkv.make_cache(6, PS, nkv, hd, 2, MP, device="cpu") for _ in range(jcfg.num_layers)]
     for c in tc:
         c.page_table[0] = torch.from_numpy(row)
     toks = np.zeros((1, 16), np.int32)

@@ -254,7 +254,7 @@ def test_paired_decode_step_matches_jax_stacked_decode(monkeypatch, pair):
                                    jnp.asarray(kv[0], jnp.bfloat16),
                                    jnp.asarray(kv[1], jnp.bfloat16))
         jc.append(c)
-        t = tkv.make_cache(b * mp + 1, ps, nkv, hd, b, mp)
+        t = tkv.make_cache(b * mp + 1, ps, nkv, hd, b, mp, device="cpu")
         for name in ("k_codes", "v_codes", "k_sz", "v_sz", "page_table",
                      "lengths"):
             getattr(t, name).copy_(torch.from_numpy(_f32(getattr(c, name))))
