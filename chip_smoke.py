@@ -137,16 +137,19 @@ def bound(nbytes: float, flops: float):
 
 
 def record(results, kernel, shape, err, tol, ok, t, nbytes, flops,
-           plain_ms, library_ms=None):
+           plain_ms, library_ms=None, **extra):
+    """One kernel check; ``extra``: other measured times of the shape
+    (yardsticks that are not the same function), printed and kept."""
     bms, by = bound(nbytes, flops)
     r = dict(kernel=kernel, shape=shape, max_abs_err=err, tolerance=tol,
              ms=t, bound_ms=bms, bound_by=by, plain_ms=plain_ms,
-             library_ms=library_ms)
+             library_ms=library_ms, **extra)
     results.append(r)
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    more = "".join(f" {key}={val:.4f}" for key, val in extra.items())
     print(f"  {kernel:16s} {shape:34s} max_abs_err={err:.3e} ({tol}) "
           f"ms={t:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-          f"library_ms={lib}", flush=True)
+          f"library_ms={lib}{more}", flush=True)
     if not ok:
         fail(f"{kernel} {shape}: error {err} outside {tol}")
 
@@ -218,6 +221,12 @@ def check_site(results, timer, rng):
 
 
 def check_gemm(results, timer):
+    """Kernel B at the decode rows and at the prefill rows of the single
+    ScaledW8 weights (o: N=4096 K=4096, down: N=4096 K=14336; 128, 512 and
+    1023 rows reach B, from 1024 the dequantize-then-matmul route runs).
+    At 1024 and 2048 rows of o and down B is also timed against that route
+    (``route_ms``: dequantize to bf16 plus ``torch.matmul``), to show where
+    B stops winning; the route is what ``mixed_matmul`` runs there."""
     from micromix_tpu_torch.kernels.fakequant import fakequant_values
     from micromix_tpu_torch.kernels.mixed_matmul import (
         mixed_matmul_w8, mixed_matmul_w8_plain)
@@ -231,16 +240,21 @@ def check_gemm(results, timer):
             torch.randn(n, k, device=dev) / k ** 0.5, *splits,
             weight_fp4_only=True))
         wd = dequantize_scaled_w8(w, torch.bfloat16)
-        for m in (8, 128, 512):
+        rows = (8, 128, 512) + ((1023, 1024, 2048) if n == 4096 else ())
+        for m in rows:
             a = fakequant_values(torch.randn(m, k, device=dev), *splits)
             got = mixed_matmul_w8(a, w)
             err, ok = close(got, mixed_matmul_w8_plain(a, w))
+            extra = {}
+            if m >= 1024:
+                extra["route_ms"] = timer.ms(lambda: torch.matmul(
+                    a, dequantize_scaled_w8(w, torch.bfloat16).t()))
             record(results, "w8_gemm", f"M={m} N={n} K={k}", err,
                    "2^-7|ref|+2^-8max|ref|", ok,
                    timer.ms(lambda: mixed_matmul_w8(a, w)),
                    m * k * 2 + n * k + m * n * 2, 2.0 * m * n * k,
                    timer.ms(lambda: mixed_matmul_w8_plain(a, w)),
-                   timer.ms(lambda: torch.matmul(a, wd.t())))
+                   timer.ms(lambda: torch.matmul(a, wd.t())), **extra)
         del w, wd
 
 
@@ -435,11 +449,20 @@ def check_pair(results, timer, rng):
 
 
 def check_prefill(results, timer, rng):
-    from micromix_tpu_torch.serve.kv_cache import make_cache
+    """Kernel H at the main path's chunks (S=512 over 512, 1024 and 1536
+    history positions) and over no history.  At hist 0 it computes what
+    SDPA computes (causal attention over the chunk's own bf16 K/V, GQA):
+    that call, in the (B, H, S, D) layout, is the library time.  With
+    history no one call computes the same function (the history is int4);
+    ``sdpa_bf16_ms`` times SDPA over the history dequantized to bf16
+    beforehand plus the chunk, with an explicit mask: a yardstick only,
+    its dequantization not timed."""
+    import torch.nn.functional as F
+    from micromix_tpu_torch.serve.kv_cache import kv_dequantize_page, make_cache
     from micromix_tpu_torch.serve.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
     h, hkv, d, ps = 32, 8, 128, 128
-    for s, hist in ((512, 1536), (120, 0), (2048, 0)):
+    for s, hist in ((512, 1536), (512, 512), (512, 1024), (120, 0), (2048, 0)):
         mp = -(-(hist + s) // ps)
         cache = make_cache(mp + 1, ps, hkv, d, 1, mp, device=DEV)
         cache.k_codes.random_(0, 256)
@@ -456,10 +479,30 @@ def check_prefill(results, timer, rng):
         run = lambda: paged_prefill_attention(q, k, v, cache, 0, start)
         plain = lambda: paged_prefill_attention_plain(q, k, v, cache, 0, start)
         err, ok = close(run(), plain())
+        qt = q.transpose(0, 1)[None].contiguous()                # (1, H, S, D)
+        if hist == 0:
+            kt, vt = (x.transpose(0, 1)[None].contiguous() for x in (k, v))
+            lib, extra = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)), {}
+        else:
+            pages = cache.page_table[0].long()
+
+            def history(codes, sz):     # (1, Hkv, hist, D) bf16
+                x = kv_dequantize_page(codes[pages], sz[pages], cache.bits)
+                return x.permute(1, 0, 3, 2).reshape(hkv, -1, d)[None, :, :hist]
+            kt = torch.cat([history(cache.k_codes, cache.k_sz),
+                            k.transpose(0, 1)[None].float()], 2).to(torch.bfloat16)
+            vt = torch.cat([history(cache.v_codes, cache.v_sz),
+                            v.transpose(0, 1)[None].float()], 2).to(torch.bfloat16)
+            mask = torch.ones(s, hist + s, dtype=torch.bool, device=DEV)
+            mask[:, hist:] = torch.ones(s, s, dtype=torch.bool, device=DEV).tril()
+            lib, extra = None, {"sdpa_bf16_ms": timer.ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                       enable_gqa=True))}
         nbytes = 2 * s * (h + 2 * hkv) * d + 2 * s * h * d + 2 * hist * hkv * (d // 2 + 4)
         record(results, "paged_prefill", f"S={s} hist={hist} H={h} Hkv={hkv} D={d}",
                err, "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run), nbytes,
-               4.0 * s * (hist + s / 2) * h * d, timer.ms(plain))
+               4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), lib, **extra)
 
 
 def check_grouped(results, timer, rng):
@@ -762,6 +805,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
         return int(torch.argmax(g)), int(torch.argmax(c))
 
     seq = torch.zeros(1, dtype=torch.int32, device=DEV)
+    n_chunks = -(-len(prompt) // chunk)
     for start in range(0, len(prompt), chunk):
         toks = torch.tensor([prompt[start:start + chunk]], device=DEV)
         g_tok, c_tok = both(prefill, toks, 0, start, hist_len=start)
@@ -781,6 +825,8 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
           f"|logit diff| / max |cpu logit| per unit {['%.2e' % r for r in rels]} "
           f"(tolerance {tol}); card launches {launches}; wall {wall:.1f}s",
           flush=True)
+    print(f"  {name}: first chunk (Kernel E) error {rels[0]:.4f} of the logit "
+          f"range, later chunks (Kernel H) {max(rels[1:n_chunks]):.4f}", flush=True)
     if card != cpu:
         fail(f"phase 3 ({name}): greedy tokens differ between the card "
              "and the CPU")
@@ -789,7 +835,8 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
     missing = [n for n in must_launch if not launches.get(n)]
     if missing:
         fail(f"phase 3 ({name}): kernels not launched on the card: {missing}")
-    return dict(logit_rel_err=rels, tokens=card, launches=launches, wall_s=wall)
+    return dict(logit_rel_err=rels, first_chunk_rel_err=rels[0],
+                tokens=card, launches=launches, wall_s=wall)
 
 
 # ----------------------------------------------------------------- phase 4

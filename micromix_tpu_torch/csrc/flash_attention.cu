@@ -13,11 +13,12 @@
 // holds its 16 query rows as A fragments.  64-key K/V tiles pass through
 // a 2-stage cp.async ring in shared memory, tile t + 1's copy in flight
 // while tile t computes; S = Q K^T and O += P V run on mma.sync, P split
-// into two bf16 halves (the JAX kernel multiplies f32 probabilities by
-// f32 V).  The softmax scale multiplies S in f32.  The block loops from
-// the window floor (0 without a window) up to the diagonal, masking only
-// the tiles that cross the diagonal or the window edge.  A ragged S is
-// masked, not padded: rows beyond S load as zero and are not stored.
+// into bf16 terms (fa::PV_TERMS; the JAX kernel multiplies f32
+// probabilities by f32 V).  The softmax scale multiplies S in f32.  The
+// block loops from the window floor (0 without a window) up to the
+// diagonal, masking only the tiles that cross the diagonal or the window
+// edge.  A ragged S is masked, not padded: rows beyond S load as zero and
+// are not stored.
 // Fully masked entries score -1e30 as in the JAX kernel, and the output
 // divides by max(den, 1e-30).
 

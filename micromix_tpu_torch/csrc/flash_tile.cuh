@@ -1,25 +1,38 @@
 // The tensor-core flash-attention tile (FlashAttention-2 style) on
 // mma.sync m16n8k16 bf16 with f32 accumulation.  Kernel E
-// (flash_attention.cu) runs it; it is written so that a kernel whose K/V
-// tiles come from elsewhere (Kernel H's dequantized int4 pages) can run it
-// on its own shared-memory tiles.
+// (flash_attention.cu) runs it on bf16 K/V tiles; Kernel H
+// (paged_prefill.cu) runs it on the chunk's bf16 K/V and on its int4
+// history pages unpacked to dims-major tiles.
 //
 // A block has WARPS warps; warp w owns query rows [16 w, 16 w + 16) of the
-// block's tile.  Shared-memory tiles are bf16, row-major, LD = D + 8
-// elements a row: the 16-byte pad puts the eight rows an ldmatrix reads
-// in distinct banks.
+// block's tile.  Shared-memory tiles are bf16, row-major, with 8 elements
+// of padding a row: the 16-byte pad puts the eight rows an ldmatrix reads
+// in distinct banks.  K and V tiles come in two layouts:
+//   keys-major  [BK][LD], LD = D + 8: a row per key (E; H's chunk phase);
+//   dims-major  [D][LDT], LDT = BK + 8: a row per dim (H's history pages,
+//               whose codes are token-minor); the same fragments come
+//               from ldmatrix in the opposite mode.
 //
 //   load_q    the warp's 16 x D query rows into A fragments (unscaled bf16)
-//   scores    S (16 x BK) = Q K^T from a K tile [BK][LD], f32 in registers
+//   scores    S (16 x BK) = Q K^T from a K tile, f32 in registers
 //   Softmax   the online max / denominator on those registers (quad
-//             shuffles) and O += P V from a V tile [BK][LD] (ldmatrix.trans)
+//             shuffles) and O += P V from a V tile
 //
 // Numerics, held to the JAX kernel's f32 arithmetic: bf16 x bf16 products
 // are exact in f32, so S differs from (q * scale) . k in f32 only in the
 // order of the sums and in where the scale's one rounding falls.  P is not
-// rounded to one bf16 before P.V: it is split into hi = bf16(p) and
-// lo = bf16(p - hi) and both halves go through the tensor cores, so the
-// probabilities keep about 16 bits and every product stays exact.
+// rounded to one bf16 before P.V: it is split into PV_TERMS bf16 terms
+// (each the bf16 rounding of what the earlier ones left), each of which
+// goes through the tensor cores, so every product stays exact and P keeps
+// about 8 PV_TERMS bits; and a tile's P.V is summed in a zeroed
+// accumulator and added to O in f32 after the tile, since
+// the MMA's own accumulation of small terms into a large O is not
+// IEEE-exact.  Measured against float64 on the H100 (PERF.md, fault 3.1;
+// scripts/torch_flash_precision.py builds the other choices): with two
+// terms summed into O, 0.19-0.27% of E's outputs sat one bf16 step off
+// the exact value rounded once; three terms alone cured short rows
+// (S = 128-512) but not S = 2048 (0.20%); three terms and the tile
+// accumulator give 0.02-0.03% at every length, the f32 kernel's level.
 
 #pragma once
 
@@ -27,24 +40,33 @@
 
 namespace fa {
 
+constexpr int PV_TERMS = 3;      // bf16 terms of P
+
 constexpr int BK = 64;           // keys a tile
 constexpr int PAD = 8;           // bf16 elements of row padding
 constexpr float NEG = -1e30f;    // score of a masked entry, as the JAX kernel
 
 template <int D>
 struct Tile {
-  static constexpr int LD = D + PAD;
+  static constexpr int LD = D + PAD;   // keys-major rows
 };
+constexpr int LDT = BK + PAD;          // dims-major rows
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// (x, y) -> bf16 pairs hi = (bf16(x), bf16(y)) and lo = the remainders
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+// (x, y) -> PV_TERMS bf16 pairs: t[0] = (bf16(x), bf16(y)), each next
+// term the bf16 rounding of what the earlier ones left (the remainders
+// are exact in f32)
+__device__ __forceinline__ void split(float x, float y, uint32_t (&t)[PV_TERMS]) {
+#pragma unroll
+  for (int i = 0; i < PV_TERMS; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    t[i] = bits(h);
+    x -= __low2float(h);
+    y -= __high2float(h);
+  }
 }
 
 // Copy rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix whose row r starts
@@ -75,8 +97,9 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* Qs, uint32_t (&qf)[D
 }
 
 // s[nt][r]: row g (r < 2) or g + 8 of the warp's rows, key 8 nt + 2 t4
-// (+1 for odd r) of the tile, g = lane / 4, t4 = lane % 4.
-template <int D>
+// (+1 for odd r) of the tile, g = lane / 4, t4 = lane % 4.  K tile
+// keys-major [BK][LD] (DIMS_MAJOR false) or dims-major [D][LDT].
+template <int D, bool DIMS_MAJOR = false>
 __device__ __forceinline__ void scores(const uint32_t (&qf)[D / 16][4],
                                        const __nv_bfloat16* Ks, float (&s)[BK / 8][4]) {
   const int lane = threadIdx.x & 31;
@@ -85,15 +108,21 @@ __device__ __forceinline__ void scores(const uint32_t (&qf)[D / 16][4],
 #pragma unroll
     for (int r = 0; r < 4; ++r) s[nt][r] = 0.0f;
   // ldmatrix x4 over keys [16 np, 16 np + 16) and dims [16 kk, 16 kk + 16):
-  // b[0], b[1] the fragment of keys 16 np + 0..7, b[2], b[3] of 8..15
+  // b[0], b[1] the fragment of keys 16 np + 0..7, b[2], b[3] of 8..15.
+  // Keys-major: matrix j holds keys 16 np + 8 (j / 2), dims 16 kk + 8 (j % 2);
+  // dims-major (.trans): dims 16 kk + 8 (j % 2), keys 16 np + 8 (j / 2).
   const __nv_bfloat16* p =
-      Ks + ((lane & 7) + ((lane >> 4) << 3)) * Tile<D>::LD + ((lane >> 3) & 1) * 8;
+      DIMS_MAJOR ? Ks + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDT + (lane >> 4) * 8
+                 : Ks + ((lane & 7) + ((lane >> 4) << 3)) * Tile<D>::LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int np = 0; np < BK / 16; ++np) {
       uint32_t b[4];
-      ptx::ldmatrix_x4(b, p + np * 16 * Tile<D>::LD + kk * 16);
+      if (DIMS_MAJOR)
+        ptx::ldmatrix_x4_trans(b, p + kk * 16 * LDT + np * 16);
+      else
+        ptx::ldmatrix_x4(b, p + np * 16 * Tile<D>::LD + kk * 16);
       ptx::mma(s[2 * np], qf[kk], b[0], b[1]);
       ptx::mma(s[2 * np + 1], qf[kk], b[2], b[3]);
     }
@@ -148,27 +177,46 @@ struct Softmax {
       for (int r = 0; r < 4; ++r) o[dt][r] *= corr[r >> 1];
   }
 
-  // o += e . V for one tile, e split into two bf16 halves.  The score
+  // o += e . V for one tile, e split into PV_TERMS bf16 terms.  The score
   // accumulators of key tiles 2 kk and 2 kk + 1 are the A fragment of
-  // keys [16 kk, 16 kk + 16).
+  // keys [16 kk, 16 kk + 16).  V tile keys-major [BK][LD] (DIMS_MAJOR
+  // false, ldmatrix.trans) or dims-major [D][LDT] (ldmatrix).
+  template <bool DIMS_MAJOR = false>
   __device__ __forceinline__ void pv(const float (&e)[BK / 8][4], const __nv_bfloat16* Vs) {
     const int lane = threadIdx.x & 31;
-    const __nv_bfloat16* p = Vs + (lane & 15) * Tile<D>::LD + (lane >> 4) * 8;
+    uint32_t a[BK / 16][4][PV_TERMS];  // a[kk][j][term]: A register j
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split2(e[2 * kk][0], e[2 * kk][1], hi[0], lo[0]);
-      split2(e[2 * kk][2], e[2 * kk][3], hi[1], lo[1]);
-      split2(e[2 * kk + 1][0], e[2 * kk + 1][1], hi[2], lo[2]);
-      split2(e[2 * kk + 1][2], e[2 * kk + 1][3], hi[3], lo[3]);
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int j = 0; j < 4; ++j)
+        split(e[2 * kk + (j >> 1)][(j & 1) * 2], e[2 * kk + (j >> 1)][(j & 1) * 2 + 1],
+              a[kk][j]);
+    // matrix j: keys-major keys 16 kk + 8 (j % 2), dims 16 dp + 8 (j / 2);
+    // dims-major dims 16 dp + 8 (j / 2), keys 16 kk + 8 (j % 2)
+    const __nv_bfloat16* p =
+        DIMS_MAJOR ? Vs + ((lane & 7) + (lane >> 4) * 8) * LDT + ((lane >> 3) & 1) * 8
+                   : Vs + (lane & 15) * Tile<D>::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      float t[2][4] = {};  // this tile's share of o[2 dp], o[2 dp + 1]
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
         uint32_t b[4];  // dims 16 dp + 0..7: b[0], b[1]; + 8..15: b[2], b[3]
-        ptx::ldmatrix_x4_trans(b, p + kk * 16 * Tile<D>::LD + dp * 16);
-        ptx::mma(o[2 * dp], hi, b[0], b[1]);
-        ptx::mma(o[2 * dp], lo, b[0], b[1]);
-        ptx::mma(o[2 * dp + 1], hi, b[2], b[3]);
-        ptx::mma(o[2 * dp + 1], lo, b[2], b[3]);
+        if (DIMS_MAJOR)
+          ptx::ldmatrix_x4(b, p + dp * 16 * LDT + kk * 16);
+        else
+          ptx::ldmatrix_x4_trans(b, p + kk * 16 * Tile<D>::LD + dp * 16);
+#pragma unroll
+        for (int i = 0; i < PV_TERMS; ++i) {
+          const uint32_t ai[4] = {a[kk][0][i], a[kk][1][i], a[kk][2][i], a[kk][3][i]};
+          ptx::mma(t[0], ai, b[0], b[1]);
+          ptx::mma(t[1], ai, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        o[2 * dp][r] += t[0][r];
+        o[2 * dp + 1][r] += t[1][r];
       }
     }
   }

@@ -1,6 +1,6 @@
-// PTX primitives the tensor-core tiles share (flash_tile.cuh, sp_tile.cuh):
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with f32 accumulation.
+// PTX primitives the tensor-core tiles share (flash_tile.cuh, sp_tile.cuh,
+// w8_tile128.cuh): cp.async copies into shared memory, ldmatrix fragment
+// loads and the mma.sync m16n8k16 bf16 product with f32 accumulation.
 
 #pragma once
 
@@ -18,6 +18,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 or 8 bytes global -> shared (N), zero-filled when !valid; both
+// addresses N-byte aligned
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool valid) {
+  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(N), "r"(valid ? N : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

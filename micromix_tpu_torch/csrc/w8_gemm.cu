@@ -8,16 +8,23 @@
 // a bf16 tensor-core product needs to be compute-bound), operations only
 // from M in the hundreds.
 //
-// Design (simple, not yet tuned): a block of 4 warps owns a 64-wide strip
-// of N and BM = 16 or 64 rows of M and runs the tile of w8_tile.cuh over
-// its share of K (register-staged loads, in-kernel exact bf16 decode,
-// mma.sync m16n8k16, f32 accumulation).  When N and M give too few blocks
-// to fill 132 SMs, K is split over gridDim.z: each split writes f32
-// partials and a second kernel sums them in a fixed order and rounds to
-// bf16, so results do not depend on scheduling.  TMA, wgmma and a deeper
-// pipeline are later work.
+// Design: up to 64 rows of A (decode M), a block of 4 warps owns a
+// 64-wide strip of N and BM = 16 or 64 rows and runs the tile of
+// w8_tile.cuh over its share of K (register-staged loads, in-kernel exact
+// bf16 decode, mma.sync m16n8k16, f32 accumulation).  Above 64 rows (the
+// prefill chunks of the single ScaledW8 weights, o and down, from 65 to
+// 1023 rows), a block of 8 warps owns a 128 x 128 tile (w8_tile128.cuh:
+// 3-stage cp.async ring for the A tile and the raw codes, each code
+// decoded once per 128 rows of A instead of once per 64, ldmatrix).  When
+// the tiles are too few to fill 132 SMs, K is split over gridDim.z (the
+// wrapper's w8_gemm_split): each split writes f32 partials and a second
+// kernel sums them in a fixed order and rounds to bf16, so results do not
+// depend on scheduling.  Both tiles sum each output element's 16-deep
+// MMAs in the same order, so a split of K gives the same bits through
+// either.
 
 #include "w8_tile.cuh"
+#include "w8_tile128.cuh"
 
 namespace {
 
@@ -45,6 +52,28 @@ w8_gemm_kernel(const __nv_bfloat16* __restrict__ A,
   });
 }
 
+__global__ void __launch_bounds__(w8w::THREADS)
+w8_gemm128_kernel(const __nv_bfloat16* __restrict__ A,
+                  const uint8_t* __restrict__ W, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ partial, int M, int N, int K, float scale,
+                  int k_chunk) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int n0 = blockIdx.x * w8w::BN, m0 = blockIdx.y * w8w::BM;
+  const int tbeg = blockIdx.z * (k_chunk / w8w::BK);
+  float acc[w8w::MT][w8w::NT][4];
+  w8w::mainloop(A, W, M, N, K, m0, n0, tbeg, tbeg + k_chunk / w8w::BK, scale, smem, acc);
+  w8w::for_each_pair(acc, m0, n0, [&](int m, int n, float c0, float c1) {
+    if (m >= M || n >= N) return;
+    if (partial == nullptr) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
+          __floats2bfloat162_rn(c0, c1);
+    } else {
+      float* p = partial + (static_cast<size_t>(blockIdx.z) * M + m) * N + n;
+      *reinterpret_cast<float2*>(p) = make_float2(c0, c1);
+    }
+  });
+}
+
 __global__ void sum_partials(const float* __restrict__ partial,
                              __nv_bfloat16* __restrict__ out, size_t mn,
                              int splits) {
@@ -57,7 +86,8 @@ __global__ void sum_partials(const float* __restrict__ partial,
 
 }  // namespace
 
-// partial: f32 (splits, M, N) scratch when splits > 1, else unused.
+// partial: f32 (splits, M, N) scratch when splits > 1, else unused.  K is
+// a multiple of 128 * splits.
 extern "C" int w8_gemm(const void* a, const void* codes, void* out,
                        void* partial, int M, int N, int K, float scale,
                        int splits, void* stream) {
@@ -67,7 +97,17 @@ extern "C" int w8_gemm(const void* a, const void* codes, void* out,
   const auto* A = static_cast<const __nv_bfloat16*>(a);
   const auto* W = static_cast<const uint8_t*>(codes);
   auto* Y = static_cast<__nv_bfloat16*>(out);
-  if (w8::block_m(M) == 16) {
+  if (M > 64) {
+    static int allowed = 0;  // dynamic shared memory above 48 KB, raised once
+    if (allowed < w8w::SMEM) {
+      cudaError_t err = cudaFuncSetAttribute(
+          w8_gemm128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w8w::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed = w8w::SMEM;
+    }
+    dim3 grid((N + w8w::BN - 1) / w8w::BN, (M + w8w::BM - 1) / w8w::BM, splits);
+    w8_gemm128_kernel<<<grid, w8w::THREADS, w8w::SMEM, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
+  } else if (w8::block_m(M) == 16) {
     dim3 grid((N + BN - 1) / BN, (M + 15) / 16, splits);
     w8_gemm_kernel<16><<<grid, w8::THREADS, 0, s>>>(A, W, Y, p, M, N, K, scale, k_chunk);
   } else {

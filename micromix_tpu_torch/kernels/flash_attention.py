@@ -4,7 +4,7 @@ Counterpart of ``micromix_tpu/kernels/flash_attention.py``:
 ``flash_attention`` runs the CUDA kernel (``csrc/flash_attention.cu``) on
 CUDA tensors and its plain version on CPU tensors.  Both keep the JAX
 kernel's f32 arithmetic (exact bf16 products, f32 sums, probabilities
-carried to about 16 bits into P.V) and round the output to bf16.
+carried to about 24 bits into P.V) and round the output to bf16.
 ``flash_attention_hsd`` is the single-sequence (H, S, D) entry point.
 """
 

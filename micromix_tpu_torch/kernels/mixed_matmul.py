@@ -41,7 +41,10 @@ from .fakequant import fakequant_site, fakequant_site_plain
 W8_PREFILL_DEQUANT_THRESHOLD = 1024
 
 _SMS = 132          # H100 SXM streaming multiprocessors
-_BN, _BK = 64, 128  # csrc/w8_gemm.cu tile sizes
+_BN, _BK = 64, 128  # csrc/w8_tile.cuh tile sizes
+_BM_WIDE, _BN_WIDE = 128, 256   # csrc/w8_tile128.cuh: B's tiles above 64 rows
+_W8_BLOCK_FIXED_STEPS = 3.4      # a wide block's fixed cost, in 128-deep steps
+_W8_PARTIAL_BYTES_PER_STEP = 2.0e7   # partials written and read in one step's time
 _SIG = {"w8_gemm": [build.PTR, build.PTR, build.PTR, build.PTR, build.INT,
                     build.INT, build.INT, build.FLOAT, build.INT, build.PTR]}
 _SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
@@ -84,13 +87,34 @@ def mixed_matmul_w8_plain(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
 
 
 def split_k(m: int, n: int, k: int) -> int:
-    """K splits so that the GEMM has about two blocks per SM: the smallest
-    divisor of the 128-deep K steps (at most 16) that gets there."""
+    """K splits of the 16- and 64-row ScaledW8 tile (``w8_tile.cuh``), so
+    that the GEMM has about two blocks per SM: the smallest divisor of the
+    128-deep K steps (at most 16) that gets there."""
     bm = 16 if m <= 16 else 64
     tiles = -(-n // _BN) * -(-m // bm)
     steps = k // _BK
     divisors = [d for d in range(1, min(steps, 16) + 1) if steps % d == 0]
     return next((d for d in divisors if tiles * d >= 2 * _SMS), divisors[-1])
+
+
+def w8_gemm_split(m: int, n: int, k: int) -> int:
+    """K splits of Kernel B: ``split_k`` up to 64 rows; above, where B runs
+    its 128 x 256 tile (``w8_tile128.cuh``, one 8-warp block per SM), the
+    divisor d of the 128-deep K steps (at most 16) of least modelled time:
+    waves of blocks times each block's steps plus its fixed cost, plus the
+    pass over the f32 partials.  The model's two constants were fitted to
+    the H100's times over d (``scripts/torch_w8_ablation.py --splits``)."""
+    if m <= 64:
+        return split_k(m, n, k)
+    tiles = -(-n // _BN_WIDE) * -(-m // _BM_WIDE)
+    steps = k // _BK
+
+    def cost(d: int) -> float:          # in 128-deep steps of one block
+        waves = -(-tiles * d // _SMS)
+        partials = d * m * n * 8 / _W8_PARTIAL_BYTES_PER_STEP if d > 1 else 0.0
+        return waves * (steps / d + _W8_BLOCK_FIXED_STEPS) + partials
+
+    return min((d for d in range(1, min(steps, 16) + 1) if steps % d == 0), key=cost)
 
 
 def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
@@ -113,7 +137,7 @@ def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m == 0:
         return out
-    splits = split_k(m, n, k)
+    splits = w8_gemm_split(m, n, k)
     partial = _partials(splits, m, n, a.device)
     lib = build.library("w8_gemm", _SIG)
     build.launches["w8_gemm"] += 1
@@ -377,7 +401,7 @@ def w8_grouped_gemm(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
         return outs
     total = sum(gw.padded)
     # Kernel B's split for one group's first section: the same f32 sums
-    splits = split_k(c, gw.sections[0], k)
+    splits = w8_gemm_split(c, gw.sections[0], k)
     partial = (torch.empty((splits, e, c, total), dtype=torch.float32,
                            device=qx.device) if splits > 1 else None)
     scales = [2.0 ** (b + 126) for row in gw.bases for b in row]

@@ -6,7 +6,9 @@ tensors (int4 pages) and its plain version on CPU tensors.  The plain
 version computes what the TPU kernel computes: probabilities in f32, the
 history read from the quantized pages and the chunk from its exact bf16
 K/V.  (The JAX runner's CPU branch, ``gather_kv`` plus XLA attention,
-rounds the probabilities to bf16 instead.)
+rounds the probabilities to bf16 instead.)  The kernel unpacks the
+history as exact bf16 ``(c - z)``, so it needs the integer zero points in
+[0, 15] that ``kv_quantize`` makes.
 """
 
 from __future__ import annotations

@@ -46,7 +46,8 @@ from micromix_tpu_torch.mx.mxtensor import (MixedTensor,
                                             quantize_mixed, section_mixed,
                                             stack_split_plane)
 from micromix_tpu_torch.mx.numerics import pack_fp4
-from micromix_tpu_torch.mx.scaledw8 import (group_scaled_w8, pack_scaled_w8,
+from micromix_tpu_torch.mx.scaledw8 import (ScaledW8, dequantize_scaled_w8,
+                                            group_scaled_w8, pack_scaled_w8,
                                             stack_scaled_w8)
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
                                                     append_kv_plain)
@@ -120,6 +121,44 @@ def test_w8_gemm_kernel(dev, m, n, k):
     before = build.launches["w8_gemm"]
     _close(mixed_matmul_w8(a, w), mixed_matmul_w8_plain(a, w))
     assert build.launches["w8_gemm"] == before + 1
+
+
+@pytest.mark.parametrize("m", [65, 128, 129, 300, 512, 1023])
+@pytest.mark.parametrize("n,k", [(136, 512), (264, 1024)])
+def test_w8_gemm_wide_tile(dev, m, n, k):
+    """Kernel B above 64 rows, its 128 x 128 cp.async tile: ragged M and N
+    tiles, K split or not (w8_gemm_split), one launch a call, and equal
+    bits from two calls (fixed-order partial sums)."""
+    splits = (k - 256, 128, 128)
+    w = pack_scaled_w8(quantize_mixed(torch.randn(n, k, device=dev) * 0.05,
+                                      *splits, weight_fp4_only=True))
+    a = fakequant_values(torch.randn(m, k, device=dev), *splits)
+    before = build.launches["w8_gemm"]
+    got = mixed_matmul_w8(a, w)
+    assert build.launches["w8_gemm"] == before + 1
+    _close(got, mixed_matmul_w8_plain(a, w))
+    assert torch.equal(got, mixed_matmul_w8(a, w))
+
+
+@pytest.mark.parametrize("base", [1, -60, -126, -135])
+def test_w8_decode_exact(dev, base):
+    """The 128- and 64-row ScaledW8 tiles decode every code 0..255 to the
+    same bits (subnormal and underflowing values at base -135): the
+    identity's first 128 rows against all codes, through the 128-row tile
+    and, in two halves, through the 64-row tile.  Where the table of
+    dequantize_scaled_w8 is defined (base >= -126, codes whose magnitude
+    bits are not 1, which pack_scaled_w8 never emits), both equal it."""
+    n, k = 256, 256
+    codes = ((torch.arange(n)[:, None] + torch.arange(k)[None, :]) % 256).to(torch.uint8)
+    w = ScaledW8(codes.to(dev), base)
+    eye = torch.eye(k, dtype=torch.bfloat16, device=dev)
+    wide = mixed_matmul_w8(eye[:128], w)
+    narrow = torch.cat([mixed_matmul_w8(eye[:64], w), mixed_matmul_w8(eye[64:128], w)])
+    assert torch.equal(wide, narrow)
+    if base >= -126:
+        ref = dequantize_scaled_w8(w).t()[:128]
+        valid = (w.codes.t()[:128] & 0x7F) != 1
+        assert torch.equal(wide[valid], ref[valid])
 
 
 @pytest.mark.parametrize("d,ps,h,hkv", [(64, 16, 8, 2), (128, 128, 32, 8),
@@ -256,7 +295,8 @@ def test_w8_pair_kernels(dev, producer):
 
 @pytest.mark.parametrize("start,s,window,d,ps", [
     (0, 70, None, 64, 16), (16, 13, None, 128, 16), (41, 100, 30, 64, 16),
-    (300, 128, None, 128, 128), (200, 65, 90, 128, 128)])
+    (300, 128, None, 128, 128), (200, 65, 90, 128, 128),
+    (57, 70, 30, 128, 12), (50, 40, None, 64, 8)])   # 4-byte page copies
 def test_paged_prefill_kernel(dev, start, s, window, d, ps):
     rng = np.random.default_rng(start + s)
     h, hkv, mp = 8, 2, 8
@@ -276,6 +316,55 @@ def test_paged_prefill_kernel(dev, start, s, window, d, ps):
     got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
     assert build.launches["paged_prefill"] == before + 1
     _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
+
+
+@pytest.mark.parametrize("hist", [512, 1536])
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("window", [None, 700])
+def test_paged_prefill_main_path(dev, hist, ps, group, window):
+    """Kernel H at the serving chunk (S=512 over 512 or 1536 positions of
+    int4 history, D=128), pages of 16 (four to a 64-key tile) and 128 (two
+    tiles a page), GQA groups 4 and 8, with and without a window: against
+    the plain version, one launch a call, equal bits from two calls."""
+    rng = np.random.default_rng(hist + ps + group)
+    s, hkv, d = 512, 2, 128
+    mp = (hist + s) // ps
+    cache = make_cache(mp + 1, ps, hkv, d, 1, mp, device=dev)
+    cache.k_codes.random_(0, 256)
+    cache.v_codes.random_(0, 256)
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(0.01, 0.2)
+        sz[:, :, 1].copy_(torch.randint(0, 16, sz[:, :, 1].shape, device=dev))
+    cache.page_table[0] = torch.from_numpy(1 + rng.permutation(mp).astype(np.int32)).to(dev)
+    q = torch.randn(s, hkv * group, d, device=dev).to(torch.bfloat16)
+    k = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    v = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    start = torch.tensor(hist, dtype=torch.int32, device=dev)
+    before = build.launches["paged_prefill"]
+    got = paged_prefill_attention(q, k, v, cache, 0, start, sliding_window=window)
+    assert build.launches["paged_prefill"] == before + 1
+    _close(got, paged_prefill_attention_plain(q, k, v, cache, 0, start, window))
+    assert torch.equal(got, paged_prefill_attention(q, k, v, cache, 0, start,
+                                                    sliding_window=window))
+
+
+def test_flash_off_rne(dev):
+    """Kernel E's P.V keeps the probabilities to f32's level (fault 3.1):
+    at most 0.1% of its outputs differ from the float64 reference rounded
+    once to bf16 (P in two bf16 terms left 0.2%, the f32 kernel 0.03-0.06%)."""
+    b, s, h, hkv, d = 1, 512, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(b, s, hh, d, device=dev, generator=gen).to(torch.bfloat16)
+               for hh in (h, hkv, hkv))
+    g = h // hkv
+    scores = torch.einsum("bshd,bthd->bhst", q.double(),
+                          k.double().repeat_interleave(g, dim=2)) / d ** 0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    ref = torch.einsum("bhst,bthd->bshd", probs, v.double().repeat_interleave(g, dim=2))
+    off = float((flash_attention(q, k, v) != ref.to(torch.bfloat16)).double().mean())
+    assert off <= 1e-3, off
 
 
 @pytest.mark.parametrize("c", [1, 8, 100, 128])
