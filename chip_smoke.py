@@ -16,7 +16,10 @@ and runs these phases; any failure exits non-zero before the result line.
      flushed before each launch), its bound (bytes over 3.35 TB/s or
      operations over 989 TFLOP/s, whichever is larger), the plain
      version's time and, where one PyTorch call computes the same
-     function, that call's time;
+     function, that call's time; for the stacked and grouped GEMMs (F, I)
+     also the GEMM alone on the site image, and from 256 rows the
+     dequantize route the model runs above their row limits, with the
+     route table and the limits its timings select;
   3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
      (ScaledW8), Mixtral-8x7B (experts grouped) and Llama-3.1-8B in the
      split-plane layout: a 300-token prompt prefilled in chunks of 128
@@ -376,18 +379,32 @@ def _stack_close(outs, img, st):
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
+STACK_ROWS = {"q|k|v": (8, 100, 128, 256, 512, 1023),
+              "gate|up": (8, 128, 256, 512, 1023)}
+GROUPED_ROWS = {"w13": (8, 100, 128, 256, 512), "w2": (8, 128, 256, 512)}
+ROUTE_MIN_ROWS = 256        # rows from which both routes are timed
+
+
 def check_stack(results, timer, rng):
+    """Kernel F behind the rms site at q|k|v and gate|up (K=4096): decode
+    rows (8, the narrow tile), 100 and 128 (the wide tile) and the prefill
+    rows of the route table (256, 512, 1023).  ``gemm_ms``: F alone on the
+    kernel's image (``w8_stack_gemm``), beside the wrapper's time (site +
+    F).  From 256 rows ``route_ms`` times what the model runs above the
+    stack's row limit (``stack_dense_apply`` after the site: the stack
+    dequantized, ``torch.matmul``, the section split), all its launches
+    counted."""
     from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
                                                       fakequant_site_plain)
     from micromix_tpu_torch.kernels.mixed_matmul import (
-        mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain)
+        mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_stack_gemm)
+    from micromix_tpu_torch.models.common import stack_dense_apply
     from micromix_tpu_torch.mx.scaledw8 import dequantize_stack, stack_scaled_w8
     k = 4096
-    for name, ns, ms in (("q|k|v", (4096, 1024, 1024), (8, 128)),
-                         ("gate|up", (14336, 14336), (8,))):
+    for name, ns in (("q|k|v", (4096, 1024, 1024)), ("gate|up", (14336, 14336))):
         st = stack_scaled_w8([_w8_weight(n, k, SPLIT_4096) for n in ns])
         wd = dequantize_stack(st)
-        for m in ms:
+        for m in STACK_ROWS[name]:
             x = _site_input(m, k)
             kw = dict(producer="rms", gamma=1.0 + 0.1 * torch.randn(k, device=DEV),
                       perm=_perm(rng, k, SPLIT_4096), eps=1e-5)
@@ -396,6 +413,10 @@ def check_stack(results, timer, rng):
             _, ok_img = tie_band(img, fakequant_site_plain(x, *SPLIT_4096, **kw),
                                  SPLIT_4096)
             err, ok = _stack_close(outs, img, st)
+            extra = dict(gemm_ms=timer.ms(lambda: w8_stack_gemm(img, st)))
+            if m >= ROUTE_MIN_ROWS:
+                extra["route_ms"] = timer.ms(lambda: stack_dense_apply(
+                    fakequant_site(x, *SPLIT_4096, **kw), st))
             nbytes = sum(st.padded) * k + m * k * 2 + k * 8 + m * sum(ns) * 2
             record(results, "w8_stack", f"{name} rms M={m} K={k}", err,
                    "image in the tie band; outputs 2^-7|ref|+2^-8max|ref| "
@@ -403,7 +424,7 @@ def check_stack(results, timer, rng):
                    timer.ms(lambda: mixed_matmul_w8_stack(x, st, **kw)),
                    nbytes, 2.0 * m * sum(ns) * k,
                    timer.ms(lambda: mixed_matmul_w8_stack_plain(x, st, **kw)),
-                   timer.ms(lambda: torch.matmul(img, wd.t())))
+                   timer.ms(lambda: torch.matmul(img, wd.t())), **extra)
         del st, wd
 
 
@@ -506,28 +527,34 @@ def check_prefill(results, timer, rng):
 
 
 def check_grouped(results, timer, rng):
-    """Kernel I at Mixtral-8x7B's expert shapes: w1|w3 behind each
-    expert's own plain site (E=8, C=8 and 128) and w2 behind the silu site
-    (C=8).  The site image against the plain site (bit-exact, or the tie
-    band for silu), the outputs against the plain GEMM on the kernel's own
-    image, and against the per-expert loop of the site and Kernel B on the
-    card, bit for bit."""
+    """Kernel I at Mixtral-8x7B's expert shapes, E=8: w1|w3 behind each
+    expert's own plain site and w2 behind the silu site, at decode rows
+    per expert (8, the narrow tile), 100 and 128 (the wide tile) and the
+    prefill rows of the route table (256, 512: a dense-dispatch chunk).
+    The site image against the plain site (bit-exact, or the tie band for
+    silu), the outputs against the plain GEMM on the kernel's own image,
+    and against the per-expert loop of the site and Kernel B on the card,
+    bit for bit.  ``gemm_ms``: I alone on the kernel's image
+    (``w8_grouped_gemm``); from 256 rows ``route_ms``: what the model runs
+    above ``GROUPED_MAX_C`` (the site, then ``_grouped_apply``: the
+    experts dequantized and one batched ``torch.matmul``)."""
     from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
                                                       fakequant_site_plain)
     from micromix_tpu_torch.kernels.mixed_matmul import (
         mixed_matmul_w8_grouped, mixed_matmul_w8_grouped_plain,
-        mixed_matmul_w8_site, w8_grouped_gemm_plain)
+        mixed_matmul_w8_site, w8_grouped_gemm, w8_grouped_gemm_plain)
+    from micromix_tpu_torch.models.transformer import _grouped_apply
     from micromix_tpu_torch.mx.scaledw8 import (dequantize_grouped,
                                                 group_scaled_w8, grouped_section)
     e = 8
-    for name, k, ksplit, ns, producer, cs in (
-            ("w13", 4096, SPLIT_4096, (14336, 14336), "plain", (8, 128)),
-            ("w2", 14336, SPLIT_14336, (4096,), "silu", (8,))):
+    for name, k, ksplit, ns, producer in (
+            ("w13", 4096, SPLIT_4096, (14336, 14336), "plain"),
+            ("w2", 14336, SPLIT_14336, (4096,), "silu")):
         secs = [[_w8_weight(n, k, ksplit) for _ in range(e)] for n in ns]
         gw = group_scaled_w8(secs)
         del secs
         wd = dequantize_grouped(gw)
-        for c in cs:
+        for c in GROUPED_ROWS[name]:
             x = _site_input(e * c, k).reshape(e, c, k)
             if producer == "plain":
                 perm = torch.stack([_perm(rng, k, ksplit) for _ in range(e)])
@@ -553,6 +580,11 @@ def check_grouped(results, timer, rng):
                 torch.equal(outs[si][i], mixed_matmul_w8_site(
                     x[i], grouped_section(gw, i, si), **one[i]))
                 for i in range(e) for si in range(len(ns)))
+            extra = dict(gemm_ms=timer.ms(lambda: w8_grouped_gemm(img, gw)))
+            if c >= ROUTE_MIN_ROWS:
+                extra["route_ms"] = timer.ms(lambda: _grouped_apply(
+                    fakequant_site(x.reshape(-1, k), *ksplit,
+                                   **site_kw).reshape(e, c, k), gw))
             nbytes = (gw.codes.numel() + e * c * k * 2 * (1 + (producer == "silu"))
                       + (e * k * 4 if producer == "plain" else 0)
                       + e * c * sum(ns) * 2)
@@ -564,8 +596,42 @@ def check_grouped(results, timer, rng):
                    timer.ms(lambda: mixed_matmul_w8_grouped(x, gw, **kw)),
                    nbytes, 2.0 * e * c * sum(ns) * k,
                    timer.ms(lambda: mixed_matmul_w8_grouped_plain(x, gw, **kw)),
-                   timer.ms(lambda: torch.bmm(img, wd.transpose(1, 2))))
+                   timer.ms(lambda: torch.bmm(img, wd.transpose(1, 2))), **extra)
         del gw, wd
+
+
+def route_table(results, card: str) -> dict:
+    """Kernel F / I against the dequantize route, at the rows where both
+    were timed, and the row limits those timings select: the largest
+    candidate at which the kernel's wrapper is no slower than the route at
+    every timed row count up to it, for every shape of the kernel (128,
+    the JAX package's limit, needs no timing: the kernels run there
+    already).  Printed beside the module constants the model runs with."""
+    from micromix_tpu_torch.kernels.mixed_matmul import (GROUPED_MAX_C,
+                                                         W8_STACK_MAX_M)
+    out = {}
+    print(f"  route table ({card}): wrapper ms / dequantize route ms", flush=True)
+    for kernel, constant, value, candidates in (
+            ("w8_stack", "W8_STACK_MAX_M", W8_STACK_MAX_M, (128, 256, 512, 1023)),
+            ("w8_grouped", "GROUPED_MAX_C", GROUPED_MAX_C, (128, 256, 512))):
+        rows = [r for r in results if r["kernel"] == kernel and "route_ms" in r]
+        for r in rows:
+            print(f"    {kernel:10s} {r['shape']:32s} {r['ms']:.4f} / "
+                  f"{r['route_ms']:.4f} ({r['ms'] / r['route_ms']:.3f}x)", flush=True)
+        timed = {}                # rows -> the kernel no slower at every shape
+        for r in rows:
+            m = int(r["shape"].split("=")[-2].split()[0])
+            timed[m] = timed.get(m, True) and r["ms"] <= r["route_ms"]
+        selected = 128
+        for cand in candidates[1:]:
+            if all(ok for m, ok in timed.items() if m <= cand):
+                selected = cand
+            else:
+                break
+        print(f"    {constant}: the timings select {selected}; the module "
+              f"constant is {value}", flush=True)
+        out[constant] = dict(selected=selected, constant=value)
+    return out
 
 
 MX_FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
@@ -1236,6 +1302,7 @@ def main() -> int:
     check_pair(results, timer, rng)
     check_prefill(results, timer, rng)
     check_grouped(results, timer, rng)
+    routes = route_table(results, card)
     check_quantize(results, timer, rng)
     check_sp_gemm(results, timer)
     check_sp_stack(results, timer, rng)
@@ -1273,7 +1340,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, phase3=p3, phase4=p4,
-                       phase5=p5, phase6=p6, kernels=line["kernels"],
+                       phase5=p5, phase6=p6, routes=routes,
+                       kernels=line["kernels"],
                        wall_s=wall), f,
                   indent=1)
     print(f"chip_smoke: all phases passed in {wall:.1f}s", flush=True)

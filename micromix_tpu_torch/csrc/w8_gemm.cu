@@ -13,8 +13,8 @@
 // w8_tile.cuh over its share of K (register-staged loads, in-kernel exact
 // bf16 decode, mma.sync m16n8k16, f32 accumulation).  Above 64 rows (the
 // prefill chunks of the single ScaledW8 weights, o and down, from 65 to
-// 1023 rows), a block of 8 warps owns a 128 x 128 tile (w8_tile128.cuh:
-// 3-stage cp.async ring for the A tile and the raw codes, each code
+// 1023 rows), a block of 8 warps owns a 128 x 256 tile (w8_tile128.cuh:
+// 4-stage cp.async ring for the A tile and the raw codes, each code
 // decoded once per 128 rows of A instead of once per 64, ldmatrix).  When
 // the tiles are too few to fill 132 SMs, K is split over gridDim.z (the
 // wrapper's w8_gemm_split): each split writes f32 partials and a second

@@ -24,7 +24,7 @@ residual, then the stack's site and GEMM.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -39,28 +39,36 @@ from .fakequant import fakequant_site, fakequant_site_plain
 # From this M on, the weight is dequantized to bf16 and the product left to
 # torch.matmul, as the JAX package leaves it to XLA.
 W8_PREFILL_DEQUANT_THRESHOLD = 1024
+# Rows up to which a ScaledW8 stack runs the stacked GEMM (Kernel F), and
+# rows per group up to which the experts run the grouped GEMM (Kernel I);
+# above, their callers dequantize and multiply in one dense product.  The
+# JAX package stops both at PALLAS_FAKEQUANT_MAX_M (128), where its TPU
+# kernels stop; on the H100 the wide tile beats the dequantize route at
+# every measured row count up to 512 and the q|k|v stack loses at 1023
+# (the route table of chip_smoke.py; PERF.md).  On the CPU both routes
+# are the same plain f32 product rounded once.
+W8_STACK_MAX_M = 512
+GROUPED_MAX_C = 512
 
 _SMS = 132          # H100 SXM streaming multiprocessors
 _BN, _BK = 64, 128  # csrc/w8_tile.cuh tile sizes
-_BM_WIDE, _BN_WIDE = 128, 256   # csrc/w8_tile128.cuh: B's tiles above 64 rows
+_BM_WIDE, _BN_WIDE = 128, 256   # csrc/w8_tile128.cuh: B's, F's and I's tiles above 64 rows
 _W8_BLOCK_FIXED_STEPS = 3.4      # a wide block's fixed cost, in 128-deep steps
 _W8_PARTIAL_BYTES_PER_STEP = 2.0e7   # partials written and read in one step's time
 _SIG = {"w8_gemm": [build.PTR, build.PTR, build.PTR, build.PTR, build.INT,
                     build.INT, build.INT, build.FLOAT, build.INT, build.PTR]}
 _SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
-                           build.INTS, build.FLOATS, build.PTRS, build.INT,
-                           build.INT, build.INT, build.INT, build.PTR]}
+                           build.INTS, build.INTS, build.FLOATS, build.PTRS,
+                           build.INT, build.INT, build.INT, build.INT,
+                           build.PTR]}
 _SIG_PAIR = {"w8_residual": [build.PTR] * 6 + [build.INT] * 3
              + [build.FLOAT, build.INT, build.PTR]}
 _SIG_GROUPED = {"w8_grouped": [build.PTR, build.PTR, build.PTR, build.INTS,
-                               build.INTS, build.FLOATS, build.PTRS,
-                               build.INT, build.INT, build.INT, build.INT,
-                               build.INT, build.PTR]}
+                               build.INTS, build.INTS, build.FLOATS,
+                               build.PTRS, build.INT, build.INT, build.INT,
+                               build.INT, build.INT, build.PTR]}
 _MAX_SECTIONS = 4   # csrc/w8_stack.cu, csrc/w8_grouped.cu
 _MAX_GROUPS = 64    # csrc/w8_grouped.cu
-# Rows per group up to which the grouped GEMM runs (the JAX package's
-# PALLAS_FAKEQUANT_MAX_M); above, its callers dequantize and multiply.
-GROUPED_MAX_C = 128
 
 
 def w8_scale(w: ScaledW8) -> float:
@@ -73,6 +81,17 @@ def _check_gemm_operands(name: str, a: torch.Tensor, codes: torch.Tensor):
         raise ValueError(f"{name} takes bf16 activations, u8 codes")
     if a.shape[1] % _BK:
         raise ValueError(f"{name} needs K % {_BK} == 0, got {a.shape[1]}")
+
+
+def wide_tiles(sections) -> Tuple[int, ...]:
+    """The wide tiles (``_BN_WIDE`` weight rows) of a stack or grouped
+    weight, numbered per section so that no tile straddles two: section i
+    owns tiles ``[t[i], t[i + 1])``, ceil(rows_i / ``_BN_WIDE``) of them,
+    and ``t[-1]`` is the grid's width.  Kernels F and I above 64 rows."""
+    t = [0]
+    for n in sections:
+        t.append(t[-1] + -(-n // _BN_WIDE))
+    return tuple(t)
 
 
 def _partials(splits: int, m: int, n: int, device) -> Optional[torch.Tensor]:
@@ -223,13 +242,17 @@ def w8_stack_gemm(qx: torch.Tensor, st: ScaledW8Stack) -> List[torch.Tensor]:
     if m == 0:
         return outs
     total = sum(st.padded)
-    splits = split_k(m, total, k)
+    # B's split of the stack taken as one (M, total) weight: F owes B's
+    # bits nothing, and its wide tiles number about as many
+    splits = w8_gemm_split(m, total, k)
     partial = _partials(splits, m, total, qx.device)
+    tiles = wide_tiles(st.sections)
     lib = build.library("w8_stack", _SIG_STACK)
     build.launches["w8_stack"] += 1
     rc = lib.w8_stack(
         build.ptr(qx), build.ptr(st.codes), build.ptr(partial),
         (ctypes.c_int * n_sec)(*st.sections), (ctypes.c_int * n_sec)(*st.padded),
+        (ctypes.c_int * (n_sec + 1))(*tiles),
         (ctypes.c_float * n_sec)(*[2.0 ** (b + 126) for b in st.bases]),
         (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
         n_sec, m, k, splits, build.stream())
@@ -386,9 +409,6 @@ def w8_grouped_gemm(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
         return w8_grouped_gemm_plain(qx, gw)
     _check_gemm_operands("w8_grouped", qx.reshape(-1, k), gw.codes)
     n_sec = gw.n_sections
-    if c > GROUPED_MAX_C:
-        raise ValueError(f"w8_grouped takes at most {GROUPED_MAX_C} rows per "
-                         f"group, got {c}")
     if (n_sec > _MAX_SECTIONS or e > _MAX_GROUPS
             or any(p % _BN for p in gw.padded) or any(n % 8 for n in gw.sections)):
         raise ValueError(f"w8_grouped takes at most {_MAX_GROUPS} groups and "
@@ -405,11 +425,13 @@ def w8_grouped_gemm(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
     partial = (torch.empty((splits, e, c, total), dtype=torch.float32,
                            device=qx.device) if splits > 1 else None)
     scales = [2.0 ** (b + 126) for row in gw.bases for b in row]
+    tiles = wide_tiles(gw.sections)
     lib = build.library("w8_grouped", _SIG_GROUPED)
     build.launches["w8_grouped"] += 1
     rc = lib.w8_grouped(
         build.ptr(qx), build.ptr(gw.codes), build.ptr(partial),
         (ctypes.c_int * n_sec)(*gw.sections), (ctypes.c_int * n_sec)(*gw.padded),
+        (ctypes.c_int * (n_sec + 1))(*tiles),
         (ctypes.c_float * len(scales))(*scales),
         (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
         n_sec, e, c, k, splits, build.stream())

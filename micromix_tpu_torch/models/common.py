@@ -22,7 +22,8 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from ..kernels.fakequant import fakequant_site
-from ..kernels.mixed_matmul import (mixed_matmul, mixed_matmul_sp_stack,
+from ..kernels.mixed_matmul import (W8_STACK_MAX_M, mixed_matmul,
+                                    mixed_matmul_sp_stack,
                                     mixed_matmul_w8_site,
                                     mixed_matmul_w8_stack)
 from ..mx.mxtensor import (MixedTensor, SplitPlaneStack,
@@ -198,9 +199,11 @@ def lm_logits(h: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
                       for w in lm_head.split(_LM_HEAD_CHUNK)], dim=-1)
 
 
-# Rows up to which a stacked site runs the stacked GEMM kernel (the JAX
+# Rows up to which a split-plane stack runs the stacked GEMM kernel, and
+# batch rows up to which decode pairs its ScaledW8 stacks (the JAX
 # package's PALLAS_FAKEQUANT_MAX_M); above, the stack is dequantized and
 # multiplied in one dense product, as the JAX package leaves it to XLA.
+# A ScaledW8 stack has its own limit, ``W8_STACK_MAX_M``.
 STACK_KERNEL_MAX_M = 128
 
 
@@ -260,32 +263,42 @@ def project_all(x: torch.Tensor, site: QuantSite,
 
 def _project_stack(x, site: QuantSite, stack, norm_gamma, rms_eps: float,
                    lead) -> List[torch.Tensor]:
-    """project_all's stacked leg: the stacked GEMM (ScaledW8 or
-    split-plane) at up to ``STACK_KERNEL_MAX_M`` rows; above, the site,
-    one dequantized stack and one dense product.  Biases are added per
-    section afterwards."""
+    """project_all's stacked leg: the stacked GEMM at up to
+    ``W8_STACK_MAX_M`` (ScaledW8) or ``STACK_KERNEL_MAX_M`` (split-plane)
+    rows; above, the site, one dequantized stack and one dense product.
+    Biases are added per section afterwards."""
     if stack.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs stack {stack.segments()}")
     split_plane = isinstance(stack, SplitPlaneStack)
     x2d = x.reshape(-1, x.shape[-1])
     kw = _site_kw(site, norm_gamma, rms_eps)
-    if x2d.shape[0] <= STACK_KERNEL_MAX_M:
+    if x2d.shape[0] <= (STACK_KERNEL_MAX_M if split_plane else W8_STACK_MAX_M):
         fn = mixed_matmul_sp_stack if split_plane else mixed_matmul_w8_stack
         outs = fn(x2d, stack, **kw)
     else:
-        qx = fakequant_site(x2d, *stack.segments(), **kw)
-
-        def dense(dtype):
-            return (dequantize_mixed_device(stack.mt, dtype) if split_plane
-                    else dequantize_stack(stack, dtype))
-        if qx.is_cuda:
-            y = torch.matmul(qx, dense(torch.bfloat16).t())
-        else:       # f32 product, rounded once (the plain versions' form)
-            y = torch.matmul(qx.to(torch.float32),
-                             dense(torch.float32).t()).to(torch.bfloat16)
-        outs, off = [], 0
-        for n, p in zip(stack.sections, stack.padded):
-            outs.append(y[:, off:off + n])
-            off += p
+        outs = stack_dense_apply(fakequant_site(x2d, *stack.segments(), **kw),
+                                 stack)
     outs = [add_bias(o, b) for o, b in zip(outs, stack.biases)]
     return [o.reshape(*lead, o.shape[-1]) for o in outs]
+
+
+def stack_dense_apply(qx: torch.Tensor, stack) -> List[torch.Tensor]:
+    """The stacked leg above its kernel's row limit, on the site image qx
+    (M, K): the whole stack dequantized and one dense product (bf16 with
+    f32 sums on the GPU; on the CPU the f32 product rounded once, the
+    plain versions' form), split into its sections."""
+    split_plane = isinstance(stack, SplitPlaneStack)
+
+    def dense(dtype):
+        return (dequantize_mixed_device(stack.mt, dtype) if split_plane
+                else dequantize_stack(stack, dtype))
+    if qx.is_cuda:
+        y = torch.matmul(qx, dense(torch.bfloat16).t())
+    else:
+        y = torch.matmul(qx.to(torch.float32),
+                         dense(torch.float32).t()).to(torch.bfloat16)
+    outs, off = [], 0
+    for n, p in zip(stack.sections, stack.padded):
+        outs.append(y[:, off:off + n])
+        off += p
+    return outs

@@ -56,6 +56,24 @@ class Request:
     done: bool = False
 
 
+def check_card_serves(device: torch.device, cfg: ModelConfig,
+                      kv_bits: int) -> None:
+    """Refuse, before any cache is made, what the card's attention kernels
+    cannot serve yet: KV pages of other than 4 bits, and a sliding window
+    (ROADMAP 2b).  The CPU serves both through the plain versions."""
+    if device.type != "cuda":
+        return
+    if kv_bits != 4:
+        raise NotImplementedError(
+            f"the card serves int4 KV pages only, not kv_bits={kv_bits} "
+            "(ROADMAP 2b); pass device='cpu' for the plain versions")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"the card's decode attention has no sliding window "
+            f"(sliding_window={cfg.sliding_window}; ROADMAP 2b); pass "
+            "device='cpu' for the plain versions")
+
+
 @dataclasses.dataclass
 class _Slot:
     req: Optional[Request] = None
@@ -77,6 +95,7 @@ class Engine:
                  decode_chunk: int = 8, prefill_chunk: Optional[int] = None,
                  seed: int = 0, piggyback: bool = True, device=None):
         self.device = resolve_device(device)
+        check_card_serves(self.device, cfg, kv_bits)
         if not os.environ.get("MICROMIX_NO_STACK"):
             # one stacked GEMM per site at decode, one wide product at
             # prefill, the experts grouped; MICROMIX_NO_STACK=1 keeps the

@@ -2,8 +2,10 @@
 """Where the prefill of one long prompt spends its time, on one GPU.
 
 Builds the model of ``chip_smoke.py`` phase 4 (Llama-3.1-8B, ScaledW8;
-``--layout splitplane``: phase 6's), 32 layers, random weights from seed
-0, stacked as the default engine stacks them, and prefills one
+``--layout splitplane``: phase 6's; ``--model mixtral``: phase 5's
+Mixtral-8x7B, dense dispatch, experts grouped layer by layer as they are
+made), 32 layers, random weights from seed 0, stacked as the default
+engine stacks them, and prefills one
 ``--prompt``-token prompt (2048: the serving line's time-to-first-token
 prompt) in chunks of ``--chunk`` (512: the engine's ``prefill_chunk``):
 the first chunk attends with Kernel E, each later one with Kernel H over
@@ -12,12 +14,14 @@ of ``--reps`` prefills (each ending in a synchronise; the median is
 reported) and profiles one with ``torch.profiler``: device busy (the sum
 of kernel times on the one stream), the device's idle share, kernel
 launches, and the kernels that take the most device time.  Prints one
-JSON object and writes it to ``chiprun_out/profile_prefill[_splitplane].json``.
+JSON object and writes it to
+``chiprun_out/profile_prefill[_splitplane|_mixtral].json``.
 
 Run from the repository root on the GPU machine:
 
-    python3 scripts/torch_profile_prefill.py [--layout auto|splitplane] \
-        [--prompt 2048] [--chunk 512] [--layers 32] [--reps 5]
+    python3 scripts/torch_profile_prefill.py [--model llama|mixtral] \
+        [--layout auto|splitplane] [--prompt 2048] [--chunk 512] \
+        [--layers 32] [--reps 5]
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import SEED, llama31_8b  # noqa: E402
+from chip_smoke import SEED, llama31_8b, mixtral_8x7b  # noqa: E402
 from micromix_tpu_torch.models.surgery import (  # noqa: E402
     default_calibration, random_quantized_model, stack_layer_projections)
 from micromix_tpu_torch.serve.kv_cache import make_cache  # noqa: E402
@@ -60,6 +64,7 @@ def prefill_prompt(params, cfg, tokens, chunk: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="llama", choices=["llama", "mixtral"])
     ap.add_argument("--layout", default="auto", choices=["auto", "splitplane"])
     ap.add_argument("--prompt", type=int, default=2048)
     ap.add_argument("--chunk", type=int, default=512)
@@ -69,7 +74,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    cfg = llama31_8b(args.layers)
+    cfg = (mixtral_8x7b if args.model == "mixtral" else llama31_8b)(args.layers)
     params = stack_layer_projections(random_quantized_model(
         cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
         device="cuda", layout=args.layout))
@@ -95,7 +100,8 @@ def main() -> int:
             per_kernel[e.name] += e.device_time_total
             launches[e.name] += 1
     busy_ms = sum(per_kernel.values()) / 1e3
-    out = dict(device=torch.cuda.get_device_name(0), layout=args.layout,
+    out = dict(device=torch.cuda.get_device_name(0), model=args.model,
+               layout=args.layout,
                layers=cfg.num_layers, prompt=args.prompt, chunk=args.chunk,
                host_wall_ms=1e3 * statistics.median(walls),
                host_wall_ms_all=[1e3 * w for w in walls],
@@ -106,7 +112,8 @@ def main() -> int:
                top_kernels=[dict(kernel=name[:80], ms=us / 1e3, launches=launches[name])
                             for name, us in per_kernel.most_common(14)])
     os.makedirs("chiprun_out", exist_ok=True)
-    suffix = "_splitplane" if args.layout == "splitplane" else ""
+    suffix = ("_splitplane" if args.layout == "splitplane" else "") + (
+        "_mixtral" if args.model == "mixtral" else "")
     with open(os.path.join("chiprun_out", f"profile_prefill{suffix}.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

@@ -21,6 +21,10 @@ kernel's own site image (``w8_stack_gemm``), so a tie the site kernel
 moved does not count against the GEMM.
 """
 
+import ctypes
+import dataclasses
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,9 +39,9 @@ from micromix_tpu_torch.kernels.mixed_matmul import (
     mixed_matmul_sp, mixed_matmul_sp_plain, mixed_matmul_sp_stack,
     sp_stack_gemm, sp_stack_gemm_plain, mixed_matmul_w8, mixed_matmul_w8_grouped, mixed_matmul_w8_pair,
     mixed_matmul_w8_pair_plain, mixed_matmul_w8_plain, mixed_matmul_w8_site,
-    mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_grouped_gemm,
-    w8_grouped_gemm_plain, w8_residual, w8_residual_plain, w8_stack_gemm,
-    w8_stack_gemm_plain)
+    mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_gemm_split,
+    w8_grouped_gemm, w8_grouped_gemm_plain, w8_residual,
+    w8_residual_plain, w8_stack_gemm, w8_stack_gemm_plain, wide_tiles)
 from micromix_tpu_torch.kernels.quantize import (quantize_mixed as mx_quantize,
                                                  quantize_mixed_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
@@ -58,6 +62,8 @@ from micromix_tpu_torch.serve.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_plain)
 
 pytestmark = pytest.mark.cuda
+# the module (the package exports a function of the same name)
+mm = importlib.import_module("micromix_tpu_torch.kernels.mixed_matmul")
 SPLITS = (256, 128, 128)
 K = sum(SPLITS)
 
@@ -126,7 +132,7 @@ def test_w8_gemm_kernel(dev, m, n, k):
 @pytest.mark.parametrize("m", [65, 128, 129, 300, 512, 1023])
 @pytest.mark.parametrize("n,k", [(136, 512), (264, 1024)])
 def test_w8_gemm_wide_tile(dev, m, n, k):
-    """Kernel B above 64 rows, its 128 x 128 cp.async tile: ragged M and N
+    """Kernel B above 64 rows, its 128 x 256 cp.async tile: ragged M and N
     tiles, K split or not (w8_gemm_split), one launch a call, and equal
     bits from two calls (fixed-order partial sums)."""
     splits = (k - 256, 128, 128)
@@ -228,9 +234,17 @@ def _w8(dev, n, k, splits=SPLITS):
                                          *splits, weight_fp4_only=True))
 
 
-@pytest.mark.parametrize("m", [1, 8, 100])
-@pytest.mark.parametrize("ns", [(256, 64, 64), (384, 120)])
+# (12104, 8136): enough wide tiles for one split of K, and section 0's
+# last tile runs past its padded rows into section 1
+STACK_SECTIONS = [(256, 64, 64), (384, 120), (12104, 8136)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 65, 100, 128])
+@pytest.mark.parametrize("ns", STACK_SECTIONS)
 def test_w8_stack_kernel(dev, m, ns):
+    """Kernel F: the narrow tile up to 64 rows, the wide tile above (tiles
+    numbered per section; (256, 64, 64) and (384, 120) put a 256-wide
+    tile over two sections' padded rows), K split or not."""
     st = stack_scaled_w8([_w8(dev, n, K) for n in ns])
     a = torch.randn(m, K, device=dev).to(torch.bfloat16)
     before = build.launches["w8_stack"]
@@ -250,6 +264,53 @@ def test_w8_stack_kernel(dev, m, ns):
         _close(g, r)
     for g, r in zip(mixed_matmul_w8_stack(x, st, perm=perm),
                     mixed_matmul_w8_stack_plain(x, st, perm=perm)):
+        _close(g, r)
+
+
+def _guarded_w8_stack(qx, st, guard=1024):
+    """Kernel F through its C entry with every section's output a view
+    into one NaN-filled buffer, ``guard`` elements apart: a write past a
+    section's true rows lands in a guard or a neighbour.  Returns the
+    outputs and the guards."""
+    m, k = qx.shape
+    sizes = [m * n for n in st.sections]
+    buf = torch.full((sum(sizes) + guard * len(sizes),), float("nan"),
+                     dtype=torch.bfloat16, device=qx.device)
+    outs, guards, off = [], [], 0
+    for n, size in zip(st.sections, sizes):
+        outs.append(buf[off:off + size].view(m, n))
+        guards.append(buf[off + size:off + size + guard])
+        off += size + guard
+    n_sec, total = st.n_sections, sum(st.padded)
+    splits = w8_gemm_split(m, total, k)
+    partial = (torch.full((splits, m, total), float("nan"), device=qx.device)
+               if splits > 1 else None)
+    lib = build.library("w8_stack", mm._SIG_STACK)
+    rc = lib.w8_stack(
+        build.ptr(qx), build.ptr(st.codes), build.ptr(partial),
+        (ctypes.c_int * n_sec)(*st.sections), (ctypes.c_int * n_sec)(*st.padded),
+        (ctypes.c_int * (n_sec + 1))(*wide_tiles(st.sections)),
+        (ctypes.c_float * n_sec)(*[2.0 ** (b + 126) for b in st.bases]),
+        (ctypes.c_void_p * n_sec)(*[o.data_ptr() for o in outs]),
+        n_sec, m, k, splits, build.stream())
+    build.check(rc, "w8_stack")
+    torch.cuda.synchronize()
+    return outs, guards
+
+
+@pytest.mark.parametrize("m", [8, 65, 128])
+@pytest.mark.parametrize("ns", STACK_SECTIONS)
+def test_w8_stack_padded_rows_unwritten(dev, m, ns):
+    """No tile writes a section's padded rows: every guard after a
+    section's output keeps its NaN, and every output element is written
+    (no NaN left) and right."""
+    st = stack_scaled_w8([_w8(dev, n, K) for n in ns])
+    a = torch.randn(m, K, device=dev).to(torch.bfloat16)
+    outs, guards = _guarded_w8_stack(a, st)
+    for g in guards:
+        assert bool(torch.isnan(g).all())
+    for g, r in zip(outs, w8_stack_gemm_plain(a, st)):
+        assert not bool(torch.isnan(g).any())
         _close(g, r)
 
 
@@ -367,14 +428,15 @@ def test_flash_off_rne(dev):
     assert off <= 1e-3, off
 
 
-@pytest.mark.parametrize("c", [1, 8, 100, 128])
+@pytest.mark.parametrize("c", [1, 8, 65, 100, 128, 129])
 @pytest.mark.parametrize("producer", ["plain", "silu"])
 def test_w8_grouped_kernel(dev, c, producer):
     """Kernel I: 3 experts; plain: sections of 200 and 120 rows (both
     padded to 256 and 128) behind each expert's own permutation; silu: one
-    section of 256.  Against the plain version on the kernel's own image,
-    and against the per-expert loop of the site kernel and Kernel B, bit
-    for bit."""
+    section of 256.  Up to 64 rows per expert the narrow tile, above the
+    wide one.  Against the plain version on the kernel's own image, and
+    against the per-expert loop of the site kernel and Kernel B, bit for
+    bit."""
     e = 3
     ns = (200, 120) if producer == "plain" else (256,)
     secs = [[_w8(dev, n, K) for _ in range(e)] for n in ns]
@@ -405,13 +467,69 @@ def test_w8_grouped_kernel(dev, c, producer):
 
 def test_w8_grouped_refuses(dev):
     gw = group_scaled_w8([[_w8(dev, 128, K) for _ in range(2)]])
-    with pytest.raises(ValueError):               # over 128 rows per group
-        w8_grouped_gemm(torch.zeros(2, 129, K, dtype=torch.bfloat16, device=dev), gw)
+    odd = dataclasses.replace(gw, padded=(96,))    # a section not padded to 64
+    with pytest.raises(ValueError):
+        w8_grouped_gemm(torch.zeros(2, 8, K, dtype=torch.bfloat16, device=dev), odd)
     with pytest.raises(ValueError):               # not bf16
         w8_grouped_gemm(torch.zeros(2, 8, K, device=dev), gw)
     with pytest.raises(ValueError):               # not contiguous
         mixed_matmul_w8_grouped(
             torch.zeros(8, 2, K, dtype=torch.bfloat16, device=dev).transpose(0, 1), gw)
+
+
+@pytest.mark.parametrize("above", [0, 1])
+def test_w8_stack_route_limit(dev, above):
+    """project_all's ScaledW8 stacked leg runs Kernel F at
+    ``W8_STACK_MAX_M`` rows and the dequantized stack one row above; both
+    match the plain GEMM on the site kernel's own image."""
+    from micromix_tpu_torch.models.common import QuantSite, project_all
+    m = mm.W8_STACK_MAX_M + above
+    st = stack_scaled_w8([_w8(dev, n, K) for n in (256, 120, 128)])
+    perm = torch.from_numpy(compose_segmented(
+        np.random.default_rng(3).permutation(K), *SPLITS)).to(dev)
+    gamma = (torch.rand(K, device=dev) + 0.5).to(torch.bfloat16)
+    x = (torch.randn(m, K, device=dev) * 4).to(torch.bfloat16)
+    before = build.launches["w8_stack"]
+    got = project_all(x, QuantSite(*SPLITS, perm=perm), None, gamma, 1e-5, stack=st)
+    assert build.launches["w8_stack"] == before + (1 - above)
+    img = fakequant_site(x, *SPLITS, producer="rms", gamma=gamma, perm=perm, eps=1e-5)
+    for g, r in zip(got, w8_stack_gemm_plain(img, st)):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("above", [0, 1])
+def test_w8_grouped_route_limit(dev, above):
+    """The grouped MoE path (dense dispatch) runs Kernel I twice at
+    ``GROUPED_MAX_C`` rows per expert and the dequantized batched product
+    one row above: 3 experts, K = 512, against the same path on the CPU's
+    plain versions (silu-site ties moved by the sigmoid's last bit: the
+    JAX package's band for a flipped tie, rtol 0.05, atol 1.0, median
+    |diff| <= 0.25)."""
+    import types
+    from micromix_tpu_torch.models.transformer import _moe_grouped
+    e, t = 3, mm.GROUPED_MAX_C + above
+    gr = dict(w13=group_scaled_w8([[_w8(dev, K, K) for _ in range(e)] for _ in range(2)]),
+              w2=group_scaled_w8([[_w8(dev, K, K) for _ in range(e)]]),
+              perm=torch.stack([torch.from_numpy(compose_segmented(
+                  np.random.default_rng(i).permutation(K), *SPLITS))
+                  for i in range(e)]).to(dev))
+    xn = (torch.randn(t, K, device=dev) * 8).to(torch.bfloat16)
+    w = torch.rand(t, e, device=dev)
+    w = torch.where(w >= w.min(dim=1, keepdim=True).values * 1.0001, w, torch.zeros_like(w))
+    w = w / w.sum(dim=1, keepdim=True)
+    cfg = types.SimpleNamespace(moe_capacity_factor=None)
+    before = build.launches["w8_grouped"]
+    got = _moe_grouped(xn, w, gr, cfg)
+    assert build.launches["w8_grouped"] == before + 2 * (1 - above)
+    cpu = lambda v: dataclasses.replace(v, **{f.name: getattr(v, f.name).cpu()
+                                             for f in dataclasses.fields(v)
+                                             if isinstance(getattr(v, f.name), torch.Tensor)})
+    ref = _moe_grouped(xn.cpu(), w.cpu(), dict(w13=cpu(gr["w13"]), w2=cpu(gr["w2"]),
+                                              perm=gr["perm"].cpu()), cfg)
+    g, r = got.cpu().numpy(), ref.numpy()
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(g, r, rtol=0.05, atol=1.0)
+    assert np.median(np.abs(g - r)) <= 0.25
 
 
 def test_wrappers_refuse_mixed_devices(dev):

@@ -252,8 +252,9 @@ def mixtral_layers():
 @pytest.mark.parametrize("cap", [None, 2.0])
 def test_moe_block_matches_jax(mixtral_layers, cap, t):
     """moe_block, per-expert and grouped, against the JAX moe_block on the
-    converted parameters; 12 tokens run the grouped GEMM, 136 the
-    dequantize-then-product branch (over 128 rows per expert)."""
+    converted parameters; 12 tokens run the JAX package's grouped kernel,
+    136 its dequantize-then-product branch (over 128 rows per expert; the
+    port's limits: tests/test_torch_routes.py)."""
     jcfg, tcfg, jq, jg, tq, tg = mixtral_layers[cap]
     assert "experts_grouped" in tg["layers"][0] and "experts" not in tg["layers"][0]
     jx, tx = _bf16_pair(np.random.default_rng(t).normal(0, 1, (1, t, 256)).astype(np.float32))

@@ -276,11 +276,12 @@ def test_paired_decode_step_matches_jax_stacked_decode(monkeypatch, pair):
         np.testing.assert_array_equal(g.argmax(-1), toks)
 
 
-@pytest.mark.parametrize("m", [5, 130])
+@pytest.mark.parametrize("m", [5, 130, 513])
 def test_project_all_stack_equals_per_consumer(rng, m):
-    """project_all's stacked leg (the stacked GEMM up to 128 rows, one
-    dequantized stack and product above) gives the per-consumer leg's
-    bits, biases included, on the CPU's plain versions."""
+    """project_all's stacked leg (the stacked GEMM's plain version up to
+    ``W8_STACK_MAX_M`` rows, one dequantized stack and product above)
+    gives the per-consumer leg's bits, biases included, on the CPU's plain
+    versions."""
     from micromix_tpu_torch.models.common import (QuantLinear, QuantSite,
                                                   project_all)
     from micromix_tpu_torch.mx.mxtensor import quantize_mixed
