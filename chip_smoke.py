@@ -19,10 +19,15 @@ and runs these phases; any failure exits non-zero before the result line.
      function, that call's time; for the stacked and grouped GEMMs (F, I)
      also the GEMM alone on the site image, and from 256 rows the
      dequantize route the model runs above their row limits, with the
-     route table and the limits its timings select;
+     route table and the limits its timings select; Kernel G alone
+     beside the pair; the site kernel also at prefill rows (rms 512 and
+     4096, Mixtral-8x7B's 4096-row expert sites); decode attention also
+     at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
+     window, and with the ``lengths`` override and the (m, den) state;
   3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
-     (ScaledW8), Mixtral-8x7B (experts grouped) and Llama-3.1-8B in the
-     split-plane layout: a 300-token prompt prefilled in chunks of 128
+     (ScaledW8, and again with a 256-token sliding window), Mixtral-8x7B
+     (experts grouped) and Llama-3.1-8B in the split-plane layout: a
+     300-token prompt prefilled in chunks of 128
      (flash, then paged history) and 8 (Mixtral: 4) greedy decode steps
      (ScaledW8 Llama: through the residual pairs), each chunk and step
      with the kernels on the card and with the plain versions on the CPU
@@ -47,8 +52,9 @@ and runs these phases; any failure exits non-zero before the result line.
 In phases 4 to 6 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
-ScaledW8 kernel).  Kernel launches per decode step and layer are counted
-for every form.  It prints the per-kernel JSON line, and last
+ScaledW8 kernel).  Kernel launches per decode step and layer, host ms
+and device busy ms per step (``torch.profiler``) are taken for every
+form.  It prints the per-kernel JSON line, and last
 ``{"ok": true, "device": ...}``.  Per-shape results also go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device it exits with
 status 2 and prints no result.
@@ -149,7 +155,8 @@ def record(results, kernel, shape, err, tol, ok, t, nbytes, flops,
              library_ms=library_ms, **extra)
     results.append(r)
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
-    more = "".join(f" {key}={val:.4f}" for key, val in extra.items())
+    more = "".join(f" {key}={val:.4f}" if isinstance(val, float) else
+                   f" {key}={val}" for key, val in extra.items())
     print(f"  {kernel:16s} {shape:34s} max_abs_err={err:.3e} ({tol}) "
           f"ms={t:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
           f"library_ms={lib}{more}", flush=True)
@@ -221,6 +228,37 @@ def check_site(results, timer, rng):
                    tol, ok, timer.ms(lambda: fakequant_site(x, *splits, **kw)),
                    nbytes, 0.0,
                    timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)))
+    # prefill rows: the q|k|v site of 512- and 4096-token chunks, and the
+    # Mixtral-8x7B expert sites of a 512-token dense-dispatch chunk (E x C
+    # = 4096 rows): w1|w3's plain site, one permutation per 512 rows, and
+    # w2's silu site
+    for producer, m, k, splits, groups in (
+            ("rms", 512, 4096, SPLIT_4096, 1), ("rms", 4096, 4096, SPLIT_4096, 1),
+            ("silu", 4096, 14336, SPLIT_14336, 0),
+            ("plain", 4096, 4096, SPLIT_4096, 8)):
+        x = _site_input(m, k)
+        kw = {}
+        if producer == "rms":
+            kw = dict(producer="rms", eps=1e-5, perm=_perm(rng, k, splits),
+                      gamma=1.0 + 0.1 * torch.randn(k, device=dev))
+        elif producer == "silu":
+            kw = dict(producer="silu", up=torch.randn(m, k, device=dev).to(torch.bfloat16))
+        else:
+            kw = dict(perm=torch.stack([_perm(rng, k, splits) for _ in range(groups)]))
+        got = fakequant_site(x, *splits, **kw)
+        ref = fakequant_site_plain(x, *splits, **kw)
+        if producer == "plain":
+            err = float((got.float() - ref.float()).abs().max())
+            ok, tol = err == 0.0, "bit-exact"
+        else:
+            (err, ok), tol = tie_band(got, ref, splits), "tie band"
+        aux = {"rms": k * 8, "silu": m * k * 2, "plain": groups * k * 4}[producer]
+        label = f"{producer} M={m} K={k}" + (f" perm_rows={m // groups}"
+                                             if groups > 1 else "")
+        record(results, "site_fakequant", label, err, tol, ok,
+               timer.ms(lambda: fakequant_site(x, *splits, **kw)),
+               2 * m * k * 2 + aux, 0.0,
+               timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)))
 
 
 def check_gemm(results, timer):
@@ -261,38 +299,85 @@ def check_gemm(results, timer):
         del w, wd
 
 
-def check_decode(results, timer, rng):
-    from micromix_tpu_torch.models.common import rope_inv_freq
-    from micromix_tpu_torch.serve.attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+def _decode_cache(rng, b, mp, bits=4, ps=128, hkv=8, d=128):
+    """b rows of mp random pages each (codes, scales in [0.01, 0.1],
+    integer zero points as kv_quantize makes them, a shuffled table)."""
     from micromix_tpu_torch.serve.kv_cache import make_cache
-    dev = DEV
-    b, h, hkv, d, ps = 8, 32, 8, 128, 128
-    lengths = np.linspace(100, 600, b).astype(np.int32)
-    mp = -(-int(lengths.max()) // ps)
-    cache = make_cache(b * mp + 1, ps, hkv, d, b, mp, device=dev)
-    cache.k_codes.copy_(torch.randint(0, 256, cache.k_codes.shape, device=dev))
-    cache.v_codes.copy_(torch.randint(0, 256, cache.v_codes.shape, device=dev))
+    cache = make_cache(b * mp + 1, ps, hkv, d, b, mp, bits=bits, device=DEV)
+    cache.k_codes.random_(0, 256)
+    cache.v_codes.random_(0, 256)
     for sz in (cache.k_sz, cache.v_sz):
-        sz[:, :, 0] = torch.empty_like(sz[:, :, 0]).uniform_(0.01, 0.1)
-        sz[:, :, 1] = torch.randint(0, 16, sz[:, :, 1].shape, device=dev).to(sz.dtype)
+        sz[:, :, 0].uniform_(0.01, 0.1)
+        sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape, device=DEV))
     cache.page_table.copy_(torch.from_numpy(
         1 + rng.permutation(b * mp).reshape(b, mp).astype(np.int32)))
-    cache.lengths.copy_(torch.from_numpy(lengths))
-    q = torch.randn(b, h, d, device=dev).to(torch.bfloat16)
-    seq = torch.arange(b, device=dev, dtype=torch.int32)
-    pos = torch.from_numpy(lengths - 1).to(dev)
-    inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=dev)
-    run = lambda: paged_decode_attention(q, cache, seq, rope_positions=pos,
-                                         rope_inv_freq=inv)
-    plain = lambda: paged_decode_attention_plain(q, cache, seq, None, pos, inv)
-    err, ok = close(run(), plain())
-    tokens = int(lengths.sum())
-    nbytes = 2 * b * h * d * 2 + 2 * tokens * hkv * (d // 2 + 4) + b * mp * 4
-    record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} "
-           f"len {lengths.min()}..{lengths.max()}", err,
-           "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run), nbytes,
-           4.0 * tokens * h * d, timer.ms(plain))
+    return cache
+
+
+def check_decode(results, timer, rng):
+    """Kernel C at the main path's decode (B=8, 100-600 tokens), at long
+    contexts (B=8 at 2048 and 4096 tokens, B=1 at 8192: 64 pages), over
+    int8 pages, with a 1024-token window at 4096, and with the ``lengths``
+    override (8 rows of one 4096-token sequence at successive positions,
+    as speculative verify runs them) and the (m, den) state: m within
+    2^-16 max(1, |m|), den within 2^-12 relative (f32 sums in another
+    order).  The bound counts every K/V code and [scale, zero] pair of
+    each row's attended range once, q and the output."""
+    from micromix_tpu_torch.models.common import rope_inv_freq
+    from micromix_tpu_torch.serve.attention import (
+        decode_split, paged_decode_attention, paged_decode_attention_plain)
+    h, hkv, d, ps = 32, 8, 128, 128
+    inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
+    cases = (("len 100..600", 8, np.linspace(100, 600, 8), 4, None, False),
+             ("len 2048", 8, np.full(8, 2048), 4, None, False),
+             ("len 4096", 8, np.full(8, 4096), 4, None, False),
+             ("len 8192", 1, np.full(1, 8192), 4, None, False),
+             ("len 100..600 int8", 8, np.linspace(100, 600, 8), 8, None, False),
+             ("len 4096 window 1024", 8, np.full(8, 4096), 4, 1024, False),
+             ("lengths 4089..4096 state", 8, np.arange(4089, 4097), 4, None, True))
+    for label, b, lengths, bits, window, override in cases:
+        lengths = lengths.astype(np.int32)
+        mp = -(-int(lengths.max()) // ps)
+        cache = _decode_cache(rng, 1 if override else b, mp, bits)
+        if override:      # one sequence, rows at successive positions
+            cache.lengths.fill_(int(lengths.max()))
+            seq = torch.zeros(b, dtype=torch.int32, device=DEV)
+        else:
+            cache.lengths.copy_(torch.from_numpy(lengths))
+            seq = torch.arange(b, device=DEV, dtype=torch.int32)
+        q = torch.randn(b, h, d, device=DEV).to(torch.bfloat16)
+        pos = torch.from_numpy(lengths - 1).to(DEV)
+        kw = dict(rope_positions=pos, rope_inv_freq=inv, sliding_window=window)
+        pkw = {}
+        if override:
+            kw.update(lengths=torch.from_numpy(lengths).to(DEV), with_state=True)
+            pkw = dict(lengths=kw["lengths"], with_state=True)
+        run = lambda: paged_decode_attention(q, cache, seq, **kw)
+        plain = lambda: paged_decode_attention_plain(q, cache, seq, window, pos,
+                                                     inv, **pkw)
+        got, ref = run(), plain()
+        tol = "2^-7|ref|+2^-8max|ref|"
+        if override:
+            (got, m, den), (ref, rm, rden) = got, ref
+            err, ok = close(got, ref)
+            ok = (ok and bool(((m - rm).abs() <= 2.0 ** -16
+                               * rm.abs().max().clamp_min(1.0)).all())
+                  and bool(((den - rden).abs() <= 2.0 ** -12 * rden.abs()).all()))
+            tol += "; m 2^-16 max(1,|m|), den 2^-12 rel"
+        else:
+            err, ok = close(got, ref)
+        attended = np.minimum(lengths, window or lengths.max())
+        tokens = int(attended.sum())
+        # the function's inputs read once: one sequence's pages under the
+        # override, each row's attended pages otherwise
+        read = int(attended.max()) if override else tokens
+        dq = d // 2 if bits == 4 else d
+        nbytes = 2 * b * h * d * 2 + 2 * read * hkv * (dq + 4) + b * mp * 4
+        splits, pps = decode_split(b, hkv, mp)
+        record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} {label}",
+               err, tol, ok, timer.ms(run), nbytes, 4.0 * tokens * h * d,
+               timer.ms(plain), grid_splits=splits, pages_per_split=pps)
+        del cache
 
 
 def check_append(results, timer, rng):
@@ -432,7 +517,8 @@ def check_pair(results, timer, rng):
     from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
                                                       fakequant_site_plain)
     from micromix_tpu_torch.kernels.mixed_matmul import (
-        mixed_matmul_w8_pair, mixed_matmul_w8_pair_plain, w8_residual_plain)
+        mixed_matmul_w8_pair, mixed_matmul_w8_pair_plain, w8_residual,
+        w8_residual_plain)
     from micromix_tpu_torch.mx.scaledw8 import stack_scaled_w8
     k, m = 4096, 8
     for name, ka, ksplit, ns, producer in (
@@ -459,13 +545,18 @@ def check_pair(results, timer, rng):
         err, ok = _stack_close(outs, img_b, st)
         nbytes = (k * ka + sum(st.padded) * k + m * ka * 2 * (1 + (producer == "silu"))
                   + 2 * m * k * 2 + k * 8 + m * sum(ns) * 2)
+        # Kernel G alone on the kernel's site-A image: its codes, the image,
+        # h in and h_mid out
+        g_bound, _ = bound(k * ka + m * ka * 2 + 2 * m * k * 2, 2.0 * m * k * ka)
         record(results, "w8_pair", f"{name} M={m}", max(err_h, err),
                "h_mid bit-exact on the kernel's site-A image; outputs "
                "2^-7|ref|+2^-8max|ref| on its site-B image",
                ok and ok_a and err_h == 0.0,
                timer.ms(lambda: mixed_matmul_w8_pair(x, h, wa, st, **kw)),
                nbytes, 2.0 * m * (k * ka + sum(ns) * k),
-               timer.ms(lambda: mixed_matmul_w8_pair_plain(x, h, wa, st, **kw)))
+               timer.ms(lambda: mixed_matmul_w8_pair_plain(x, h, wa, st, **kw)),
+               residual_ms=timer.ms(lambda: w8_residual(img_a, wa, h)),
+               residual_bound_ms=g_bound)
         del wa, st
 
 
@@ -793,11 +884,12 @@ def params_to(params, device):
 def phase3() -> dict:
     """Card against CPU on 2-layer full-width stacked models: a 300-token
     prompt prefilled in chunks of 128 (flash, then paged history), then
-    greedy decode steps: Llama-3.1-8B, 8 steps through the residual pairs;
-    Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
+    greedy decode steps: Llama-3.1-8B, 8 steps through the residual pairs,
+    also with a 256-token sliding window; Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
     grouped expert GEMMs (the CPU side dequantizes 1.4 G codes per layer
     and unit).
 
+    The windowed Llama is also served by the default engine on the card.
     Each chunk and each decode step runs on the card and on the CPU from
     the same state: the card's KV cache, copied to the CPU just before,
     and the same tokens; the card then goes on from its own result.  A
@@ -829,11 +921,56 @@ def phase3() -> dict:
                  "sp_stack"),
         lambda p: (isinstance(p["layers"][0]["qkv_stack"], SplitPlaneStack)
                    and not _can_pair(p, cfg, 1)), layout="splitplane")
+    # a 256-token sliding window: the third chunk's queries (H) and every
+    # decode step (C, floor position + 1 - 256) drop the oldest tokens; E
+    # takes the window too, though a 128-token chunk lies inside it
+    # Its last chunk's two top CPU logits lie 0.012 of the range apart (on
+    # an H100), a tenth of a chunk's card/CPU difference (0.11-0.14 in
+    # every model): there the chunk's greedy token is a coin toss, so it
+    # must be one of the CPU's two top tokens; every decode step's must be
+    # equal.
+    cfg_w = dataclasses.replace(cfg, sliding_window=256)
+    out["llama_window"] = card_vs_cpu(
+        cfg_w, 8, ("flash_attention", "paged_prefill", "paged_decode",
+                   "w8_stack", "w8_pair"),
+        lambda p: _can_pair(p, cfg_w, 1), name="llama window 256",
+        near_tie=True)
+    out["llama_window_engine"] = window_engine(cfg_w)
     return out
 
 
-def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
-    """One model of phase 3: its units on the card and on the CPU."""
+def window_engine(cfg) -> dict:
+    """The default engine on the card with the windowed 2-layer Llama: a
+    300-token prompt in chunks of 128 (E, then H over the history, the
+    window applied) beside a 100-token one, 8 new tokens each (C with the
+    window)."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.serve.engine import Request
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=8) for i, n in enumerate((300, 100))]
+    _, stats = serve(cfg, params, reqs, "phase 3", max_seqs=2, page_size=128,
+                     max_pages_per_seq=4, decode_chunk=4, prefill_chunk=128)
+    missing = [k for k in ("flash_attention", "paged_prefill", "paged_decode")
+               if not stats["launches"].get(k)]
+    if missing:
+        fail(f"phase 3 (window engine): kernels not launched: {missing}")
+    print(f"  llama window {cfg.sliding_window}, the engine on the card: "
+          f"{stats['requests_done']} requests of {stats['prompt_tokens']} "
+          f"prompt tokens answered, launches {stats['launches']}", flush=True)
+    return stats
+
+
+def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
+                name=None, near_tie=False) -> dict:
+    """One model of phase 3: its units on the card and on the CPU.  With
+    ``near_tie``, a last chunk whose two top CPU logits lie closer than
+    that unit's card/CPU difference may give either of the two as its
+    greedy token on the card (the decode steps' tokens must be equal)."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.models.surgery import (default_calibration,
                                                    random_quantized_model,
@@ -843,7 +980,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
     calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
     gpu_params = stack_layer_projections(
         random_quantized_model(cfg, calib, seed=SEED, device=DEV, layout=layout))
-    name = f"{cfg.arch} ({layout})"
+    name = name or f"{cfg.arch} ({layout})"
     if not form_ok(gpu_params):
         fail(f"phase 3 ({name}): the stacked model is not in its serving form")
     cpu_params = params_to(gpu_params, "cpu")
@@ -856,7 +993,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
         c.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
     t0 = time.perf_counter()
     build.reset_launches()
-    rels, card, cpu = [], [], []
+    rels, card, cpu, top2 = [], [], [], []
 
     def both(fn, *args, **kw):
         """One unit on the card and on a CPU copy of its state: the
@@ -867,7 +1004,10 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
         c, _ = fn(cpu_params, cfg, cpu_caches,
                   *[params_to(a, "cpu") for a in args], **kw)
         g, c = g[0].float().cpu(), c[0].float()
-        rels.append(float((g - c).abs().max()) / float(c.abs().max()))
+        rng_c = float(c.abs().max())
+        rels.append(float((g - c).abs().max()) / rng_c)
+        t = torch.topk(c, 2)
+        top2.append((t.indices.tolist(), float(t.values[0] - t.values[1]) / rng_c))
         return int(torch.argmax(g)), int(torch.argmax(c))
 
     seq = torch.zeros(1, dtype=torch.int32, device=DEV)
@@ -893,7 +1033,15 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
           flush=True)
     print(f"  {name}: first chunk (Kernel E) error {rels[0]:.4f} of the logit "
           f"range, later chunks (Kernel H) {max(rels[1:n_chunks]):.4f}", flush=True)
-    if card != cpu:
+    chunk_tie = False
+    if near_tie and card[1:] == cpu[1:] and card[0] != cpu[0]:
+        (i1, i2), margin = top2[n_chunks - 1]
+        chunk_tie = margin < rels[n_chunks - 1] and card[0] == i2
+        print(f"  {name}: last chunk's CPU tokens {i1}, {i2} lie {margin:.4f} of "
+              f"the range apart, that unit's card/CPU difference "
+              f"{rels[n_chunks - 1]:.4f}; the card's token {card[0]}: "
+              f"{'accepted as a near tie' if chunk_tie else 'refused'}", flush=True)
+    if card != cpu and not chunk_tie:
         fail(f"phase 3 ({name}): greedy tokens differ between the card "
              "and the CPU")
     if max(rels) > tol:
@@ -910,7 +1058,9 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto") -> dict:
 def decode_window(eng, cfg, steps: int = 8) -> dict:
     """The port's kernel launches per decode step (and per layer) and the
     host ms per step, over one ``decode_multi`` chunk with the engine's
-    params, every slot on the scratch row (short contexts)."""
+    params, every slot on the scratch row (short contexts); then the
+    device busy ms per step (the sum of kernel times under
+    ``torch.profiler``) and the largest kernels, over one more chunk."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.serve.runner import decode_multi
     b = eng.max_seqs
@@ -928,9 +1078,23 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
     ms = (time.perf_counter() - t0) * 1e3 / steps
     per_step = {k: v / steps for k, v in build.launches.items()}
     total = sum(per_step.values())
+    # device busy: the kernels' own times over a third, profiled chunk
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_multi(eng.params, cfg, eng.caches, z, seq, z + 2 * steps, **kw)
+        torch.cuda.synchronize()
+    per_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name.split("(")[0][:60]] += e.device_time_total / 1e3
+    busy = sum(per_kernel.values()) / steps
+    if busy <= 0.0:
+        fail("decode window: the profiler saw no device time")
     return dict(ms_per_step=ms, kernel_launches_per_step=total,
                 kernel_launches_per_layer_step=total / cfg.num_layers,
-                by_kernel=per_step)
+                by_kernel=per_step, device_busy_ms_per_step=busy,
+                top_device_ms_per_step={k: v / steps for k, v in
+                                        per_kernel.most_common(6)})
 
 
 def serve(cfg, params, reqs, phase="phase 4", **kw):
@@ -1330,6 +1494,16 @@ def main() -> int:
           "requests each", flush=True)
     p6 = phase6()
 
+    for label, stats in (("Llama stacked", p4["stacked"]),
+                         ("Llama per-consumer", p4["per_consumer"]),
+                         ("Mixtral grouped", p5["grouped"]),
+                         ("Mixtral per-expert", p5["per_expert"]),
+                         ("split-plane stacked", p6["stacked"]),
+                         ("split-plane per-consumer", p6["per_consumer"])):
+        w = stats["decode_window"]
+        print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
+              f"decode window {w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} ms/step device busy", flush=True)
     # launches on the main paths: the Llama, Mixtral and split-plane
     # Llama default engines
     main_launches = collections.Counter(p4["stacked"]["launches"])

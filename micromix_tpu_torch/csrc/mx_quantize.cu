@@ -12,9 +12,11 @@
 // one code byte per element plus one scale byte per 32; at decode M that
 // is tens of KB, so launch latency dominates.
 //
-// Design: Kernel A's (site_fakequant.cu), one block per row, one thread per
-// 32-block, the producer and the block arithmetic from mx_site.cuh; where A
-// writes the scaled grid value, J encodes the grid value (sign from x < 0,
+// Design: one block per row, one thread per 32-block, reading the row from
+// global memory; the producer, the rms row moment (one fixed summation
+// order) and the block arithmetic come from mx_site.cuh, which Kernel A
+// (site_fakequant.cu) shares; where A writes the scaled grid value, J
+// encodes the grid value (sign from x < 0,
 // so a small negative that rounds to zero encodes as -0) and writes the
 // scale byte.  Neighbouring threads write neighbouring code bytes.
 
@@ -73,9 +75,11 @@ extern "C" int mx_quantize(const void* x, const void* aux, const void* perm,
              static_cast<uint8_t*>(c8)},
             {static_cast<uint8_t*>(s4), static_cast<uint8_t*>(s6),
              static_cast<uint8_t*>(s8)}};
+  // at least 128 threads: mx::row_rvar sums over 128 lanes
   const int blocks = K / 32;
   int threads = ((blocks + 31) / 32) * 32;
   if (threads > 512) threads = 512;
+  if (threads < 128) threads = 128;
   mx_quantize_kernel<<<M, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), aux, static_cast<const int*>(perm),
       outs, K, k4, k6, k8, producer, eps);

@@ -5,8 +5,9 @@
 // decoded times its scale is A's image element, bit for bit.
 //
 // Every function mirrors micromix_tpu/mx/numerics.py: the UE8M0 exponent
-// from the f32 bits, rintf (round half to even) after an exact division
-// by a power-of-two ulp, IEEE division and sqrtf (no fast-math).
+// from the f32 bits, rintf (round half to even) after an exact scaling by
+// a power-of-two ulp (the quotient bit for bit), IEEE division and sqrtf
+// (no fast-math).
 
 #pragma once
 
@@ -47,8 +48,10 @@ __device__ __forceinline__ float quantize_to_grid(float x, Fmt f) {
   float ax = fminf(fabsf(x), f.max);
   int e = static_cast<int>((__float_as_uint(ax) >> 23) & 0xFF) - 127;
   e = max(e, f.emin);
-  float ulp = exp2i(e - f.mant);
-  float q = rintf(ax / ulp) * ulp;
+  // ax / 2^(e - mant) as ax * 2^(mant - e): a power-of-two scale whose
+  // exact result is representable (e >= emin), so the product is the
+  // IEEE quotient bit for bit, without a division's instruction sequence
+  float q = rintf(ax * exp2i(f.mant - e)) * exp2i(e - f.mant);
   return x < 0.0f ? -q : q;
 }
 
@@ -72,33 +75,38 @@ __device__ __forceinline__ uint8_t encode(float q, Fmt f) {
 }
 
 // rms producer's row factor: 1 / sqrtf(mean(x^2) + eps) over the
-// unpermuted row, the sum taken per thread, then across the warp, then
-// across the warps in order.  Every thread of the block gets it.
-__device__ __forceinline__ float row_rvar(const __nv_bfloat16* __restrict__ xr,
-                                          int K, float eps) {
-  __shared__ float red[32];
+// unpermuted row xr (global or shared memory), the row moment summed in
+// one fixed order whatever the launch: 128 lanes (the block's first four
+// warps; a block has at least 128 threads), lane t over columns t, t + 128,
+// ... with fmaf, each warp by an xor tree, then the four warps in order.
+// So every block of a row in Kernel A's split launch, and Kernel J, get
+// the same bits.  Every thread of the block gets it.
+__device__ __forceinline__ float row_rvar(const __nv_bfloat16* xr, int K, float eps) {
+  __shared__ float red[4];
   __shared__ float s_rvar;
-  float acc = 0.0f;
-  for (int c = threadIdx.x; c < K; c += blockDim.x) {
-    float v = __bfloat162float(xr[c]);
-    acc += v * v;
+  const int t = threadIdx.x;
+  if (t < 128) {
+    float acc = 0.0f;
+    for (int c = t; c < K; c += 128) {
+      const float v = __bfloat162float(xr[c]);
+      acc = fmaf(v, v, acc);
+    }
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((t & 31) == 0) red[t >> 5] = acc;
   }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < (blockDim.x + 31) / 32; ++w) total += red[w];
+  if (t == 0) {
+    const float total = ((red[0] + red[1]) + red[2]) + red[3];
     s_rvar = 1.0f / sqrtf(total / static_cast<float>(K) + eps);
   }
   __syncthreads();
   return s_rvar;
 }
 
-// One site row: producer 0 plain, 1 rms (aux = gamma f32 (K,), source
-// order), 2 silu (aux = up bf16 (M, K), device order); perm (K,) maps
-// device column -> source channel (null: none).
+// One site row: producer 0 plain, 1 rms (gamma f32 (K,), source order),
+// 2 silu (up: the row of bf16 (M, K), device order); perm (K,) maps device
+// column -> source channel (null: none).  xr, gamma and up may point to
+// global or shared memory.
 struct SiteRow {
   const __nv_bfloat16* xr;
   const float* gamma;
@@ -107,15 +115,23 @@ struct SiteRow {
   int producer;
   float rvar;
 
-  __device__ __forceinline__ float value(int c) const {
+  // producer P known at compile time (Kernel A's instances)
+  template <int P>
+  __device__ __forceinline__ float value_of(int c) const {
     const int src = perm ? perm[c] : c;
     const float xv = __bfloat162float(xr[src]);
-    if (producer == 1) return xv * rvar * gamma[src];
-    if (producer == 2) {
+    if (P == 1) return xv * rvar * gamma[src];
+    if (P == 2) {
       const float sig = 1.0f / (1.0f + expf(-xv));
       return xv * sig * __bfloat162float(up[c]);
     }
     return xv;
+  }
+
+  __device__ __forceinline__ float value(int c) const {
+    if (producer == 1) return value_of<1>(c);
+    if (producer == 2) return value_of<2>(c);
+    return value_of<0>(c);
   }
 };
 

@@ -28,7 +28,24 @@ _PRODUCERS = {"plain": 0, "rms": 1, "silu": 2}
 _SIG = {"site_fakequant": [build.PTR, build.PTR, build.PTR, build.PTR,
                            build.INT, build.INT, build.INT, build.INT,
                            build.INT, build.INT, build.INT, build.FLOAT,
-                           build.PTR]}
+                           build.INT, build.PTR]}
+# blocks the kernel's split launch aims at below that many rows: 2 for each
+# of the H100's 132 SMs; a split block takes at most SITE_PASS 32-blocks
+# (one pass of its 128 threads, 4 a 32-block)
+SITE_BLOCKS = 264
+SITE_PASS = 32
+
+
+def site_blocks_per_cta(m: int, k: int) -> int:
+    """32-blocks of a row each CTA of the site kernel takes, from M and K
+    alone: K / 32 (whole rows) from ``SITE_BLOCKS`` rows, else the row split
+    over about ``SITE_BLOCKS`` / M CTAs, at most ``SITE_PASS`` and at least
+    4 32-blocks each."""
+    nbk = k // BLOCK_SIZE
+    if m >= SITE_BLOCKS:
+        return nbk
+    per = -(-nbk // -(-SITE_BLOCKS // max(m, 1)))
+    return max(min(4, nbk), min(SITE_PASS, per))
 
 
 def site_producer_values(producer: str, x: torch.Tensor,
@@ -141,6 +158,6 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
     rc = lib.site_fakequant(build.ptr(x), build.ptr(aux), build.ptr(perm),
                             build.ptr(out), m, k, k4, k6, k8,
                             _PRODUCERS[producer], m // groups, float(eps),
-                            build.stream())
+                            site_blocks_per_cta(m, k), build.stream())
     build.check(rc, "site_fakequant")
     return out

@@ -59,19 +59,16 @@ class Request:
 def check_card_serves(device: torch.device, cfg: ModelConfig,
                       kv_bits: int) -> None:
     """Refuse, before any cache is made, what the card's attention kernels
-    cannot serve yet: KV pages of other than 4 bits, and a sliding window
-    (ROADMAP 2b).  The CPU serves both through the plain versions."""
+    cannot serve yet: KV pages of other than 4 bits, which the paged
+    prefill kernel does not read (ROADMAP 2b).  A sliding window runs on
+    the card (Kernels C, E and H apply it).  The CPU serves both through
+    the plain versions."""
     if device.type != "cuda":
         return
     if kv_bits != 4:
         raise NotImplementedError(
             f"the card serves int4 KV pages only, not kv_bits={kv_bits} "
             "(ROADMAP 2b); pass device='cpu' for the plain versions")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"the card's decode attention has no sliding window "
-            f"(sliding_window={cfg.sliding_window}; ROADMAP 2b); pass "
-            "device='cpu' for the plain versions")
 
 
 @dataclasses.dataclass

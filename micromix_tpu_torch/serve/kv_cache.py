@@ -11,7 +11,7 @@ Counterpart of ``micromix_tpu/serve/kv_cache.py``.  Per layer:
 Unlike the JAX package's functional updates, ``append_kv`` writes the page
 arrays and lengths in place (one copy of the cache in device memory) and
 returns the same cache object.  Decode attention on the GPU takes int4
-pages only; int8 / bf16 pages are plain-version only.
+and int8 pages, prefill attention int4 only (ROADMAP 2b).
 """
 
 from __future__ import annotations

@@ -14,6 +14,15 @@ Tolerances:
     program on about 1 code in 10^4.)
   * attention outputs: both sides compute in f32 and round once to bf16,
     with sums in another order: |diff| <= 2^-7 |ref| + 2^-8 max|ref|.
+  * the decode state (m, den) against the Pallas kernel's: m is the max
+    of the same f32 dot products summed in another order, |diff| <=
+    2^-16 max(1, |m|) (some 2^7 f32 ulps); den sums the exponentials of
+    scores that differ by that much, in another order: rtol 2^-12.
+  * a row with nothing to attend (empty, or wholly below its window)
+    gives 0 and the state (-1e30, 0) exactly.  The Pallas kernel agrees
+    for an empty row; a row whose window lies wholly above its stored
+    length it scores over masked tokens (p = 1 each), so no case here
+    has one.
 """
 
 import dataclasses
@@ -37,7 +46,8 @@ from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
 from micromix_tpu_torch.serve import kv_cache as tkv
 from micromix_tpu_torch.serve.append_kernel import append_kv_kernel
 from micromix_tpu_torch.serve.attention import (
-    paged_decode_attention, paged_decode_attention_plain)
+    DECODE_BLOCKS, DECODE_MAX_SPLITS, decode_split, paged_decode_attention,
+    paged_decode_attention_plain, rotate_q)
 
 P, HKV, D, PS, SEQS, MP = 20, 2, 64, 16, 4, 4
 
@@ -56,6 +66,15 @@ def _bf16_pair(x: np.ndarray):
 def _close(got, ref):
     np.testing.assert_allclose(got, ref, rtol=2.0 ** -7,
                                atol=2.0 ** -8 * float(np.abs(ref).max()))
+
+
+def _within(got, ref) -> bool:
+    return bool((np.abs(got - ref) <= 2.0 ** -7 * np.abs(ref)
+                 + 2.0 ** -8 * float(np.abs(ref).max())).all())
+
+
+def _inv_freq():
+    return np.asarray(j_inv_freq(D, 500000.0, ("llama3", 8.0, 1.0, 4.0, 8192)))
 
 
 @pytest.mark.parametrize("window", [None, 24])
@@ -213,3 +232,97 @@ def test_cache_lengths_follow_appends(rng):
                        jnp.zeros((2, HKV, D), jnp.bfloat16),
                        jnp.zeros((2, HKV, D), jnp.bfloat16))
     assert np.asarray(jc.lengths).tolist() == tc.lengths.tolist()
+
+
+def test_decode_window_floor_is_the_query_position(rng):
+    """With fused RoPE the window floor is positions + 1 - window, as the
+    Pallas kernel takes it, not the stored length minus the window: rows
+    1-3 sit at positions past their stored lengths (a query ahead of its
+    pages), so the two floors differ there, and only the first agrees
+    with the Pallas kernel."""
+    jc, tc = _random_caches(rng)
+    window = 20
+    seq = np.array([0, 1, 2, 3], np.int32)            # n = 5, 17, 40, 64
+    pos = np.array([10, 30, 45, 70], np.int32)        # floors -9, 11, 26, 51
+    q = rng.normal(0, 1, (4, 4 * HKV, D)).astype(np.float32)
+    jq, tq = _bf16_pair(q)
+    inv = _inv_freq().copy()
+    ref = _f32(j_decode(jq, jc, jnp.asarray(seq), sliding_window=window,
+                        rope_positions=jnp.asarray(pos),
+                        rope_inv_freq=jnp.asarray(inv), interpret=True))
+    got = _f32(paged_decode_attention(
+        tq, tc, torch.from_numpy(seq), sliding_window=window,
+        rope_positions=torch.from_numpy(pos), rope_inv_freq=torch.from_numpy(inv)))
+    _close(got, ref)
+    # the stored-length floor (n - window), on the same q rotated
+    # beforehand, attends more tokens on rows 1-3
+    q_rot = rotate_q(tq, torch.from_numpy(pos), torch.from_numpy(inv))
+    old = _f32(paged_decode_attention_plain(q_rot.to(torch.bfloat16), tc,
+                                            torch.from_numpy(seq), window))
+    for r in (1, 2, 3):
+        assert not _within(old[r], ref[r]), r
+
+
+# (bits, window, RoPE fused, lengths override, with_state): each row set
+# ends with the empty sequence 4
+DECODE_CASES = [(4, None, True, True, True), (4, 20, True, True, True),
+                (8, None, True, False, True), (8, 24, True, False, False),
+                (4, 20, False, False, True)]
+
+
+@pytest.mark.parametrize("bits,window,rope,override,state", DECODE_CASES)
+def test_decode_full_function_matches_pallas(rng, bits, window, rope,
+                                             override, state):
+    """The port's decode (plain on the CPU) against the Pallas kernel in
+    interpret mode over int4 and int8 pages, a window, the ``lengths``
+    override (rows of sequence 3 at successive positions, as speculative
+    verify runs them) and the (m, den) state, in the tolerances above."""
+    jc, tc = _random_caches(rng, bits=bits)
+    if override:
+        seq = np.array([3, 3, 3, 3, 4], np.int32)
+        lengths = np.array([61, 62, 63, 64, 0], np.int32)
+        pos = np.maximum(lengths - 1, 0)
+    else:
+        seq = np.array([0, 1, 2, 3, 4], np.int32)
+        lengths = None
+        pos = np.array([4, 16, 39, 63, 0], np.int32)
+    q = rng.normal(0, 1, (5, 4 * HKV, D)).astype(np.float32)
+    jq, tq = _bf16_pair(q)
+    jkw, tkw = dict(sliding_window=window), dict(sliding_window=window)
+    if rope:
+        inv = _inv_freq()
+        jkw.update(rope_positions=jnp.asarray(pos), rope_inv_freq=jnp.asarray(inv))
+        tkw.update(rope_positions=torch.from_numpy(pos),
+                   rope_inv_freq=torch.from_numpy(inv))
+    if override:
+        jkw["lengths"] = jnp.asarray(lengths)
+        tkw["lengths"] = torch.from_numpy(lengths)
+    ref = j_decode(jq, jc, jnp.asarray(seq), with_state=state,
+                   interpret=True, **jkw)
+    got = paged_decode_attention(tq, tc, torch.from_numpy(seq),
+                                 with_state=state, **tkw)
+    if not state:
+        ref, got = (ref,), (got,)
+    _close(_f32(got[0]), _f32(ref[0]))
+    assert not _f32(got[0])[4].any()                  # the empty row
+    if state:
+        (gm, gd), (rm, rd) = (_f32(t) for t in got[1:]), (_f32(t) for t in ref[1:])
+        np.testing.assert_allclose(gm, rm, rtol=0,
+                                   atol=2.0 ** -16 * max(1.0, np.abs(rm[:4]).max()))
+        np.testing.assert_allclose(gd, rd, rtol=2.0 ** -12)
+        assert (gm[4] == -1e30).all() and (gd[4] == 0).all()
+
+
+def test_decode_grid_depends_on_shapes_only():
+    """The split-KV grid (Hkv, B, splits) comes from B, Hkv and
+    max_pages_per_seq: every page in exactly one split, at most
+    ``DECODE_MAX_SPLITS`` splits, the block count near ``DECODE_BLOCKS``
+    once there are pages enough."""
+    for b, hkv, mp in ((8, 8, 5), (8, 8, 32), (1, 8, 64), (8, 8, 16),
+                       (4, 2, 4), (64, 8, 64), (1, 1, 1), (1, 1, 1000)):
+        splits, pps = decode_split(b, hkv, mp)
+        assert (splits - 1) * pps < mp <= splits * pps
+        assert splits <= DECODE_MAX_SPLITS
+        assert b * hkv * splits <= max(DECODE_BLOCKS, b * hkv) * 2
+    assert decode_split(8, 8, 32) == (8, 4)
+    assert decode_split(1, 8, 64) == (32, 2)

@@ -55,7 +55,8 @@ from micromix_tpu_torch.mx.scaledw8 import (ScaledW8, dequantize_scaled_w8,
                                             stack_scaled_w8)
 from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
                                                     append_kv_plain)
-from micromix_tpu_torch.serve.attention import (paged_decode_attention,
+from micromix_tpu_torch.serve.attention import (decode_split,
+                                                paged_decode_attention,
                                                 paged_decode_attention_plain)
 from micromix_tpu_torch.serve.kv_cache import make_cache
 from micromix_tpu_torch.serve.prefill_attention import (
@@ -115,6 +116,75 @@ def test_site_kernel(dev, m, producer):
         assert torch.equal(got, ref)
     else:
         _tie_band(got, ref)
+
+
+def _tie_band_splits(got, ref, splits):
+    g, r = got.float(), ref.float()
+    assert float((g != r).float().mean()) <= 1e-3
+    off = 0
+    for kseg, mant in zip(splits, (1, 2, 3)):
+        if kseg:
+            gb = g[:, off:off + kseg].reshape(g.shape[0], 32, -1)
+            rb = r[:, off:off + kseg].reshape(r.shape[0], 32, -1)
+            bmax = torch.maximum(gb.abs().amax(1), rb.abs().amax(1)).clamp_min(1e-30)
+            step = torch.exp2(torch.floor(torch.log2(bmax)) - mant)
+            assert bool(((gb - rb).abs() <= step[:, None, :]).all())
+        off += kseg
+
+
+# Llama-3.1-8B's widths, and a K of 127 blocks (the row split's last CTA
+# short, segments across CTA boundaries)
+SITE_SPLITS = {4096: (3584, 256, 256), 14336: (13824, 256, 256),
+               4064: (3584, 256, 224)}
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 130, 4096])
+@pytest.mark.parametrize("producer,k", [("plain", 4096), ("rms", 4096),
+                                        ("silu", 14336), ("rms", 4064),
+                                        ("plain", 4064)])
+def test_site_kernel_row_split(dev, m, producer, k):
+    """Kernel A at real widths across its launch forms: decode rows split
+    over blocks (a warp a 32-block), whole rows staged in shared memory
+    (M = 4096), and a block count that leaves the last block short."""
+    splits = SITE_SPLITS[k]
+    x = torch.randn(m, k, device=dev)
+    x[:, torch.randperm(k, device=dev)[:16]] *= 30.0
+    x = x.to(torch.bfloat16)
+    kw = {}
+    if producer == "silu":
+        kw["up"] = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    else:
+        kw["perm"] = torch.from_numpy(compose_segmented(
+            np.random.default_rng(m).permutation(k), *splits)).to(dev)
+    if producer == "rms":
+        kw["gamma"] = torch.rand(k, device=dev) + 0.5
+    if producer != "plain":
+        kw.update(producer=producer, eps=1e-5)
+    got = fakequant_site(x, *splits, **kw)
+    ref = fakequant_site_plain(x, *splits, **kw)
+    if producer == "plain":
+        assert torch.equal(got, ref)
+    else:
+        _tie_band_splits(got, ref, splits)
+    assert torch.equal(got, fakequant_site(x, *splits, **kw))
+
+
+@pytest.mark.parametrize("m,groups", [(24, 8), (4096, 8), (130, 2)])
+def test_site_kernel_perm_rows(dev, m, groups):
+    """A plain site with one permutation per group of M / G rows (the MoE
+    experts' own sites, perm_rows = M / G) in both launch forms: bit-exact
+    against the plain version, and against one launch per group."""
+    k = 4096
+    splits = SITE_SPLITS[k]
+    x = (torch.randn(m, k, device=dev) * 4).to(torch.bfloat16)
+    perm = torch.stack([torch.from_numpy(compose_segmented(
+        np.random.default_rng(i).permutation(k), *splits)) for i in range(groups)]).to(dev)
+    got = fakequant_site(x, *splits, perm=perm)
+    assert torch.equal(got, fakequant_site_plain(x, *splits, perm=perm))
+    rows = m // groups
+    for i in range(groups):
+        one = fakequant_site(x[i * rows:(i + 1) * rows].contiguous(), *splits, perm=perm[i])
+        assert torch.equal(got[i * rows:(i + 1) * rows], one)
 
 
 @pytest.mark.parametrize("m", [1, 5, 17, 100])
@@ -190,6 +260,92 @@ def test_paged_decode_kernel(dev, d, ps, h, hkv):
                                  rope_inv_freq=inv)
     _close(got, paged_decode_attention_plain(q, cache, seq, None, pos, inv))
     assert float(got[0].float().abs().max()) == 0.0     # empty sequence
+
+
+def _decode_cache(dev, rng, b, mp, ps, hkv, d, bits=4):
+    """A cache of b rows of mp random pages: codes, scales in [0.01, 0.2],
+    integer zero points (as kv_quantize makes them), a shuffled table."""
+    cache = make_cache(b * mp + 1, ps, hkv, d, b, mp, bits=bits, device=dev)
+    cache.k_codes.random_(0, 256)
+    cache.v_codes.random_(0, 256)
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(0.01, 0.2)
+        sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape, device=dev))
+    cache.page_table.copy_(torch.from_numpy(
+        1 + rng.permutation(b * mp).reshape(b, mp).astype(np.int32)))
+    return cache
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("d,ps,h,hkv,mp", [(64, 16, 8, 2, 24), (128, 128, 32, 8, 24),
+                                           (128, 64, 4, 4, 24), (128, 32, 24, 8, 40)])
+def test_paged_decode_split_boundaries(dev, bits, window, d, ps, h, hkv, mp):
+    """Kernel C across its split-KV grid: lengths 0, 1, ps, one token past
+    the first split, every page, and a ragged one; query positions up to
+    3 past the stored length (the window counts back from the query);
+    G = 3 pads to 4.  Twice the same bits: the partials merge in split
+    order whichever block finishes last."""
+    rng = np.random.default_rng(d + ps + bits)
+    b = 6
+    _, pps = decode_split(b, hkv, mp)
+    cache = _decode_cache(dev, rng, b, mp, ps, hkv, d, bits)
+    lengths = np.array([0, 1, ps, pps * ps + 1, mp * ps, mp * ps - 3 * ps - 5], np.int32)
+    cache.lengths.copy_(torch.from_numpy(lengths))
+    q = torch.randn(b, h, d, device=dev).to(torch.bfloat16)
+    seq = torch.arange(b, device=dev, dtype=torch.int32)
+    pos = torch.from_numpy(np.maximum(lengths - 1, 0) + np.array([0, 0, 1, 3, 0, 2])).to(dev)
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, device=dev) / d))
+    kw = dict(rope_positions=pos, rope_inv_freq=inv, sliding_window=window)
+    got = paged_decode_attention(q, cache, seq, **kw)
+    _close(got, paged_decode_attention_plain(q, cache, seq, window, pos, inv))
+    assert float(got[0].float().abs().max()) == 0.0     # empty sequence
+    assert torch.equal(got, paged_decode_attention(q, cache, seq, **kw))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("rope", [True, False])
+def test_paged_decode_lengths_and_state(dev, bits, window, rope):
+    """The ``lengths`` override (eight rows of one 1000-token sequence at
+    successive positions, as speculative verify runs them, and an empty
+    row) with the state (m, den): out in the attention tolerance, m within
+    2^-16 max(1, |m|), den within rtol 2^-12 (f32 sums in another order);
+    the empty row 0 with the state (-1e30, 0)."""
+    rng = np.random.default_rng(bits)
+    d, ps, h, hkv, mp = 128, 128, 32, 8, 8
+    cache = _decode_cache(dev, rng, 2, mp, ps, hkv, d, bits)
+    cache.lengths.copy_(torch.tensor([1000, 0], dtype=torch.int32))
+    lengths = torch.tensor([990 + i for i in range(8)] + [0], dtype=torch.int32,
+                           device=dev)
+    seq = torch.tensor([0] * 8 + [1], dtype=torch.int32, device=dev)
+    q = torch.randn(9, h, d, device=dev).to(torch.bfloat16)
+    kw = dict(sliding_window=window, lengths=lengths, with_state=True)
+    pos = inv = None
+    if rope:
+        pos = (lengths - 1).clamp_min(0)
+        inv = 1.0 / (500000.0 ** (torch.arange(0, d, 2, device=dev) / d))
+        kw.update(rope_positions=pos, rope_inv_freq=inv)
+    out, m, den = paged_decode_attention(q, cache, seq, **kw)
+    rout, rm, rden = paged_decode_attention_plain(q, cache, seq, window, pos, inv,
+                                                  lengths, True)
+    _close(out, rout)
+    assert bool(((m - rm).abs() <= 2.0 ** -16 * rm[:8].abs().max().clamp_min(1.0)).all())
+    assert bool(((den - rden).abs() <= 2.0 ** -12 * rden.abs()).all())
+    assert not out[8].any() and bool((m[8] == -1e30).all()) and not den[8].any()
+
+
+def test_paged_decode_refuses(dev):
+    rng = np.random.default_rng(0)
+    cache = _decode_cache(dev, rng, 1, 2, 48, 2, 64)
+    q = torch.zeros(1, 4, 64, dtype=torch.bfloat16, device=dev)
+    seq = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                     # ps 48
+        paged_decode_attention(q, cache, seq)
+    cache = _decode_cache(dev, rng, 1, 2, 16, 1, 64)
+    with pytest.raises(ValueError):                     # G = 16
+        paged_decode_attention(torch.zeros(1, 16, 64, dtype=torch.bfloat16,
+                                           device=dev), cache, seq)
 
 
 def test_append_kernel(dev):

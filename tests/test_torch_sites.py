@@ -31,7 +31,9 @@ from micromix_tpu.mx import layout as jlay
 from micromix_tpu.mx.mxtensor import quantize_mixed as j_quantize_mixed
 from micromix_tpu.mx.scaledw8 import pack_scaled_w8 as j_pack_w8
 from micromix_tpu.ops import quantize_ops as jops
-from micromix_tpu_torch.kernels.fakequant import fakequant_site
+from micromix_tpu_torch.kernels.fakequant import (SITE_BLOCKS, SITE_PASS,
+                                                  fakequant_site,
+                                                  site_blocks_per_cta)
 from micromix_tpu_torch.kernels.mixed_matmul import (
     mixed_matmul, mixed_matmul_w8, mixed_matmul_w8_site)
 from micromix_tpu_torch.mx.scaledw8 import ScaledW8
@@ -199,3 +201,21 @@ def test_site_arguments_are_checked():
     with pytest.raises(ValueError):
         fakequant_site(x, K4, K6, K8, producer="silu", up=x,
                        perm=torch.arange(K, dtype=torch.int32))
+
+
+def test_site_row_split_depends_on_shapes_only():
+    """The site kernel's launch (M rows x S blocks, ``site_blocks_per_cta``
+    32-blocks each) comes from M and K: decode rows split over enough
+    blocks to cover the H100's 132 SMs (M = 8: 256), every 32-block in
+    exactly one block, a split block one pass of its threads, whole rows
+    from ``SITE_BLOCKS`` rows on."""
+    for m, k in ((1, 4096), (8, 4096), (8, 14336), (130, 4096), (8, 4064),
+                 (263, 4096), (264, 4096), (4096, 14336), (3, 512)):
+        nbk = k // 32
+        bpc = site_blocks_per_cta(m, k)
+        splits = -(-nbk // bpc)
+        assert (splits - 1) * bpc < nbk <= splits * bpc
+        assert bpc >= min(4, nbk)
+        assert bpc == nbk if m >= SITE_BLOCKS else bpc <= SITE_PASS
+    assert 8 * -(-128 // site_blocks_per_cta(8, 4096)) >= 132
+    assert 8 * -(-448 // site_blocks_per_cta(8, 14336)) >= 132
