@@ -20,7 +20,9 @@ and runs these phases; any failure exits non-zero before the result line.
      also the GEMM alone on the site image, and from 256 rows the
      dequantize route the model runs above their row limits, with the
      route table and the limits its timings select; Kernel G alone
-     beside the pair; the site kernel also at prefill rows (rms 512 and
+     beside the pair, and on both of its mainloops (the decode-row strip
+     and w8_tile.cuh's tile) at 8-128 rows with the row limit their
+     timings select; the site kernel also at prefill rows (rms 512 and
      4096, Mixtral-8x7B's 4096-row expert sites); decode attention also
      at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
      window, and with the ``lengths`` override and the (m, den) state;
@@ -519,7 +521,7 @@ def check_pair(results, timer, rng):
     from micromix_tpu_torch.kernels.mixed_matmul import (
         mixed_matmul_w8_pair, mixed_matmul_w8_pair_plain, w8_residual,
         w8_residual_plain)
-    from micromix_tpu_torch.mx.scaledw8 import stack_scaled_w8
+    from micromix_tpu_torch.mx.scaledw8 import dequantize_scaled_w8, stack_scaled_w8
     k, m = 4096, 8
     for name, ka, ksplit, ns, producer in (
             ("o_gateup", 4096, SPLIT_4096, (14336, 14336), "plain"),
@@ -546,8 +548,10 @@ def check_pair(results, timer, rng):
         nbytes = (k * ka + sum(st.padded) * k + m * ka * 2 * (1 + (producer == "silu"))
                   + 2 * m * k * 2 + k * 8 + m * sum(ns) * 2)
         # Kernel G alone on the kernel's site-A image: its codes, the image,
-        # h in and h_mid out
+        # h in and h_mid out; beside it torch.addmm on the bf16 weight image
+        # (one rounding where G rounds at the product: a yardstick only)
         g_bound, _ = bound(k * ka + m * ka * 2 + 2 * m * k * 2, 2.0 * m * k * ka)
+        wd = dequantize_scaled_w8(wa, torch.bfloat16)
         record(results, "w8_pair", f"{name} M={m}", max(err_h, err),
                "h_mid bit-exact on the kernel's site-A image; outputs "
                "2^-7|ref|+2^-8max|ref| on its site-B image",
@@ -556,8 +560,62 @@ def check_pair(results, timer, rng):
                nbytes, 2.0 * m * (k * ka + sum(ns) * k),
                timer.ms(lambda: mixed_matmul_w8_pair_plain(x, h, wa, st, **kw)),
                residual_ms=timer.ms(lambda: w8_residual(img_a, wa, h)),
-               residual_bound_ms=g_bound)
-        del wa, st
+               residual_bound_ms=g_bound,
+               residual_library_ms=timer.ms(lambda: torch.addmm(h, img_a, wd.t())))
+        del wa, st, wd
+
+
+G_ROUTE_ROWS = (8, 16, 32, 64, 128)
+
+
+def check_residual_routes(results, timer) -> dict:
+    """Kernel G alone (``w8_residual``) at o (N=4096 K=4096) and down
+    (N=4096 K=14336) over the rows the pair gate admits, on the decode-row
+    strip (up to 32 rows) and on w8_tile.cuh's tile, each bit-exact against
+    the plain version on a site image; ``library_ms`` torch.addmm on the
+    bf16 weight image.  Prints the table and the row limit the timings
+    select (the largest timed row count up to which the strip is no slower
+    at both shapes) beside ``W8_RESIDUAL_ROWS_MAX_M``."""
+    from micromix_tpu_torch.kernels.fakequant import fakequant_values
+    from micromix_tpu_torch.kernels.mixed_matmul import (
+        W8_RESIDUAL_ROWS_MAX_M, _ROWS_MAX_M, residual_plan, w8_residual_plain,
+        w8_residual_routed)
+    from micromix_tpu_torch.mx.scaledw8 import dequantize_scaled_w8
+    n = 4096
+    table = {}
+    for name, k, ksplit in (("o", 4096, SPLIT_4096), ("down", 14336, SPLIT_14336)):
+        wa = _w8_weight(n, k, ksplit)
+        wd = dequantize_scaled_w8(wa, torch.bfloat16)
+        for m in G_ROUTE_ROWS:
+            qa = fakequant_values(torch.randn(m, k, device=DEV), *ksplit)
+            h = torch.randn(m, n, device=DEV).to(torch.bfloat16)
+            ref = w8_residual_plain(qa, wa, h)
+            plain = timer.ms(lambda: w8_residual_plain(qa, wa, h))
+            lib = timer.ms(lambda: torch.addmm(h, qa, wd.t()))
+            for route in ("rows", "tile") if m <= _ROWS_MAX_M else ("tile",):
+                got = w8_residual_routed(qa, wa, h, None, route)
+                err = float((got.float() - ref.float()).abs().max())
+                t = timer.ms(lambda: w8_residual_routed(qa, wa, h, None, route))
+                record(results, "w8_pair", f"G {name} M={m} {route}", err,
+                       "bit-exact on a site image", err == 0.0, t,
+                       n * k + m * k * 2 + 2 * m * n * 2, 2.0 * m * n * k, plain, lib,
+                       splits=residual_plan(m, n, k, route)[1])
+                table.setdefault(m, {}).setdefault(route, []).append(t)
+        del wa, wd
+    print("  G routes: decode-row strip ms / tile ms, o and down", flush=True)
+    for m in G_ROUTE_ROWS:
+        print(f"    M={m:3d} rows {table[m].get('rows')} tile {table[m]['tile']}",
+              flush=True)
+    selected = 0
+    for m in G_ROUTE_ROWS:
+        r = table[m]
+        if "rows" not in r or any(a > b for a, b in zip(r["rows"], r["tile"])):
+            break
+        selected = m
+    print(f"    W8_RESIDUAL_ROWS_MAX_M: the timings select {selected}; the "
+          f"module constant is {W8_RESIDUAL_ROWS_MAX_M}", flush=True)
+    return dict(selected=selected, constant=W8_RESIDUAL_ROWS_MAX_M,
+                ms={m: table[m] for m in G_ROUTE_ROWS})
 
 
 def check_prefill(results, timer, rng):
@@ -1464,6 +1522,7 @@ def main() -> int:
     check_flash(results, timer)
     check_stack(results, timer, rng)
     check_pair(results, timer, rng)
+    g_routes = check_residual_routes(results, timer)
     check_prefill(results, timer, rng)
     check_grouped(results, timer, rng)
     routes = route_table(results, card)
@@ -1514,7 +1573,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, phase3=p3, phase4=p4,
-                       phase5=p5, phase6=p6, routes=routes,
+                       phase5=p5, phase6=p6, routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,
                   indent=1)

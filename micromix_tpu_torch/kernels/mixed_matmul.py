@@ -18,7 +18,9 @@ span a whole segment of the row, so one GEMM output tile cannot cheaply own
 its site.  So ``mixed_matmul_w8_site``, ``mixed_matmul_w8_stack``,
 ``mixed_matmul_w8_grouped`` and ``mixed_matmul_sp_stack`` are two launches
 each, and ``mixed_matmul_w8_pair`` four: site A, the GEMM that closes the
-residual, then the stack's site and GEMM.
+residual (Kernel G, one launch at every row count: a K split, where there
+is one, is summed by the last block of each strip or tile), then the
+stack's site and GEMM.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ _SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
                            build.INTS, build.INTS, build.FLOATS, build.PTRS,
                            build.INT, build.INT, build.INT, build.INT,
                            build.PTR]}
-_SIG_PAIR = {"w8_residual": [build.PTR] * 6 + [build.INT] * 3
-             + [build.FLOAT, build.INT, build.PTR]}
+_RESIDUAL_ARGS = [build.PTR] * 7 + [build.INT] * 3 + [build.FLOAT, build.INT, build.PTR]
+_SIG_PAIR = {"w8_residual_rows": _RESIDUAL_ARGS, "w8_residual_tile": _RESIDUAL_ARGS}
 _SIG_GROUPED = {"w8_grouped": [build.PTR, build.PTR, build.PTR, build.INTS,
                                build.INTS, build.INTS, build.FLOATS,
                                build.PTRS, build.INT, build.INT, build.INT,
@@ -292,6 +294,60 @@ def mixed_matmul_w8_stack(x: torch.Tensor, st: ScaledW8Stack, *,
 
 # ----------------------------------------------------------------- pair
 
+# Rows up to which Kernel G runs its decode-row strip (csrc/w8_rows.cuh:
+# the weights on the MMA's 16-row side); above, w8_tile.cuh's tile.  Both
+# are one launch.  Set from the card's timings of both at 8-128 rows
+# (chip_smoke.py phase 2, "G routes"; PERF.md).
+W8_RESIDUAL_ROWS_MAX_M = 32
+_ROWS_STRIP = 32        # csrc/w8_rows.cuh: weight rows a block
+_ROWS_MAX_M = 32        # token rows it takes (4 n8 tiles)
+_ROWS_WARPS = 8         # its warps, which split a block's share of K
+# a K split only where the strips alone are fewer blocks than this (one
+# block an SM; N = 4096 is 128 strips)
+_ROWS_MIN_BLOCKS = 128
+# per device and stream: the tickets (zero between launches) and f32
+# partials of Kernel G's K split
+_residual_scratch: dict = {}
+
+
+def residual_route(m: int) -> str:
+    """Kernel G's mainloop at ``m`` token rows: "rows" (the decode-row
+    strip) up to ``W8_RESIDUAL_ROWS_MAX_M``, "tile" above."""
+    return "rows" if m <= W8_RESIDUAL_ROWS_MAX_M else "tile"
+
+
+def residual_plan(m: int, n: int, k: int, route: str) -> Tuple[int, int]:
+    """(blocks a split, K splits) of Kernel G on ``route``.  "rows": one
+    32-row strip a block, split only where the strips number fewer than
+    ``_ROWS_MIN_BLOCKS`` (the smallest divisor of the 128-deep K steps, at
+    most 16, that gets there while each warp keeps a 128-deep step, else
+    the largest that does); "tile": ``split_k``'s split.  Each split's
+    last block (by ticket) sums the partials, so the blocks a split are
+    also the tickets."""
+    if route == "tile":
+        return -(-n // _BN) * -(-m // (16 if m <= 16 else 64)), split_k(m, n, k)
+    if route != "rows" or m > _ROWS_MAX_M:
+        raise ValueError(f"no G route {route!r} at {m} rows")
+    strips, steps = -(-n // _ROWS_STRIP), k // _BK
+    ds = [d for d in range(1, min(steps, 16) + 1)
+          if steps % d == 0 and (d == 1 or steps // d >= _ROWS_WARPS)]
+    return strips, next((d for d in ds if strips * d >= _ROWS_MIN_BLOCKS), ds[-1])
+
+
+def _residual_buffers(device: torch.device, n_tickets: int,
+                      n_partial: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's tickets and partials on this device and stream, grown as
+    needed: launches on one stream run in order, so all its calls share
+    them, and the sizes depend on shapes only."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    bufs = _residual_scratch.setdefault(key, {})
+    for name, size, make in (("tickets", n_tickets, torch.zeros),
+                             ("partial", n_partial, torch.empty)):
+        if name not in bufs or bufs[name].numel() < size:
+            bufs[name] = make(max(size, 1024), dtype=torch.int32 if name == "tickets"
+                              else torch.float32, device=device)
+    return bufs["tickets"], bufs["partial"]
+
 
 def w8_residual_plain(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -306,8 +362,16 @@ def w8_residual_plain(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
 
 def w8_residual(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The pair's middle stage: Kernel B's GEMM whose last pass closes the
-    residual, h_mid (M, N) bf16 = h_in + qa . dq(Wa)^T (+ bias)."""
+    """Kernel G, the pair's middle stage: h_mid (M, N) bf16 = h_in +
+    qa . dq(Wa)^T (+ bias), one launch, on the route ``residual_route``
+    picks."""
+    return w8_residual_routed(qa, wa, h_in, bias, residual_route(qa.shape[0]))
+
+
+def w8_residual_routed(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
+                       bias: Optional[torch.Tensor], route: str) -> torch.Tensor:
+    """``w8_residual`` on the given route ("rows" up to 32 rows, or
+    "tile")."""
     m, k = qa.shape
     n = wa.rows
     if wa.k != k or h_in.shape != (m, n):
@@ -327,13 +391,15 @@ def w8_residual(qa: torch.Tensor, wa: ScaledW8, h_in: torch.Tensor,
     out = torch.empty_like(h_in)
     if m == 0:
         return out
-    splits = split_k(m, n, k)
-    partial = _partials(splits, m, n, qa.device)
+    blocks, splits = residual_plan(m, n, k, route)
+    tickets, partial = _residual_buffers(qa.device, blocks,
+                                         splits * m * n if splits > 1 else 0)
     lib = build.library("w8_pair", _SIG_PAIR)
+    fn = lib.w8_residual_rows if route == "rows" else lib.w8_residual_tile
     build.launches["w8_pair"] += 1
-    rc = lib.w8_residual(build.ptr(qa), build.ptr(wa.codes), build.ptr(h_in),
-                         build.ptr(bias), build.ptr(out), build.ptr(partial),
-                         m, n, k, w8_scale(wa), splits, build.stream())
+    rc = fn(build.ptr(qa), build.ptr(wa.codes), build.ptr(h_in), build.ptr(bias),
+            build.ptr(out), build.ptr(partial), build.ptr(tickets), m, n, k,
+            w8_scale(wa), splits, build.stream())
     build.check(rc, "w8_pair")
     return out
 

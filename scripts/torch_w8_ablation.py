@@ -8,7 +8,8 @@ sources.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 scripts/torch_w8_ablation.py [--splits | --stack | --grouped]
+    python3 scripts/torch_w8_ablation.py [--splits | --stack | --grouped |
+                                          --residual [--source DIR]]
 
 Variants: ``base`` (the sources as they are), ``nodecode`` (no code
 decode in the loop: the MMAs read a stale tile), ``nomma`` (no
@@ -37,6 +38,29 @@ and ``--grouped`` the grouped GEMM alone (``w8_grouped_gemm``) at
 Mixtral-8x7B's w1|w3 (K=4096) and w2 (K=14336), 8 experts, 128 rows
 each: the variants above from ``base`` to ``empty``, and the base
 sources with every K split.
+
+``--residual`` times Kernel G alone (``csrc/w8_pair.cu``, the decode-row
+strip of ``csrc/w8_rows.cuh``) at Llama-3.1-8B's o (N=4096 K=4096) and
+down (N=4096 K=14336), M = 8 and 16, on a site image with h_in and no
+bias: ``base``, ``nodecode`` (the raw code words as MMA operands),
+``nomma`` (no tensor-core product: the decoded words folded into the
+accumulators by xor), ``noepilogue`` (no cross-warp sum, close or store:
+the accumulators kept alive by a test that never holds), ``empty`` (the
+launch returns at once), ``ldcs`` (the codes loaded with the
+streaming hint but no 256-byte L2 fetch), ``ldg`` (with neither),
+``stages2`` and ``stages4`` (the register ring's depth, built 6 at M = 8
+and 4 at M = 16) and ``stages8`` (8 at M = 8),
+each beside the bound (codes, image, h_in and h_mid once over
+3.35 TB/s), the same call on w8_tile.cuh's tile (``tile``), torch.addmm
+on the bf16 weight image and a read of the codes alone (``max`` of their
+int32 words), once with chip_smoke.Timer's flush (writing 256 MB, so the
+L2 holds dirty lines that the kernel's misses write back) and once
+flushing by a read of the same buffer.  With
+``--source DIR`` (a ``csrc`` directory, e.g. the parent commit unpacked
+by ``git archive`` into ``build/parent``) that tree's G is timed in the
+same call, with its own arguments where it is the older tile kernel with
+a partial pass.  It also times the strip at Kernel B's decode-row shapes
+(M=8, N=14336 K=4096 and N=4096 K=14336) beside B itself.
 """
 
 from __future__ import annotations
@@ -45,6 +69,7 @@ import ctypes
 import importlib
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 
@@ -162,6 +187,155 @@ def ablate_wide(timer, grouped: bool) -> None:
         print(f"{source} {label} splits ms: " + _every_split(timer, k, fn), flush=True)
 
 
+CODE_LOAD = ("  asm(\"ld.global.cs.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\\n\"\n"
+             "      : \"=r\"(v.x), \"=r\"(v.y), \"=r\"(v.z), \"=r\"(v.w) : \"l\"(p));")
+RESIDUAL_VARIANTS = {
+    "base": [],
+    "nodecode": [("w8_rows.cuh", "  uint32_t x;\n  asm(\"prmt", "  return w;\n  uint32_t x;\n  asm(\"prmt")],
+    "nomma": [("w8_rows.cuh",
+               "          for (int mt = 0; mt < MT; ++mt) ptx::mma(acc[mt][nt], a[mt], b0, b1);",
+               "          for (int mt = 0; mt < MT; ++mt)\n"
+               "            acc[mt][nt][0] = __uint_as_float(__float_as_uint(acc[mt][nt][0]) ^ a[mt][0]"
+               " ^ a[mt][1] ^ a[mt][2] ^ a[mt][3] ^ b0 ^ b1);")],
+    "noepilogue": [("w8_pair.cu", "  w8r::block_sums<NT>(",
+                    "  if (c.M > 0) {\n    float t = 0.0f;\n"
+                    "    for (int i = 0; i < w8r::MT; ++i)\n      for (int j = 0; j < NT; ++j)\n"
+                    "        for (int r = 0; r < 4; ++r) t += acc[i][j][r];\n"
+                    "    if (t == 1.2345f) c.h_mid[threadIdx.x] = __float2bfloat16_rn(t);\n"
+                    "    return;\n  }\n  w8r::block_sums<NT>(")],
+    "empty": [("w8_pair.cu", "  const int chunks = K / w8r::CK;\n",
+               "  const int chunks = K / w8r::CK;\n  if (scale != 0.0f) return;\n")],
+    "ldcs": [("w8_rows.cuh", CODE_LOAD, "  v = __ldcs(reinterpret_cast<const uint4*>(p));")],
+    "ldg": [("w8_rows.cuh", CODE_LOAD, "  v = __ldg(reinterpret_cast<const uint4*>(p));")],
+    "stages2": [("w8_rows.cuh", "return NT == 1 ? 6 : 4;", "return 2;")],
+    "stages4": [("w8_rows.cuh", "return NT == 1 ? 6 : 4;", "return 4;")],
+    "stages8": [("w8_rows.cuh", "return NT == 1 ? 6 : 4;", "return NT == 1 ? 8 : 4;")],
+}
+RESIDUAL_SHAPES = (("o", 8, 4096, 4096), ("o", 16, 4096, 4096),
+                   ("down", 8, 4096, 14336), ("down", 16, 4096, 14336))
+# the parent's G: (a, codes, h_in, bias, h_mid, partial, M, N, K, scale,
+# splits, stream), partials summed by a second launch
+PARTIAL_PASS_SIG = [build.PTR] * 6 + [build.INT] * 3 + [build.FLOAT, build.INT, build.PTR]
+
+
+def build_residual(src_dir: str, out_dir: str, variants) -> dict:
+    """{variant: ctypes function of the given csrc tree's w8_pair.cu}, each
+    built from a patched copy; the function's kind: "rows" (this tree's
+    strip) or "partial" (the older tile kernel)."""
+    newer = "w8_residual_rows" in open(os.path.join(src_dir, "w8_pair.cu")).read()
+    procs = []
+    for name, patches in variants.items():
+        d = os.path.join(out_dir, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(src_dir, d)
+        for fname, old, new in patches:
+            path = os.path.join(d, fname)
+            text = open(path).read()
+            if old not in text:
+                raise SystemExit(f"{name}: {fname} no longer has {old.strip()!r}")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        lib = os.path.join(d, "libw8_pair.so")
+        procs.append((name, lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, os.path.join(d, "w8_pair.cu")])))
+    fns = {}
+    for name, lib, proc in procs:
+        if proc.wait() != 0:
+            raise SystemExit(f"{name}: nvcc failed")
+        fn = getattr(ctypes.CDLL(lib), "w8_residual_rows" if newer else "w8_residual")
+        fn.argtypes = mm._RESIDUAL_ARGS if newer else PARTIAL_PASS_SIG
+        fn.restype = ctypes.c_int
+        fns[name] = (fn, "rows" if newer else "partial")
+    return fns
+
+
+class ReadFlushTimer(cs.Timer):
+    """chip_smoke.Timer with the L2 flushed by reading the 256 MB buffer,
+    not writing it: the L2 then holds clean lines, and a kernel's misses
+    evict them without writing them back to device memory first."""
+
+    def ms(self, fn, iters: int = cs.TIMED_ITERS) -> float:
+        import torch
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.view(torch.int64).max()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _residual_call(fn, kind, qa, wa, h, out):
+    import torch
+    m, k = qa.shape
+    n = wa.rows
+    if kind == "rows":
+        _, splits = mm.residual_plan(m, n, k, "rows")
+        tickets, partial = mm._residual_buffers(qa.device, n, splits * m * n)
+        args = (build.ptr(partial), build.ptr(tickets))
+    else:
+        splits = mm.split_k(m, n, k)
+        partial = torch.empty(splits * m * n, device=qa.device)
+        args = (build.ptr(partial),)
+
+    def run():
+        build.check(fn(build.ptr(qa), build.ptr(wa.codes), build.ptr(h), 0,
+                       build.ptr(out), *args, m, n, k, mm.w8_scale(wa), splits,
+                       build.stream()), "w8_pair")
+    return run
+
+
+def ablate_residual(sources) -> None:
+    import torch
+    root = os.path.join(os.path.dirname(build.BUILD_DIR), "ablation_residual")
+    trees = {"this tree": build_residual(str(build.CSRC), os.path.join(root, "src0"),
+                                         RESIDUAL_VARIANTS)}
+    for i, src in enumerate(sources):
+        trees[src] = build_residual(src, os.path.join(root, f"src{i + 1}"),
+                                    {"base": []})
+    timers = {"write flush": cs.Timer(), "read flush": ReadFlushTimer()}
+    for name, m, n, k in RESIDUAL_SHAPES:
+        splits = cs.SPLIT_4096 if k == 4096 else cs.SPLIT_14336
+        wa = cs._w8_weight(n, k, splits)
+        wd = dequantize_scaled_w8(wa, torch.bfloat16)
+        qa = fakequant_values(torch.randn(m, k, device=cs.DEV), *splits)
+        h = torch.randn(m, n, device=cs.DEV).to(torch.bfloat16)
+        out = torch.empty_like(h)
+        words = wa.codes.view(torch.int32)
+        nbytes = n * k + m * k * 2 + 2 * m * n * 2
+        for tname, timer in timers.items():
+            for label, fns in trees.items():
+                row = [f"{v}={timer.ms(_residual_call(fn, kind, qa, wa, h, out)):.4f}"
+                       for v, (fn, kind) in fns.items()]
+                if label == "this tree":
+                    row.append("tile=%.4f" % timer.ms(
+                        lambda: mm.w8_residual_routed(qa, wa, h, None, "tile")))
+                    row.append("addmm=%.4f" % timer.ms(lambda: torch.addmm(h, qa, wd.t())))
+                    row.append("read_codes=%.4f" % timer.ms(lambda: words.max()))
+                print(f"G [{label}] {name} M={m} N={n} K={k} {tname} ms: " + " ".join(row)
+                      + f" bound={nbytes / cs.PEAK_BYTES_S * 1e3:.4f}", flush=True)
+        del wa, wd
+    timer = timers["write flush"]
+    for m, n, k in ((8, 14336, 4096), (8, 4096, 14336)):
+        splits = cs.SPLIT_4096 if k == 4096 else cs.SPLIT_14336
+        w = cs._w8_weight(n, k, splits)
+        a = fakequant_values(torch.randn(m, k, device=cs.DEV), *splits)
+        h = torch.zeros(m, n, device=cs.DEV, dtype=torch.bfloat16)
+        strip = timer.ms(lambda: mm.w8_residual_routed(a, w, h, None, "rows"))
+        b = timer.ms(lambda: mm.mixed_matmul_w8(a, w))
+        nbytes = n * k + m * k * 2 + m * n * 2
+        print(f"B's decode rows on G's strip: M={m} N={n} K={k} strip={strip:.4f} "
+              f"B={b:.4f} bound={nbytes / cs.PEAK_BYTES_S * 1e3:.4f}", flush=True)
+        del w
+
+
 SPLIT_SHAPES = ((65, 4096, 4096), (128, 4096, 4096), (128, 4096, 14336),
                 (129, 4096, 4096), (256, 4096, 4096), (300, 4096, 14336),
                 (512, 4096, 4096), (512, 4096, 14336), (512, 14336, 4096),
@@ -186,6 +360,10 @@ def main() -> int:
     print(torch.cuda.get_device_name(0), flush=True)
     if "--splits" in sys.argv[1:]:
         sweep_splits(cs.Timer())
+        return 0
+    args = sys.argv[1:]
+    if "--residual" in args:
+        ablate_residual([args[i + 1] for i, a in enumerate(args) if a == "--source"])
         return 0
     if "--stack" in sys.argv[1:] or "--grouped" in sys.argv[1:]:
         ablate_wide(cs.Timer(), "--grouped" in sys.argv[1:])

@@ -41,7 +41,7 @@ from micromix_tpu_torch.kernels.mixed_matmul import (
     mixed_matmul_w8_pair_plain, mixed_matmul_w8_plain, mixed_matmul_w8_site,
     mixed_matmul_w8_stack, mixed_matmul_w8_stack_plain, w8_gemm_split,
     w8_grouped_gemm, w8_grouped_gemm_plain, w8_residual,
-    w8_residual_plain, w8_stack_gemm, w8_stack_gemm_plain, wide_tiles)
+    w8_residual_plain, w8_residual_routed, w8_stack_gemm, w8_stack_gemm_plain, wide_tiles)
 from micromix_tpu_torch.kernels.quantize import (quantize_mixed as mx_quantize,
                                                  quantize_mixed_plain)
 from micromix_tpu_torch.mx.layout import compose_segmented
@@ -470,20 +470,106 @@ def test_w8_stack_padded_rows_unwritten(dev, m, ns):
         _close(g, r)
 
 
-@pytest.mark.parametrize("m", [3, 8, 40])
+def _residual_case(dev, m, n, k, bias, seed=0):
+    """A pair-A weight, a site image whose products with it sum exactly in
+    f32 (so any order gives the plain version's bits), h_in and a bias."""
+    torch.manual_seed(seed)
+    wa = _w8(dev, n, k, (k - 256, 128, 128))
+    qa = fakequant_values(torch.randn(m, k, device=dev) * 3, k - 256, 128, 128)
+    h = torch.randn(m, n, device=dev).to(torch.bfloat16)
+    b = (torch.randn(n, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+    return qa, wa, h, b
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 32, 40, 128])
+@pytest.mark.parametrize("n,k", [(512, 512), (512, 4096), (4096, 512),
+                                 (4096, 4096), (4096, 14336)])
 @pytest.mark.parametrize("bias", [False, True])
-def test_w8_residual_kernel(dev, m, bias):
-    k = 512
-    wa = _w8(dev, k, 1024, (768, 128, 128))
-    # a site image: its products with the weight sum exactly in f32, so
-    # any order gives the plain version's bits
-    qa = fakequant_values(torch.randn(m, 1024, device=dev) * 3, 768, 128, 128)
-    h = torch.randn(m, k, device=dev).to(torch.bfloat16)
-    b = (torch.randn(k, device=dev) * 0.1).to(torch.bfloat16) if bias else None
+def test_w8_residual_kernel(dev, m, n, k, bias):
+    """Kernel G, h_mid bit-exact against the plain version, one launch a
+    call, on the route ``w8_residual`` picks and, up to 32 rows, on both
+    (the decode-row strip and w8_tile.cuh's tile); the strip splits K
+    (tickets) at N = 512 and not at N = 4096, the tile where split_k
+    says."""
+    qa, wa, h, b = _residual_case(dev, m, n, k, bias)
+    ref = w8_residual_plain(qa, wa, h, b)
     before = build.launches["w8_pair"]
     got = w8_residual(qa, wa, h, b)
     assert build.launches["w8_pair"] == before + 1
-    assert torch.equal(got, w8_residual_plain(qa, wa, h, b))
+    assert torch.equal(got, ref)
+    for route in (["rows", "tile"] if m <= mm._ROWS_MAX_M else ["tile"]):
+        assert torch.equal(w8_residual_routed(qa, wa, h, b, route), ref), route
+
+
+@pytest.mark.parametrize("route,m", [("rows", 8), ("rows", 16), ("rows", 32),
+                                     ("tile", 8), ("tile", 40)])
+@pytest.mark.parametrize("base", [1, -60, -126, -135])
+def test_w8_residual_decode_exact(dev, route, m, base):
+    """Every code 0..255 at every base decodes as Kernel B's 16-row tile
+    decodes it (f32 product rounded to bf16, subnormal and underflowing
+    values at base -135): the identity's first m rows against codes[n, k]
+    = (n + k) % 256 give each code in every output row, with h_in = 0;
+    where the table of dequantize_scaled_w8 is defined (base >= -126,
+    codes whose magnitude bits are not 1), both equal it."""
+    n, k = 256, 256
+    codes = ((torch.arange(n)[:, None] + torch.arange(k)[None, :]) % 256).to(torch.uint8)
+    w = ScaledW8(codes.to(dev), base)
+    eye = torch.eye(k, dtype=torch.bfloat16, device=dev)[:m]
+    zero = torch.zeros(m, n, dtype=torch.bfloat16, device=dev)
+    got = w8_residual_routed(eye, w, zero, None, route)
+    ref = torch.cat([mixed_matmul_w8(eye[i:i + 8], w) for i in range(0, m, 8)]) + zero
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    if base >= -126:
+        table = dequantize_scaled_w8(w).t()[:m]
+        valid = (w.codes.t()[:m] & 0x7F) != 1
+        assert torch.equal(got[valid], table[valid])
+
+
+def test_w8_residual_tickets_reset(dev):
+    """Calls of shapes that split K (tickets and partials in the shared
+    scratch), interleaved back to back on both routes without a
+    synchronize: a ticket a launch left raised, or a stale partial, shows
+    as a wrong h_mid in a later call."""
+    cases = [_residual_case(dev, m, n, k, True, seed=i) for i, (m, n, k) in
+             enumerate([(8, 512, 4096), (16, 1024, 2048), (40, 512, 4096),
+                        (3, 512, 1024)])]
+    for m, n, k in [(8, 512, 4096), (16, 1024, 2048), (40, 512, 4096)]:
+        assert max(mm.residual_plan(m, n, k, r)[1] for r in ("rows", "tile")
+                   if m <= mm._ROWS_MAX_M or r == "tile") > 1
+    refs = [w8_residual_plain(*c) for c in cases]
+    outs = []
+    for _ in range(3):
+        for qa, wa, h, b in cases:
+            outs.append(w8_residual(qa, wa, h, b))
+            if qa.shape[0] <= mm._ROWS_MAX_M:
+                outs.append(w8_residual_routed(qa, wa, h, b, "tile"))
+    torch.cuda.synchronize()
+    i = 0
+    for _ in range(3):
+        for (qa, *_), ref in zip(cases, refs):
+            for _ in range(2 if qa.shape[0] <= mm._ROWS_MAX_M else 1):
+                assert torch.equal(outs[i], ref), i
+                i += 1
+
+
+def test_w8_residual_one_cuda_launch(dev):
+    """One CUDA kernel a ``w8_residual`` call, split or not, on every
+    route (torch.profiler's device events; the scratch is made by a call
+    before the window)."""
+    from torch.profiler import ProfilerActivity, profile
+    cases = [_residual_case(dev, m, n, 4096, False)
+             for m, n in [(8, 4096), (8, 512), (16, 512), (40, 512), (128, 4096)]]
+    for c in cases:
+        w8_residual(*c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c in cases:
+            w8_residual(*c)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == len(cases), [e.name for e in kernels]
+    assert all("w8_residual" in e.name for e in kernels), [e.name for e in kernels]
 
 
 @pytest.mark.parametrize("producer", ["plain", "silu"])
