@@ -26,6 +26,11 @@ and runs these phases; any failure exits non-zero before the result line.
      4096, Mixtral-8x7B's 4096-row expert sites); decode attention also
      at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
      window, and with the ``lengths`` override and the (m, den) state;
+     Kernel D's whole append (K's RoPE, quantize, slot index, stores,
+     lengths) at T=8 with RoPE and T=1024, int4 and int8, bit-exact,
+     beside the composition the port ran before (``old_path_ms``) and
+     with the host time of a call; ``mixed_matmul_w8_site`` (A then B) at
+     the last layer's down;
   3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
      (ScaledW8, and again with a 256-token sliding window), Mixtral-8x7B
      (experts grouped) and Llama-3.1-8B in the split-plane layout: a
@@ -54,9 +59,10 @@ and runs these phases; any failure exits non-zero before the result line.
 In phases 4 to 6 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
-ScaledW8 kernel).  Kernel launches per decode step and layer, host ms
-and device busy ms per step (``torch.profiler``) are taken for every
-form.  It prints the per-kernel JSON line, and last
+ScaledW8 kernel), and no run may take the plain PyTorch append or the
+pre-quantized one.  Kernel launches per decode step and layer, host ms,
+device busy ms and all CUDA launches per step (``torch.profiler``) are
+taken for every form.  It prints the per-kernel JSON line, and last
 ``{"ok": true, "device": ...}``.  Per-shape results also go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device it exits with
 status 2 and prints no result.
@@ -78,6 +84,7 @@ import torch
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_S = 989e12        # H100 SXM dense bf16 tensor cores
+PEAK_F32_S = 67e12          # H100 SXM f32 outside the tensor cores
 SEED = 0
 TIMED_ITERS = 15
 SPLIT_4096 = (3584, 256, 256)          # default_calibration(p6=256, p8=256)
@@ -142,16 +149,17 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_S * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_S):
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def record(results, kernel, shape, err, tol, ok, t, nbytes, flops,
-           plain_ms, library_ms=None, **extra):
+           plain_ms, library_ms=None, flops_peak=PEAK_BF16_S, **extra):
     """One kernel check; ``extra``: other measured times of the shape
-    (yardsticks that are not the same function), printed and kept."""
-    bms, by = bound(nbytes, flops)
+    (yardsticks that are not the same function), printed and kept.
+    ``flops_peak``: the card's rate for the type of the operations."""
+    bms, by = bound(nbytes, flops, flops_peak)
     r = dict(kernel=kernel, shape=shape, max_abs_err=err, tolerance=tol,
              ms=t, bound_ms=bms, bound_by=by, plain_ms=plain_ms,
              library_ms=library_ms, **extra)
@@ -415,6 +423,149 @@ def check_append(results, timer, rng):
                "bit-exact", err == 0.0,
                timer.ms(lambda: append_kv_kernel(*got, *args)), nbytes, 0.0,
                timer.ms(lambda: append_kv_plain(*ref, *args)))
+
+
+def _append_cache(rng, bits, seqs, mp, hkv=8, d=128, ps=128):
+    """seqs rows of mp pages each (a shuffled table) with random page
+    contents; lengths 0."""
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    cache = make_cache(seqs * mp + 1, ps, hkv, d, seqs, mp, bits=bits, device=DEV)
+    for a in (cache.k_codes, cache.v_codes):
+        a.random_(0, 256)
+    for a in (cache.k_sz, cache.v_sz):
+        a.copy_(torch.randn(a.shape, device=DEV))
+    cache.page_table.copy_(torch.from_numpy(
+        1 + rng.permutation(seqs * mp).reshape(seqs, mp).astype(np.int32)))
+    return cache
+
+
+def _old_append(cache, seq, pos, k, v, rope):
+    """The append as the port ran it before Kernel D took the whole
+    function: K's RoPE (decode), ``kv_quantize`` of K and V, the slot
+    index and the [scale, zero] stacks in PyTorch, Kernel D's store of
+    pre-quantized columns (``append_kv_kernel``), then ``scatter_reduce_``."""
+    from micromix_tpu_torch.serve.append_kernel import append_kv_kernel
+    from micromix_tpu_torch.serve.kv_cache import kv_quantize, rope_rows
+    if rope is not None:
+        k = rope_rows(k, *rope)
+    kq, ks, kz = kv_quantize(k, cache.bits)
+    vq, vs, vz = kv_quantize(v, cache.bits)
+    pos, seq = pos.to(torch.long), seq.to(torch.long)
+    page_id = cache.page_table[seq, pos // cache.page_size]
+    off = (pos % cache.page_size).to(torch.int32)
+    append_kv_kernel(cache.k_codes, cache.v_codes, cache.k_sz, cache.v_sz,
+                     page_id, off, kq, vq, torch.stack([ks, kz], dim=-1),
+                     torch.stack([vs, vz], dim=-1))
+    cache.lengths.scatter_reduce_(0, seq, (pos + 1).to(torch.int32), reduce="amax")
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host milliseconds a call takes to enqueue its work (no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
+def check_append_quant(results, timer, rng):
+    """Kernel D's whole append (``kv_cache.append_kv``: K's RoPE at decode,
+    ``kv_quantize``, the slot index, the stores, the ``lengths`` max) in
+    int4 and int8 at decode (T=8: one token per sequence, K and V column
+    views of a q|k|v output, RoPE tables from the positions) and at prefill
+    (T=1024: 8 sequences x 128 positions from 0), bit-exact against its
+    plain version (codes, [scale, zero] as int16 bits, lengths), timed
+    beside it, beside the old composition (``old_path_ms``) and with the
+    host time of a call for both (``host_ms``, ``old_path_host_ms``).  The
+    bound counts K and V, the RoPE tables, the indices, the page-table
+    entries and lengths the tokens touch once, and the codes and pairs
+    written; or about 7 f32 operations an element (4 more for K's RoPE)
+    at 67 TFLOP/s, whichever is larger."""
+    from micromix_tpu_torch.models.common import rope_inv_freq
+    from micromix_tpu_torch.serve.kv_cache import append_kv, append_kv_plain
+    hkv, d, ps = 8, 128, 128
+    inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
+    for bits in (4, 8):
+        for t, label in ((8, "rope"), (1024, "prefill")):
+            seqs, mp = (8, 4) if t == 8 else (8, 1)
+            cache = _append_cache(rng, bits, seqs, mp)
+            if t == 8:
+                seq = torch.arange(8, device=DEV, dtype=torch.int32)
+                pos = torch.from_numpy(rng.integers(0, mp * ps, 8).astype(np.int32)).to(DEV)
+                qkv = torch.randn(t, 48 * d, device=DEV).to(torch.bfloat16)
+                k = qkv[:, 32 * d:40 * d].unflatten(1, (hkv, d))
+                v = qkv[:, 40 * d:].unflatten(1, (hkv, d))
+                ang = pos.float()[:, None] * inv[None, :]
+                ang = torch.cat([ang, ang], dim=-1)
+                rope = (torch.cos(ang), torch.sin(ang))
+            else:
+                seq = torch.arange(8, device=DEV, dtype=torch.int32).repeat_interleave(128)
+                pos = torch.arange(128, device=DEV, dtype=torch.int32).repeat(8)
+                k, v = (torch.randn(t, hkv, d, device=DEV).to(torch.bfloat16)
+                        for _ in range(2))
+                rope = None
+            cache.lengths.copy_(torch.randint(0, 100, (seqs,), device=DEV,
+                                              dtype=torch.int32))
+            got, ref, old = (dataclasses.replace(cache, **{
+                n: getattr(cache, n).clone() for n in ("k_codes", "v_codes",
+                                                       "k_sz", "v_sz", "lengths")})
+                for _ in range(3))
+            append_kv(got, seq, pos, k, v, rope=rope)
+            append_kv_plain(ref, seq, pos, k, v, rope=rope)
+            err = 0.0
+            for n in ("k_codes", "v_codes", "k_sz", "v_sz", "lengths"):
+                g, r = getattr(got, n), getattr(ref, n)
+                if g.dtype == torch.bfloat16:
+                    g, r = g.view(torch.int16), r.view(torch.int16)
+                err = max(err, float((g.float() - r.float()).abs().max()))
+            dq = d // 2 if bits == 4 else d
+            slots = len(set((seq.long() * mp + pos.long() // ps).tolist()))
+            nbytes = (2 * t * hkv * d * 2 + (2 * t * d * 4 if rope else 0)
+                      + 2 * t * 4 + slots * 4 + seqs * 8
+                      + 2 * t * hkv * (dq + 4))
+            ops = t * hkv * d * (7 * 2 + (4 if rope else 0))
+            record(results, "append_kv_quant",
+                   f"T={t} Hkv={hkv} D={d} int{bits} {label}", err,
+                   "bit-exact (sz as int16 bits)", err == 0.0,
+                   timer.ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
+                   nbytes, ops,
+                   timer.ms(lambda: append_kv_plain(ref, seq, pos, k, v, rope=rope)),
+                   flops_peak=PEAK_F32_S,
+                   old_path_ms=timer.ms(lambda: _old_append(old, seq, pos, k, v, rope)),
+                   host_ms=host_ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
+                   old_path_host_ms=host_ms(lambda: _old_append(old, seq, pos, k, v,
+                                                                 rope)))
+            del cache, got, ref, old
+
+
+def check_site_gemm(results, timer):
+    """``mixed_matmul_w8_site`` (row 2 of the TPU kernel table: Kernel A
+    then Kernel B) at the last layer's down, silu M=8 K=14336 -> N=4096:
+    the site image within the tie band of the plain site's, the product
+    against the plain GEMM on that image; timed whole (two launches)."""
+    from micromix_tpu_torch.kernels.fakequant import fakequant_site_plain
+    from micromix_tpu_torch.kernels.mixed_matmul import (mixed_matmul_w8_plain,
+                                                         mixed_matmul_w8_site)
+    m, n, k = 8, 4096, 14336
+    w = _w8_weight(n, k, SPLIT_14336)
+    x, up = (_site_input(m, k) for _ in range(2))
+    y, qx = mixed_matmul_w8_site(x, w, producer="silu", up=up, emit_qx=True)
+    band_err, band_ok = tie_band(qx, fakequant_site_plain(
+        x, *SPLIT_14336, producer="silu", up=up), SPLIT_14336)
+    err, ok = close(y, mixed_matmul_w8_plain(qx, w))
+
+    def plain():
+        return mixed_matmul_w8_plain(fakequant_site_plain(
+            x, *SPLIT_14336, producer="silu", up=up), w)
+
+    record(results, "w8_site", f"silu M={m} N={n} K={k}", max(err, band_err),
+           "site: tie band; GEMM: 2^-7|ref|+2^-8max|ref|", ok and band_ok,
+           timer.ms(lambda: mixed_matmul_w8_site(x, w, producer="silu", up=up)),
+           2 * m * k * 2 + n * k + m * n * 2, 2.0 * m * n * k, timer.ms(plain))
+    del w
 
 
 def check_flash(results, timer):
@@ -1077,7 +1228,8 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     cpu.append(c_tok)
     for i in range(steps):
         g_tok, c_tok = both(decode_step, torch.tensor([card[-1]], device=DEV),
-                            seq, torch.tensor([len(prompt) + i], device=DEV))
+                            seq, torch.tensor([len(prompt) + i], device=DEV,
+                                              dtype=torch.int32))
         card.append(g_tok)
         cpu.append(c_tok)
     launches = dict(build.launches)
@@ -1118,7 +1270,8 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
     host ms per step, over one ``decode_multi`` chunk with the engine's
     params, every slot on the scratch row (short contexts); then the
     device busy ms per step (the sum of kernel times under
-    ``torch.profiler``) and the largest kernels, over one more chunk."""
+    ``torch.profiler``), all CUDA launches per step (PyTorch's included)
+    and the largest kernels, over one more chunk."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.serve.runner import decode_multi
     b = eng.max_seqs
@@ -1142,14 +1295,17 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
         decode_multi(eng.params, cfg, eng.caches, z, seq, z + 2 * steps, **kw)
         torch.cuda.synchronize()
     per_kernel = collections.Counter()
+    cuda_launches = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[e.name.split("(")[0][:60]] += e.device_time_total / 1e3
+            cuda_launches += 1
     busy = sum(per_kernel.values()) / steps
     if busy <= 0.0:
         fail("decode window: the profiler saw no device time")
     return dict(ms_per_step=ms, kernel_launches_per_step=total,
                 kernel_launches_per_layer_step=total / cfg.num_layers,
+                cuda_launches_per_step=cuda_launches / steps,
                 by_kernel=per_step, device_busy_ms_per_step=busy,
                 top_device_ms_per_step={k: v / steps for k, v in
                                         per_kernel.most_common(6)})
@@ -1157,18 +1313,31 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
 
 def serve(cfg, params, reqs, phase="phase 4", **kw):
     """One engine run with the launch counters reset just before it and
-    read just after it."""
+    read just after it; the plain PyTorch append refuses to run meanwhile,
+    and the pre-quantized append must not launch."""
     from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.serve import kv_cache
     from micromix_tpu_torch.serve.engine import Engine
     eng = Engine(params, cfg, seed=SEED, device=DEV, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    plain_append = kv_cache.append_kv_plain
+
+    def refuse(*args, **kwargs):
+        fail(f"{phase}: the plain PyTorch append ran on the card")
+
+    kv_cache.append_kv_plain = refuse
+    try:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kv_cache.append_kv_plain = plain_append
     launches = dict(build.launches)
+    if launches.get("append_kv"):
+        fail(f"{phase}: the pre-quantized append (the old composition) ran")
     n_new = reqs[0].max_new_tokens
     done = sum(r.done and len(r.output) == n_new for r in reqs)
     out_toks = sum(len(r.output) for r in reqs)
@@ -1431,6 +1600,9 @@ KERNELS = {
                      "micromix_tpu/serve/attention.py:201", "B=8"),
     "append_kv": ("micromix_tpu_torch/csrc/append_kv.cu",
                   "micromix_tpu/serve/append_kernel.py:88", "T=8"),
+    "append_kv_quant": ("micromix_tpu_torch/csrc/append_kv.cu",
+                        "micromix_tpu/serve/append_kernel.py:88",
+                        "T=8 Hkv=8 D=128 int4 rope"),
     "flash_attention": ("micromix_tpu_torch/csrc/flash_attention.cu",
                         "micromix_tpu/kernels/flash_attention.py:138",
                         "B=8 S=128"),
@@ -1457,22 +1629,23 @@ KERNELS = {
 # the default Mixtral engine (phase 5: experts grouped, no residual pair),
 # and the per-consumer and per-expert forms (MICROMIX_NO_STACK=1: the
 # site, the per-consumer GEMM and the attention kernels)
-LLAMA_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
-                 "flash_attention", "w8_stack", "w8_pair", "paged_prefill")
+LLAMA_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
+                 "append_kv_quant", "flash_attention", "w8_stack", "w8_pair",
+                 "paged_prefill")
 MIXTRAL_KERNELS = ("site_fakequant", "w8_gemm", "w8_stack", "w8_grouped",
-                   "paged_decode", "append_kv", "flash_attention",
+                   "paged_decode", "append_kv_quant", "flash_attention",
                    "paged_prefill")
 PER_CONSUMER_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
-                        "append_kv", "flash_attention")
+                        "append_kv_quant", "flash_attention")
 # the split-plane engines (phase 6): the default one stacks q|k|v and
 # gate|up (A + L at decode; J + K for a 256-row chunk's down), the
 # per-consumer one quantizes each site with J for K (o and down: A + L)
 SPLITPLANE_KERNELS = ("site_fakequant", "sp_stack", "sp_gemm", "mx_quantize",
-                      "paged_decode", "append_kv", "flash_attention",
+                      "paged_decode", "append_kv_quant", "flash_attention",
                       "paged_prefill")
 SPLITPLANE_PER_CONSUMER_KERNELS = ("mx_quantize", "sp_gemm", "sp_stack",
                                    "site_fakequant", "paged_decode",
-                                   "append_kv", "flash_attention")
+                                   "append_kv_quant", "flash_attention")
 
 
 def kernel_line(results, launches) -> dict:
@@ -1519,6 +1692,8 @@ def main() -> int:
     check_gemm(results, timer)
     check_decode(results, timer, rng)
     check_append(results, timer, rng)
+    check_append_quant(results, timer, rng)
+    check_site_gemm(results, timer)
     check_flash(results, timer)
     check_stack(results, timer, rng)
     check_pair(results, timer, rng)
@@ -1562,7 +1737,8 @@ def main() -> int:
         w = stats["decode_window"]
         print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
-              f"{w['device_busy_ms_per_step']:.3f} ms/step device busy", flush=True)
+              f"{w['device_busy_ms_per_step']:.3f} ms/step device busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step", flush=True)
     # launches on the main paths: the Llama, Mixtral and split-plane
     # Llama default engines
     main_launches = collections.Counter(p4["stacked"]["launches"])

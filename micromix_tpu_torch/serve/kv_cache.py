@@ -10,20 +10,24 @@ Counterpart of ``micromix_tpu/serve/kv_cache.py``.  Per layer:
 
 Unlike the JAX package's functional updates, ``append_kv`` writes the page
 arrays and lengths in place (one copy of the cache in device memory) and
-returns the same cache object.  Decode attention on the GPU takes int4
-and int8 pages, prefill attention int4 only (ROADMAP 2b).
+returns the same cache object.  On the card it is one launch of Kernel D
+(``append_kernel.append_kv_quant``), K's RoPE included when the decode
+step hands it the tables; ``append_kv_plain`` is its plain version.
+Decode attention on the GPU takes int4 and int8 pages, prefill attention
+int4 only (ROADMAP 2b).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .append_kernel import append_kv_kernel
+from .append_kernel import append_kv_plain as store_plain
+from .append_kernel import append_kv_quant
 
 # 1 / (2^bits - 1) rounded to f32, as XLA's constant folding computes it
 _F32_RECIP = {b: float(np.float32(1.0) / np.float32(2 ** b - 1)) for b in (4, 8)}
@@ -93,7 +97,9 @@ def kv_quantize(x: torch.Tensor, bits: int
     # XLA fold ``/ qmax`` into a multiply by the f32 reciprocal; the port
     # computes that same product
     scale = torch.clamp(gmax - gmin, min=1e-5) * _F32_RECIP[bits]
-    zero = torch.clamp(torch.round(-gmin / scale), 0.0, qmax)
+    # + 0.0: a row above zero rounds -gmin / scale to -0.0, which clamp
+    # keeps; XLA's max, as the JAX package's jitted program has it, gives +0.0
+    zero = torch.clamp(torch.round(-gmin / scale), 0.0, qmax) + 0.0
     q = torch.clamp(torch.round(xf / scale) + zero, 0.0, qmax).to(torch.uint8)
     if bits == 4:
         d = x.shape[-1] // 2
@@ -116,25 +122,89 @@ def kv_dequantize_page(codes: torch.Tensor, sz: torch.Tensor, bits: int,
     return ((q.to(torch.float32) - zero) * scale).to(dtype)
 
 
-def append_kv(cache: PagedKVCache, seq_ids: torch.Tensor,
-              positions: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> PagedKVCache:
-    """Write T tokens in place.  seq_ids/positions (T,), k/v (T, Hkv, D).
+def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (T, H, D) with per-row angle tables (T, D); rounds to x's dtype.
+    Counterpart of ``micromix_tpu/serve/runner.py::_rope1``: each product
+    rounded to f32 on its own, then the sum (the JAX CPU program contracts
+    ``x * cos + ...`` into an FMA; ROADMAP 3.2)."""
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.to(torch.float32) * cos[:, None, :]
+            + rot.to(torch.float32) * sin[:, None, :]).to(x.dtype)
 
-    The page-table rows for these positions must already be populated;
-    lengths become max(length, position + 1) per sequence.
-    """
+
+def append_kv_plain(cache: PagedKVCache, seq_ids: torch.Tensor,
+                    positions: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rope=None) -> PagedKVCache:
+    """The plain version of ``append_kv``: ``rope_rows`` of K when ``rope``
+    is given, ``kv_quantize`` of K and V, the slot index, one indexed
+    store per page array and the ``lengths`` max."""
+    if rope is not None:
+        k = rope_rows(k, *rope)
     kq, ks, kz = kv_quantize(k, cache.bits)
     vq, vs, vz = kv_quantize(v, cache.bits)
     positions = positions.to(torch.long)
     seq_ids = seq_ids.to(torch.long)
     page_id = cache.page_table[seq_ids, positions // cache.page_size]
-    off = (positions % cache.page_size).to(torch.int32)
-    append_kv_kernel(cache.k_codes, cache.v_codes, cache.k_sz, cache.v_sz,
-                     page_id, off, kq, vq, torch.stack([ks, kz], dim=-1),
-                     torch.stack([vs, vz], dim=-1))
+    off = positions % cache.page_size
+    store_plain(cache.k_codes, cache.v_codes, cache.k_sz, cache.v_sz,
+                page_id, off, kq, vq, torch.stack([ks, kz], dim=-1),
+                torch.stack([vs, vz], dim=-1))
     cache.lengths.scatter_reduce_(0, seq_ids, (positions + 1).to(torch.int32),
                                   reduce="amax")
+    return cache
+
+
+def _check_slots(cache: PagedKVCache, seq_ids: torch.Tensor,
+                 positions: torch.Tensor) -> None:
+    """On CPU tensors: every token has a sequence row, a page-table column
+    and a page id inside the arrays (the kernel skips such a token; reading
+    device indices here would wait for the card)."""
+    s, mp = cache.page_table.shape
+    seq, pos = seq_ids.long(), positions.long()
+    if bool(((seq < 0) | (seq >= s) | (pos < 0)
+             | (pos // cache.page_size >= mp)).any()):
+        raise ValueError("append_kv: a token's sequence or page lies outside "
+                         f"the page table {(s, mp)}")
+    pages = cache.page_table[seq, pos // cache.page_size]
+    if bool(((pages < 0) | (pages >= cache.k_codes.shape[0])).any()):
+        raise ValueError("append_kv: a token's page id lies outside the "
+                         f"{cache.k_codes.shape[0]} pages")
+
+
+def append_kv(cache: PagedKVCache, seq_ids: torch.Tensor,
+              positions: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> PagedKVCache:
+    """Write T tokens in place.  seq_ids/positions (T,), k/v (T, Hkv, D)
+    bf16; ``rope`` = (cos, sin), each (T, D) f32, rotates K first (the
+    decode step's K, as the JAX runner rotates it before its append).
+
+    The page-table rows for these positions must already be populated;
+    lengths become max(length, position + 1) per sequence.  On CUDA
+    tensors one launch of Kernel D, which takes int32 seq_ids and
+    positions and raises on inputs it cannot take; on CPU tensors the
+    plain version, which raises for a token outside the page table.
+    """
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise ValueError(f"append_kv: k/v {k.dtype}, {v.dtype}: takes bf16")
+    t = k.shape[0]
+    if (k.shape != (t, cache.n_kv_heads, cache.head_dim) or v.shape != k.shape
+            or seq_ids.shape != (t,) or positions.shape != (t,)):
+        raise ValueError(f"append_kv shapes: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, seq_ids {tuple(seq_ids.shape)}, "
+                         f"positions {tuple(positions.shape)} for "
+                         f"{cache.n_kv_heads} heads of {cache.head_dim}")
+    if rope is not None and any(a.dtype != torch.float32 or a.shape != (t, k.shape[2])
+                                for a in rope):
+        raise ValueError("append_kv: RoPE tables must be f32 (T, D)")
+    if not cache.k_codes.is_cuda:
+        _check_slots(cache, seq_ids, positions)
+        return append_kv_plain(cache, seq_ids, positions, k, v, rope)
+    cos, sin = rope if rope is not None else (None, None)
+    append_kv_quant(cache.k_codes, cache.v_codes, cache.k_sz, cache.v_sz,
+                    cache.page_table, cache.lengths, seq_ids, positions, k, v,
+                    cache.bits, _F32_RECIP[cache.bits], cos, sin)
     return cache
 
 

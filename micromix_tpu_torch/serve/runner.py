@@ -79,7 +79,7 @@ def prefill_batch(params: Params, cfg: ModelConfig, caches: Caches,
     b, s = tokens.shape
     dev = tokens.device
     h = params["embed"][tokens.long()].to(torch.bfloat16)
-    positions = torch.arange(s, device=dev)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)
     cos, sin = rope_table(positions, cfg)
     seq_flat = seq_ids.repeat_interleave(s)
     pos_flat = positions.repeat(b)
@@ -133,14 +133,6 @@ def prefill(params: Params, cfg: ModelConfig, caches: Caches,
         h = h + _mlp(h, p, cfg)
     last = [s - 1 if last_idx is None else last_idx]
     return _logits_at(h, params, cfg, last), caches
-
-
-def _rope1(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, H, D) with per-row angle tables (B, D); rounds to x's dtype."""
-    half = x.shape[-1] // 2
-    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return (x.to(torch.float32) * cos[:, None, :]
-            + rot.to(torch.float32) * sin[:, None, :]).to(x.dtype)
 
 
 def _can_pair(params: Params, cfg: ModelConfig, b: int) -> bool:
@@ -206,9 +198,9 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
     layers = params["layers"]
 
     def attend(q, k, v, cache):
-        # the cache stores post-RoPE K; q is rotated inside the attention,
-        # in f32 without the bf16 round
-        append_kv(cache, seq_ids, positions, _rope1(k, cos, sin), v)
+        # the cache stores post-RoPE K, rotated inside the append; q is
+        # rotated inside the attention, in f32 without the bf16 round
+        append_kv(cache, seq_ids, positions, k, v, rope=(cos, sin))
         out = paged_decode_attention(q, cache, seq_ids,
                                      rope_positions=positions,
                                      rope_inv_freq=inv,

@@ -58,6 +58,7 @@ from micromix_tpu_torch.serve.append_kernel import (append_kv_kernel,
 from micromix_tpu_torch.serve.attention import (decode_split,
                                                 paged_decode_attention,
                                                 paged_decode_attention_plain)
+from micromix_tpu_torch.serve import kv_cache
 from micromix_tpu_torch.serve.kv_cache import make_cache
 from micromix_tpu_torch.serve.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_plain)
@@ -367,6 +368,135 @@ def test_append_kernel(dev):
     append_kv_plain(*ref, *args)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def _append_cache(dev, bits, seqs, mp, d, ps=128, hkv=8):
+    """seqs rows of mp pages each (a shuffled table; the scratch row
+    ``seqs`` on page 0), random page contents and lengths."""
+    cache = make_cache(seqs * mp + 1, ps, hkv, d, seqs + 1, mp, bits=bits,
+                       device=dev)
+    for a in (cache.k_codes, cache.v_codes):
+        a.random_(0, 256)
+    for a in (cache.k_sz, cache.v_sz):
+        a.copy_(torch.randn(a.shape, device=dev))
+    cache.page_table[:seqs] = 1 + torch.randperm(
+        seqs * mp, device=dev).to(torch.int32).reshape(seqs, mp)
+    cache.lengths.copy_(torch.randint(0, 50, (seqs + 1,), device=dev,
+                                      dtype=torch.int32))
+    return cache
+
+
+def _append_matches_plain(cache, seq, pos, k, v, rope=None):
+    """Kernel D's whole append against its plain version on copies of one
+    cache: codes, [scale, zero] as int16 bits and lengths, bit for bit, on
+    every page but the scratch page 0."""
+    got, ref = (dataclasses.replace(cache, **{
+        n: getattr(cache, n).clone() for n in ("k_codes", "v_codes", "k_sz",
+                                               "v_sz", "lengths")})
+        for _ in range(2))
+    kv_cache.append_kv(got, seq, pos, k, v, rope=rope)
+    kv_cache.append_kv_plain(ref, seq, pos, k, v, rope=rope)
+    for name in ("k_codes", "v_codes", "k_sz", "v_sz"):
+        g, r = getattr(got, name)[1:], getattr(ref, name)[1:]
+        if g.dtype == torch.bfloat16:
+            g, r = g.view(torch.int16), r.view(torch.int16)
+        assert torch.equal(g, r), name
+    assert torch.equal(got.lengths, ref.lengths)
+
+
+def _rope_tables(pos, d):
+    from micromix_tpu_torch.models.common import rope_inv_freq
+    inv = rope_inv_freq(d, 500000.0, ("llama3", 8.0, 1.0, 4.0, 8192),
+                        device=pos.device)
+    ang = pos.float()[:, None] * inv[None, :]
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.parametrize("t", [1, 8, 32])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_append_quant_decode(dev, t, bits, d):
+    """Decode appends with K's RoPE inside: one token per sequence on its
+    own page, two rows parked on the scratch page (T >= 8), K and V as
+    column views of one q|k|v output (a token stride of 48 heads); every
+    fourth row of K lies above zero (a zero point from -0.0)."""
+    hkv, mp = 8, 4
+    real = t if t == 1 else t - 2
+    cache = _append_cache(dev, bits, real, mp, d)
+    seq = torch.cat([torch.arange(real, device=dev),
+                     torch.full((t - real,), real, device=dev)]).to(torch.int32)
+    pos = torch.randint(0, mp * 128, (t,), device=dev, dtype=torch.int32)
+    pos[real:] = 0
+    qkv = (torch.randn(t, 48 * d, device=dev) * 3).to(torch.bfloat16)
+    qkv[::4, 32 * d:33 * d] = qkv[::4, 32 * d:33 * d].abs() + 0.01
+    k = qkv[:, 32 * d:40 * d].unflatten(1, (hkv, d))
+    v = qkv[:, 40 * d:].unflatten(1, (hkv, d))
+    _append_matches_plain(cache, seq, pos, k, v, _rope_tables(pos, d))
+
+
+@pytest.mark.parametrize("t,start", [(512, 0), (1024, 0), (512, 12), (1024, 77)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_append_quant_prefill(dev, t, start, bits):
+    """Prefill appends (K already rotated): 512-token runs of T / 512
+    sequences from ``start`` (page-aligned, 4-aligned mid-page, and odd)."""
+    d, n = 128, t // 512
+    mp = -(-(start + 512) // 128)
+    cache = _append_cache(dev, bits, n, mp, d)
+    seq = torch.arange(n, device=dev, dtype=torch.int32).repeat_interleave(512)
+    pos = (start + torch.arange(512, device=dev, dtype=torch.int32)).repeat(n)
+    k, v = ((torch.randn(t, 8, d, device=dev) * 2).to(torch.bfloat16)
+            for _ in range(2))
+    _append_matches_plain(cache, seq, pos, k, v)
+
+
+def test_append_quant_one_cuda_launch(dev):
+    """One CUDA kernel an ``append_kv`` call, at decode with RoPE and at
+    prefill (torch.profiler's device events), counted once by the wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    cache = _append_cache(dev, 4, 8, 8, 128)
+    dec_pos = torch.arange(8, device=dev, dtype=torch.int32) * 100
+    dec = (torch.arange(8, device=dev, dtype=torch.int32), dec_pos,
+           *((torch.randn(8, 8, 128, device=dev)).to(torch.bfloat16) for _ in range(2)))
+    pre = (torch.zeros(1024, device=dev, dtype=torch.int32),
+           torch.arange(1024, device=dev, dtype=torch.int32),
+           *((torch.randn(1024, 8, 128, device=dev)).to(torch.bfloat16) for _ in range(2)))
+    rope = _rope_tables(dec_pos, 128)
+    calls = [lambda: kv_cache.append_kv(cache, *dec, rope=rope),
+             lambda: kv_cache.append_kv(cache, *pre)]
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == len(calls), [e.name for e in kernels]
+    assert all("append_quant" in e.name for e in kernels), [e.name for e in kernels]
+    assert dict(build.launches) == {"append_kv_quant": len(calls)}
+
+
+def test_append_quant_refusals(dev):
+    """No conversion on the card: int64 indices, f32 K, K whose dims are
+    not dense, a head dim the kernel does not take all raise."""
+    cache = _append_cache(dev, 4, 2, 2, 128)
+    seq = torch.arange(2, device=dev, dtype=torch.int32)
+    pos = torch.tensor([3, 9], device=dev, dtype=torch.int32)
+    k = torch.randn(2, 8, 128, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        kv_cache.append_kv(cache, seq.long(), pos, k, k)
+    with pytest.raises(ValueError):
+        kv_cache.append_kv(cache, seq, pos.long(), k, k)
+    with pytest.raises(ValueError):
+        kv_cache.append_kv(cache, seq, pos, k.float(), k)
+    with pytest.raises(ValueError):
+        kv_cache.append_kv(cache, seq, pos, k.transpose(1, 2).contiguous().transpose(1, 2), k)
+    with pytest.raises(ValueError):
+        kv_cache.append_kv(_append_cache(dev, 4, 2, 2, 96), seq, pos,
+                  torch.zeros(2, 8, 96, device=dev, dtype=torch.bfloat16),
+                  torch.zeros(2, 8, 96, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300])
