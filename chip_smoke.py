@@ -30,7 +30,11 @@ and runs these phases; any failure exits non-zero before the result line.
      lengths) at T=8 with RoPE and T=1024, int4 and int8, bit-exact,
      beside the composition the port ran before (``old_path_ms``) and
      with the host time of a call; ``mixed_matmul_w8_site`` (A then B) at
-     the last layer's down;
+     the last layer's down; then the logit-controls stage and the chosen
+     tokens' logprobs (plain PyTorch ops, no kernel) on the card against
+     the CPU on the same f32 logits at B=8, V=128256 (controlled logits
+     bit-exact, greedy tokens equal, logprobs within 4.3e-5), with each
+     part's device ms and CUDA launches;
   3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
      (ScaledW8, and again with a 256-token sliding window), Mixtral-8x7B
      (experts grouped) and Llama-3.1-8B in the split-plane layout: a
@@ -42,7 +46,13 @@ and runs these phases; any failure exits non-zero before the result line.
   4. serving Llama-3.1-8B at full depth (32 layers, random weights made on
      the card): the default (stacked) engine answers 8 requests, six of
      96-128 and two of 1200-1500 prompt tokens, with prefill_chunk 512
-     and 32 new tokens each, so chunked prefill and piggyback run; then
+     and 32 new tokens each, so chunked prefill and piggyback run; after
+     its measured windows the same engine serves a second batch of 8
+     with the request surface (repetition penalty, min-p at temperature
+     0.8, min_new_tokens against eos and stop ids, logprobs, an
+     ``on_token`` stream, one request cancelled from its own callback;
+     stop ids from a probe run of the batch), with its decode ms/step,
+     device busy and CUDA launches a step beside the plain batch's; then
      the per-consumer engine (``MICROMIX_NO_STACK=1``) at 4 layers
      answers 8 requests of 96-128 tokens;
   5. serving Mixtral-8x7B at full depth (32 layers, random weights made
@@ -54,9 +64,17 @@ and runs these phases; any failure exits non-zero before the result line.
      the default engine and phase 4's kind of traffic (one long prompt's
      last chunk pads to 256 rows, the other's to 512, so both sides of
      the 512-row dequantize threshold run); then the per-consumer engine
-     at 4 layers, 8 requests of 96-128 tokens.
+     at 4 layers, 8 requests of 96-128 tokens;
+  7. the dense calibrate -> smooth -> quantize -> perplexity pipeline at
+     Llama-3.1-8B widths, 32 layers, dense weights from the seed made on
+     the card: calibration on 4 windows of 2048 ``synthetic_tokens``,
+     smoothing and quantization layer by layer, dense and quantized
+     perplexity on the next 4 windows, with each stage's seconds, the
+     average bits and the peak memory; quantized ppl under 1.25 x dense;
+     then the same pipeline at 2 layers on the card and on the CPU
+     (stats, calibrations, perplexities compared).
 
-In phases 4 to 6 every kernel launch counter is reset just before each
+In phases 4 to 7 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel), and no run may take the plain PyTorch append or the
@@ -1072,6 +1090,103 @@ def check_sp_stack(results, timer, rng):
         del st, wd
 
 
+def cuda_launches(fn) -> int:
+    """CUDA kernel launches of one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+# two f32 sums of V = 128256 exps in another order: about sqrt(V) * 2^-24
+# (2.1e-5) of the log-sum-exp each
+LOGPROB_TOL = 2 * np.sqrt(128256) * 2.0 ** -24
+
+
+def check_controls(timer) -> dict:
+    """The logit-controls stage and ``decode_multi``'s logprobs: plain
+    PyTorch ops over (B, V) (the JAX package computes them with jnp ops
+    outside any kernel), on the card against the CPU on the same f32
+    logits at B=8, V=128256.  The controlled logits must be bit-exact
+    (compares, IEEE divisions and multiplies, a max), the greedy token
+    equal, the chosen tokens' raw logprobs within LOGPROB_TOL (two
+    log_softmax sums over 128256 terms in another order).  Each part's
+    device ms (CUDA events, L2 flushed) and CUDA launches: the chunk's
+    set-up (presence unpacked, terminators' mask), a step's stage
+    (suppression, penalty, min-p, the presence update) and a step's
+    logprobs."""
+    from micromix_tpu_torch.serve.sampling import (SamplingParams,
+                                                   apply_logit_controls,
+                                                   ban_mask, chosen_logprobs,
+                                                   minp_shifts,
+                                                   unpack_presence)
+    b, v = 8, 128256
+    g = np.random.default_rng(SEED + 11)
+    presence = np.zeros((b, v), bool)
+    for i in range(b):
+        presence[i, g.integers(0, v, 1500)] = True
+    sp = [SamplingParams(temperature=0.8 * (i % 2), min_p=0.1,
+                         repetition_penalty=(1.3, 1.0, 0.8, 1.3)[i % 4])
+          for i in range(b)]
+    ban = g.integers(0, v, (b, 3)).astype(np.int32)
+    ban[1, 1:] = -1
+    cpu = dict(logits=torch.from_numpy(g.normal(0, 3, (b, v)).astype(np.float32)),
+               bits=torch.from_numpy(np.packbits(presence, axis=1,
+                                                 bitorder="little")),
+               pen=torch.tensor([p.repetition_penalty for p in sp]),
+               ban=torch.from_numpy(ban),
+               mrem=torch.tensor([16, 0, 3, 1, 0, 16, 2, 0], dtype=torch.int32),
+               mps=torch.from_numpy(minp_shifts(sp)))
+    card = {k: t.to(DEV) for k, t in cpu.items()}
+
+    def setup(t):
+        return unpack_presence(t["bits"], v), ban_mask(t["ban"], v)
+
+    def stage(t, pres, banned, i=0):
+        suppress = (t["mrem"] > i)[:, None] & banned
+        x = apply_logit_controls(t["logits"], pres, t["pen"], suppress,
+                                 minp_shift=t["mps"])
+        tok = torch.argmax(x, dim=-1)
+        pres[torch.arange(b, device=x.device), tok] = True
+        return x, tok
+
+    def logprobs(t, tok):
+        return chosen_logprobs(t["logits"], tok)
+
+    x_c, tok_c = stage(cpu, *setup(cpu))
+    x_g, tok_g = stage(card, *setup(card))
+    lp_c, lp_g = logprobs(cpu, tok_c), logprobs(card, tok_g)
+    exact = torch.equal(x_g.cpu(), x_c)
+    same_tok = torch.equal(tok_g.cpu(), tok_c)
+    lp_err = float((lp_g.cpu() - lp_c).abs().max())
+    pres, banned = setup(card)
+    out = dict(
+        controlled_logits_bit_exact=exact, greedy_tokens_equal=same_tok,
+        logprob_max_abs_err=lp_err, logprob_tolerance=LOGPROB_TOL,
+        setup_ms=timer.ms(lambda: setup(card)),
+        setup_launches=cuda_launches(lambda: setup(card)),
+        stage_ms=timer.ms(lambda: stage(card, pres, banned)),
+        stage_launches=cuda_launches(lambda: stage(card, pres, banned)),
+        logprobs_ms=timer.ms(lambda: logprobs(card, tok_g)),
+        logprobs_launches=cuda_launches(lambda: logprobs(card, tok_g)))
+    print(f"  controls B={b} V={v}: controlled logits bit-exact {exact}, "
+          f"greedy tokens equal {same_tok}, logprobs max abs err "
+          f"{lp_err:.3e} ({LOGPROB_TOL}); device ms and CUDA launches: "
+          f"chunk set-up {out['setup_ms']:.4f} / {out['setup_launches']}, "
+          f"a step's stage {out['stage_ms']:.4f} / {out['stage_launches']}, "
+          f"a step's logprobs {out['logprobs_ms']:.4f} / "
+          f"{out['logprobs_launches']} (plain PyTorch ops, no kernel)",
+          flush=True)
+    if not (exact and same_tok and lp_err <= LOGPROB_TOL):
+        fail("controls: the card's controlled logits, greedy tokens or "
+             "logprobs disagree with the CPU's")
+    return out
+
+
 # ----------------------------------------------------------------- phase 3
 
 def params_to(params, device):
@@ -1265,21 +1380,24 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
 
 # ----------------------------------------------------------------- phase 4
 
-def decode_window(eng, cfg, steps: int = 8) -> dict:
+def decode_window(eng, cfg, steps: int = 8, controls=None,
+                  with_logprobs: bool = False) -> dict:
     """The port's kernel launches per decode step (and per layer) and the
     host ms per step, over one ``decode_multi`` chunk with the engine's
-    params, every slot on the scratch row (short contexts); then the
-    device busy ms per step (the sum of kernel times under
-    ``torch.profiler``), all CUDA launches per step (PyTorch's included)
-    and the largest kernels, over one more chunk."""
+    params, every slot on the scratch row (short contexts), greedy, with
+    the logit controls and logprobs when given; then the device busy ms
+    per step (the sum of kernel times under ``torch.profiler``), all CUDA
+    launches per step (PyTorch's included) and the largest kernels, over
+    one more chunk."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.serve.runner import decode_multi
     b = eng.max_seqs
     z = torch.zeros(b, dtype=torch.int32, device=DEV)
     seq = torch.full((b,), b, dtype=torch.int32, device=DEV)
     kw = dict(gen=None, temps=torch.zeros(b, device=DEV), top_k=z,
-              top_p=torch.ones(b, device=DEV), n_steps=steps,
-              sample_mode="greedy")
+              top_p=torch.ones(b, device=DEV), controls=controls,
+              n_steps=steps, sample_mode="greedy",
+              with_logprobs=with_logprobs)
     decode_multi(eng.params, cfg, eng.caches, z, seq, z, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -1311,16 +1429,14 @@ def decode_window(eng, cfg, steps: int = 8) -> dict:
                                         per_kernel.most_common(6)})
 
 
-def serve(cfg, params, reqs, phase="phase 4", **kw):
-    """One engine run with the launch counters reset just before it and
-    read just after it; the plain PyTorch append refuses to run meanwhile,
-    and the pre-quantized append must not launch."""
+def engine_run(eng, reqs, phase: str):
+    """``eng.run(reqs)`` with the launch counters reset just before it ->
+    (host wall s, the launches read just after it).  The plain PyTorch
+    append refuses to run meanwhile, and the pre-quantized append must
+    not launch."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.serve import kv_cache
-    from micromix_tpu_torch.serve.engine import Engine
-    eng = Engine(params, cfg, seed=SEED, device=DEV, **kw)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     plain_append = kv_cache.append_kv_plain
 
@@ -1338,6 +1454,17 @@ def serve(cfg, params, reqs, phase="phase 4", **kw):
     launches = dict(build.launches)
     if launches.get("append_kv"):
         fail(f"{phase}: the pre-quantized append (the old composition) ran")
+    return wall, launches
+
+
+def serve(cfg, params, reqs, phase="phase 4", **kw):
+    """One engine run (``engine_run``) of a fresh default engine; every
+    request must finish with its ``max_new_tokens``."""
+    from micromix_tpu_torch.serve.engine import Engine
+    eng = Engine(params, cfg, seed=SEED, device=DEV, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches = engine_run(eng, reqs, phase)
     n_new = reqs[0].max_new_tokens
     done = sum(r.done and len(r.output) == n_new for r in reqs)
     out_toks = sum(len(r.output) for r in reqs)
@@ -1387,6 +1514,14 @@ def phase4(rng) -> dict:
         fail("phase 4: no prefill chunk rode a decode call")
     stats["decode_window"] = decode_window(eng, cfg)
     print("  stacked, 32 layers: " + json.dumps(stats), flush=True)
+    ctl = controls_batch(eng, cfg, rng)
+    for label, st in (("plain batch", stats), ("controls batch", ctl)):
+        w = st["decode_window"]
+        print(f"  {label}: engine {st['decode_ms_per_step']:.3f} ms/step; "
+              f"decode window {w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} ms/step device busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step",
+              flush=True)
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1416,7 +1551,120 @@ def phase4(rng) -> dict:
           f"per-consumer "
           f"{stats4['decode_window']['kernel_launches_per_layer_step']:.2f}",
           flush=True)
-    return dict(stacked=stats, per_consumer=stats4)
+    return dict(stacked=stats, per_consumer=stats4, controls=ctl)
+
+
+CANCELLED, CANCEL_AT, MIN_NEW = 6, 5, 16
+
+
+def controls_batch(eng, cfg, rng) -> dict:
+    """Phase 4's second batch, on the same engine: 8 requests of 96-128
+    prompt tokens, 32 new tokens at most, every one with logprobs and an
+    ``on_token`` stream: greedy with repetition penalty 1.3 and a stop id
+    (0), min_p 0.1 at temperature 0.8 (1, 5; with the penalty: 3),
+    min_new_tokens 16 against eos and stop ids (2; with the penalty: 4),
+    the penalty and a cancel from its own ``on_token`` after 5 tokens
+    (6), greedy min-p (7, the argmax alone).
+
+    The stop and eos ids are read from a probe run of the same batch
+    without them: rows are computed independently of one another, so
+    request 0's greedy path is the probe's up to the stop id (its first
+    occurrence from token 4 on), and the ids of 2 and 4, which the probe
+    emitted before token 16, must now be suppressed until it.  Checks:
+    the stop id ends request 0 there; no eos or stop id before token 16;
+    ``len(token_logprobs) == len(output)``, each a log-probability; the
+    streamed tokens are the output; the cancelled request is done with 5
+    tokens and its slot free; every page returns to the pool.  The
+    launch counters are reset just before the measured run and read just
+    after it; then a greedy decode window with the controls and logprobs
+    beside the plain batch's."""
+    from micromix_tpu_torch.serve.engine import Request
+    from micromix_tpu_torch.serve.sampling import SamplingParams
+    v = cfg.vocab_size
+    prompts = [rng.integers(0, v, int(rng.integers(96, 129))).tolist()
+               for _ in range(8)]
+    sps = [SamplingParams(repetition_penalty=1.3),
+           SamplingParams(temperature=0.8, min_p=0.1),
+           SamplingParams(min_new_tokens=MIN_NEW),
+           SamplingParams(temperature=0.8, min_p=0.1, repetition_penalty=1.3),
+           SamplingParams(repetition_penalty=1.3, min_new_tokens=MIN_NEW),
+           SamplingParams(temperature=0.8, min_p=0.1),
+           SamplingParams(repetition_penalty=1.3),
+           SamplingParams(min_p=0.1)]
+
+    def batch(ids):
+        streams = [[] for _ in prompts]
+
+        def on_token(i):
+            def f(t):
+                streams[i].append(t)
+                if i == CANCELLED and len(streams[i]) == CANCEL_AT:
+                    if not eng.cancel(i) or eng.slots[i].req is not None:
+                        fail("phase 4 (controls): the cancel did not release "
+                             "its slot")
+            return f
+        return [Request(i, p, max_new_tokens=32, sampling=sps[i],
+                        eos_id=ids.get(i, (None, None))[0],
+                        stop_ids=ids.get(i, (None, None))[1], logprobs=True,
+                        on_token=on_token(i))
+                for i, p in enumerate(prompts)], streams
+
+    probe, _ = batch({})
+    engine_run(eng, probe, "phase 4 (controls probe)")
+    out0 = probe[0].output
+    k0 = next((k for k in range(4, len(out0)) if out0[k] not in out0[:k]), None)
+    o2, o4 = probe[2].output, probe[4].output
+    if k0 is None or len(o2) < 4 or len(o4) < 3:
+        fail("phase 4 (controls): the probe run gave no usable stop id")
+    ids = {0: (None, [out0[k0]]), 2: (o2[1], [o2[3], o2[2]]), 4: (o4[2], None)}
+    reqs, streams = batch(ids)
+    d0, s0 = eng.phase_s["decode"], eng.phase_steps["decode"]
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches = engine_run(eng, reqs, "phase 4 (controls)")
+    steps = eng.phase_steps["decode"] - s0
+    r0 = reqs[0]
+    if r0.output != out0[:k0 + 1]:
+        fail(f"phase 4 (controls): request 0 did not end at its stop id "
+             f"{out0[k0]} (token {k0})")
+    for i in (2, 4):
+        eos, stops = ids[i]
+        banned = {eos, *(stops or [])}
+        if banned & set(reqs[i].output[:MIN_NEW]):
+            fail(f"phase 4 (controls): request {i} emitted a terminator "
+                 f"before {MIN_NEW} tokens")
+    for r, st in zip(reqs, streams):
+        if not r.done or st != r.output:
+            fail(f"phase 4 (controls): request {r.req_id} not done, or its "
+                 "stream differs from its output")
+        if len(r.token_logprobs) != len(r.output) or not all(
+                np.isfinite(x) and x <= 0.0 for x in r.token_logprobs):
+            fail(f"phase 4 (controls): request {r.req_id}'s logprobs")
+        if not all(0 <= t < v for t in r.output):
+            fail("phase 4 (controls): token out of vocabulary")
+    if len(reqs[CANCELLED].output) != CANCEL_AT:
+        fail("phase 4 (controls): the cancelled request went on")
+    bm = eng.block_manager
+    if bm.num_free != bm.n_pages - 1 or any(s.req is not None for s in eng.slots):
+        fail("phase 4 (controls): slots or pages not released")
+    missing = [n for n in CONTROLS_KERNELS if not launches.get(n)]
+    if missing:
+        fail(f"phase 4 (controls): kernels not launched: {missing}")
+    window_reqs = [Request(r.req_id, r.prompt, sampling=r.sampling,
+                           eos_id=r.eos_id, stop_ids=r.stop_ids) for r in reqs]
+    # the engine's per-chunk host work for the stage: presence from each
+    # context, packed, and the five arrays copied to the card
+    setup_ms = host_ms(lambda: eng._controls_arrays(window_reqs))
+    stats = dict(
+        controls_arrays_host_ms_per_chunk=setup_ms,
+        tokens_out=[len(r.output) for r in reqs], stop_at=k0,
+        decode_ms_per_step=1e3 * (eng.phase_s["decode"] - d0) / steps,
+        decode_steps=steps, wall_s=wall, launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        decode_window=decode_window(eng, cfg,
+                                    controls=eng._controls_arrays(window_reqs),
+                                    with_logprobs=True))
+    print("  controls batch, 32 layers: " + json.dumps(stats), flush=True)
+    return stats
 
 
 def _traffic(rng, vocab: int, long_lens=None):
@@ -1588,6 +1836,207 @@ def phase6() -> dict:
     return dict(stacked=stats, per_consumer=stats4)
 
 
+# ----------------------------------------------------------------- phase 7
+
+P7_SEQLEN, P7_CAL, P7_EVAL = 2048, 4, 4
+P7_LAYERS = 32
+# the 2-layer card/CPU comparison: windows of 512 tokens keep the CPU's
+# f32 forwards (a 128256-row head) to seconds
+P7_CMP_SEQLEN, P7_CMP_CAL, P7_CMP_EVAL = 512, 2, 2
+# card/CPU tolerances of the stats: the dense linears' f32 sums run in
+# another order (cuBLAS, the CPU's GEMM), so a bf16 output can land one
+# step (0.8%) apart and compound through silu * up and the next layer
+STATS_RTOL = {"absmax": 0.05, "saliency": 0.05, "below4": 5e-3,
+              "below6": 5e-3, "total": 0.0}
+PPL_RTOL = 2e-3
+
+
+def dense_llama(cfg, seed: int, device):
+    """A seeded dense bf16 Llama made on ``device`` (torch.Generator
+    draws): each linear N(0, 1/sqrt(K)), embed and head N(0, 0.02), norms
+    1 -- the widths and draws of random_dense_params, without numpy."""
+    from micromix_tpu_torch.models.common import DenseLinear
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hid, inter = cfg.hidden_size, cfg.intermediate_size
+    odim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def normal(shape, std):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        return t.normal_(0.0, std, generator=gen).to(torch.bfloat16)
+
+    def lin(n, k):
+        return DenseLinear(w=normal((n, k), 1.0 / np.sqrt(k)))
+
+    def ones():
+        return torch.ones(hid, dtype=torch.bfloat16, device=device)
+
+    layers = [dict(ln1=ones(), ln2=ones(), q=lin(odim, hid), k=lin(kvdim, hid),
+                   v=lin(kvdim, hid), o=lin(hid, odim), gate=lin(inter, hid),
+                   up=lin(inter, hid), down=lin(hid, inter))
+              for _ in range(cfg.num_layers)]
+    return {"embed": normal((cfg.vocab_size, hid), 0.02), "final_ln": ones(),
+            "lm_head": normal((cfg.vocab_size, hid), 0.02), "layers": layers}
+
+
+def calib_pipeline(params, cfg, seqlen: int, n_cal: int, n_eval: int,
+                   sync=lambda: None, quantize_from=None) -> dict:
+    """calibrate -> allocate -> dense ppl -> smooth + quantize (layer by
+    layer, each dense layer dropped) -> quantized ppl over
+    ``synthetic_tokens`` from SEED: n_cal windows of ``seqlen`` to
+    calibrate, the next n_eval to evaluate.  ``quantize_from``: another
+    run's result, whose stats and calibrations then smooth and quantize
+    the model in place of this run's own.  Consumes ``params``."""
+    from micromix_tpu_torch.calib import (average_bits, collect_calibration,
+                                          smooth_quantize_model,
+                                          stats_to_calibration)
+    from micromix_tpu_torch.eval import eval_ppl, synthetic_tokens
+    stream = synthetic_tokens(cfg.vocab_size, (n_cal + n_eval) * seqlen,
+                              seed=SEED)
+    windows = [stream[i * seqlen:(i + 1) * seqlen][None, :] for i in range(n_cal)]
+    test = stream[n_cal * seqlen:]
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    stats = timed("calibrate", lambda: collect_calibration(params, cfg, windows))
+    calibs = timed("allocate", lambda: stats_to_calibration(stats, cfg))
+    out["dense_ppl"] = timed("dense_ppl", lambda: eval_ppl(
+        params, cfg, test, seqlen=seqlen))
+    src = quantize_from or dict(stats=stats, calibs=calibs)
+    qparams = timed("smooth_quantize", lambda: smooth_quantize_model(
+        params, cfg, src["stats"], src["calibs"]))
+    out["quant_ppl"] = timed("quant_ppl", lambda: eval_ppl(
+        qparams, cfg, test, seqlen=seqlen))
+    out.update(average_bits=average_bits(calibs, cfg), stage_s=secs,
+               stats=stats, calibs=calibs)
+    return out
+
+
+def phase7() -> dict:
+    """The dense calibrate -> smooth -> quantize -> perplexity path at
+    Llama-3.1-8B widths, weights from SEED, P7_LAYERS layers: calibration
+    on 4 windows of 2048 tokens, evaluation on the next 4.  The launch
+    counters are reset just before the pipeline and read just after it;
+    it must launch Kernel E (every forward's attention) and Kernel A (the
+    quantized forward's sites).  At 2048 rows the quantized forward's
+    ScaledW8 products take the dequantize route (dequantize +
+    torch.matmul from W8_PREFILL_DEQUANT_THRESHOLD rows, as the JAX
+    package's), which is not a kernel.  quant_ppl < 1.25 x dense_ppl, the
+    golden test's check.  Then the 2-layer card/CPU comparison."""
+    from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.kernels.mixed_matmul import \
+        W8_PREFILL_DEQUANT_THRESHOLD
+    cfg = llama31_8b(P7_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dense_llama(cfg, SEED, DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build.reset_launches()
+    res = calib_pipeline(params, cfg, P7_SEQLEN, P7_CAL, P7_EVAL,
+                         sync=torch.cuda.synchronize)
+    launches = dict(build.launches)
+    del params
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dense_ppl, quant_ppl = res["dense_ppl"], res["quant_ppl"]
+    stats = dict(layers=P7_LAYERS, seqlen=P7_SEQLEN, calib_windows=P7_CAL,
+                 eval_windows=P7_EVAL, average_bits=res["average_bits"],
+                 dense_ppl=dense_ppl, quant_ppl=quant_ppl,
+                 model_build_s=build_s, stage_s=res["stage_s"],
+                 peak_mem_gib=peak, launches=launches,
+                 gemm_route=f"dequantize + torch.matmul (rows >= "
+                            f"{W8_PREFILL_DEQUANT_THRESHOLD}), not a kernel")
+    print(f"  {P7_LAYERS} layers: " + json.dumps(stats), flush=True)
+    if not (np.isfinite(dense_ppl) and np.isfinite(quant_ppl)):
+        fail("phase 7: perplexity not finite")
+    if quant_ppl >= 1.25 * dense_ppl:
+        fail(f"phase 7: quantized ppl {quant_ppl} over 1.25 x dense {dense_ppl}")
+    missing = [n for n in PIPELINE_KERNELS if not launches.get(n)]
+    if missing:
+        fail(f"phase 7: kernels not launched: {missing}")
+    torch.cuda.empty_cache()
+    stats["card_vs_cpu"] = phase7_card_vs_cpu()
+    return stats
+
+
+def _units(st, k: int):
+    """A site's unrounded fp6 and fp8 widths in units of 128 channels."""
+    p4 = float(st["below4"]) / float(st["total"])
+    p6 = float(st["below6"]) / float(st["total"]) - p4
+    return round(k * p6 / 128, 4), round(k * (1.0 - p4 - p6) / 128, 4)
+
+
+def phase7_card_vs_cpu() -> dict:
+    """The same pipeline at 2 layers, full width, on the card and on the
+    CPU from the same dense weights (P7_CMP_CAL + P7_CMP_EVAL windows of
+    P7_CMP_SEQLEN): the stats within STATS_RTOL; the fp6 / fp8 channel
+    counts equal, or flips that the stats within their tolerance explain
+    (the two sides' ratios straddle a multiple of 128), printed; the
+    reorder indices compared position by position.  Random weights give
+    channels of near-equal saliency, so a saliency within its tolerance
+    reorders many of them, and with them which channels each segment
+    holds: the CPU therefore smooths and quantizes from the card's stats
+    and calibrations, so that both perplexities (dense, and quantized of
+    the same quantized model) are held to PPL_RTOL."""
+    cfg = llama31_8b(2)
+    card_params = dense_llama(cfg, SEED, DEV)
+    cpu_params = params_to(card_params, "cpu")
+    t0 = time.perf_counter()
+    card = calib_pipeline(card_params, cfg, P7_CMP_SEQLEN, P7_CMP_CAL,
+                          P7_CMP_EVAL, sync=torch.cuda.synchronize)
+    card_s = time.perf_counter() - t0
+    del card_params
+    t0 = time.perf_counter()
+    cpu = calib_pipeline(cpu_params, cfg, P7_CMP_SEQLEN, P7_CMP_CAL,
+                         P7_CMP_EVAL, quantize_from=card)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    stat_err = {f: 0.0 for f in STATS_RTOL}
+    for key, st in cpu["stats"].items():
+        for f, ref in st.items():
+            got = card["stats"][key][f]
+            rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+            stat_err[f] = max(stat_err[f], float(rel.max()))
+    flips, order_diff = [], []
+    for i, (lc_g, lc_c) in enumerate(zip(card["calibs"], cpu["calibs"])):
+        for name in lc_c:
+            g, c = lc_g[name], lc_c[name]
+            if (g.p6_num, g.p8_num) != (c.p6_num, c.p8_num):
+                # the unrounded fp6 / fp8 widths in 128-channel units: a
+                # flip is two sides of a multiple, the counts' difference
+                # being within its tolerance (checked below)
+                units = [_units(run["stats"][f"layer{i}/{name}"],
+                                len(c.reorder_index)) for run in (card, cpu)]
+                flips.append(f"layer{i}/{name}: card {g.p6_num}/{g.p8_num} "
+                             f"({units[0]}), cpu {c.p6_num}/{c.p8_num} "
+                             f"({units[1]})")
+            order_diff.append(float(np.mean(g.reorder_index != c.reorder_index)))
+    ppl_err = {k: abs(card[k] - cpu[k]) / cpu[k] for k in ("dense_ppl", "quant_ppl")}
+    out = dict(seqlen=P7_CMP_SEQLEN, calib_windows=P7_CMP_CAL,
+               eval_windows=P7_CMP_EVAL, stats_rel_err=stat_err,
+               stats_rtol=STATS_RTOL, calib_flips=flips,
+               reorder_positions_differing=order_diff,
+               card={k: card[k] for k in ("dense_ppl", "quant_ppl",
+                                          "average_bits", "stage_s")},
+               cpu={k: cpu[k] for k in ("dense_ppl", "quant_ppl",
+                                        "average_bits", "stage_s")},
+               ppl_rel_err=ppl_err, ppl_rtol=PPL_RTOL, card_s=card_s,
+               cpu_s=cpu_s)
+    print("  2 layers, card against CPU: " + json.dumps(out), flush=True)
+    bad = [f for f, e in stat_err.items() if e > STATS_RTOL[f]]
+    if bad:
+        fail(f"phase 7 (card vs CPU): stats {bad} outside their tolerance")
+    if any(e > PPL_RTOL for e in ppl_err.values()):
+        fail(f"phase 7 (card vs CPU): perplexity {ppl_err} over {PPL_RTOL}")
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -1635,6 +2084,12 @@ LLAMA_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
 MIXTRAL_KERNELS = ("site_fakequant", "w8_gemm", "w8_stack", "w8_grouped",
                    "paged_decode", "append_kv_quant", "flash_attention",
                    "paged_prefill")
+# phase 7's pipeline: E in every forward, A at the quantized forward's sites
+PIPELINE_KERNELS = ("flash_attention", "site_fakequant")
+# phase 4's controls batch: short prompts batched (no chunk, so no H)
+CONTROLS_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
+                    "append_kv_quant", "flash_attention", "w8_stack",
+                    "w8_pair")
 PER_CONSUMER_KERNELS = ("site_fakequant", "w8_gemm", "paged_decode",
                         "append_kv_quant", "flash_attention")
 # the split-plane engines (phase 6): the default one stacks q|k|v and
@@ -1704,6 +2159,7 @@ def main() -> int:
     check_quantize(results, timer, rng)
     check_sp_gemm(results, timer)
     check_sp_stack(results, timer, rng)
+    controls = check_controls(timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -1727,6 +2183,12 @@ def main() -> int:
           "depth (32 layers) and the per-consumer engine at 4 layers, 8 "
           "requests each", flush=True)
     p6 = phase6()
+    torch.cuda.empty_cache()
+
+    print(f"phase 7: calibrate -> smooth -> quantize -> perplexity, dense "
+          f"Llama-3.1-8B widths at {P7_LAYERS} layers, then 2 layers card "
+          f"against CPU", flush=True)
+    p7 = phase7()
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -1739,17 +2201,20 @@ def main() -> int:
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
               f"{w['device_busy_ms_per_step']:.3f} ms/step device busy, "
               f"{w['cuda_launches_per_step']:.1f} CUDA launches/step", flush=True)
-    # launches on the main paths: the Llama, Mixtral and split-plane
-    # Llama default engines
+    # launches on the main paths: the Llama (plain and controls batches),
+    # Mixtral and split-plane Llama default engines, and phase 7's pipeline
     main_launches = collections.Counter(p4["stacked"]["launches"])
+    main_launches.update(p4["controls"]["launches"])
     main_launches.update(p5["grouped"]["launches"])
     main_launches.update(p6["stacked"]["launches"])
+    main_launches.update(p7["launches"])
     line = kernel_line(results, main_launches)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, checks=results, phase3=p3, phase4=p4,
-                       phase5=p5, phase6=p6, routes=routes, g_routes=g_routes,
+        json.dump(dict(card=card, checks=results, controls=controls,
+                       phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
+                       routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,
                   indent=1)

@@ -190,6 +190,11 @@ def mixed_matmul(a, w) -> torch.Tensor:
     if not isinstance(w, ScaledW8):
         raise TypeError(f"no GEMM for weights of type {type(w).__name__}")
     if isinstance(a, MixedTensor):
+        # the codes decode in their own segments' device order, which is
+        # the weight's column order only for equal budgets
+        if a.segments() != w.segments():
+            raise ValueError(f"activation segments {a.segments()} vs "
+                             f"weight {w.segments()}")
         a = dequantize_mixed_device(a)
     if a.shape[0] >= W8_PREFILL_DEQUANT_THRESHOLD:
         if not a.is_cuda:

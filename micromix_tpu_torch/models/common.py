@@ -2,9 +2,11 @@
 
 Counterpart of ``micromix_tpu/models/common.py`` for the Llama and
 Mixtral paths with ScaledW8 or split-plane weights: ``ModelConfig``,
-``DenseLinear`` (also the MoE router), ``QuantLinear``, ``QuantSite``,
-``rmsnorm``, the RoPE helpers (including llama3 frequency scaling) and
-the legs of ``project_all``: ScaledW8 per consumer, split-plane per
+``DenseLinear`` (the dense model's linears and the MoE router),
+``QuantLinear``, ``QuantSite``, ``rmsnorm``, ``quantize_int_group`` (the
+KV fake quantization of the accuracy mode), the RoPE helpers (including
+llama3 frequency scaling) and the legs of ``project_all``: dense (bf16,
+no site), ScaledW8 per consumer, split-plane per
 consumer (the MX quantize, then one split-plane GEMM per consumer), a
 single split-plane consumer wrapped as a one-section stack, and the
 stacked legs of both layouts.  Parameters
@@ -133,6 +135,24 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(ms + eps) * g.to(torch.float32)).to(torch.bfloat16)
 
 
+def quantize_int_group(x: torch.Tensor, nbits: int = 4,
+                       group_size: int = 128) -> torch.Tensor:
+    """Asymmetric int-group fake quantization (the KV accuracy mode):
+    per group a [min, max] uint grid, round half to even, then clamp, then
+    dequantize; the result in x's dtype.  ``/ qmax`` is a multiply by the
+    f32 reciprocal, as XLA folds it in the JAX package's jitted forward;
+    the other divisions are IEEE."""
+    xf = x.to(torch.float32).reshape(-1, group_size)
+    gmax = xf.amax(dim=-1, keepdim=True)
+    gmin = xf.amin(dim=-1, keepdim=True)
+    qmax = float(2 ** nbits - 1)
+    scales = torch.clamp(gmax - gmin, min=1e-5) * torch.tensor(
+        1.0 / qmax, dtype=torch.float32, device=x.device)
+    base = torch.clamp(torch.round(-gmin / scales), 0.0, qmax)
+    q = torch.clamp(torch.round(xf / scales) + base, 0.0, qmax)
+    return ((q - base) * scales).reshape(x.shape).to(x.dtype)
+
+
 def rope_inv_freq(head_dim: int, theta: float,
                   rope_scaling: Optional[Tuple] = None,
                   device=None) -> torch.Tensor:
@@ -223,7 +243,7 @@ def _sp_fusable(linears) -> bool:
     return (w.fp4_packed or w.k4 == 0) and w.rows % 128 == 0
 
 
-def project_all(x: torch.Tensor, site: QuantSite,
+def project_all(x: torch.Tensor, site: Optional[QuantSite],
                 linears: Optional[List[QuantLinear]],
                 norm_gamma: Optional[torch.Tensor] = None,
                 rms_eps: float = 1e-6,
@@ -233,13 +253,19 @@ def project_all(x: torch.Tensor, site: QuantSite,
     x (..., K) -> [(..., N_i)].  The site runs once and feeds the sibling
     consumers (q/k/v, gate/up): ScaledW8 consumers take its bf16 image,
     split-plane ones its MX codes; a single split-plane consumer (o) runs
-    as a one-section stack.  ``stack``: the consumers row-stacked
-    (``stack_layer_projections``, a ScaledW8Stack or SplitPlaneStack);
-    ``linears`` is then ignored and the stacked leg runs.
+    as a one-section stack.  Dense linears take x (rmsnormed when
+    ``norm_gamma`` is given) with no site.  ``stack``: the consumers
+    row-stacked (``stack_layer_projections``, a ScaledW8Stack or
+    SplitPlaneStack); ``linears`` is then ignored and the stacked leg
+    runs.
     """
     lead = x.shape[:-1]
     if stack is not None:
         return _project_stack(x, site, stack, norm_gamma, rms_eps, lead)
+    if not isinstance(linears[0], QuantLinear):
+        # the dense model: [rmsnorm ->] each bf16 linear, no site
+        xn = rmsnorm(x, norm_gamma, rms_eps) if norm_gamma is not None else x
+        return [lin(xn) for lin in linears]
     x2d = x.reshape(-1, x.shape[-1])
     if linears[0].w.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs weight {linears[0].w.segments()}")

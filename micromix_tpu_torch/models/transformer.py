@@ -1,19 +1,25 @@
-"""Full-sequence decoder forward for a quantized Llama or Mixtral.
+"""Full-sequence decoder forward for a dense or quantized Llama, or a
+quantized Mixtral.
 
 Counterpart of ``micromix_tpu/models/transformer.py`` (``forward``,
 ``attention_block``, ``mlp_block``, the ScaledW8 and split-plane branches
 of ``_down_proj_q``, and the Mixtral ``moe_block`` with dense or capacity
-dispatch); layers carry per-consumer q/k/v and gate/up or their stacks
-(``qkv_stack``, ``gateup_stack``: ScaledW8Stack or SplitPlaneStack), and
-per-expert dicts (``experts``) or, for ScaledW8 experts, their grouped
-form (``experts_grouped``).  Prefill attention goes through
+dispatch); quantized layers carry per-consumer q/k/v and gate/up or their
+stacks (``qkv_stack``, ``gateup_stack``: ScaledW8Stack or
+SplitPlaneStack), and per-expert dicts (``experts``) or, for ScaledW8
+experts, their grouped form (``experts_grouped``).  A dense Llama layer
+(``DenseLinear``s, no sites) runs its bf16 linears; its calibration taps
+(``tap``) see the four site inputs, and ``kv_quant_bits`` fake-quantizes
+K and V per head (``quantize_int_group``).  Prefill attention goes through
 ``flash_attention``: the CUDA kernel on the GPU, its plain f32 version on
-the CPU.  The expert-parallel forms and calibration taps are not ported.
+the CPU.  The expert-parallel forms and the MoE calibration taps are not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -28,21 +34,42 @@ from ..mx.scaledw8 import GroupedW8, ScaledW8, dequantize_grouped
 from ..ops.quantize_ops import silu_mul_quantize_x
 from .common import (STACK_KERNEL_MAX_M, ModelConfig, QuantLinear, QuantSite,
                      _sp_fusable, add_bias, apply_rope, lm_logits, project_all,
-                     rmsnorm, rope_table)
+                     quantize_int_group, rmsnorm, rope_table)
 
 Params = Dict[str, Any]
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return xf * torch.sigmoid(xf)
+
+
 def attention_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
-                    cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                    cos: torch.Tensor, sin: torch.Tensor,
+                    kv_quant_bits: Optional[int] = None,
+                    tap: Optional[Callable] = None) -> torch.Tensor:
+    """``tap`` (dense layers): called with the attention and o sites'
+    inputs, ("attn_in", rmsnorm(h)) and ("o_in", attention output)."""
     b, s, _ = h.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = qkv_proj(h, p, cfg)
+    if tap is not None:
+        xn = rmsnorm(h, p["ln1"], cfg.rms_eps)
+        tap("attn_in", xn)
+        q, k, v = p["q"](xn), p["k"](xn), p["v"](xn)
+    else:
+        q, k, v = qkv_proj(h, p, cfg)
     q = apply_rope(q.reshape(b, s, nh, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, nkv, hd), cos, sin)
-    out = flash_attention(q, k, v.reshape(b, s, nkv, hd),
-                          sliding_window=cfg.sliding_window)
-    (o,) = project_all(out.reshape(b, s, nh * hd), p["o_site"], [p["o"]])
+    v = v.reshape(b, s, nkv, hd)
+    if kv_quant_bits:
+        k = quantize_int_group(k, kv_quant_bits, group_size=hd)
+        v = quantize_int_group(v, kv_quant_bits, group_size=hd)
+    out = flash_attention(q, k, v, sliding_window=cfg.sliding_window)
+    out = out.reshape(b, s, nh * hd)
+    if tap is not None:
+        tap("o_in", out)
+        return p["o"](out)
+    (o,) = project_all(out, p.get("o_site"), [p["o"]])
     return o
 
 
@@ -50,16 +77,29 @@ def qkv_proj(h: torch.Tensor, p: Params, cfg: ModelConfig):
     """ln1 + the attention site -> (q, k, v), (..., N_i) each."""
     stack = p.get("qkv_stack")
     lins = None if stack is not None else [p["q"], p["k"], p["v"]]
-    return project_all(h, p["attn_site"], lins, p["ln1"], cfg.rms_eps,
+    return project_all(h, p.get("attn_site"), lins, p["ln1"], cfg.rms_eps,
                        stack=stack)
 
 
-def mlp_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
+              tap: Optional[Callable] = None) -> torch.Tensor:
+    """``tap`` (dense layers): called with ("mlp_in", rmsnorm(h)) and
+    ("down_in", silu(gate) * up rounded once to bf16)."""
+    if tap is not None:
+        xn = rmsnorm(h, p["ln2"], cfg.rms_eps)
+        tap("mlp_in", xn)
+        gate, up = p["gate"](xn), p["up"](xn)
+        act = (_silu(gate) * up.to(torch.float32)).to(torch.bfloat16)
+        tap("down_in", act)
+        return p["down"](act)
     stack = p.get("gateup_stack")
     lins = None if stack is not None else [p["gate"], p["up"]]
-    gate, up = project_all(h, p["mlp_site"], lins, p["ln2"], cfg.rms_eps,
+    gate, up = project_all(h, p.get("mlp_site"), lins, p["ln2"], cfg.rms_eps,
                            stack=stack)
-    return _down_proj_q(gate, up, p["down_site"], p["down"])
+    if isinstance(p["down"], QuantLinear):
+        return _down_proj_q(gate, up, p["down_site"], p["down"])
+    # the dense forward rounds silu(gate) to bf16 before the product
+    return p["down"](_silu(gate).to(torch.bfloat16) * up)
 
 
 def _down_proj_q(g: torch.Tensor, u: torch.Tensor, site: QuantSite,
@@ -233,19 +273,31 @@ def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return out.to(torch.bfloat16).reshape(b, s, k)
 
 
-def decoder_layer(h, p, cfg, cos, sin):
-    h = h + attention_block(h, p, cfg, cos, sin)
+def decoder_layer(h, p, cfg, cos, sin, kv_quant_bits=None, tap=None):
+    h = h + attention_block(h, p, cfg, cos, sin, kv_quant_bits, tap)
     if cfg.is_moe:
+        if tap is not None:
+            raise NotImplementedError(
+                "the MoE calibration taps are not ported (ROADMAP 1.8)")
         return h + moe_block(h, p, cfg)
-    return h + mlp_block(h, p, cfg)
+    return h + mlp_block(h, p, cfg, tap)
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) f32, causal."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            kv_quant_bits: Optional[int] = None,
+            tap: Optional[Callable] = None) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab) f32, causal.
+
+    ``tap(layer_idx, site_name, x)``: the calibration hook, dense params
+    only; ``kv_quant_bits``: fake-quantize K and V per head to that many
+    bits (the accuracy mode)."""
     b, s = tokens.shape
     h = params["embed"][tokens].to(torch.bfloat16)
     cos, sin = rope_table(torch.arange(s, device=tokens.device), cfg)
-    for p in params["layers"]:
-        h = decoder_layer(h, p, cfg, cos, sin)
+    for i, p in enumerate(params["layers"]):
+        layer_tap = None
+        if tap is not None:
+            layer_tap = functools.partial(tap, i)
+        h = decoder_layer(h, p, cfg, cos, sin, kv_quant_bits, layer_tap)
     h = rmsnorm(h, params["final_ln"], cfg.rms_eps)
     return lm_logits(h, params["lm_head"])

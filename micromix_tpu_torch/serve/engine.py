@@ -16,12 +16,21 @@ quantized history, one chunk per slot per step; with ``piggyback`` one
 pending slot's chunk rides the decode call (``prefill_decode``); every
 step runs one ``decode_multi`` chunk for all slots (inactive and
 mid-prefill slots point at a scratch row and page 0) and retires requests
-at eos or ``max_new_tokens``.  When the page pool runs out, a prefill
-chunk is requeued, and decode preempts the youngest other request, which
-is recomputed from prompt + output when it is admitted again.
+at eos, a stop id or ``max_new_tokens``.  When the page pool runs out, a
+prefill chunk is requeued, and decode preempts the youngest other
+request, which is recomputed from prompt + output when it is admitted
+again (and keeps its repetition penalties: presence is taken from
+prompt + output).
 
-Not ported: prefix caching, pipelined decode, speculative decoding, logit
-controls, logprobs, streaming callbacks and ``cancel``.
+The request surface is the JAX engine's: the logit controls
+(``repetition_penalty``, ``min_new_tokens`` against ``eos_id`` and
+``stop_ids``, ``min_p``), ``stop_ids``, chosen-token ``logprobs``, an
+``on_token`` stream and ``cancel`` (safe from inside ``on_token``).  A
+chunk runs the decode variant its live requests need (controls,
+logprobs or neither); a slot that needs controls or logprobs turns
+piggyback off for that step, as in the JAX engine.
+
+Not ported: prefix caching, pipelined decode and speculative decoding.
 """
 
 from __future__ import annotations
@@ -41,7 +50,9 @@ from ..models.surgery import stack_layer_projections
 from .block_manager import BlockManager
 from .kv_cache import make_cache
 from .runner import decode_multi, prefill, prefill_batch, prefill_decode
-from .sampling import SamplingParams, pick_sample_mode, sample_batch
+from .sampling import (SamplingParams, apply_logit_controls, ban_mask,
+                       chosen_logprobs, minp_shifts, pick_sample_mode,
+                       sample_batch, unpack_presence, uses_logit_controls)
 
 
 @dataclasses.dataclass
@@ -51,8 +62,18 @@ class Request:
     max_new_tokens: int = 32
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     eos_id: Optional[int] = None
+    # more terminators (e.g. a chat template's); any match ends the
+    # request as eos_id does
+    stop_ids: Optional[List[int]] = None
+    # streaming: called with each emitted token id as it is produced (a
+    # decode chunk delivers up to decode_chunk tokens at once)
+    on_token: Optional[Any] = None
+    # also return each chosen token's RAW log-probability (log_softmax of
+    # the untempered, unpenalized logits) in token_logprobs
+    logprobs: bool = False
     # filled by the engine
     output: List[int] = dataclasses.field(default_factory=list)
+    token_logprobs: List[float] = dataclasses.field(default_factory=list)
     done: bool = False
 
 
@@ -193,10 +214,56 @@ class Engine:
                 slot.req, slot.pos = req, 0
                 slot.pending = req.prompt + req.output
 
-    def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]) -> np.ndarray:
+    def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]):
+        """Sample one token per row (a prefill's first tokens) with the
+        rows' controls -> (tokens (B,) np, raw logprobs (B,) np or None)."""
         t, k, p = self._sampling_arrays(reqs)
         mode = pick_sample_mode([r.sampling for r in reqs])
-        return sample_batch(logits, self._gen, t, k, p, mode=mode).cpu().numpy()
+        x = logits
+        if uses_logit_controls([r.sampling for r in reqs]):
+            bits, pen, ban, mrem, mps = self._controls_arrays(reqs)
+            v = logits.shape[1]
+            x = apply_logit_controls(
+                logits, unpack_presence(bits, v), pen,
+                (mrem > 0)[:, None] & ban_mask(ban, v), minp_shift=mps)
+        toks = sample_batch(x, self._gen, t, k, p, mode=mode)
+        if not any(r.logprobs for r in reqs):
+            return toks.cpu().numpy(), None
+        return toks.cpu().numpy(), chosen_logprobs(logits, toks).cpu().numpy()
+
+    def _controls_arrays(self, reqs: List[Optional[Request]]):
+        """(presence_bits, penalties, ban_ids, min_remaining, minp_shift)
+        on the device for the logit-controls stage; row i covers reqs[i]
+        (None = neutral).  Presence is taken from prompt + output and
+        ships bit-packed (B, ceil(V/8)); ban_ids (B, W) lists every
+        terminator (eos_id and stop_ids) to suppress while
+        min_new_tokens is unmet, W the widest row, padded with -1."""
+        b = len(reqs)
+        presence = np.zeros((b, self.cfg.vocab_size), bool)
+        pen = np.ones((b,), np.float32)
+        mrem = np.zeros((b,), np.int32)
+        bans: List[List[int]] = [[] for _ in reqs]
+        for i, r in enumerate(reqs):
+            if r is None:
+                continue
+            sp = r.sampling
+            pen[i] = sp.repetition_penalty
+            if sp.repetition_penalty != 1.0:
+                presence[i, np.asarray(r.prompt + r.output, np.int64)] = True
+            if sp.min_new_tokens > len(r.output):
+                ids = ([r.eos_id] if r.eos_id is not None else []) \
+                    + list(r.stop_ids or [])
+                if ids:
+                    bans[i] = ids
+                    mrem[i] = sp.min_new_tokens - len(r.output)
+        ban = np.full((b, max(1, max(len(x) for x in bans))), -1, np.int32)
+        for i, ids in enumerate(bans):
+            ban[i, :len(ids)] = ids
+        packed = np.packbits(presence, axis=1, bitorder="little")
+        mps = minp_shifts([r.sampling if r is not None else None for r in reqs])
+        dev = self.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (packed, pen, ban, mrem, mps))
 
     def _sampling_arrays(self, reqs: List[Optional[Request]]):
         sp = [r.sampling if r is not None else SamplingParams() for r in reqs]
@@ -242,14 +309,15 @@ class Engine:
             torch.as_tensor(last).to(dev))
         # bucket padding wrote extra positions: restore the true lengths
         self._set_lengths(ok, [len(self.slots[i].pending) for i in ok])
-        firsts = self._sample_rows(logits[:len(ok)],
-                                   [self.slots[i].req for i in ok])
+        firsts, flps = self._sample_rows(logits[:len(ok)],
+                                         [self.slots[i].req for i in ok])
         for row, i in enumerate(ok):
             slot = self.slots[i]
             slot.pos = len(slot.pending)
             self.prefill_tokens += slot.pos
             slot.pending = []
-            self._emit(i, int(firsts[row]))
+            self._emit(i, int(firsts[row]),
+                       float(flps[row]) if flps is not None else None)
         return set(ok)
 
     def _prefill_step(self, slot_id: int) -> bool:
@@ -283,7 +351,9 @@ class Engine:
         slot.pending = slot.pending[n:]
         self.prefill_tokens += n
         if not slot.pending:
-            self._emit(slot_id, int(self._sample_rows(logits, [slot.req])[0]))
+            first, lp = self._sample_rows(logits, [slot.req])
+            self._emit(slot_id, int(first[0]),
+                       float(lp[0]) if lp is not None else None)
         return True
 
     def _pick_piggy(self, handled: set) -> Optional[int]:
@@ -330,23 +400,56 @@ class Engine:
             self._emit(piggy, int(ptok[0]))
         return toks.cpu().numpy()
 
-    def _emit(self, slot_id: int, token: int) -> None:
+    def _emit(self, slot_id: int, token: int,
+              lp: Optional[float] = None) -> None:
+        """Append the token, then its logprob, call ``on_token``, then end
+        the request at eos, a stop id or ``max_new_tokens``."""
         req = self.slots[slot_id].req
         req.output.append(token)
+        if req.logprobs and lp is not None:
+            req.token_logprobs.append(lp)
+        if req.on_token is not None:
+            req.on_token(token)
+            if self.slots[slot_id].req is not req:
+                return      # the callback cancelled it
         if (req.eos_id is not None and token == req.eos_id) or \
+                (req.stop_ids is not None and token in req.stop_ids) or \
                 len(req.output) >= req.max_new_tokens:
             req.done = True
             self._release(slot_id)
 
-    def _apply_chunk(self, toks: np.ndarray, active: List[int]) -> None:
+    def cancel(self, req_id: int) -> bool:
+        """Abort a request: take it off the queue, or release its slot.
+
+        Tokens emitted so far stay in ``req.output`` and ``req.done`` is
+        set.  Safe between steps and from ``on_token``: the chunk being
+        applied skips a released slot.  False if the request is unknown
+        or already finished."""
+        for i, r in enumerate(self.waiting):
+            if r.req_id == req_id:
+                self.waiting.pop(i)
+                r.done = True
+                return True
+        for slot_id, slot in enumerate(self.slots):
+            if slot.req is not None and slot.req.req_id == req_id:
+                slot.req.done = True
+                self._release(slot_id)
+                return True
+        return False
+
+    def _apply_chunk(self, toks: np.ndarray, lps: Optional[np.ndarray],
+                     active: List[int], reqs: Dict[int, Request]) -> None:
+        """Emit one decode chunk.  ``reqs`` (slot -> Request at dispatch)
+        drops the rows of slots finished, cancelled or recycled since."""
         for j in range(toks.shape[0]):
             for i in active:
                 s = self.slots[i]
-                if not s.ready:
-                    continue        # finished or preempted earlier
+                if not s.ready or s.req is not reqs[i]:
+                    continue
                 s.pos += 1
                 self.decode_tokens += 1
-                self._emit(i, int(toks[j, i]))
+                self._emit(i, int(toks[j, i]),
+                           float(lps[j, i]) if lps is not None else None)
 
     def step(self) -> bool:
         """Admit, drive pending prefill chunks, run one decode chunk.
@@ -354,7 +457,13 @@ class Engine:
         self._admit()
         with self._phase("prefill"):
             handled = self._prefill_batch_pass()
-        piggy = self._pick_piggy(handled) if self.piggyback else None
+        # the piggybacked call has no controls stage and no logprobs, so a
+        # slot that needs either keeps the separate prefill path
+        live_reqs = [s.req for s in self.slots if s.req is not None]
+        ctl_live = (uses_logit_controls([r.sampling for r in live_reqs])
+                    or any(r.logprobs for r in live_reqs))
+        piggy = (self._pick_piggy(handled)
+                 if self.piggyback and not ctl_live else None)
         # one prefill chunk per remaining pending slot per step: running
         # sequences wait at most one chunk's latency
         for i, s in enumerate(self.slots):
@@ -394,6 +503,8 @@ class Engine:
             tokens[i] = s.req.output[-1] if s.req.output else s.req.prompt[-1]
             positions[i] = s.pos
         dev = self.device
+        reqs = {i: self.slots[i].req for i in active}
+        lps = None
         if piggy is not None and self.slots[piggy].pending:
             with self._phase("mixed"):
                 toks = self._piggy_decode(piggy, tokens, seq_ids, positions)
@@ -402,17 +513,27 @@ class Engine:
             t, k, p = self._sampling_arrays([s.req for s in self.slots])
             mode = pick_sample_mode([s.req.sampling for s in self.slots
                                      if s.req is not None])
+            # the variant this chunk needs: controls and logprobs of the
+            # decoding requests only
+            live = [s.req if s.ready else None for s in self.slots]
+            ctl = (self._controls_arrays(live)
+                   if uses_logit_controls([r.sampling for r in live
+                                           if r is not None]) else None)
+            need_lp = any(r is not None and r.logprobs for r in live)
             with self._phase("decode"):
-                toks, self.caches = decode_multi(
+                out = decode_multi(
                     self.params, self.cfg, self.caches,
                     torch.as_tensor(tokens).to(dev),
                     torch.as_tensor(seq_ids).to(dev),
                     torch.as_tensor(positions).to(dev), self._gen, t, k, p,
-                    n_steps=chunk, sample_mode=mode)
-                toks = toks.cpu().numpy()
+                    ctl, n_steps=chunk, sample_mode=mode,
+                    with_logprobs=need_lp)
+                toks, self.caches = out[0].cpu().numpy(), out[-1]
+                if need_lp:
+                    lps = out[1].cpu().numpy()
             self.phase_steps["decode"] += chunk
         self.decode_steps += chunk
-        self._apply_chunk(toks, active)
+        self._apply_chunk(toks, lps, active, reqs)
         return True
 
     def run(self, requests: List[Request]) -> List[Request]:

@@ -16,7 +16,8 @@ split-plane weights, per consumer or stacked, dense Llama or Mixtral
     q|k|v); else the per-site form (always for Mixtral, and for
     split-plane weights, stacked or not);
   * ``decode_multi`` runs ``n_steps`` decode + sample steps as a Python
-    loop (the JAX package's lax.scan), without logit controls or logprobs;
+    loop (the JAX package's lax.scan), with the logit controls and the
+    chosen tokens' logprobs when asked;
   * ``prefill_decode`` is the piggybacked step: one slot's prefill chunk,
     its length fix and first-token sample, then a decode chunk.
 """
@@ -38,7 +39,8 @@ from ..mx.scaledw8 import ScaledW8, ScaledW8Stack
 from .attention import paged_decode_attention
 from .kv_cache import PagedKVCache, append_kv
 from .prefill_attention import paged_prefill_attention
-from .sampling import sample_batch
+from .sampling import (apply_logit_controls, ban_mask, chosen_logprobs,
+                       sample_batch, unpack_presence)
 
 Params = Dict[str, Any]
 Caches = List[PagedKVCache]
@@ -57,7 +59,7 @@ def _mlp(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _o_proj(attn_out: torch.Tensor, p: Params) -> torch.Tensor:
-    (o,) = project_all(attn_out, p["o_site"], [p["o"]])
+    (o,) = project_all(attn_out, p.get("o_site"), [p["o"]])
     return o
 
 
@@ -237,17 +239,48 @@ def decode_multi(params: Params, cfg: ModelConfig, caches: Caches,
                  tokens: torch.Tensor, seq_ids: torch.Tensor,
                  positions: torch.Tensor, gen: Optional[torch.Generator],
                  temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
-                 *, n_steps: int, sample_mode: str = "full"
-                 ) -> Tuple[torch.Tensor, Caches]:
-    """``n_steps`` decode + sample steps -> (tokens (n_steps, B) int32,
-    caches).  Each step feeds the previous step's samples."""
-    out = []
+                 controls=None, *, n_steps: int, sample_mode: str = "full",
+                 with_logprobs: bool = False):
+    """``n_steps`` decode + sample steps; each step feeds the previous
+    step's samples.
+
+    ``controls`` (optional): (presence_bits (B, ceil(V/8)) uint8
+    bit-packed, penalties (B,), ban_ids (B, W) int32 -1-padded,
+    min_remaining (B,), minp_shift (B,)): the repetition penalty over
+    the context's tokens (presence unpacked once, then set on the device
+    as tokens are sampled, with no host sync), terminator suppression
+    while fewer than ``min_remaining`` tokens have been emitted this
+    chunk, and min-p as a log-space offset (-inf = off).
+    ``with_logprobs``: also the chosen tokens' RAW log-probabilities
+    (log_softmax of the untempered, unpenalized logits), (n_steps, B)
+    f32.
+
+    Returns (tokens (n_steps, B) int32[, logprobs], caches).
+    """
+    if controls is not None:
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        presence_bits, penalties, ban_ids, min_remaining, mps = controls
+        vocab = params["lm_head"].shape[0]
+        presence = unpack_presence(presence_bits, vocab)
+        banned = ban_mask(ban_ids, vocab)
+    out, lps = [], []
     toks, pos = tokens, positions
-    for _ in range(n_steps):
+    for i in range(n_steps):
         logits, caches = decode_step(params, cfg, caches, toks, seq_ids, pos)
-        toks = sample_batch(logits, gen, temps, top_k, top_p, mode=sample_mode)
+        lg = logits
+        if controls is not None:
+            suppress = (min_remaining > i)[:, None] & banned
+            lg = apply_logit_controls(logits, presence, penalties, suppress,
+                                      minp_shift=mps)
+        toks = sample_batch(lg, gen, temps, top_k, top_p, mode=sample_mode)
+        if controls is not None:
+            presence[rows, toks.long()] = True
+        if with_logprobs:
+            lps.append(chosen_logprobs(logits, toks))
         out.append(toks)
         pos = pos + 1
+    if with_logprobs:
+        return torch.stack(out), torch.stack(lps), caches
     return torch.stack(out), caches
 
 

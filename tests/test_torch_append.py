@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.models.common import rope_inv_freq as j_inv_freq
 from micromix_tpu.serve import kv_cache as jkv
 from micromix_tpu.serve.runner import _rope1 as j_rope1

@@ -34,6 +34,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.kernels.flash_attention import flash_attention as j_flash
 from micromix_tpu.kernels.flash_attention import flash_attention_hsd as j_flash_hsd
 from micromix_tpu.models.common import rope_inv_freq as j_inv_freq

@@ -12,6 +12,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.mx import layout as jlay
 from micromix_tpu.mx import numerics as jnx
 from micromix_tpu.mx.formats import FP4, FP6, FP8
@@ -130,3 +132,34 @@ def test_scaledw8_span_over_62_raises():
     tq = t_quantize_mixed(torch.from_numpy(w), 128, 0, 0, weight_fp4_only=True)
     with pytest.raises(ValueError, match="exceeds 62"):
         t_pack_w8(tq)
+
+
+def test_mixed_matmul_refuses_other_segment_budgets():
+    """ROADMAP 3.5: a ScaledW8 weight packed for (512, 256, 256) and
+    activation codes of (768, 128, 128) (M=8, N=256, K=1024, seed 0).
+    The codes decode in their own segments' column order, not the
+    weight's, so both packages refuse: JAX's ``mixed_matmul`` asserts,
+    the port raises ``ValueError`` (as ``mixed_matmul_sp`` does).  Equal
+    budgets still multiply."""
+    from micromix_tpu.kernels.mixed_matmul import mixed_matmul as j_mm
+    from micromix_tpu.mx.mxtensor import MixedTensor as JMixed
+    from micromix_tpu.mx.scaledw8 import ScaledW8 as JW8
+    from micromix_tpu_torch.kernels.mixed_matmul import mixed_matmul as t_mm
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (8, 1024)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.3, (256, 1024)).astype(np.float32))
+    ta = t_quantize_mixed(x, 768, 128, 128)
+    tw = t_pack_w8(t_quantize_mixed(w, 512, 256, 256, weight_fp4_only=True,
+                                    pack_fp4=True))
+    ja = JMixed(**{f: jnp.asarray(_t(getattr(ta, f)))
+                   for f in ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")})
+    jw = JW8(codes=jnp.asarray(_t(tw.codes)),
+             base=jnp.full((1, 1), tw.base, jnp.int32), k4=512, k6=256, k8=256)
+    with pytest.raises(AssertionError, match=r"\(768, 128, 128\)"):
+        j_mm(ja, jw)
+    with pytest.raises(ValueError, match=r"\(768, 128, 128\)"):
+        t_mm(ta, tw)
+    same = t_quantize_mixed(x, 512, 256, 256)
+    np.testing.assert_array_equal(
+        _t(t_mm(same, tw)), _t(t_mm(t_dequant_dev(same, torch.bfloat16), tw)))

@@ -32,6 +32,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from __graft_entry__ import _llama_cfg
 from micromix_tpu.models import surgery as jsurg
 from micromix_tpu.serve import engine as jengine

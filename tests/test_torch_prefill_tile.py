@@ -26,6 +26,8 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.serve import kv_cache as jkv
 from micromix_tpu.serve.prefill_attention import \
     paged_prefill_attention as j_prefill_attn

@@ -29,6 +29,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.models import common as jcommon
 from micromix_tpu.models import surgery as jsurg
 from micromix_tpu.models import transformer as jtr

@@ -23,6 +23,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from micromix_tpu.kernels.fakequant import fakequant_site_pallas
 from micromix_tpu.kernels.mixed_matmul import mixed_matmul as j_mixed_matmul
 from micromix_tpu.kernels.mixed_matmul import mixed_matmul_w8 as j_w8

@@ -38,6 +38,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from __graft_entry__ import _llama_cfg
 from micromix_tpu.kernels.flash_attention import flash_attention as j_flash
 from micromix_tpu.kernels.mixed_matmul import mixed_matmul as j_mixed_matmul

@@ -33,14 +33,15 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from __graft_entry__ import _llama_cfg
 from micromix_tpu.kernels.fakequant import fakequant_site_pallas
 from micromix_tpu.kernels.mixed_matmul import mixed_matmul_w8_pair as j_pair
 from micromix_tpu.kernels.mixed_matmul import mixed_matmul_w8_stack as j_stack
 from micromix_tpu.models import surgery as jsurg
 from micromix_tpu.mx import layout as jlay
-from micromix_tpu.mx.mxtensor import quantize_mixed as j_quantize_mixed
-from micromix_tpu.mx.scaledw8 import pack_scaled_w8 as j_pack_w8
+from micromix_tpu.mx.scaledw8 import ScaledW8 as JScaledW8
 from micromix_tpu.mx.scaledw8 import stack_scaled_w8 as j_stack_w8
 from micromix_tpu.serve import kv_cache as jkv
 from micromix_tpu.serve import runner as jrunner
@@ -50,9 +51,11 @@ from micromix_tpu_torch.kernels.mixed_matmul import (
     mixed_matmul_w8_pair, mixed_matmul_w8_stack, w8_stack_gemm)
 from micromix_tpu_torch.models import surgery as tsurg
 from micromix_tpu_torch.models.common import ModelConfig
+from micromix_tpu_torch.mx.mxtensor import quantize_mixed as t_quantize_mixed
+from micromix_tpu_torch.mx.scaledw8 import pack_scaled_w8 as t_pack_w8
 from micromix_tpu_torch.mx.scaledw8 import (
-    STACK_STRIP, ScaledW8, dequantize_scaled_w8,
-    dequantize_stack, section_weight, stack_scaled_w8)
+    STACK_STRIP, dequantize_scaled_w8, dequantize_stack, section_weight,
+    stack_scaled_w8)
 from micromix_tpu_torch.serve import kv_cache as tkv
 from micromix_tpu_torch.serve import runner as trunner
 
@@ -95,13 +98,15 @@ def _assert_pair_band(got, ref):
 
 
 def _w8(rng, n, k=K, k4=K4, k6=K6, k8=K8):
-    """One random weight as a JAX and a port ScaledW8."""
+    """One random weight as a JAX and a port ScaledW8, made by the port's
+    quantizer (its codes and base equal the JAX package's:
+    tests/test_torch_mx.py; JAX's eager quantize and pack recompile for
+    every shape, about 8 s a weight)."""
     w = rng.normal(0, 0.3, (n, k)).astype(np.float32)
-    jw = j_pack_w8(j_quantize_mixed(jnp.asarray(w), k4, k6, k8,
+    tw = t_pack_w8(t_quantize_mixed(torch.from_numpy(w), k4, k6, k8,
                                     weight_fp4_only=True, pack_fp4=True))
-    tw = ScaledW8(codes=torch.from_numpy(np.array(jw.codes)),
-                  base=int(np.asarray(jw.base).reshape(-1)[0]),
-                  k4=k4, k6=k6, k8=k8)
+    jw = JScaledW8(codes=jnp.asarray(tw.codes.numpy()),
+                   base=jnp.full((1, 1), tw.base, jnp.int32), k4=k4, k6=k6, k8=k8)
     return jw, tw
 
 
