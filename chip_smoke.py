@@ -26,6 +26,7 @@ and runs these phases; any failure exits non-zero before the result line.
      4096, Mixtral-8x7B's 4096-row expert sites); decode attention also
      at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
      window, and with the ``lengths`` override and the (m, den) state;
+     paged prefill attention (H) at S=512 over int4 and int8 pages;
      Kernel D's whole append (K's RoPE, quantize, slot index, stores,
      lengths) at T=8 with RoPE and T=1024, int4 and int8, bit-exact,
      beside the composition the port ran before (``old_path_ms``) and
@@ -36,7 +37,8 @@ and runs these phases; any failure exits non-zero before the result line.
      bit-exact, greedy tokens equal, logprobs within 4.3e-5), with each
      part's device ms and CUDA launches;
   3. 2-layer full-width models from one seed, stacked: Llama-3.1-8B
-     (ScaledW8, and again with a 256-token sliding window), Mixtral-8x7B
+     (ScaledW8, again on int8 KV pages, and with a 256-token sliding
+     window), Mixtral-8x7B
      (experts grouped) and Llama-3.1-8B in the split-plane layout: a
      300-token prompt prefilled in chunks of 128
      (flash, then paged history) and 8 (Mixtral: 4) greedy decode steps
@@ -72,9 +74,16 @@ and runs these phases; any failure exits non-zero before the result line.
      perplexity on the next 4 windows, with each stage's seconds, the
      average bits and the peak memory; quantized ppl under 1.25 x dense;
      then the same pipeline at 2 layers on the card and on the CPU
-     (stats, calibrations, perplexities compared).
+     (stats, calibrations, perplexities compared);
+  8. the shell at Llama-3.1-8B widths, 4 layers (a full-depth checkpoint
+     would write and read 16 GB of bf16; 4 layers write about 3.9 GB):
+     an HF checkpoint directory (two shards, the index, a stray file,
+     llama3 ``rope_scaling``) written by this script, ``cli.main``
+     calibrate, quantize, eval and serve (int4 and int8 KV pages), the
+     ApiServer over urllib and a two-replica Router on the checkpoint,
+     each held against the model in memory (``phase8``).
 
-In phases 4 to 7 every kernel launch counter is reset just before each
+In phases 4 to 8 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel), and no run may take the plain PyTorch append or the
@@ -789,10 +798,11 @@ def check_residual_routes(results, timer) -> dict:
 
 def check_prefill(results, timer, rng):
     """Kernel H at the main path's chunks (S=512 over 512, 1024 and 1536
-    history positions) and over no history.  At hist 0 it computes what
-    SDPA computes (causal attention over the chunk's own bf16 K/V, GQA):
-    that call, in the (B, H, S, D) layout, is the library time.  With
-    history no one call computes the same function (the history is int4);
+    history positions of int4 pages, and over 1024 and 1536 of int8
+    pages) and over no history.  At hist 0 it computes what SDPA computes
+    (causal attention over the chunk's own bf16 K/V, GQA): that call, in
+    the (B, H, S, D) layout, is the library time.  With history no one
+    call computes the same function (the history is quantized);
     ``sdpa_bf16_ms`` times SDPA over the history dequantized to bf16
     beforehand plus the chunk, with an explicit mask: a yardstick only,
     its dequantization not timed."""
@@ -801,14 +811,19 @@ def check_prefill(results, timer, rng):
     from micromix_tpu_torch.serve.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
     h, hkv, d, ps = 32, 8, 128, 128
-    for s, hist in ((512, 1536), (512, 512), (512, 1024), (120, 0), (2048, 0)):
+    for s, hist, bits in ((512, 1536, 4), (512, 512, 4), (512, 1024, 4),
+                          (120, 0, 4), (2048, 0, 4), (512, 1536, 8),
+                          (512, 1024, 8)):
         mp = -(-(hist + s) // ps)
-        cache = make_cache(mp + 1, ps, hkv, d, 1, mp, device=DEV)
+        cache = make_cache(mp + 1, ps, hkv, d, 1, mp, bits=bits, device=DEV)
         cache.k_codes.random_(0, 256)
         cache.v_codes.random_(0, 256)
+        # values (c - z) s within about +-1.5 at either width
+        smax = 0.1 if bits == 4 else 0.006
         for sz in (cache.k_sz, cache.v_sz):
-            sz[:, :, 0].uniform_(0.01, 0.1)
-            sz[:, :, 1].copy_(torch.randint(0, 16, sz[:, :, 1].shape, device=DEV))
+            sz[:, :, 0].uniform_(smax / 10, smax)
+            sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape,
+                                            device=DEV))
         cache.page_table[0] = torch.from_numpy(
             1 + rng.permutation(mp).astype(np.int32)).to(DEV)
         q = torch.randn(s, h, d, device=DEV).to(torch.bfloat16)
@@ -838,8 +853,10 @@ def check_prefill(results, timer, rng):
             lib, extra = None, {"sdpa_bf16_ms": timer.ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                        enable_gqa=True))}
-        nbytes = 2 * s * (h + 2 * hkv) * d + 2 * s * h * d + 2 * hist * hkv * (d // 2 + 4)
-        record(results, "paged_prefill", f"S={s} hist={hist} H={h} Hkv={hkv} D={d}",
+        dq = d // 2 if bits == 4 else d
+        nbytes = 2 * s * (h + 2 * hkv) * d + 2 * s * h * d + 2 * hist * hkv * (dq + 4)
+        label = f"S={s} hist={hist} H={h} Hkv={hkv} D={d}" + (" int8" if bits == 8 else "")
+        record(results, "paged_prefill", label,
                err, "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run), nbytes,
                4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), lib, **extra)
 
@@ -1209,7 +1226,7 @@ def phase3() -> dict:
     """Card against CPU on 2-layer full-width stacked models: a 300-token
     prompt prefilled in chunks of 128 (flash, then paged history), then
     greedy decode steps: Llama-3.1-8B, 8 steps through the residual pairs,
-    also with a 256-token sliding window; Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
+    again on int8 KV pages, also with a 256-token sliding window; Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
     grouped expert GEMMs (the CPU side dequantizes 1.4 G codes per layer
     and unit).
 
@@ -1236,6 +1253,12 @@ def phase3() -> dict:
     out["llama"] = card_vs_cpu(cfg, 8, ("flash_attention", "paged_prefill",
                                         "w8_stack", "w8_pair"),
                                lambda p: _can_pair(p, cfg, 1))
+    # the same model on int8 KV pages: H reads them at the second and third
+    # chunks, C at every decode step
+    out["llama_int8_kv"] = card_vs_cpu(
+        cfg, 8, ("flash_attention", "paged_prefill", "paged_decode",
+                 "w8_stack", "w8_pair"),
+        lambda p: _can_pair(p, cfg, 1), name="llama int8 KV", bits=8)
     out["mixtral"] = card_vs_cpu(mixtral_8x7b(2), 4,
                                  ("flash_attention", "paged_prefill",
                                   "w8_stack", "w8_grouped"),
@@ -1290,11 +1313,12 @@ def window_engine(cfg) -> dict:
 
 
 def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
-                name=None, near_tie=False) -> dict:
-    """One model of phase 3: its units on the card and on the CPU.  With
-    ``near_tie``, a last chunk whose two top CPU logits lie closer than
-    that unit's card/CPU difference may give either of the two as its
-    greedy token on the card (the decode steps' tokens must be equal)."""
+                name=None, near_tie=False, bits=4) -> dict:
+    """One model of phase 3: its units on the card and on the CPU, KV
+    pages of ``bits``.  With ``near_tie``, a last chunk whose two top CPU
+    logits lie closer than that unit's card/CPU difference may give either
+    of the two as its greedy token on the card (the decode steps' tokens
+    must be equal).  On int8 pages Kernels H and C must launch on them."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.models.surgery import (default_calibration,
                                                    random_quantized_model,
@@ -1312,7 +1336,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     ps, chunk = 128, 128
     mp = -(-(len(prompt) + steps + 1) // ps)
     caches = [make_cache(mp + 1, ps, cfg.num_kv_heads, cfg.head_dim, 1, mp,
-                         device=DEV) for _ in range(cfg.num_layers)]
+                         bits=bits, device=DEV) for _ in range(cfg.num_layers)]
     for c in caches:
         c.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
     t0 = time.perf_counter()
@@ -1348,14 +1372,15 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
         card.append(g_tok)
         cpu.append(c_tok)
     launches = dict(build.launches)
+    on_pages = {f"{k}/int{b}": n for (k, b), n in build.page_launches.items()}
     tol = 0.5
     wall = time.perf_counter() - t0
     print(f"  {name}, 2-layer full width, stacked: prompt {len(prompt)} "
           f"tokens in chunks of {chunk}, then {steps} decode steps, each unit "
           f"from the card's state; greedy tokens card {card}, cpu {cpu}; max "
           f"|logit diff| / max |cpu logit| per unit {['%.2e' % r for r in rels]} "
-          f"(tolerance {tol}); card launches {launches}; wall {wall:.1f}s",
-          flush=True)
+          f"(tolerance {tol}); card launches {launches}, by page width "
+          f"{on_pages}; wall {wall:.1f}s", flush=True)
     print(f"  {name}: first chunk (Kernel E) error {rels[0]:.4f} of the logit "
           f"range, later chunks (Kernel H) {max(rels[1:n_chunks]):.4f}", flush=True)
     chunk_tie = False
@@ -1372,10 +1397,14 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     if max(rels) > tol:
         fail(f"phase 3 ({name}): logit error {max(rels):.3e} over {tol}")
     missing = [n for n in must_launch if not launches.get(n)]
+    if bits == 8:
+        missing += [f"{k}/int8" for k in ("paged_prefill", "paged_decode")
+                    if not build.page_launches.get((k, 8))]
     if missing:
         fail(f"phase 3 ({name}): kernels not launched on the card: {missing}")
     return dict(logit_rel_err=rels, first_chunk_rel_err=rels[0],
-                tokens=card, launches=launches, wall_s=wall)
+                tokens=card, launches=launches, page_launches=on_pages,
+                kv_bits=bits, wall_s=wall)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1429,11 +1458,13 @@ def decode_window(eng, cfg, steps: int = 8, controls=None,
                                         per_kernel.most_common(6)})
 
 
-def engine_run(eng, reqs, phase: str):
-    """``eng.run(reqs)`` with the launch counters reset just before it ->
-    (host wall s, the launches read just after it).  The plain PyTorch
-    append refuses to run meanwhile, and the pre-quantized append must
-    not launch."""
+def counted_run(label: str, fn, must_launch=(), pages=None):
+    """``fn()`` with the launch counters reset just before it and read
+    just after it.  The plain PyTorch append refuses to run meanwhile,
+    the pre-quantized append must not launch, every kernel of
+    ``must_launch`` must, and with ``pages`` C and H must launch on pages
+    of that width.  -> (result, host wall s, launches, launches by
+    (kernel, page bits))."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.serve import kv_cache
     torch.cuda.synchronize()
@@ -1441,19 +1472,30 @@ def engine_run(eng, reqs, phase: str):
     plain_append = kv_cache.append_kv_plain
 
     def refuse(*args, **kwargs):
-        fail(f"{phase}: the plain PyTorch append ran on the card")
+        fail(f"{label}: the plain PyTorch append ran on the card")
 
     kv_cache.append_kv_plain = refuse
     try:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         kv_cache.append_kv_plain = plain_append
-    launches = dict(build.launches)
+    launches, by_page = dict(build.launches), dict(build.page_launches)
     if launches.get("append_kv"):
-        fail(f"{phase}: the pre-quantized append (the old composition) ran")
+        fail(f"{label}: the pre-quantized append (the old composition) ran")
+    missing = [n for n in must_launch if not launches.get(n)]
+    missing += [f"{k}/int{pages}" for k in ("paged_prefill", "paged_decode")
+                if pages and not by_page.get((k, pages))]
+    if missing:
+        fail(f"{label}: kernels not launched: {missing}")
+    return out, wall, launches, by_page
+
+
+def engine_run(eng, reqs, phase: str):
+    """``eng.run(reqs)`` under ``counted_run`` -> (host wall s, launches)."""
+    _, wall, launches, _ = counted_run(phase, lambda: eng.run(reqs))
     return wall, launches
 
 
@@ -2037,6 +2079,398 @@ def phase7_card_vs_cpu() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 8
+
+P8_LAYERS = 4
+P8_DIR = os.path.join(OUT_DIR, "phase8")
+P8_NEW = 32
+# Llama-3.1-8B's published config.json, depth cut to P8_LAYERS
+P8_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_hidden_layers": P8_LAYERS, "vocab_size": 128256,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_safetensors(path: str, tensors) -> int:
+    """A minimal safetensors writer (an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, the tensors' raw bytes):
+    the card's machine has no ``safetensors`` package.  -> bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def write_hf_checkpoint(params, cfg, path: str) -> int:
+    """The dense params as an HF checkpoint directory: two shards named by
+    model.safetensors.index.json, config.json, and a stray consolidated
+    file with a wrong final norm, which the loader must ignore.  -> bytes."""
+    from micromix_tpu_torch.models.loader import export_dense_params
+    os.makedirs(path, exist_ok=True)
+    tensors = export_dense_params(params, cfg)
+    names = sorted(tensors)
+    weight_map, total = {}, 0
+    for i, part in enumerate((names[0::2], names[1::2])):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        total += write_safetensors(os.path.join(path, fname),
+                                   {n: tensors[n] for n in part})
+        weight_map.update({n: fname for n in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(P8_HF_CONFIG, f)
+    stray = torch.full_like(params["final_ln"], 99.0)
+    write_safetensors(os.path.join(path, "consolidated.safetensors"),
+                      {"model.norm.weight": stray})
+    return total
+
+
+class IntTokenizer:
+    """Whitespace-separated integers <-> ids, vocab 128256, no eos: the
+    card's machine has no ``transformers``, so it stands in for the
+    checkpoint's tokenizer (``cli._tokenizer``)."""
+
+    vocab_size = 128256
+    eos_token_id = None
+    chat_template = None
+
+    def __call__(self, text, return_tensors=None):
+        return {"input_ids": [int(w) for w in text.split()]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _same_tree(a, b, where="") -> bool:
+    """Two parameter trees: equal structure, equal statics, equal tensor
+    bits."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and a.device == b.device
+                and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    if dataclasses.is_dataclass(a):
+        return (type(a) is type(b) and all(
+            _same_tree(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)))
+    return a == b
+
+
+class P8Timer:
+    """Host seconds of ``save_params`` / ``load_params`` calls made while
+    the shell runs (the checkpoint's write and read)."""
+
+    def __init__(self):
+        self.s = collections.defaultdict(list)
+
+    def wrap(self, module, name):
+        fn = getattr(module, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[name].append(time.perf_counter() - t0)
+            return out
+        setattr(module, name, timed)
+        return fn
+
+
+def p8_traffic(rng, vocab: int):
+    """Phase 4's kind of traffic for the shell's engine: six prompts of
+    96-128 tokens and two long ones, 32 new tokens each.  The CLI's engine
+    prefills a prompt in chunks of its largest bucket (2048: ``serve`` has
+    no chunk flag, as in the JAX package), so the long prompts are
+    2200-2600 tokens: their second chunk reads 2048 tokens of history."""
+    lens = ([int(rng.integers(96, 129)) for _ in range(6)]
+            + [int(rng.integers(2200, 2601)) for _ in range(2)])
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def p8_engine_tokens(params, cfg, prompts, n_new, kv_bits):
+    """Engine.run of the prompts on a fresh engine with the CLI's serve
+    settings -> their greedy tokens."""
+    from micromix_tpu_torch.serve import Engine, Request
+    from micromix_tpu_torch.serve.sampling import SamplingParams
+    eng = Engine(params, cfg, max_seqs=8, page_size=128, kv_bits=kv_bits,
+                 decode_chunk=8, device=DEV)
+    reqs = [Request(i, p, max_new_tokens=n_new, sampling=SamplingParams())
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    return [r.output for r in reqs]
+
+
+def _http(port: int, path: str, body=None):
+    import urllib.request
+    url = f"http://127.0.0.1:{port}{path}"
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read().decode()
+
+
+def p8_api(params, cfg, prompts) -> dict:
+    """The ApiServer over one engine on the loaded checkpoint: a
+    completion, a streamed completion and a chat, one at a time, each
+    held against Engine.run of its prompt alone; then /metrics."""
+    from micromix_tpu_torch.serve import ApiServer, Engine
+    tok = IntTokenizer()
+    eng = Engine(params, cfg, max_seqs=8, page_size=128, kv_bits=4,
+                 decode_chunk=8, device=DEV)
+    srv = ApiServer(eng, lambda s: tok(s)["input_ids"], tok.decode,
+                    model_name="llama-3.1-8b-4-layers",
+                    chat_template=lambda msgs: " ".join(m["content"] for m in msgs))
+    srv.start()
+    n = 16
+    try:
+        got = []
+        st, body = _http(srv.port, "/v1/completions",
+                         {"prompt": tok.decode(prompts[0]), "max_tokens": n})
+        got.append([int(w) for w in json.loads(body)["choices"][0]["text"].split()])
+        st2, raw = _http(srv.port, "/v1/completions",
+                         {"prompt": tok.decode(prompts[1]), "max_tokens": n,
+                          "stream": True})
+        events = [ln[len("data: "):] for ln in raw.splitlines()
+                  if ln.startswith("data: ")]
+        if events[-1] != "[DONE]":
+            fail("phase 8 (api): the stream did not end with [DONE]")
+        text = "".join(json.loads(e)["choices"][0]["text"] for e in events[:-1])
+        got.append([int(w) for w in text.split()])
+        st3, body = _http(srv.port, "/v1/chat/completions",
+                          {"messages": [{"role": "user",
+                                         "content": tok.decode(prompts[2])}],
+                           "max_tokens": n})
+        chat = json.loads(body)["choices"][0]["message"]
+        got.append([int(w) for w in chat["content"].split()])
+        st4, metrics = _http(srv.port, "/metrics")
+    finally:
+        srv.close()
+    ref = [p8_engine_tokens(params, cfg, [p], n, 4)[0] for p in prompts[:3]]
+    lines = dict(ln.split(" ", 1) for ln in metrics.strip().splitlines())
+    if {st, st2, st3, st4} != {200} or got != ref:
+        fail(f"phase 8 (api): completions {got} differ from Engine.run's {ref}")
+    if int(lines["micromix_requests_total"]) != 3 or \
+            int(lines["micromix_ttft_seconds_count"]) != 3:
+        fail(f"phase 8 (api): /metrics says {lines}")
+    return dict(tokens=got, metrics=lines)
+
+
+def p8_router(params, cfg, prompts) -> dict:
+    """A two-replica Router with the serve traffic: each replica's tokens
+    against Engine.run of the requests it was given."""
+    from micromix_tpu_torch.serve import Engine, Request, Router
+    from micromix_tpu_torch.serve.sampling import SamplingParams
+    router = Router([Engine(params, cfg, max_seqs=8, page_size=128,
+                            kv_bits=4, decode_chunk=8, device=DEV)
+                     for _ in range(2)])
+    reqs = [Request(i, p, max_new_tokens=P8_NEW, sampling=SamplingParams())
+            for i, p in enumerate(prompts)]
+    picks = [router.submit(r) for r in reqs]
+    while router.step():
+        pass
+    for rep in (0, 1):
+        mine = [i for i, k in enumerate(picks) if k == rep]
+        ref = p8_engine_tokens(params, cfg, [prompts[i] for i in mine], P8_NEW, 4)
+        if [reqs[i].output for i in mine] != ref:
+            fail(f"phase 8 (router): replica {rep}'s tokens differ from Engine.run's")
+    return dict(assigned=picks, stats=router.stats)
+
+
+def phase8(rng) -> dict:
+    """The shell on the card at Llama-3.1-8B widths, P8_LAYERS layers
+    (full depth would write and read a 16 GB bf16 checkpoint; 4 layers
+    write about 3.9 GB), dense weights from SEED made on the card:
+
+      1. the HF checkpoint directory under chiprun_out/ (two shards, the
+         index, a stray consolidated file, config.json with llama3
+         rope_scaling), by this script's own safetensors writer;
+      2. ``cli._tokenizer`` replaced by ``IntTokenizer``;
+      3. ``cli.main``: calibrate (4 synthetic windows of 2048), quantize,
+         eval (synthetic perplexity), serve (8 prompts, int4 and int8 KV);
+      4. the ApiServer on the loaded checkpoint (completion, stream, chat,
+         /metrics over urllib) and a two-replica Router.
+
+    Checks: the loaded dense tree equals the written one bit for bit;
+    ``load_params`` equals the quantized tree made in memory from the
+    same calibration; eval's perplexity equals ``eval_ppl`` of that tree;
+    the greedy completions of serve, the API and the router equal
+    ``Engine.run``'s on it; each run launches every kernel of its path,
+    and the int8 serve launches H and C on int8 pages.  The checkpoints
+    are deleted at the end."""
+    import contextlib
+    import io
+    import shutil
+    from micromix_tpu_torch import cli
+    from micromix_tpu_torch.calib import load_calibration, smooth_quantize_model
+    from micromix_tpu_torch.eval import eval_ppl
+    from micromix_tpu_torch.eval.datasets import get_loaders
+    from micromix_tpu_torch.models import checkpoint
+    from micromix_tpu_torch.models.loader import config_from_hf, load_dense_params
+    cfg = llama31_8b(P8_LAYERS)
+    if config_from_hf(P8_HF_CONFIG) != cfg:
+        fail("phase 8: config.json does not give Llama-3.1-8B's config")
+    shutil.rmtree(P8_DIR, ignore_errors=True)
+    hf, calib = os.path.join(P8_DIR, "hf"), os.path.join(P8_DIR, "calib.npz")
+    qdir = os.path.join(P8_DIR, "quantized")
+    stage, out = {}, {}
+    t0 = time.perf_counter()
+    dense = dense_llama(cfg, SEED, DEV)
+    torch.cuda.synchronize()
+    stage["make_dense"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hf_bytes = write_hf_checkpoint(dense, cfg, hf)
+    stage["write_hf"] = time.perf_counter() - t0
+
+    timer = P8Timer()
+    saved = [timer.wrap(checkpoint, "save_params"),
+             timer.wrap(checkpoint, "load_params")]
+    tokenizer = cli._tokenizer
+    cli._tokenizer = lambda args: IntTokenizer()
+    runs = {}
+
+    def shell(label, argv, must_launch, pages=None):
+        buf = io.StringIO()
+
+        def go():
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+        _, secs, launches, by_page = counted_run(f"phase 8 ({label})", go,
+                                                 must_launch, pages)
+        stage[label] = secs
+        runs[label] = dict(launches=launches, page_launches=by_page)
+        return buf.getvalue()
+
+    traffic = p8_traffic(rng, cfg.vocab_size)
+    prompts = os.path.join(P8_DIR, "prompts.txt")
+    try:
+        text = shell("calibrate", ["calibrate", "--model", hf, "--dataset",
+                                   "synthetic", "--samples", "4", "--seqlen",
+                                   "2048", "--output", calib],
+                     ("flash_attention",))
+        print("  calibrate: " + " | ".join(text.strip().splitlines()), flush=True)
+        shell("quantize", ["quantize", "--model", hf, "--calibration", calib,
+                           "--output", qdir], ())
+        text = shell("eval", ["eval", "--model", hf, "--quantized-ckpt", qdir,
+                              "--eval-ppl", "synthetic", "--log-dir",
+                              os.path.join(P8_DIR, "results")],
+                     ("flash_attention", "site_fakequant"))
+        ppl = float(text.split("synthetic perplexity:")[1])
+        with open(prompts, "w") as f:
+            f.write("\n".join(IntTokenizer().decode(p) for p in traffic) + "\n")
+        served = {}
+        for kv in (4, 8):
+            text = shell(f"serve_int{kv}",
+                         ["serve", "--model", hf, "--quantized-ckpt", qdir,
+                          "--prompts", prompts, "--kv-bits", str(kv),
+                          "--max-new-tokens", str(P8_NEW), "--max-seqs", "8",
+                          "--page-size", "128", "--decode-chunk", "8"],
+                         LLAMA_KERNELS, pages=kv)
+            lines = text.strip().splitlines()
+            stats = json.loads(lines[-1])
+            toks = [[int(w) for w in lines[i + 1].split()]
+                    for i, ln in enumerate(lines[:-1]) if ln.startswith("--- [")]
+            served[kv] = toks
+            out[f"serve_int{kv}"] = stats
+            print(f"  serve --kv-bits {kv}: " + json.dumps(
+                {k: stats[k] for k in ("requests", "prefill_tokens",
+                                       "decode_tokens", "wall_s",
+                                       "decode_tokens_per_s", "mean_ttft_ms",
+                                       "phase_s")}), flush=True)
+    finally:
+        cli._tokenizer = tokenizer
+        checkpoint.save_params, checkpoint.load_params = saved
+
+    # the checks against the model in memory
+    t0 = time.perf_counter()
+    loaded = load_dense_params(hf, device=DEV)
+    torch.cuda.synchronize()
+    stage["read_hf"] = time.perf_counter() - t0
+    if not _same_tree(loaded, dense):
+        fail("phase 8: the loaded dense tree differs from the one written")
+    del loaded
+    calibs, absmax = load_calibration(calib)
+    qmem = smooth_quantize_model(dense, cfg, {k: {"absmax": v}
+                                              for k, v in absmax.items()},
+                                 calibs, alpha=0.5)
+    del dense
+    t0 = time.perf_counter()
+    qload, qcfg, meta = checkpoint.load_params(qdir, device=DEV)
+    torch.cuda.synchronize()
+    stage["read_quantized"] = time.perf_counter() - t0
+    if qcfg != cfg or not _same_tree(qload, qmem):
+        fail("phase 8: load_params differs from the quantized tree in memory")
+    del qload
+    _, test = get_loaders("synthetic", IntTokenizer(), seqlen=2048)
+    ppl_mem = eval_ppl(qmem, cfg, test, seqlen=2048)
+    if not np.isfinite(ppl) or abs(ppl - ppl_mem) > 1e-4 * ppl_mem:
+        fail(f"phase 8: eval's perplexity {ppl} against {ppl_mem} in memory")
+    for kv in (4, 8):
+        ref = p8_engine_tokens(qmem, cfg, traffic, P8_NEW, kv)
+        if served[kv] != ref:
+            fail(f"phase 8: serve --kv-bits {kv} completions differ from "
+                 "Engine.run's on the model in memory")
+    api, stage["api"], _, _ = counted_run(
+        "phase 8 (api)", lambda: p8_api(qmem, cfg, traffic), CONTROLS_KERNELS)
+    router, stage["router"], _, _ = counted_run(
+        "phase 8 (router)", lambda: p8_router(qmem, cfg, traffic), LLAMA_KERNELS)
+    ck_bytes = _dir_bytes(qdir)
+    shutil.rmtree(P8_DIR, ignore_errors=True)
+    out.update(layers=P8_LAYERS, stage_s=stage, hf_bytes=hf_bytes,
+               quantized_bytes=ck_bytes,
+               quantized_write_s=timer.s["save_params"],
+               quantized_read_s=timer.s["load_params"], eval_ppl=ppl,
+               meta=meta, api=api, router=router,
+               runs={k: {"launches": v["launches"],
+                         "page_launches": {f"{n}/int{b}": c for (n, b), c
+                                           in v["page_launches"].items()}}
+                     for k, v in runs.items()})
+    print(f"  stage seconds {json.dumps({k: round(v, 3) for k, v in stage.items()})}; "
+          f"HF checkpoint {hf_bytes} bytes, written in {stage['write_hf']:.2f}s, "
+          f"read in {stage['read_hf']:.2f}s; quantized checkpoint {ck_bytes} "
+          f"bytes, written in {timer.s['save_params']} s, read in "
+          f"{timer.s['load_params']} s; eval ppl {ppl}; API {api['tokens'][0][:4]}..., "
+          f"router assigned {router['assigned']}", flush=True)
+    main = collections.Counter()
+    pages = collections.Counter()
+    for label in ("serve_int4", "serve_int8"):
+        main.update(runs[label]["launches"])
+        pages.update(runs[label]["page_launches"])
+    out["main_launches"], out["main_page_launches"] = main, pages
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -2103,13 +2537,27 @@ SPLITPLANE_PER_CONSUMER_KERNELS = ("mx_quantize", "sp_gemm", "sp_stack",
                                    "append_kv_quant", "flash_attention")
 
 
-def kernel_line(results, launches) -> dict:
+# the attention kernels again on int8 pages: entry -> (kernel, the shape
+# reported); their launches are those made on int8 pages
+INT8_ENTRIES = {
+    "paged_decode_int8": ("paged_decode", "B=8 H=32 Hkv=8 D=128 len 100..600 int8"),
+    "paged_prefill_int8": ("paged_prefill", "S=512 hist=1536 H=32 Hkv=8 D=128 int8"),
+}
+
+
+def kernel_line(results, launches, page_launches) -> dict:
     out = []
-    for name, (src, replaces, shape) in KERNELS.items():
-        rows = [r for r in results if r["kernel"] == name]
+    entries = [(name, name, shape, launches.get(name, 0), None)
+               for name, (_, _, shape) in KERNELS.items()]
+    entries += [(entry, kernel, shape, page_launches.get((kernel, 8), 0), "int8")
+                for entry, (kernel, shape) in INT8_ENTRIES.items()]
+    for entry, kernel, shape, n, suffix in entries:
+        src, replaces, _ = KERNELS[kernel]
+        rows = [r for r in results if r["kernel"] == kernel
+                and (suffix is None or r["shape"].endswith(suffix))]
         rep = next(r for r in rows if r["shape"].startswith(shape))
-        out.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                        launches=launches.get(name, 0),
+        out.append(dict(name=entry, route="cuda", source=src, replaces=replaces,
+                        launches=n,
                         max_abs_err=max(r["max_abs_err"] for r in rows),
                         ms=rep["ms"], plain_ms=rep["plain_ms"],
                         bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
@@ -2189,6 +2637,16 @@ def main() -> int:
           f"Llama-3.1-8B widths at {P7_LAYERS} layers, then 2 layers card "
           f"against CPU", flush=True)
     p7 = phase7()
+    torch.cuda.empty_cache()
+
+    print(f"phase 8: the shell (HF checkpoint, cli calibrate / quantize / "
+          f"eval / serve at int4 and int8 KV, the API server, the router) at "
+          f"Llama-3.1-8B widths, {P8_LAYERS} layers", flush=True)
+    t8 = time.perf_counter()
+    p8 = phase8(rng)
+    p8_launches = p8.pop("main_launches")
+    p8_pages = p8.pop("main_page_launches")
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -2202,18 +2660,22 @@ def main() -> int:
               f"{w['device_busy_ms_per_step']:.3f} ms/step device busy, "
               f"{w['cuda_launches_per_step']:.1f} CUDA launches/step", flush=True)
     # launches on the main paths: the Llama (plain and controls batches),
-    # Mixtral and split-plane Llama default engines, and phase 7's pipeline
+    # Mixtral and split-plane Llama default engines, phase 7's pipeline and
+    # the shell's two serve runs (int4 and int8 KV; on int8 pages only
+    # those)
     main_launches = collections.Counter(p4["stacked"]["launches"])
     main_launches.update(p4["controls"]["launches"])
     main_launches.update(p5["grouped"]["launches"])
     main_launches.update(p6["stacked"]["launches"])
     main_launches.update(p7["launches"])
-    line = kernel_line(results, main_launches)
+    main_launches.update(p8_launches)
+    line = kernel_line(results, main_launches, p8_pages)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
+                       phase8=p8,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

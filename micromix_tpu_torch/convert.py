@@ -5,8 +5,10 @@ pytree with its leaves already turned into numpy arrays (``jax.tree.map
 (np.asarray, params)``) and returns the port's parameter dict.  It reads
 the containers by attribute name only (``w.codes``, ``w.base``,
 ``w.fp4`` ..., ``site.perm``), so it needs neither ``jax`` nor
-``micromix_tpu``.  Weights come over as ScaledW8 or as split-plane
-``MixedTensor`` (``fp4_packed`` and ``fp4_only`` kept).
+``micromix_tpu``; ``models.checkpoint.load_params`` hands it the JAX
+package's on-disk trees with CPU tensors for leaves.  Weights come over
+as ScaledW8 or as split-plane ``MixedTensor`` (``fp4_packed`` and
+``fp4_only`` kept).
 The Benes routes are dropped: they encode the same permutation as
 ``perm`` for the TPU's lanes.  A pytree that the JAX package's
 ``stack_layer_projections`` has stacked carries ``qkv_stack`` /
@@ -35,7 +37,10 @@ _STACKS = ("qkv_stack", "gateup_stack")
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """numpy array (bf16 from ml_dtypes included) -> tensor on ``device``."""
+    """numpy array (bf16 from ml_dtypes included) or tensor -> tensor on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)

@@ -1,16 +1,18 @@
-// Chunked-prefill attention over the paged int4 history, then in-chunk causal.
+// Chunked-prefill attention over the paged int4 or int8 history, then
+// in-chunk causal.
 //
 // Replaces micromix_tpu/serve/prefill_attention.py::paged_prefill_attention
-// (_prefill_kernel) for bits = 4.  q (S, H, D) bf16, post-RoPE, at
+// (_prefill_kernel) for bits = 4 and 8.  q (S, H, D) bf16, post-RoPE, at
 // positions [start, start + S); the chunk's own exact bf16 K/V (S, Hkv, D);
 // the history of the sequence in the JAX package's token-minor pages:
-// codes (P, Hkv, D/2, ps) u8, dim i in the low nibble and dim i + D/2 in
-// the high nibble, sz (P, Hkv, 2, ps) bf16 [scale, zero] per token, value
-// (c - zero) * scale.  One online-softmax recurrence in f32 covers the
-// history positions from the window floor up to start, masked to
-// kpos < start (and the window), then the chunk causally (and the window);
-// q is scaled by 1/sqrt(D), the output divides by max(den, 1e-30).
-// ``start`` is read from device memory: the host never waits for it.
+// codes (P, Hkv, DQ, ps) u8 -- int4: DQ = D/2, dim i in the low nibble and
+// dim i + D/2 in the high nibble; int8: DQ = D, a byte a dim -- and sz
+// (P, Hkv, 2, ps) bf16 [scale, zero] per token, value (c - zero) * scale.
+// One online-softmax recurrence in f32 covers the history positions from
+// the window floor up to start, masked to kpos < start (and the window),
+// then the chunk causally (and the window); q is scaled by 1/sqrt(D), the
+// output divides by max(den, 1e-30).  ``start`` is read from device
+// memory: the host never waits for it.
 //
 // Bound on the H100: operations, 4 S (hist + S/2) H D (15.0 GFLOP at
 // S = 512, hist = 1536, H = 32, D = 128: 15.2 us at 989 TFLOP/s in bf16).
@@ -23,22 +25,26 @@
 // chunk positions, so each K/V tile it loads serves all G heads.
 //
 // History: 64 positions a tile (two tiles a 128-token page; a 16-token
-// page is a quarter of one), their int4 codes and [scale, zero] bf16
+// page is a quarter of one), their code rows and [scale, zero] bf16
 // pairs copied by cp.async into a 2-stage ring (16 bytes a copy when
 // ps % 16 == 0, else 4), then unpacked into dims-major bf16 tiles of
 // (c - z): an unpacked page is [D][tokens], K^T row-major, which the tile
 // reads with the ldmatrix mode opposite to the keys-major chunk tiles.
 // The dequantization is factored so that every tensor-core product stays
 // exact: kv_quantize rounds and clips the zero point to an integer in
-// [0, 15], so c - z is an integer in [-15, 15], exact in bf16 (unpacked
-// as the bf16 difference (128 + c) - (128 + z): one prmt and one bf16x2
-// subtract per two values).  K side: S = Q (C - z)^T with unscaled Q, then
-// score column t times the token's scale s_t and 1/sqrt(D) in f32.  V
-// side: s_t folds into p_t before the P split, then P' (C - z).  The
-// result differs from the JAX kernel's ((c - z) s) only in the order of
-// the f32 sums and where the scale's rounding falls.  (The alternative,
-// dequantizing to f32 and splitting K and V into bf16 hi + lo, doubles
-// the Q K^T products and needs twice the shared memory per tile.)
+// [0, 2^bits - 1], so c - z is an integer in [-255, 255], exact in bf16's
+// 8 significant bits.  int4 unpacks it as the bf16 difference
+// (128 + c) - (128 + z) (one prmt and one bf16x2 subtract per two values;
+// exact since 128 + c needs at most 8 bits).  int8 cannot (128 + 255
+// needs 9): each code byte becomes the f32 2^23 + c by one prmt, minus
+// the f32 2^23 + z, both exact, then a cast to bf16 that is exact too.
+// K side: S = Q (C - z)^T with unscaled Q, then score column t times the
+// token's scale s_t and 1/sqrt(D) in f32.  V side: s_t folds into p_t
+// before the P split, then P' (C - z).  The result differs from the JAX
+// kernel's ((c - z) s) only in the order of the f32 sums and where the
+// scale's rounding falls.  (The alternative, dequantizing to f32 and
+// splitting K and V into bf16 hi + lo, doubles the Q K^T products and
+// needs twice the shared memory per tile.)
 //
 // Chunk: the chunk's bf16 K/V rows through the same 2-stage ring as E,
 // keys-major.  Masked scores are -1e30 as in the JAX kernel; history
@@ -61,11 +67,13 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // Shared memory, byte offsets.  Phase 2's K/V ring over the whole buffer;
 // phase 1's dims-major K and V tiles, the raw ring (codes, then
 // [scale, zero] pairs) and the tile's per-token scales, with the query
-// tile after them (in registers before phase 2 overwrites it).
-template <int D>
+// tile after them (in registers before phase 2 overwrites it).  The raw
+// ring holds DQ code rows of K and of V a stage: at D = 128 and int8,
+// 32 KiB of the 86.5 KiB a block takes (the opt-in limit is 227 KiB).
+template <int D, int BITS>
 struct Smem {
   static constexpr int LD = fa::Tile<D>::LD;
-  static constexpr int DQ = D / 2;
+  static constexpr int DQ = BITS == 4 ? D / 2 : D;
   static constexpr int RING = 4 * BK * LD * 2;      // [2][BK][LD] K, then V
   static constexpr int KT = 0;                      // [D][LDT] bf16 (c - z)
   static constexpr int VT = KT + D * LDT * 2;
@@ -87,7 +95,20 @@ __device__ __forceinline__ void unpack4(__nv_bfloat16* dst, uint32_t nib,
   *reinterpret_cast<uint2*>(dst) = make_uint2(fa::bits(d01), fa::bits(d23));
 }
 
-template <int D>
+// Four int8 codes (bytes of w) of tokens j..j+3 -> bf16 (c - z) at dst, zf
+// the f32 2^23 + z of those tokens.  Byte k of w becomes the f32 2^23 + c
+// (bits 0x4B0000cc); the difference is an integer of at most 8 bits.
+__device__ __forceinline__ void unpack8(__nv_bfloat16* dst, uint32_t w,
+                                       const float (&zf)[4]) {
+  const float d0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540)) - zf[0];
+  const float d1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541)) - zf[1];
+  const float d2 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542)) - zf[2];
+  const float d3 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7543)) - zf[3];
+  *reinterpret_cast<uint2*>(dst) = make_uint2(fa::bits(__floats2bfloat162_rn(d0, d1)),
+                                              fa::bits(__floats2bfloat162_rn(d2, d3)));
+}
+
+template <int D, int BITS>
 __global__ void __launch_bounds__(THREADS)
 prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ kch,
@@ -98,7 +119,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const int* __restrict__ table, const int* __restrict__ start_ptr,
                __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int ps,
                int window, float scale) {
-  using L = Smem<D>;
+  using L = Smem<D, BITS>;
   constexpr int LD = L::LD, DQ = L::DQ;
   extern __shared__ __align__(16) uint8_t smem[];
   __nv_bfloat16* KT = reinterpret_cast<__nv_bfloat16*>(smem + L::KT);
@@ -175,24 +196,40 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const uint8_t* raw = smem + L::RAW + stage * 2 * DQ * BK;
     const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(smem + L::SZ) + stage * 4 * BK;
     const int t0 = t * BK, c = (tid % 16) * 4;
-    __nv_bfloat162 zk[2], zv[2];
+    if constexpr (BITS == 4) {
+      __nv_bfloat162 zk[2], zv[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = c + 2 * h;
-      const bool ok0 = t0 + j < start, ok1 = t0 + j + 1 < start;
-      zk[h] = __floats2bfloat162_rn(128.0f + (ok0 ? __bfloat162float(sz[BK + j]) : 0.0f),
-                                    128.0f + (ok1 ? __bfloat162float(sz[BK + j + 1]) : 0.0f));
-      zv[h] = __floats2bfloat162_rn(128.0f + (ok0 ? __bfloat162float(sz[3 * BK + j]) : 0.0f),
-                                    128.0f + (ok1 ? __bfloat162float(sz[3 * BK + j + 1]) : 0.0f));
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int j = c + 2 * h;
+        const bool ok0 = t0 + j < start, ok1 = t0 + j + 1 < start;
+        zk[h] = __floats2bfloat162_rn(128.0f + (ok0 ? __bfloat162float(sz[BK + j]) : 0.0f),
+                                      128.0f + (ok1 ? __bfloat162float(sz[BK + j + 1]) : 0.0f));
+        zv[h] = __floats2bfloat162_rn(128.0f + (ok0 ? __bfloat162float(sz[3 * BK + j]) : 0.0f),
+                                      128.0f + (ok1 ? __bfloat162float(sz[3 * BK + j + 1]) : 0.0f));
+      }
 #pragma unroll 4
-    for (int i = tid / 16; i < DQ; i += THREADS / 16) {
-      const uint32_t wk = *reinterpret_cast<const uint32_t*>(raw + i * BK + c);
-      const uint32_t wv = *reinterpret_cast<const uint32_t*>(raw + (DQ + i) * BK + c);
-      unpack4(KT + i * LDT + c, wk & 0x0F0F0F0Fu, zk);
-      unpack4(KT + (i + DQ) * LDT + c, (wk >> 4) & 0x0F0F0F0Fu, zk);
-      unpack4(VT + i * LDT + c, wv & 0x0F0F0F0Fu, zv);
-      unpack4(VT + (i + DQ) * LDT + c, (wv >> 4) & 0x0F0F0F0Fu, zv);
+      for (int i = tid / 16; i < DQ; i += THREADS / 16) {
+        const uint32_t wk = *reinterpret_cast<const uint32_t*>(raw + i * BK + c);
+        const uint32_t wv = *reinterpret_cast<const uint32_t*>(raw + (DQ + i) * BK + c);
+        unpack4(KT + i * LDT + c, wk & 0x0F0F0F0Fu, zk);
+        unpack4(KT + (i + DQ) * LDT + c, (wk >> 4) & 0x0F0F0F0Fu, zk);
+        unpack4(VT + i * LDT + c, wv & 0x0F0F0F0Fu, zv);
+        unpack4(VT + (i + DQ) * LDT + c, (wv >> 4) & 0x0F0F0F0Fu, zv);
+      }
+    } else {
+      float zk[4], zv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = t0 + c + j < start;
+        zk[j] = 8388608.0f + (ok ? __bfloat162float(sz[BK + c + j]) : 0.0f);
+        zv[j] = 8388608.0f + (ok ? __bfloat162float(sz[3 * BK + c + j]) : 0.0f);
+      }
+#pragma unroll 4
+      for (int i = tid / 16; i < DQ; i += THREADS / 16) {
+        unpack8(KT + i * LDT + c, *reinterpret_cast<const uint32_t*>(raw + i * BK + c), zk);
+        unpack8(VT + i * LDT + c, *reinterpret_cast<const uint32_t*>(raw + (DQ + i) * BK + c),
+                zv);
+      }
     }
     if (tid < BK) {
       const bool ok = t0 + tid < start;
@@ -310,18 +347,18 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int BITS>
 int launch(const void* q, const void* kch, const void* vch, const void* kc,
            const void* vc, const void* ksz, const void* vsz, const void* table,
            const void* start, void* out, int S, int H, int Hkv, int ps,
            int window, float scale, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D>,
+  constexpr int smem = Smem<D, BITS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D, BITS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rq = BQ / (H / Hkv);
   dim3 grid((S + rq - 1) / rq, Hkv);
-  prefill_kernel<D><<<grid, THREADS, smem, stream>>>(
+  prefill_kernel<D, BITS><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kch),
       static_cast<const __nv_bfloat16*>(vch), static_cast<const uint8_t*>(kc),
       static_cast<const uint8_t*>(vc), static_cast<const __nv_bfloat16*>(ksz),
@@ -333,21 +370,25 @@ int launch(const void* q, const void* kch, const void* vch, const void* kc,
 
 }  // namespace
 
-// table: the sequence's page-table row; start: one device int32.  D is 64
-// or 128, H / Hkv divides 64, ps is a multiple of 4; window <= 0: none.
-// Zero points are integers in [0, 15] (kv_quantize rounds them).
+// table: the sequence's page-table row; start: one device int32.  bits is
+// 4 or 8, D 64 or 128, H / Hkv divides 64, ps is a multiple of 4; window
+// <= 0: none.  Zero points are integers in [0, 2^bits - 1] (kv_quantize
+// rounds them).
 extern "C" int paged_prefill(const void* q, const void* kch, const void* vch,
                              const void* kc, const void* vc, const void* ksz,
                              const void* vsz, const void* table,
                              const void* start, void* out, int S, int H,
-                             int Hkv, int D, int ps, int window, float scale,
-                             void* stream) {
+                             int Hkv, int D, int ps, int window, int bits,
+                             float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, kch, vch, kc, vc, ksz, vsz, table, start, out, S, H,
-                       Hkv, ps, window, scale, s);
-  if (D == 64)
-    return launch<64>(q, kch, vch, kc, vc, ksz, vsz, table, start, out, S, H,
-                      Hkv, ps, window, scale, s);
+#define MM_PREFILL(DD, BB)                                                     \
+  if (D == DD && bits == BB)                                                   \
+    return launch<DD, BB>(q, kch, vch, kc, vc, ksz, vsz, table, start, out, S, \
+                          H, Hkv, ps, window, scale, s);
+  MM_PREFILL(128, 4)
+  MM_PREFILL(64, 4)
+  MM_PREFILL(128, 8)
+  MM_PREFILL(64, 8)
+#undef MM_PREFILL
   return static_cast<int>(cudaErrorInvalidValue);
 }

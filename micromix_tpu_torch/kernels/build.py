@@ -10,7 +10,9 @@ named by a hash of source and flags, so an edited source is rebuilt.
 
 Every wrapper counts its launches in ``launches`` (one per kernel launch
 made by a wrapper call), so a run can show that its main path went
-through the kernels.
+through the kernels; the attention kernels over KV pages (C and H) also
+count each launch by page width in ``page_launches`` ((name, bits) ->
+launches), so a run can show which pages they read.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 launches: collections.Counter = collections.Counter()
+page_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -147,3 +150,4 @@ def require_cuda(name: str, *tensors) -> torch.device:
 
 def reset_launches() -> None:
     launches.clear()
+    page_launches.clear()

@@ -179,6 +179,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                             b * hkv * splits * g * 2)
     lib = build.library("paged_decode", _SIG)
     build.launches["paged_decode"] += 1
+    build.page_launches[("paged_decode", cache.bits)] += 1
     rc = lib.paged_decode(
         build.ptr(q), build.ptr(cache.k_codes), build.ptr(cache.v_codes),
         build.ptr(cache.k_sz), build.ptr(cache.v_sz),

@@ -30,7 +30,13 @@ chunk runs the decode variant its live requests need (controls,
 logprobs or neither); a slot that needs controls or logprobs turns
 piggyback off for that step, as in the JAX engine.
 
-Not ported: prefix caching, pipelined decode and speculative decoding.
+The shell reads the JAX engine's stats: ``prefill_tokens``,
+``decode_tokens``, ``preemptions``, ``phase_s``, and ``ttft`` (req_id ->
+seconds from ``submit`` to the request's first token).
+``spec_proposed``, ``spec_accepted`` and ``prefix_hit_tokens`` stay 0.
+
+Not ported: prefix caching (ROADMAP item 6), pipelined decode (item 6)
+and speculative decoding (item 7).
 """
 
 from __future__ import annotations
@@ -80,15 +86,15 @@ class Request:
 def check_card_serves(device: torch.device, cfg: ModelConfig,
                       kv_bits: int) -> None:
     """Refuse, before any cache is made, what the card's attention kernels
-    cannot serve yet: KV pages of other than 4 bits, which the paged
-    prefill kernel does not read (ROADMAP 2b).  A sliding window runs on
-    the card (Kernels C, E and H apply it).  The CPU serves both through
-    the plain versions."""
+    cannot serve yet: KV pages of other than 4 or 8 bits (bf16 pages,
+    ROADMAP 2b), which Kernels C, D and H do not read.  A sliding window
+    runs on the card (Kernels C, E and H apply it).  The CPU serves what
+    ``make_cache`` makes through the plain versions."""
     if device.type != "cuda":
         return
-    if kv_bits != 4:
+    if kv_bits not in (4, 8):
         raise NotImplementedError(
-            f"the card serves int4 KV pages only, not kv_bits={kv_bits} "
+            f"the card serves int4 and int8 KV pages, not kv_bits={kv_bits} "
             "(ROADMAP 2b); pass device='cpu' for the plain versions")
 
 
@@ -152,6 +158,13 @@ class Engine:
         self.preemptions = 0
         self.phase_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0}
         self.phase_steps = {"decode": 0, "mixed": 0}
+        # seconds from submit to each request's first token
+        self.ttft: Dict[int, float] = {}
+        self._t_submit: Dict[int, float] = {}
+        # the JAX engine's counters of what the port does not run yet
+        self.prefix_hit_tokens = 0
+        self.spec_accepted = 0
+        self.spec_proposed = 0
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -191,6 +204,7 @@ class Engine:
 
     def submit(self, req: Request) -> None:
         self.waiting.append(req)
+        self._t_submit[req.req_id] = time.time()
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -402,9 +416,12 @@ class Engine:
 
     def _emit(self, slot_id: int, token: int,
               lp: Optional[float] = None) -> None:
-        """Append the token, then its logprob, call ``on_token``, then end
-        the request at eos, a stop id or ``max_new_tokens``."""
+        """Note the time to the first token, append the token, then its
+        logprob, call ``on_token``, then end the request at eos, a stop id
+        or ``max_new_tokens``."""
         req = self.slots[slot_id].req
+        self.ttft.setdefault(req.req_id,
+                             time.time() - self._t_submit[req.req_id])
         req.output.append(token)
         if req.logprobs and lp is not None:
             req.token_logprobs.append(lp)

@@ -13,8 +13,8 @@ arrays and lengths in place (one copy of the cache in device memory) and
 returns the same cache object.  On the card it is one launch of Kernel D
 (``append_kernel.append_kv_quant``), K's RoPE included when the decode
 step hands it the tables; ``append_kv_plain`` is its plain version.
-Decode attention on the GPU takes int4 and int8 pages, prefill attention
-int4 only (ROADMAP 2b).
+Decode and prefill attention on the GPU take int4 and int8 pages; bf16
+pages are not ported (ROADMAP 2b).
 """
 
 from __future__ import annotations

@@ -2,13 +2,13 @@
 
 Counterpart of ``micromix_tpu/serve/prefill_attention.py``.
 ``paged_prefill_attention`` launches ``csrc/paged_prefill.cu`` on CUDA
-tensors (int4 pages) and its plain version on CPU tensors.  The plain
+tensors (int4 or int8 pages) and its plain version on CPU tensors.  The plain
 version computes what the TPU kernel computes: probabilities in f32, the
 history read from the quantized pages and the chunk from its exact bf16
 K/V.  (The JAX runner's CPU branch, ``gather_kv`` plus XLA attention,
 rounds the probabilities to bf16 instead.)  The kernel unpacks the
 history as exact bf16 ``(c - z)``, so it needs the integer zero points in
-[0, 15] that ``kv_quantize`` makes.
+[0, 2^bits - 1] that ``kv_quantize`` makes.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from .kv_cache import PagedKVCache, kv_dequantize_page
 
 _NEG = -1e30
 _BQ = 64        # query rows per block of the kernel (G heads x 64/G positions)
-_SIG = {"paged_prefill": [build.PTR] * 10 + [build.INT] * 6
+_SIG = {"paged_prefill": [build.PTR] * 10 + [build.INT] * 7
         + [build.FLOAT, build.PTR]}
 
 
@@ -90,8 +90,8 @@ def paged_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
         return paged_prefill_attention_plain(q, k_chunk, v_chunk, cache, seq_id,
                                              start_pos, sliding_window)
     ps = cache.page_size
-    if cache.bits != 4:
-        raise NotImplementedError("the prefill kernel takes int4 pages")
+    if cache.bits not in (4, 8):
+        raise NotImplementedError("the prefill kernel takes int4 and int8 pages")
     if d not in (64, 128) or ps % 4 or _BQ % (h // hkv):
         raise ValueError(f"prefill kernel limits: D 64 or 128, page_size % 4 "
                          f"== 0, H / Hkv divides {_BQ} (got D={d}, ps={ps}, "
@@ -111,11 +111,12 @@ def paged_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
     table = cache.page_table[seq_id]          # a view: row of the table
     lib = build.library("paged_prefill", _SIG)
     build.launches["paged_prefill"] += 1
+    build.page_launches[("paged_prefill", cache.bits)] += 1
     rc = lib.paged_prefill(
         build.ptr(q), build.ptr(k_chunk), build.ptr(v_chunk),
         build.ptr(cache.k_codes), build.ptr(cache.v_codes),
         build.ptr(cache.k_sz), build.ptr(cache.v_sz), build.ptr(table),
         build.ptr(start), build.ptr(out), s, h, hkv, d, ps,
-        sliding_window or 0, 1.0 / d ** 0.5, build.stream())
+        sliding_window or 0, cache.bits, 1.0 / d ** 0.5, build.stream())
     build.check(rc, "paged_prefill")
     return out

@@ -782,6 +782,39 @@ def test_paged_prefill_main_path(dev, hist, ps, group, window):
                                                     sliding_window=window))
 
 
+@pytest.mark.parametrize("start,s,window,d,ps,group", [
+    (0, 70, None, 64, 16, 4), (41, 100, 30, 64, 16, 4),
+    (300, 128, None, 128, 128, 4), (200, 65, 90, 128, 128, 8),
+    (57, 70, 30, 128, 12, 4), (50, 40, None, 64, 8, 2),   # 4-byte page copies
+    (1536, 512, None, 128, 128, 4), (1024, 512, 700, 128, 16, 8)])
+def test_paged_prefill_int8(dev, start, s, window, d, ps, group):
+    """Kernel H on int8 pages (codes 0..255, integer zero points 0..255,
+    so c - z spans [-255, 255]) against the plain version, small ragged
+    shapes and the serving chunk (S=512 over 1024 and 1536 positions):
+    one launch a call, counted as int8, equal bits from two calls."""
+    rng = np.random.default_rng(start + s + d)
+    hkv = 2
+    mp = -(-(start + s) // ps)
+    cache = make_cache(mp + 2, ps, hkv, d, 2, mp, bits=8, device=dev)
+    cache.k_codes.random_(0, 256)
+    cache.v_codes.random_(0, 256)
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(0.001, 0.02)
+        sz[:, :, 1].copy_(torch.randint(0, 256, sz[:, :, 1].shape, device=dev))
+    cache.page_table[1] = torch.from_numpy(
+        1 + rng.permutation(mp + 1)[:mp].astype(np.int32)).to(dev)
+    q = torch.randn(s, hkv * group, d, device=dev).to(torch.bfloat16)
+    k = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    v = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = build.page_launches[("paged_prefill", 8)]
+    got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
+    assert build.page_launches[("paged_prefill", 8)] == before + 1
+    _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
+    assert torch.equal(got, paged_prefill_attention(q, k, v, cache, 1, start_t,
+                                                    sliding_window=window))
+
+
 def test_flash_off_rne(dev):
     """Kernel E's P.V keeps the probabilities to f32's level (fault 3.1):
     at most 0.1% of its outputs differ from the float64 reference rounded

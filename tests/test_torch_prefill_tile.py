@@ -3,8 +3,8 @@ package's paged prefill attention on the CPU.
 
 The CUDA kernel (``csrc/paged_prefill.cu``) cannot run here, so a
 test-local helper computes paged prefill attention the way its tile does:
-the int4 history unpacked to ``(c - z)`` rounded to bf16 (exact: the zero
-point is an integer), Q . (C - z)^T with f32 sums, each score column times
+the int4 or int8 history unpacked to ``(c - z)`` rounded to bf16 (exact:
+the zero point is an integer), Q . (C - z)^T with f32 sums, each score column times
 its token's scale and 1/sqrt(D) in f32, the V scale folded into the
 probabilities before they are split into three bf16 terms
 (``fa::PV_TERMS``), each tile's P.V summed apart and added to O in f32, and
@@ -52,10 +52,12 @@ def _split(p: torch.Tensor, terms: int) -> list:
     return out
 
 
-def tile_attention(q, k, v, kc, ksz, vc, vsz, table, start, window, terms=TERMS):
+def tile_attention(q, k, v, kc, ksz, vc, vsz, table, start, window, terms=TERMS,
+                   bits=4):
     """Paged prefill attention as Kernel H's tile computes it.  q (S, H, D),
     k / v (S, Hkv, D): bf16 values in f32 numpy; kc / vc (P, Hkv, D/2, ps)
-    u8 pages; ksz / vsz (P, Hkv, 2, ps) bf16 values in f32."""
+    u8 pages (int4; (P, Hkv, D, ps) for int8); ksz / vsz (P, Hkv, 2, ps)
+    bf16 values in f32."""
     s, h, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
@@ -65,8 +67,10 @@ def tile_attention(q, k, v, kc, ksz, vc, vsz, table, start, window, terms=TERMS)
     page, off = table[pos // ps], pos % ps
 
     def unpack(codes, sz):
-        c = codes[page, :, :, off]                         # (T, Hkv, D/2)
-        c = np.concatenate([c & 0xF, c >> 4], -1).astype(np.float32)
+        c = codes[page, :, :, off]                         # (T, Hkv, D/2 or D)
+        if bits == 4:
+            c = np.concatenate([c & 0xF, c >> 4], -1)
+        c = c.astype(np.float32)
         z = sz[page, :, 1, off]                            # (T, Hkv)
         diff = torch.from_numpy(c - z[..., None])
         cz = diff.to(torch.bfloat16).float()
@@ -95,7 +99,7 @@ def tile_attention(q, k, v, kc, ksz, vc, vsz, table, start, window, terms=TERMS)
         o = o * corr + tile
         m = m_new
 
-    for t0 in range(0, start, BK):                          # the int4 history
+    for t0 in range(0, start, BK):                          # the quantized history
         cols = slice(t0, min(t0 + BK, start))
         kpos = torch.arange(t0, cols.stop)[None, None, :]
         ksc = ks[cols][:, head].T[:, None, :] * scale       # (H, 1, T) f32
@@ -124,12 +128,26 @@ def tile_attention(q, k, v, kc, ksz, vc, vsz, table, start, window, terms=TERMS)
     (16, 13, None, 1),      # one whole page, ragged chunk
 ])
 def test_tile_arithmetic_matches_pallas(start, s, window, g):
+    _tile_against_pallas(start, s, window, g, bits=4)
+
+
+@pytest.mark.parametrize("start,s,window,g", [
+    (41, 20, None, 4),      # start not a multiple of ps
+    (70, 24, 30, 1),        # a window over history and chunk
+])
+def test_tile_arithmetic_matches_pallas_int8(start, s, window, g):
+    """The same on int8 pages: codes 0..255, integer zero points 0..255."""
+    _tile_against_pallas(start, s, window, g, bits=8)
+
+
+def _tile_against_pallas(start, s, window, g, bits):
     rng = np.random.default_rng(start + s + g)
     h = HKV * g
-    kc, vc = (rng.integers(0, 256, (P, HKV, D // 2, PS)).astype(np.uint8)
+    dq, qmax, smax = (D // 2, 15, 0.3) if bits == 4 else (D, 255, 0.02)
+    kc, vc = (rng.integers(0, 256, (P, HKV, dq, PS)).astype(np.uint8)
               for _ in range(2))
-    ksz, vsz = (_bf16(np.stack([rng.uniform(0.01, 0.3, (P, HKV, PS)),
-                                rng.integers(0, 16, (P, HKV, PS))], axis=2
+    ksz, vsz = (_bf16(np.stack([rng.uniform(0.01 * smax / 0.3, smax, (P, HKV, PS)),
+                                rng.integers(0, qmax + 1, (P, HKV, PS))], axis=2
                                ).astype(np.float32)) for _ in range(2))
     table = np.zeros((2, MP), np.int32)
     table[0] = 1 + rng.permutation(P - 1)[:MP]
@@ -138,12 +156,13 @@ def test_tile_arithmetic_matches_pallas(start, s, window, g):
     cache = jkv.PagedKVCache(
         k_codes=jnp.asarray(kc), v_codes=jnp.asarray(vc),
         k_sz=jnp.asarray(ksz, jnp.bfloat16), v_sz=jnp.asarray(vsz, jnp.bfloat16),
-        page_table=jnp.asarray(table), lengths=jnp.zeros((2,), jnp.int32), bits=4)
+        page_table=jnp.asarray(table), lengths=jnp.zeros((2,), jnp.int32), bits=bits)
     ref = np.asarray(j_prefill_attn(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
         jnp.asarray(v, jnp.bfloat16), cache, jnp.int32(0), jnp.int32(start),
         sliding_window=window, interpret=True).astype(jnp.float32))
-    got = tile_attention(q, k, v, kc, ksz, vc, vsz, table[0], start, window)
+    got = tile_attention(q, k, v, kc, ksz, vc, vsz, table[0], start, window,
+                         bits=bits)
     np.testing.assert_allclose(got, ref, rtol=2.0 ** -7,
                                atol=2.0 ** -8 * float(np.abs(ref).max()))
     assert float(np.mean(got != ref)) <= 5e-4
@@ -152,8 +171,10 @@ def test_tile_arithmetic_matches_pallas(start, s, window, g):
 @pytest.mark.parametrize("qmax", [15, 255])
 def test_code_minus_zero_exact_in_bf16(qmax):
     """Every c - z, c and z integers in [0, qmax] (int4 and int8 pages), is
-    exact in bf16; and for int4 the kernel's unpack, the bf16 difference of
-    128 + c (bits 0x4300 | c) and 128 + z, gives it exactly."""
+    exact in bf16; for int4 the kernel's unpack, the bf16 difference of
+    128 + c (bits 0x4300 | c) and 128 + z, gives it exactly; for int8 its
+    f32 2^23 + c (bits 0x4B0000cc, one prmt) minus 2^23 + z, then the cast
+    to bf16, does (128 + c would not: 383 needs 9 bits)."""
     c = torch.arange(qmax + 1, dtype=torch.float32)[:, None]
     z = torch.arange(qmax + 1, dtype=torch.float32)[None, :]
     diff = c - z
@@ -163,3 +184,9 @@ def test_code_minus_zero_exact_in_bf16(qmax):
         assert torch.equal(bits.float(), 128.0 + c[:, 0])
         zz = (128.0 + z).to(torch.bfloat16)
         assert torch.equal((bits[:, None] - zz).float(), diff)
+    else:
+        f = (0x4B000000 | torch.arange(256, dtype=torch.int32)).view(torch.float32)
+        assert torch.equal(f, 2.0 ** 23 + c[:, 0])
+        got = (f[:, None] - (2.0 ** 23 + z)).to(torch.bfloat16).float()
+        assert torch.equal(got, diff)
+        assert not torch.equal((128.0 + c).to(torch.bfloat16).float(), 128.0 + c)

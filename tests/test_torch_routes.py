@@ -211,12 +211,13 @@ def _tiny_llama(**kw):
 @pytest.mark.parametrize("kv_bits,window", [(8, None), (4, 64), (16, None)])
 def test_engine_refuses_what_the_card_cannot_serve(kv_bits, window):
     """The check the engine runs before it makes a cache: on a CUDA
-    device, KV pages of other than 4 bits raise NotImplementedError
-    naming ROADMAP 2b, while a sliding window over int4 pages passes
-    (Kernels C, E and H apply it); the CPU passes both; int4 pages
-    without a window pass on both."""
+    device, KV pages of other than 4 or 8 bits (bf16 pages) raise
+    NotImplementedError naming ROADMAP 2b, while int8 pages and a sliding
+    window over int4 pages pass (Kernels C, D and H read int8 pages; C, E
+    and H apply the window); the CPU passes all; int4 pages without a
+    window pass on both."""
     cfg = _tiny_llama(sliding_window=window)
-    if kv_bits == 4:
+    if kv_bits in (4, 8):
         tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP 2b"):
