@@ -25,7 +25,9 @@ and runs these phases; any failure exits non-zero before the result line.
      timings select; the site kernel also at prefill rows (rms 512 and
      4096, Mixtral-8x7B's 4096-row expert sites); decode attention also
      at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
-     window, and with the ``lengths`` override and the (m, den) state;
+     window, with the ``lengths`` override and the (m, den) state, and at
+     the speculative verify's 40 rows (8 sequences x 5 positions under the
+     override; D, F at q|k|v and B at o there too);
      paged prefill attention (H) at S=512 over int4 and int8 pages;
      Kernel D's whole append (K's RoPE, quantize, slot index, stores,
      lengths) at T=8 with RoPE and T=1024, int4 and int8, bit-exact,
@@ -81,9 +83,19 @@ and runs these phases; any failure exits non-zero before the result line.
      llama3 ``rope_scaling``) written by this script, ``cli.main``
      calibrate, quantize, eval and serve (int4 and int8 KV pages), the
      ApiServer over urllib and a two-replica Router on the checkpoint,
-     each held against the model in memory (``phase8``).
+     each held against the model in memory (``phase8``); then serve with
+     ``--spec-ngram 2``, with ``--draft-model`` (a dense 2-layer HF
+     directory at Llama-3.2-1B widths written by the phase, 0.77 GB) and
+     with ``--prefix-cache``, their stats lines checked;
+  9. speculative decoding and the prefix cache on the main path's model
+     (Llama-3.1-8B widths, 32 layers, int4 pages): ``verify_block`` at
+     B=8, gamma 4 against the decode chain, before and after a rollback;
+     the draft-model engine (the target's first 4 layers, aliased) and
+     the prompt-lookup engine, each emitted token held against the
+     target's greedy chain; the prefix-cache engine (7 x 1024 hit tokens,
+     an exact replay) (``phase9``).
 
-In phases 4 to 8 every kernel launch counter is reset just before each
+In phases 4 to 9 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel), and no run may take the plain PyTorch append or the
@@ -98,6 +110,7 @@ status 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -318,7 +331,8 @@ def check_gemm(results, timer):
             torch.randn(n, k, device=dev) / k ** 0.5, *splits,
             weight_fp4_only=True))
         wd = dequantize_scaled_w8(w, torch.bfloat16)
-        rows = (8, 128, 512) + ((1023, 1024, 2048) if n == 4096 else ())
+        rows = ((8, 40, 128, 512) if (n, k) == (4096, 4096) else (8, 128, 512)) \
+            + ((1023, 1024, 2048) if n == 4096 else ())
         for m in rows:
             a = fakequant_values(torch.randn(m, k, device=dev), *splits)
             got = mixed_matmul_w8(a, w)
@@ -354,47 +368,55 @@ def _decode_cache(rng, b, mp, bits=4, ps=128, hkv=8, d=128):
 def check_decode(results, timer, rng):
     """Kernel C at the main path's decode (B=8, 100-600 tokens), at long
     contexts (B=8 at 2048 and 4096 tokens, B=1 at 8192: 64 pages), over
-    int8 pages, with a 1024-token window at 4096, and with the ``lengths``
-    override (8 rows of one 4096-token sequence at successive positions,
-    as speculative verify runs them) and the (m, den) state: m within
-    2^-16 max(1, |m|), den within 2^-12 relative (f32 sums in another
-    order).  The bound counts every K/V code and [scale, zero] pair of
-    each row's attended range once, q and the output."""
+    int8 pages, with a 1024-token window at 4096, with the ``lengths``
+    override (8 rows of one 4096-token sequence at successive positions)
+    and the (m, den) state: m within 2^-16 max(1, |m|), den within 2^-12
+    relative (f32 sums in another order), and at the speculative verify's
+    shape (phase 9: gamma 4, 8 sequences of 100-600 tokens, 5 rows each at
+    their last 5 positions, 40 rows under the override).  The bound counts
+    every K/V code and [scale, zero] pair of each sequence's attended
+    range once, q and the output."""
     from micromix_tpu_torch.models.common import rope_inv_freq
     from micromix_tpu_torch.serve.attention import (
         decode_split, paged_decode_attention, paged_decode_attention_plain)
     h, hkv, d, ps = 32, 8, 128, 128
     inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
-    cases = (("len 100..600", 8, np.linspace(100, 600, 8), 4, None, False),
-             ("len 2048", 8, np.full(8, 2048), 4, None, False),
-             ("len 4096", 8, np.full(8, 4096), 4, None, False),
-             ("len 8192", 1, np.full(1, 8192), 4, None, False),
-             ("len 100..600 int8", 8, np.linspace(100, 600, 8), 8, None, False),
-             ("len 4096 window 1024", 8, np.full(8, 4096), 4, 1024, False),
-             ("lengths 4089..4096 state", 8, np.arange(4089, 4097), 4, None, True))
+    cases = (("len 100..600", 8, np.linspace(100, 600, 8), 4, None, None),
+             ("len 2048", 8, np.full(8, 2048), 4, None, None),
+             ("len 4096", 8, np.full(8, 4096), 4, None, None),
+             ("len 8192", 1, np.full(1, 8192), 4, None, None),
+             ("len 100..600 int8", 8, np.linspace(100, 600, 8), 8, None, None),
+             ("len 4096 window 1024", 8, np.full(8, 4096), 4, 1024, None),
+             ("lengths 4089..4096 state", 8, np.arange(4089, 4097), 4, None, "one"),
+             ("verify 8x5 len 100..600", 40,
+              (np.linspace(100, 600, 8).astype(int)[:, None]
+               + np.arange(-4, 1)[None]).reshape(-1), 4, None, "verify"))
     for label, b, lengths, bits, window, override in cases:
         lengths = lengths.astype(np.int32)
         mp = -(-int(lengths.max()) // ps)
-        cache = _decode_cache(rng, 1 if override else b, mp, bits)
-        if override:      # one sequence, rows at successive positions
-            cache.lengths.fill_(int(lengths.max()))
-            seq = torch.zeros(b, dtype=torch.int32, device=DEV)
+        seqs = {None: b, "one": 1, "verify": b // 5}[override]
+        cache = _decode_cache(rng, seqs, mp, bits)
+        seq = torch.arange(b, device=DEV, dtype=torch.int32)
+        if override:      # rows of a sequence at successive positions
+            seq = seq // (b // seqs)
+            cache.lengths.copy_(torch.from_numpy(
+                lengths.reshape(seqs, -1).max(axis=1)))
         else:
             cache.lengths.copy_(torch.from_numpy(lengths))
-            seq = torch.arange(b, device=DEV, dtype=torch.int32)
         q = torch.randn(b, h, d, device=DEV).to(torch.bfloat16)
         pos = torch.from_numpy(lengths - 1).to(DEV)
         kw = dict(rope_positions=pos, rope_inv_freq=inv, sliding_window=window)
         pkw = {}
         if override:
-            kw.update(lengths=torch.from_numpy(lengths).to(DEV), with_state=True)
-            pkw = dict(lengths=kw["lengths"], with_state=True)
+            kw.update(lengths=torch.from_numpy(lengths).to(DEV),
+                      with_state=override == "one")
+            pkw = dict(lengths=kw["lengths"], with_state=override == "one")
         run = lambda: paged_decode_attention(q, cache, seq, **kw)
         plain = lambda: paged_decode_attention_plain(q, cache, seq, window, pos,
                                                      inv, **pkw)
         got, ref = run(), plain()
         tol = "2^-7|ref|+2^-8max|ref|"
-        if override:
+        if override == "one":
             (got, m, den), (ref, rm, rden) = got, ref
             err, ok = close(got, ref)
             ok = (ok and bool(((m - rm).abs() <= 2.0 ** -16
@@ -405,9 +427,8 @@ def check_decode(results, timer, rng):
             err, ok = close(got, ref)
         attended = np.minimum(lengths, window or lengths.max())
         tokens = int(attended.sum())
-        # the function's inputs read once: one sequence's pages under the
-        # override, each row's attended pages otherwise
-        read = int(attended.max()) if override else tokens
+        # the function's inputs read once: each sequence's attended pages
+        read = int(attended.reshape(seqs, -1).max(axis=1).sum())
         dq = d // 2 if bits == 4 else d
         nbytes = 2 * b * h * d * 2 + 2 * read * hkv * (dq + 4) + b * mp * 4
         splits, pps = decode_split(b, hkv, mp)
@@ -502,8 +523,10 @@ def check_append_quant(results, timer, rng):
     """Kernel D's whole append (``kv_cache.append_kv``: K's RoPE at decode,
     ``kv_quantize``, the slot index, the stores, the ``lengths`` max) in
     int4 and int8 at decode (T=8: one token per sequence, K and V column
-    views of a q|k|v output, RoPE tables from the positions) and at prefill
-    (T=1024: 8 sequences x 128 positions from 0), bit-exact against its
+    views of a q|k|v output, RoPE tables from the positions), int4 at the
+    speculative verify's rows (T=40: 8 sequences x 5 successive positions,
+    with RoPE) and at prefill (T=1024: 8 sequences x 128 positions from
+    0), bit-exact against its
     plain version (codes, [scale, zero] as int16 bits, lengths), timed
     beside it, beside the old composition (``old_path_ms``) and with the
     host time of a call for both (``host_ms``, ``old_path_host_ms``).  The
@@ -516,12 +539,17 @@ def check_append_quant(results, timer, rng):
     hkv, d, ps = 8, 128, 128
     inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
     for bits in (4, 8):
-        for t, label in ((8, "rope"), (1024, "prefill")):
-            seqs, mp = (8, 4) if t == 8 else (8, 1)
+        shapes = ((8, "rope"), (40, "verify"), (1024, "prefill"))
+        for t, label in shapes if bits == 4 else shapes[::2]:
+            seqs, mp = (8, 1) if label == "prefill" else (8, 4)
             cache = _append_cache(rng, bits, seqs, mp)
-            if t == 8:
-                seq = torch.arange(8, device=DEV, dtype=torch.int32)
-                pos = torch.from_numpy(rng.integers(0, mp * ps, 8).astype(np.int32)).to(DEV)
+            if label != "prefill":
+                rows = t // seqs
+                seq = torch.arange(8, device=DEV,
+                                   dtype=torch.int32).repeat_interleave(rows)
+                start = rng.integers(0, mp * ps - rows + 1, 8)
+                pos = torch.from_numpy((start[:, None] + np.arange(rows)[None])
+                                       .reshape(-1).astype(np.int32)).to(DEV)
                 qkv = torch.randn(t, 48 * d, device=DEV).to(torch.bfloat16)
                 k = qkv[:, 32 * d:40 * d].unflatten(1, (hkv, d))
                 v = qkv[:, 40 * d:].unflatten(1, (hkv, d))
@@ -644,7 +672,7 @@ def _stack_close(outs, img, st):
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
-STACK_ROWS = {"q|k|v": (8, 100, 128, 256, 512, 1023),
+STACK_ROWS = {"q|k|v": (8, 40, 100, 128, 256, 512, 1023),
               "gate|up": (8, 128, 256, 512, 1023)}
 GROUPED_ROWS = {"w13": (8, 100, 128, 256, 512), "w2": (8, 128, 256, 512)}
 ROUTE_MIN_ROWS = 256        # rows from which both routes are timed
@@ -2100,6 +2128,21 @@ P8_HF_CONFIG = {
     "bos_token_id": 128000, "eos_token_id": 128001,
 }
 ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+# the speculative draft of ``serve --draft-model``: Llama-3.2-1B's published
+# config.json (tied embeddings, head_dim 64), depth cut to 2 layers
+P8_DRAFT_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "hidden_size": 2048, "intermediate_size": 8192,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_hidden_layers": 2, "vocab_size": 128256, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "max_position_embeddings": 131072,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
 
 
 def write_safetensors(path: str, tensors) -> int:
@@ -2160,6 +2203,23 @@ class IntTokenizer:
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(str(int(i)) for i in ids)
+
+
+def write_draft_checkpoint(path: str) -> int:
+    """The dense draft (``P8_DRAFT_CONFIG``, weights from SEED + 1 made on
+    the card, the head tied to the embedding) as an HF directory of one
+    shard -> bytes."""
+    from micromix_tpu_torch.models.loader import (config_from_hf,
+                                                  export_dense_params)
+    cfg = config_from_hf(P8_DRAFT_CONFIG)
+    params = dense_llama(cfg, SEED + 1, DEV)
+    params["lm_head"] = params["embed"]
+    tensors = export_dense_params(params, cfg)
+    del tensors["lm_head.weight"]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(P8_DRAFT_CONFIG, f)
+    return write_safetensors(os.path.join(path, "model.safetensors"), tensors)
 
 
 def _dir_bytes(path: str) -> int:
@@ -2408,6 +2468,47 @@ def phase8(rng) -> dict:
                                        "decode_tokens", "wall_s",
                                        "decode_tokens_per_s", "mean_ttft_ms",
                                        "phase_s")}), flush=True)
+        # speculation and the prefix cache through the CLI, int4 pages: the
+        # prefix run's last four prompts come after its first four (four
+        # slots) and share their prompts (one long prompt's first 2176
+        # tokens, another long prompt whole)
+        draft_dir = os.path.join(P8_DIR, "draft")
+        t0 = time.perf_counter()
+        draft_bytes = write_draft_checkpoint(draft_dir)
+        stage["write_draft"] = time.perf_counter() - t0
+        shared = [traffic[6], traffic[7], traffic[0], traffic[1],
+                  traffic[6][:2176] + rng.integers(0, cfg.vocab_size, 64).tolist(),
+                  traffic[7], traffic[2], traffic[3]]
+        prefix_prompts = os.path.join(P8_DIR, "prefix_prompts.txt")
+        with open(prefix_prompts, "w") as f:
+            f.write("\n".join(IntTokenizer().decode(p) for p in shared) + "\n")
+        base = ["serve", "--model", hf, "--quantized-ckpt", qdir, "--kv-bits",
+                "4", "--max-new-tokens", str(P8_NEW), "--page-size", "128",
+                "--decode-chunk", "8"]
+        for label, flags, must in (
+                ("serve_spec_ngram", ["--prompts", prompts, "--max-seqs", "8",
+                                      "--spec-ngram", "2"], PLOOKUP_KERNELS),
+                ("serve_draft", ["--prompts", prompts, "--max-seqs", "8",
+                                 "--draft-model", draft_dir, "--spec-gamma", "4"],
+                 PLOOKUP_KERNELS),
+                ("serve_prefix_cache", ["--prompts", prefix_prompts, "--max-seqs",
+                                        "4", "--prefix-cache"], LLAMA_KERNELS)):
+            lines = shell(label, base + flags, must).strip().splitlines()
+            stats = json.loads(lines[-1])
+            out[label] = stats
+            toks = [[int(w) for w in lines[i + 1].split()]
+                    for i, ln in enumerate(lines[:-1]) if ln.startswith("--- [")]
+            ok = (stats["requests"] == 8 and len(toks) == 8
+                  and all(len(t) == P8_NEW for t in toks)
+                  and all(0 <= w < cfg.vocab_size for t in toks for w in t))
+            if label == "serve_prefix_cache":
+                ok = ok and stats.get("prefix_hit_tokens", 0) >= 2176
+            else:
+                ok = ok and 0.0 <= stats.get("spec_accept_rate", -1.0) <= 1.0
+            print(f"  serve {' '.join(flags[4:])}: " + json.dumps(stats),
+                  flush=True)
+            if not ok:
+                fail(f"phase 8 ({label}): its stats line or completions")
     finally:
         cli._tokenizer = tokenizer
         checkpoint.save_params, checkpoint.load_params = saved
@@ -2448,6 +2549,7 @@ def phase8(rng) -> dict:
     ck_bytes = _dir_bytes(qdir)
     shutil.rmtree(P8_DIR, ignore_errors=True)
     out.update(layers=P8_LAYERS, stage_s=stage, hf_bytes=hf_bytes,
+               draft_bytes=draft_bytes,
                quantized_bytes=ck_bytes,
                quantized_write_s=timer.s["save_params"],
                quantized_read_s=timer.s["load_params"], eval_ppl=ppl,
@@ -2464,10 +2566,434 @@ def phase8(rng) -> dict:
           f"router assigned {router['assigned']}", flush=True)
     main = collections.Counter()
     pages = collections.Counter()
-    for label in ("serve_int4", "serve_int8"):
+    for label in ("serve_int4", "serve_int8", "serve_spec_ngram",
+                  "serve_draft", "serve_prefix_cache"):
         main.update(runs[label]["launches"])
         pages.update(runs[label]["page_launches"])
     out["main_launches"], out["main_page_launches"] = main, pages
+    return out
+
+
+# ----------------------------------------------------------------- phase 9
+
+P9_GAMMA, P9_ROUNDS, P9_DRAFT_LAYERS = 4, 2, 4
+P9_PREFIX, P9_TAIL, P9_SHARERS = 1024, 64, 7
+P9_ENGINE = dict(max_seqs=8, page_size=128, max_pages_per_seq=16,
+                 decode_chunk=8, prefill_chunk=512)
+# the verify's B*S = 8 x (gamma + 1) = 40 rows: C under the lengths
+# override, D, F at q|k|v and B at o and down
+VERIFY_ROWS = (("paged_decode_lengths", 40), ("append_kv_quant", 40),
+               ("w8_stack", 40), ("w8_gemm", 40))
+
+
+def p9_caches(cfg, b: int, mp: int):
+    """b slots of mp pages each (slot i on pages 1 + i*mp ...) and the
+    scratch row on page 0."""
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    caches = [make_cache(b * mp + 1, 128, cfg.num_kv_heads, cfg.head_dim, b + 1,
+                         mp, device=DEV) for _ in range(cfg.num_layers)]
+    table = torch.zeros((b + 1, mp), dtype=torch.int32)
+    table[:b] = 1 + torch.arange(b * mp, dtype=torch.int32).reshape(b, mp)
+    for c in caches:
+        c.page_table.copy_(table)
+    return caches
+
+
+def p9_clone(caches):
+    return [dataclasses.replace(c, **{n: getattr(c, n).clone() for n in (
+        "k_codes", "v_codes", "k_sz", "v_sz", "page_table", "lengths")})
+        for c in caches]
+
+
+def p9_prefill(params, cfg, caches, prompts, chunk=P9_ENGINE["prefill_chunk"]):
+    """Prompt i into slot i as the engine prefills it: the prompts of at
+    most ``chunk`` tokens in one ``prefill_batch`` over every slot (the
+    others on the scratch row), padded to their bucket; each longer one in
+    chunks of ``chunk``, each padded to its bucket, after the first over
+    the paged history -> the last prompt position's logits (B, V)."""
+    from micromix_tpu_torch.serve.runner import prefill, prefill_batch
+    buckets = (16, 32, 64, 128, 256, 512, 1024, 2048)
+    b = len(prompts)
+    out = [None] * b
+    short = [i for i, p in enumerate(prompts) if len(p) <= chunk]
+    if len(short) >= 2:
+        bucket = next(x for x in buckets if x >= max(len(prompts[i]) for i in short))
+        toks = torch.zeros((b, bucket), dtype=torch.int32)
+        seqs = torch.full((b,), b, dtype=torch.int32)
+        last = torch.zeros((b,), dtype=torch.int32)
+        for row, i in enumerate(short):
+            toks[row, :len(prompts[i])] = torch.tensor(prompts[i])
+            seqs[row], last[row] = i, len(prompts[i]) - 1
+        logits, _ = prefill_batch(params, cfg, caches, toks.to(DEV),
+                                  seqs.to(DEV), last.to(DEV))
+        for row, i in enumerate(short):
+            out[i] = logits[row]
+    for i, p in enumerate(prompts):
+        for start in range(0, len(p), chunk) if out[i] is None else ():
+            n = min(chunk, len(p) - start)
+            toks = torch.zeros((1, next(x for x in buckets if x >= n)),
+                               dtype=torch.int32)
+            toks[0, :n] = torch.tensor(p[start:start + n])
+            logits, _ = prefill(params, cfg, caches, toks.to(DEV), i, start,
+                                n - 1, hist_len=start)
+            for c in caches:
+                c.lengths[i] = start + n
+            out[i] = logits[0]
+        for c in caches:
+            c.lengths[i] = len(p)
+    return torch.stack(out)
+
+
+@contextlib.contextmanager
+def unpaired():
+    """Decode steps in the per-site form (``MICROMIX_NO_PAIR=1``), the
+    form ``verify_block`` computes."""
+    os.environ["MICROMIX_NO_PAIR"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["MICROMIX_NO_PAIR"]
+
+
+def verify_vs_decode(params, cfg, rng) -> dict:
+    """Phase 9 (a): ``verify_block`` at B=8, gamma 4 (40 rows) against the
+    decode chain teacher-forced on the same block, from one cache state,
+    in the engine's form (the residual pairs) and in the per-site form
+    that the verify computes; then all roll back (each row keeps 1 to 5
+    positions) and score the next block.  Tolerance: phase 3's, 0.5 of the
+    logit range."""
+    from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.serve.runner import decode_step, verify_block
+    from micromix_tpu_torch.serve.speculative import _set_lengths
+    b, s, v = 8, P9_GAMMA + 1, cfg.vocab_size
+    prompts = [rng.integers(0, v, int(rng.integers(96, 129))).tolist()
+               for _ in range(b)]
+    caches = p9_caches(cfg, b, 2)
+    first = p9_prefill(params, cfg, caches, prompts).argmax(-1).to(torch.int32)
+    seq = torch.arange(b, device=DEV, dtype=torch.int32)
+    pos = torch.tensor([len(p) for p in prompts], device=DEV, dtype=torch.int32)
+    block = torch.cat([first[:, None], torch.from_numpy(rng.integers(
+        0, v, (b, s - 1)).astype(np.int32)).to(DEV)], dim=1)
+
+    def chain(blk, at):
+        cc = p9_clone(caches)
+        return torch.stack([decode_step(params, cfg, cc, blk[:, j], seq,
+                                        at + j)[0] for j in range(s)], 1)
+
+    out = {}
+    for label in ("block", "after rollback"):
+        ref = chain(block, pos)
+        with unpaired():
+            ref_site = chain(block, pos)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got, _ = verify_block(params, cfg, caches, block, seq, pos)
+        torch.cuda.synchronize()
+        rows = {f"{k}/{m}": build.row_launches[(k, m)] for k, m in VERIFY_ROWS}
+        diff = float((got - ref).abs().max())
+        span = float(ref.abs().max())
+        rel = diff / span
+        site = float((got - ref_site).abs().max())
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        out[label] = dict(max_abs_diff=diff, rel=rel, per_site_diff=site,
+                          logit_span=span, argmax_agree=agree,
+                          row_launches=rows)
+        print(f"  (a) verify_block B={b} S={s} {label}: max |diff| {diff:.4e} "
+              f"({rel:.4e} of the range, tolerance 0.5) against the paired "
+              f"chain, {site:.4e} against the per-site chain, argmax "
+              f"agreement {agree:.3f}, launches at 40 rows {rows}", flush=True)
+        if rel > 0.5 or not all(rows.values()):
+            fail(f"phase 9 (a): verify_block {label}: error {rel:.3e} of the "
+                 f"range, or a kernel not at 40 rows: {rows}")
+        keep = torch.arange(b, device=DEV, dtype=torch.int32) % s + 1
+        pos = pos + keep
+        _set_lengths(caches, seq, pos)
+        block = torch.cat([block[torch.arange(b, device=DEV), keep.long() - 1][:, None],
+                           torch.from_numpy(rng.integers(0, v, (b, s - 1))
+                                            .astype(np.int32)).to(DEV)], dim=1)
+    # the band of ``teacher_forced``: twice the per-site difference, at
+    # least 1e-3 of the logit range
+    out["band"] = max(2 * max(o["per_site_diff"] for o in out.values()),
+                      1e-3 * max(o["logit_span"] for o in out.values()))
+    return out
+
+
+def teacher_forced(params, cfg, reqs, band: float, rows: int = 0) -> dict:
+    """Every emitted token of ``reqs`` against the target fed the emitted
+    tokens (``p9_prefill``, then the steps below): the token's logit must
+    lie within ``band`` of the largest (JAX's definition of near-greedy,
+    tests/test_speculative.py).  The steps: the engine's decode chain (all
+    8 rows a step, the residual pairs) for the plain engine; with ``rows``
+    (gamma + 1), ``verify_block`` over blocks of ``rows`` emitted tokens a
+    slot, the form and the shapes the speculative engine verified them
+    in.  Every row's arithmetic depends on its own inputs and the launch
+    shapes alone, so the speculative stream is reproduced exactly where
+    the engine kept its caches right; against the pairs instead, a
+    random fp4 model turns a last-bit difference of another C split grid
+    or rounding place into a sizable logit change now and then (phase
+    3), which the result reports as ``paired``."""
+    from micromix_tpu_torch.serve.runner import decode_step, verify_block
+    b = len(reqs)
+    caches = p9_caches(cfg, b, P9_ENGINE["max_pages_per_seq"])
+    logits = p9_prefill(params, cfg, caches, [r.prompt for r in reqs])
+    out = torch.tensor([r.output for r in reqs], device=DEV, dtype=torch.int32)
+    seq = torch.arange(b, device=DEV, dtype=torch.int32)
+    pos = torch.tensor([len(r.prompt) for r in reqs], device=DEV,
+                       dtype=torch.int32)
+    n = out.shape[1]
+    gaps = [logits.max(-1).values - logits.gather(1, out[:, :1].long())[:, 0]]
+    if rows:
+        for j in range(0, n - 1, rows):
+            blk = out[:, j:j + rows]
+            blk = torch.cat([blk, blk[:, -1:].expand(b, rows - blk.shape[1])], 1)
+            lg, _ = verify_block(params, cfg, caches, blk.contiguous(), seq,
+                                 pos + j)
+            for k in range(min(rows, n - 1 - j)):
+                gaps.append(lg[:, k].max(-1).values - lg[:, k].gather(
+                    1, out[:, j + k + 1:j + k + 2].long())[:, 0])
+    else:
+        for j in range(1, n):
+            lg, _ = decode_step(params, cfg, caches, out[:, j - 1], seq,
+                                pos + j - 1)
+            gaps.append(lg.max(-1).values - lg.gather(1, out[:, j:j + 1].long())[:, 0])
+    gaps = torch.stack(gaps).cpu()
+    return dict(steps=int(gaps.numel()), not_argmax=int((gaps > 0).sum()),
+                max_gap=float(gaps.max()), band=band,
+                ok=bool((gaps <= band).all()))
+
+
+def spec_window(eng, cfg) -> dict:
+    """Kernel launches and host ms per speculative round over one call of
+    ``spec_rounds`` rounds with the engine's params (every slot on the
+    scratch row, greedy), and the device busy ms per round
+    (``torch.profiler``) over one more call."""
+    from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.serve.speculative import (PLookupState, SpecState,
+                                                      plookup_decode_multi,
+                                                      spec_decode_multi)
+    b, r = eng.max_seqs, eng.spec_rounds
+    z = torch.zeros(b, dtype=torch.int32, device=DEV)
+    seq = torch.full((b,), b, dtype=torch.int32, device=DEV)
+    kw = dict(gamma=eng.spec_gamma, n_rounds=r, greedy=True)
+
+    def call():
+        if eng.dcaches is None:
+            st = PLookupState(tokens=torch.zeros((b, 16), dtype=torch.int32,
+                                                 device=DEV),
+                              length=z + 4, positions=z + 1)
+            return plookup_decode_multi(eng.params, cfg, eng.caches, st, seq,
+                                        None, z.float(), ngram=eng.spec_ngram,
+                                        **kw)
+        st = SpecState(prev=z, cur=z, positions=z + 1)
+        return spec_decode_multi(eng.params, eng.draft_params, cfg,
+                                 eng.draft_cfg, eng.caches, eng.dcaches, st,
+                                 seq, None, z.float(), **kw)
+
+    call()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / r
+    by_kernel = {k: v / r for k, v in build.launches.items()}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / r
+    cuda = sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) / r
+    return dict(host_ms_per_round=ms, kernel_launches_per_round=sum(
+        by_kernel.values()), by_kernel=by_kernel, device_busy_ms_per_round=busy,
+        cuda_launches_per_round=cuda)
+
+
+def _per_token(st) -> dict:
+    """ms per generated token: end to end (wall over tokens out) and over
+    the decode phases (spec, decode, mixed) alone."""
+    return dict(e2e_ms_per_token=1e3 * st["wall_s"] / st["tokens_out"],
+                decode_ms_per_token=1e3 * st["decode_phase_s"] / st["decode_tokens"])
+
+
+def p9_serve(cfg, params, reqs, label, must_launch, **kw):
+    """``serve`` with the engine's decode-phase seconds, generated tokens
+    and the verify's row launches kept, and ``must_launch`` checked."""
+    from micromix_tpu_torch.kernels import build
+    eng, st = serve(cfg, params, reqs, f"phase 9 ({label})", **kw)
+    st["row_launches"] = {f"{k}/{m}": n for (k, m), n in build.row_launches.items()}
+    st["decode_phase_s"] = sum(eng.phase_s[k] for k in ("spec", "decode", "mixed"))
+    st["decode_tokens"] = eng.decode_tokens
+    st["spec_proposed"], st["spec_accepted"] = eng.spec_proposed, eng.spec_accepted
+    st["spec_rounds"] = eng.phase_steps["spec"]
+    missing = [k for k in must_launch if not st["launches"].get(k)]
+    if missing:
+        fail(f"phase 9 ({label}): kernels not launched: {missing}")
+    return eng, st
+
+
+def phase9(rng, p4: dict) -> dict:
+    """Speculative decoding and the prefix cache on the main path's model:
+    Llama-3.1-8B widths, ScaledW8, 32 layers, int4 pages, random weights
+    from SEED made on the card, stacked once and shared by every engine.
+
+      (a) ``verify_vs_decode``;
+      (b) the draft-model engine: the draft is the target's first 4 layers
+          (aliased: the same stacked dicts, embed and head), gamma 4, 2
+          rounds a call, on phase 4's kind of traffic beside the plain
+          engine on the same requests; every request finishes and every
+          emitted token passes ``teacher_forced``;
+      (c) the prompt-lookup engine (ngram 2, gamma 3) on prompts that
+          repeat a 16-token segment: where an output cycles, some
+          proposals must have been accepted; ``teacher_forced`` too;
+      (d) the prefix-cache engine: a request of a 1024-token prefix and a
+          64-token tail, then seven sharing the prefix with their own
+          tails (7 x 1024 hit tokens, each hit prefilled over the
+          quantized history: H), then the first prompt again, which must
+          replay the first request's output.
+
+    Each engine run resets the launch counters just before it and reads
+    them just after; together they must launch A to H, and the draft run C
+    with the lengths override, D, F and B at the verify's 40 rows."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model,
+                                                   stack_layer_projections)
+    from micromix_tpu_torch.serve.engine import Request
+    t9 = time.perf_counter()
+    cfg = llama31_8b(32)
+    params = stack_layer_projections(random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV))
+    v = cfg.vocab_size
+    out = {"verify": verify_vs_decode(params, cfg, rng)}
+
+    # (b) the draft-model engine beside the plain engine, the same requests
+    traffic = _traffic(rng, v)
+
+    def copy(reqs):
+        return [Request(r.req_id, list(r.prompt), max_new_tokens=r.max_new_tokens)
+                for r in reqs]
+
+    plain_reqs = copy(traffic)
+    _, plain = p9_serve(cfg, params, plain_reqs, "plain", LLAMA_KERNELS,
+                        **P9_ENGINE)
+    # the plain engine's tokens against its own (paired) form: exact
+    plain["teacher_forced"] = teacher_forced(params, cfg, plain_reqs, 0.0)
+    band = out["verify"]["band"]
+    draft = {**params, "layers": params["layers"][:P9_DRAFT_LAYERS]}
+    spec_reqs = copy(traffic)
+    eng, spec = p9_serve(cfg, params, spec_reqs, "draft", LLAMA_KERNELS,
+                         draft_params=draft, draft_cfg=llama31_8b(P9_DRAFT_LAYERS),
+                         spec_gamma=P9_GAMMA, spec_rounds=P9_ROUNDS, **P9_ENGINE)
+    if eng.draft_params["layers"][0] is not eng.params["layers"][0]:
+        fail("phase 9 (b): the draft holds a second copy of the target's layers")
+    missing = [f"{k}/{m}" for k, m in VERIFY_ROWS
+               if not spec["row_launches"].get(f"{k}/{m}")]
+    if missing:
+        fail(f"phase 9 (b): not launched at the verify's 40 rows: {missing}")
+    spec["window"] = spec_window(eng, cfg)
+    spec["teacher_forced"] = teacher_forced(params, cfg, spec_reqs, band,
+                                            P9_GAMMA + 1)
+    spec["teacher_forced_paired"] = teacher_forced(params, cfg, spec_reqs, band)
+    del eng
+    out.update(plain=plain, draft=spec)
+
+    # (c) prompt lookup on prompts that repeat a segment
+    look_reqs = []
+    for i in range(8):
+        seg = rng.integers(0, v, 16).tolist()
+        look_reqs.append(Request(i, seg * int(rng.integers(6, 9)),
+                                 max_new_tokens=32))
+    eng, look = p9_serve(cfg, params, look_reqs, "prompt lookup",
+                         SHORT_PLOOKUP_KERNELS, spec_ngram=2, spec_gamma=3,
+                         spec_rounds=P9_ROUNDS, **P9_ENGINE)
+    look["window"] = spec_window(eng, cfg)
+    del eng
+    cycles = [any(r.output[-p:] == r.output[-2 * p:-p] for p in range(1, 13))
+              for r in look_reqs]
+    look["cycling_outputs"] = sum(cycles)
+    look["teacher_forced"] = teacher_forced(params, cfg, look_reqs, band, 4)
+    look["teacher_forced_paired"] = teacher_forced(params, cfg, look_reqs, band)
+    if any(cycles) and not look["spec_accepted"]:
+        fail("phase 9 (c): outputs cycle but no lookup proposal was accepted")
+    out["plookup"] = look
+
+    # (d) the prefix cache
+    from micromix_tpu_torch.serve.engine import Engine
+    pc = Engine(params, cfg, seed=SEED, device=DEV, prefix_cache=True,
+                **P9_ENGINE)
+    prefix = rng.integers(0, v, P9_PREFIX).tolist()
+    first = Request(0, prefix + rng.integers(0, v, P9_TAIL).tolist(),
+                    max_new_tokens=32)
+    sharers = [Request(1 + i, prefix + rng.integers(0, v, P9_TAIL).tolist(),
+                       max_new_tokens=32) for i in range(P9_SHARERS)]
+    replay = Request(99, list(first.prompt), max_new_tokens=32)
+    runs, launches = {}, collections.Counter()
+    for label, reqs in (("cold", [first]), ("sharers", sharers),
+                        ("replay", [replay])):
+        h0 = pc.prefix_hit_tokens
+        p0 = pc.phase_s["prefill"] + pc.phase_s["mixed"]
+        wall, ln = engine_run(pc, reqs, f"phase 9 (prefix cache, {label})")
+        launches.update(ln)
+        if not all(r.done and len(r.output) == 32 for r in reqs):
+            fail(f"phase 9 (d): {label} requests did not finish")
+        runs[label] = dict(hit_tokens=pc.prefix_hit_tokens - h0, wall_s=wall,
+                           prefill_s=pc.phase_s["prefill"] + pc.phase_s["mixed"] - p0,
+                           ttft_s=[pc.ttft[r.req_id] for r in reqs],
+                           launches=ln)
+    if runs["cold"]["hit_tokens"] or \
+            runs["sharers"]["hit_tokens"] != P9_SHARERS * P9_PREFIX:
+        fail(f"phase 9 (d): prefix hits {runs['sharers']['hit_tokens']}, "
+             f"want {P9_SHARERS * P9_PREFIX}")
+    if runs["replay"]["hit_tokens"] != P9_PREFIX or replay.output != first.output:
+        fail("phase 9 (d): the repeated prompt did not replay the first output")
+    if not runs["sharers"]["launches"].get("paged_prefill"):
+        fail("phase 9 (d): the prefix hits did not prefill through Kernel H")
+    missing = [k for k in LLAMA_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"phase 9 (d): kernels not launched: {missing}")
+    out["prefix"] = runs
+    del pc, params
+    torch.cuda.empty_cache()
+
+    p4s = p4["stacked"]
+    for label, st in (("plain", plain), ("draft", spec), ("prompt lookup", look)):
+        extra = f"; teacher forced {st['teacher_forced']}"
+        if st["spec_proposed"]:
+            w = st["window"]
+            extra = (f"; spec_accept_rate {st['spec_accepted'] / st['spec_proposed']:.4f}"
+                     f" ({st['spec_accepted']} / {st['spec_proposed']}), "
+                     f"{st['spec_rounds']} rounds; per round "
+                     f"{w['kernel_launches_per_round']:.1f} kernel launches, "
+                     f"{w['cuda_launches_per_round']:.1f} CUDA launches, host "
+                     f"{w['host_ms_per_round']:.3f} ms, device busy "
+                     f"{w['device_busy_ms_per_round']:.3f} ms") + extra
+        st.update(_per_token(st))
+        print(f"  ({'b' if label != 'prompt lookup' else 'c'}) {label}: "
+              f"{st['requests_done']} requests, {st['tokens_out']} tokens, "
+              f"{st['e2e_ms_per_token']:.3f} ms per generated token end to end, "
+              f"{st['decode_ms_per_token']:.3f} over the decode phases{extra}",
+              flush=True)
+    print(f"  phase 4's plain engine (other requests of the same kind): "
+          f"{1e3 * p4s['wall_s'] / p4s['tokens_out']:.3f} ms per generated token "
+          f"end to end; its decode window "
+          f"{p4s['decode_window']['kernel_launches_per_step']:.1f} kernel "
+          f"launches a step", flush=True)
+    print(f"  (c) outputs that cycle: {look['cycling_outputs']} of 8", flush=True)
+    print(f"  (d) prefix cache: " + json.dumps(
+        {k: {n: r[n] for n in ("hit_tokens", "prefill_s", "ttft_s", "wall_s")}
+         for k, r in runs.items()}), flush=True)
+    for label, st in (("draft", spec), ("prompt lookup", look)):
+        print(f"  ({label}) against the paired chain: "
+              f"{st['teacher_forced_paired']}", flush=True)
+        if not st["teacher_forced"]["ok"] or not st["teacher_forced"]["steps"]:
+            fail(f"phase 9 ({label}): an emitted token lies outside the band "
+                 f"of the target's argmax: {st['teacher_forced']}")
+    if not plain["teacher_forced"]["ok"]:
+        fail(f"phase 9 (plain): the harness does not reproduce the plain "
+             f"engine: {plain['teacher_forced']}")
+    out["seconds"] = time.perf_counter() - t9
     return out
 
 
@@ -2535,6 +3061,12 @@ SPLITPLANE_KERNELS = ("site_fakequant", "sp_stack", "sp_gemm", "mx_quantize",
 SPLITPLANE_PER_CONSUMER_KERNELS = ("mx_quantize", "sp_gemm", "sp_stack",
                                    "site_fakequant", "paged_decode",
                                    "append_kv_quant", "flash_attention")
+# speculative serving: with a quantized draft that shares the target's
+# layers (phase 9) every kernel of the stacked Llama, G in the draft's
+# decode steps; with prompt lookup or a dense draft (phase 8) no residual
+# pair runs, and prompts that fit one chunk take no H
+PLOOKUP_KERNELS = tuple(k for k in LLAMA_KERNELS if k != "w8_pair")
+SHORT_PLOOKUP_KERNELS = tuple(k for k in PLOOKUP_KERNELS if k != "paged_prefill")
 
 
 # the attention kernels again on int8 pages: entry -> (kernel, the shape
@@ -2545,12 +3077,28 @@ INT8_ENTRIES = {
 }
 
 
-def kernel_line(results, launches, page_launches) -> dict:
+# the kernels again at the speculative verify's 40 rows (phase 9: 8 slots,
+# gamma 4): entry -> (kernel, the shape reported, its row_launches key);
+# their launches are phase 9's draft run's at those rows
+VERIFY_ENTRIES = {
+    "paged_decode_verify": ("paged_decode",
+                            "B=40 H=32 Hkv=8 D=128 verify 8x5 len 100..600",
+                            "paged_decode_lengths/40"),
+    "append_kv_quant_verify": ("append_kv_quant", "T=40 Hkv=8 D=128 int4 verify",
+                               "append_kv_quant/40"),
+    "w8_stack_verify": ("w8_stack", "q|k|v rms M=40 K=4096", "w8_stack/40"),
+    "w8_gemm_verify": ("w8_gemm", "M=40 N=4096 K=4096", "w8_gemm/40"),
+}
+
+
+def kernel_line(results, launches, page_launches, verify_launches) -> dict:
     out = []
     entries = [(name, name, shape, launches.get(name, 0), None)
                for name, (_, _, shape) in KERNELS.items()]
     entries += [(entry, kernel, shape, page_launches.get((kernel, 8), 0), "int8")
                 for entry, (kernel, shape) in INT8_ENTRIES.items()]
+    entries += [(entry, kernel, shape, verify_launches.get(key, 0), shape)
+                for entry, (kernel, shape, key) in VERIFY_ENTRIES.items()]
     for entry, kernel, shape, n, suffix in entries:
         src, replaces, _ = KERNELS[kernel]
         rows = [r for r in results if r["kernel"] == kernel
@@ -2647,6 +3195,12 @@ def main() -> int:
     p8_launches = p8.pop("main_launches")
     p8_pages = p8.pop("main_page_launches")
     print(f"  phase 8 took {time.perf_counter() - t8:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 9: speculative decoding (draft model, prompt lookup) and "
+          f"the prefix cache, Llama-3.1-8B widths at 32 layers", flush=True)
+    p9 = phase9(rng, p4)
+    print(f"  phase 9 took {p9['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -2669,13 +3223,18 @@ def main() -> int:
     main_launches.update(p6["stacked"]["launches"])
     main_launches.update(p7["launches"])
     main_launches.update(p8_launches)
-    line = kernel_line(results, main_launches, p8_pages)
+    for label in ("plain", "draft", "plookup"):
+        main_launches.update(p9[label]["launches"])
+    for run in p9["prefix"].values():
+        main_launches.update(run["launches"])
+    line = kernel_line(results, main_launches, p8_pages,
+                       p9["draft"]["row_launches"])
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
-                       phase8=p8,
+                       phase8=p8, phase9=p9,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

@@ -33,9 +33,6 @@ _NOT_PORTED = {
     "hetero": (bool, "item 8 (models/hetero.py)"),
     "weight_only": (bool, "item 8 (WeightOnlyLinear)"),
     "int8_turbo": (bool, "item 8 (Int8TurboLinear)"),
-    "draft_model": (bool, "item 7 (speculative decoding)"),
-    "spec_ngram": (bool, "item 7 (speculative decoding)"),
-    "prefix_cache": (bool, "item 6 (serve/prefix_cache.py)"),
     "profile": (bool, "item 8 (utils/profiling.py)"),
     "tasks": (bool, "item 8 (eval/lm_eval_adapter.py)"),
 }
@@ -167,9 +164,23 @@ def cmd_serve(args) -> None:
     if args.prompts:
         with open(args.prompts) as f:
             prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
+    spec_kw = {}
+    if args.draft_model:
+        # the draft stays dense bf16: it is small, and the target model
+        # dominates both memory and operations
+        from .models.loader import config_from_hf, load_dense_params
+        with open(os.path.join(args.draft_model, "config.json")) as f:
+            dcfg = config_from_hf(json.load(f))
+        spec_kw = dict(draft_params=load_dense_params(args.draft_model, dcfg,
+                                                      device=args.device),
+                       draft_cfg=dcfg, spec_gamma=args.spec_gamma)
+    elif args.spec_ngram:
+        spec_kw = dict(spec_ngram=args.spec_ngram, spec_gamma=args.spec_gamma)
     eng = Engine(params, cfg, max_seqs=args.max_seqs,
                  page_size=args.page_size, kv_bits=args.kv_bits or 4,
-                 decode_chunk=args.decode_chunk, device=args.device)
+                 decode_chunk=args.decode_chunk,
+                 prefix_cache=args.prefix_cache, device=args.device,
+                 **spec_kw)
     if args.port:
         from .serve.api import ApiServer
         chat_tpl = None
@@ -315,14 +326,15 @@ def main(argv=None) -> None:
     s.add_argument("--ep", type=int, default=1,
                    help="expert-parallel ways (not ported)")
     s.add_argument("--prefix-cache", action="store_true",
-                   help="share KV pages across common prompt prefixes "
-                        "(not ported)")
+                   help="share KV pages across common prompt prefixes")
     s.add_argument("--draft-model", default=None, metavar="DIR",
-                   help="draft model for speculative decoding (not ported)")
+                   help="dense HF draft model for speculative decoding")
     s.add_argument("--spec-gamma", type=int, default=4,
                    help="draft tokens proposed per speculative round")
     s.add_argument("--spec-ngram", type=int, default=0, metavar="N",
-                   help="prompt-lookup speculation (not ported)")
+                   help="prompt-lookup speculation: propose the tokens that "
+                        "followed the last N-token match in the request's "
+                        "own history (no draft model)")
     s.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="capture a profiler trace of the run (not ported)")
     s.add_argument("--temperature", type=float, default=0.0)

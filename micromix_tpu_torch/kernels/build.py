@@ -12,7 +12,10 @@ Every wrapper counts its launches in ``launches`` (one per kernel launch
 made by a wrapper call), so a run can show that its main path went
 through the kernels; the attention kernels over KV pages (C and H) also
 count each launch by page width in ``page_launches`` ((name, bits) ->
-launches), so a run can show which pages they read.
+launches), so a run can show which pages they read; B, F, C and D, which
+the speculative verify runs at B*S rows, also count each launch by its
+rows in ``row_launches`` ((name, rows) -> launches; C's launches with the
+per-row ``lengths`` override as "paged_decode_lengths").
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches: collections.Counter = collections.Counter()
 page_launches: collections.Counter = collections.Counter()
+row_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -151,3 +155,4 @@ def require_cuda(name: str, *tensors) -> torch.device:
 def reset_launches() -> None:
     launches.clear()
     page_launches.clear()
+    row_launches.clear()

@@ -162,6 +162,7 @@ def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
     partial = _partials(splits, m, n, a.device)
     lib = build.library("w8_gemm", _SIG)
     build.launches["w8_gemm"] += 1
+    build.row_launches[("w8_gemm", m)] += 1
     rc = lib.w8_gemm(build.ptr(a), build.ptr(w.codes), build.ptr(out),
                      build.ptr(partial), m, n, k, w8_scale(w), splits,
                      build.stream())
@@ -256,6 +257,7 @@ def w8_stack_gemm(qx: torch.Tensor, st: ScaledW8Stack) -> List[torch.Tensor]:
     tiles = wide_tiles(st.sections)
     lib = build.library("w8_stack", _SIG_STACK)
     build.launches["w8_stack"] += 1
+    build.row_launches[("w8_stack", m)] += 1
     rc = lib.w8_stack(
         build.ptr(qx), build.ptr(st.codes), build.ptr(partial),
         (ctypes.c_int * n_sec)(*st.sections), (ctypes.c_int * n_sec)(*st.padded),

@@ -125,6 +125,7 @@ def append_kv_quant(k_codes: torch.Tensor, v_codes: torch.Tensor,
         return
     lib = build.library("append_kv", _SIG)
     build.launches["append_kv_quant"] += 1
+    build.row_launches[("append_kv_quant", t)] += 1
     rc = lib.append_kv_quant(
         build.ptr(k_codes), build.ptr(v_codes), build.ptr(k_sz), build.ptr(v_sz),
         build.ptr(page_table), build.ptr(lengths), build.ptr(seq_ids),

@@ -180,6 +180,8 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     lib = build.library("paged_decode", _SIG)
     build.launches["paged_decode"] += 1
     build.page_launches[("paged_decode", cache.bits)] += 1
+    build.row_launches[("paged_decode" if lengths is None
+                        else "paged_decode_lengths", b)] += 1
     rc = lib.paged_decode(
         build.ptr(q), build.ptr(cache.k_codes), build.ptr(cache.v_codes),
         build.ptr(cache.k_sz), build.ptr(cache.v_sz),

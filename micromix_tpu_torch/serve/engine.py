@@ -30,13 +30,30 @@ chunk runs the decode variant its live requests need (controls,
 logprobs or neither); a slot that needs controls or logprobs turns
 piggyback off for that step, as in the JAX engine.
 
-The shell reads the JAX engine's stats: ``prefill_tokens``,
-``decode_tokens``, ``preemptions``, ``phase_s``, and ``ttft`` (req_id ->
-seconds from ``submit`` to the request's first token).
-``spec_proposed``, ``spec_accepted`` and ``prefix_hit_tokens`` stay 0.
+Speculative decoding, as in the JAX engine: with ``draft_params`` (a
+draft model) or ``spec_ngram`` (prompt lookup, no draft) the decode phase
+becomes ``spec_rounds`` rounds of propose / verify / accept per call
+(``serve/speculative.py``) while every live request is greedy or plain
+temperature sampling without controls or logprobs (``_spec_ok``); else
+the step runs a normal decode chunk.  Every target prefill call (batched,
+chunked, piggybacked) is mirrored into the draft's caches, so the draft
+sees the token stream the target saw; with ``piggyback`` one pending
+slot's chunk rides the spec call (``spec_prefill_decode``,
+``plookup_prefill_decode``) and the plain piggyback stays off.
 
-Not ported: prefix caching (ROADMAP item 6), pipelined decode (item 6)
-and speculative decoding (item 7).
+``prefix_cache=True`` shares KV pages across requests whose contexts
+start alike (``serve/prefix_cache.py``): admission attaches the longest
+cached page chain and prefills from there over the quantized history,
+every prefill chunk registers its full pages, and a finished request
+registers its generated tokens' pages too.  In spec mode the draft's
+caches mirror the shared pages at the same physical ids.
+
+The shell reads the JAX engine's stats: ``prefill_tokens``,
+``decode_tokens``, ``preemptions``, ``phase_s`` (with ``"spec"``),
+``ttft`` (req_id -> seconds from ``submit`` to the request's first
+token), ``spec_proposed``, ``spec_accepted`` and ``prefix_hit_tokens``.
+
+Not ported: pipelined decode (the JAX engine's ``pipeline=True``).
 """
 
 from __future__ import annotations
@@ -55,7 +72,11 @@ from ..models.common import ModelConfig
 from ..models.surgery import stack_layer_projections
 from .block_manager import BlockManager
 from .kv_cache import make_cache
+from .prefix_cache import PrefixBlockManager
 from .runner import decode_multi, prefill, prefill_batch, prefill_decode
+from .speculative import (PLookupState, SpecState, plookup_decode_multi,
+                          plookup_prefill_decode, spec_decode_multi,
+                          spec_prefill_decode)
 from .sampling import (SamplingParams, apply_logit_controls, ban_mask,
                        chosen_logprobs, minp_shifts, pick_sample_mode,
                        sample_batch, unpack_presence, uses_logit_controls)
@@ -84,18 +105,31 @@ class Request:
 
 
 def check_card_serves(device: torch.device, cfg: ModelConfig,
-                      kv_bits: int) -> None:
+                      kv_bits: int,
+                      draft_cfg: Optional[ModelConfig] = None) -> None:
     """Refuse, before any cache is made, what the card's attention kernels
     cannot serve yet: KV pages of other than 4 or 8 bits (bf16 pages,
-    ROADMAP 2b), which Kernels C, D and H do not read.  A sliding window
-    runs on the card (Kernels C, E and H apply it).  The CPU serves what
-    ``make_cache`` makes through the plain versions."""
+    ROADMAP 2b), which Kernels C, D and H do not read, and a model (the
+    target, or the draft of speculative decoding) whose head_dim is not 64
+    or 128 or that has more than 8 query heads per KV head, which Kernel
+    C does not take.  A sliding window runs on the card (Kernels C, E and
+    H apply it).  The CPU serves what ``make_cache`` makes through the
+    plain versions."""
     if device.type != "cuda":
         return
     if kv_bits not in (4, 8):
         raise NotImplementedError(
             f"the card serves int4 and int8 KV pages, not kv_bits={kv_bits} "
             "(ROADMAP 2b); pass device='cpu' for the plain versions")
+    for name, c in (("model", cfg), ("draft", draft_cfg)):
+        if c is None:
+            continue
+        if c.head_dim not in (64, 128) or c.num_heads % c.num_kv_heads \
+                or c.num_heads // c.num_kv_heads > 8:
+            raise NotImplementedError(
+                f"the card's attention takes head_dim 64 or 128 and at most 8 "
+                f"query heads per KV head; the {name} has head_dim "
+                f"{c.head_dim}, {c.num_heads} / {c.num_kv_heads} heads")
 
 
 @dataclasses.dataclass
@@ -104,6 +138,9 @@ class _Slot:
     pos: int = 0
     # context tokens not yet prefilled (chunked prefill)
     pending: List[int] = dataclasses.field(default_factory=list)
+    # the whole admitted context (prompt + earlier output); the prefix
+    # cache keys pages off ctx[:pos]
+    ctx: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def ready(self) -> bool:
@@ -117,51 +154,88 @@ class Engine:
                  kv_bits: int = 4,
                  prefill_buckets=(16, 32, 64, 128, 256, 512, 1024, 2048),
                  decode_chunk: int = 8, prefill_chunk: Optional[int] = None,
-                 seed: int = 0, piggyback: bool = True, device=None):
+                 seed: int = 0, piggyback: bool = True,
+                 draft_params: Optional[Dict[str, Any]] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 spec_gamma: int = 4, spec_rounds: Optional[int] = None,
+                 spec_ngram: int = 0, spec_window: int = 256,
+                 prefix_cache: bool = False, device=None):
         self.device = resolve_device(device)
-        check_card_serves(self.device, cfg, kv_bits)
+        if spec_ngram > 0 and draft_params is not None:
+            raise ValueError("spec_ngram and draft_params are mutually "
+                             "exclusive speculation modes")
+        self.draft_cfg = draft_cfg if draft_cfg is not None else (
+            cfg if draft_params is not None else None)
+        check_card_serves(self.device, cfg, kv_bits, self.draft_cfg)
         if not os.environ.get("MICROMIX_NO_STACK"):
             # one stacked GEMM per site at decode, one wide product at
             # prefill, the experts grouped; MICROMIX_NO_STACK=1 keeps the
             # per-consumer and per-expert form.  Per-expert params are
             # grouped into a second copy here: a full-size Mixtral comes
-            # grouped from random_quantized_model instead.
-            params = stack_layer_projections(params)
+            # grouped from random_quantized_model instead.  One memo for
+            # the target and the draft: a draft that aliases the target's
+            # layers shares their stacked dicts instead of a second copy.
+            memo: dict = {}
+            params = stack_layer_projections(params, memo)
+            if draft_params is not None:
+                draft_params = stack_layer_projections(draft_params, memo)
         self.params = params
+        self.draft_params = draft_params
         self.cfg = cfg
         self.max_seqs = max_seqs
         self.page_size = page_size
         self.buckets = tuple(sorted(prefill_buckets))
         n_pages = n_pages or (max_seqs * max_pages_per_seq + 1)
-        # one extra page-table row: inactive and mid-prefill slots decode
-        # against it, so their real pages are never written
-        self.caches = [
-            make_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
-                       max_seqs + 1, max_pages_per_seq, bits=kv_bits,
-                       device=self.device)
-            for _ in range(cfg.num_layers)
-        ]
-        self.block_manager = BlockManager(n_pages, page_size, max_seqs,
-                                          max_pages_per_seq)
+
+        def caches(c: ModelConfig):
+            # one extra page-table row: inactive and mid-prefill slots
+            # decode against it, so their real pages are never written
+            return [make_cache(n_pages, page_size, c.num_kv_heads, c.head_dim,
+                               max_seqs + 1, max_pages_per_seq, bits=kv_bits,
+                               device=self.device)
+                    for _ in range(c.num_layers)]
+
+        self.caches = caches(cfg)
+        # the draft's caches take every page-table row and length the
+        # engine writes into the target's
+        self.dcaches = caches(self.draft_cfg) if draft_params is not None \
+            else None
+        self._prefix_cache = prefix_cache
+        self.block_manager = (PrefixBlockManager if prefix_cache
+                              else BlockManager)(n_pages, page_size, max_seqs,
+                                                 max_pages_per_seq)
         self.slots = [_Slot() for _ in range(max_seqs)]
         self.waiting: List[Request] = []
         self.decode_chunk = max(1, decode_chunk)
         self.prefill_chunk = min(prefill_chunk or self.buckets[-1],
                                  self.buckets[-1])
-        self.piggyback = piggyback
+        # speculation: a draft model, or prompt lookup over each request's
+        # own tokens (no draft, no mirror); the plain piggyback runs the
+        # target alone, so spec mode has its own fused call instead
+        self.spec_gamma = spec_gamma
+        self.spec_rounds = spec_rounds or max(
+            1, decode_chunk // (spec_gamma + 1))
+        self.spec_ngram = spec_ngram
+        self.spec_window = spec_window
+        self._plookup = spec_ngram > 0
+        self._spec_on = self._plookup or draft_params is not None
+        self._piggyback_ok = piggyback and not self._spec_on
+        self._spec_piggyback_ok = piggyback and self._spec_on
+        # window columns: the lookup window and slack for the rounds' appends
+        self._plookup_T = spec_window + self.spec_rounds * (spec_gamma + 1)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # stats: host wall seconds and decode steps per phase ("mixed" is
-        # a piggybacked prefill chunk + decode chunk)
+        # stats: host wall seconds and steps per phase ("mixed" is a
+        # piggybacked prefill chunk + decode chunk; "spec" counts rounds)
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.decode_steps = 0
         self.preemptions = 0
-        self.phase_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0}
-        self.phase_steps = {"decode": 0, "mixed": 0}
+        self.phase_s = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0,
+                        "spec": 0.0}
+        self.phase_steps = {"decode": 0, "mixed": 0, "spec": 0}
         # seconds from submit to each request's first token
         self.ttft: Dict[int, float] = {}
         self._t_submit: Dict[int, float] = {}
-        # the JAX engine's counters of what the port does not run yet
         self.prefix_hit_tokens = 0
         self.spec_accepted = 0
         self.spec_proposed = 0
@@ -176,15 +250,18 @@ class Engine:
 
     # ---------------- host-side page tables ----------------
 
+    def _all_caches(self):
+        return self.caches + (self.dcaches or [])
+
     def _set_rows(self, slot_id: int, row: np.ndarray) -> None:
         row_t = torch.as_tensor(row, dtype=torch.int32).to(self.device)
-        for c in self.caches:
+        for c in self._all_caches():
             c.page_table[slot_id] = row_t
 
     def _set_lengths(self, slot_ids: List[int], lengths: List[int]) -> None:
         idx = torch.as_tensor(slot_ids, dtype=torch.long).to(self.device)
         val = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
-        for c in self.caches:
+        for c in self._all_caches():
             c.lengths[idx] = val
 
     def _ensure_pages(self, slot_id: int, needed_tokens: int) -> None:
@@ -193,7 +270,23 @@ class Engine:
         if self.block_manager.num_pages(slot_id) != before:
             self._set_rows(slot_id, row)
 
+    def _register_prefix(self, slot_id: int) -> None:
+        """Make the slot's prefilled full pages matchable (prefix cache)."""
+        if self._prefix_cache:
+            slot = self.slots[slot_id]
+            self.block_manager.register_prefix(slot_id, slot.ctx, slot.pos)
+
     def _release(self, slot_id: int) -> None:
+        slot = self.slots[slot_id]
+        if self._prefix_cache and slot.req is not None:
+            # the generated tokens' pages too, so a follow-up turn whose
+            # prompt extends prompt + output hits them; slot.pos counts the
+            # tokens whose K/V is written (the last emitted token's is
+            # not), and in draft mode one fewer: a fully accepted last
+            # round leaves the draft's K/V at pos - 1 unwritten
+            covered = slot.pos - (1 if self.dcaches is not None else 0)
+            self.block_manager.register_prefix(
+                slot_id, slot.req.prompt + slot.req.output, covered)
         self.block_manager.release(slot_id)
         self.slots[slot_id] = _Slot()
         self._set_rows(slot_id, np.zeros((self.caches[0].max_pages_per_seq,),
@@ -221,12 +314,26 @@ class Engine:
         self.preemptions += 1
 
     def _admit(self) -> None:
-        for slot in self.slots:
-            if slot.req is None and self.waiting:
-                req = self.waiting.pop(0)
-                # output is non-empty after a preemption: recompute it
-                slot.req, slot.pos = req, 0
-                slot.pending = req.prompt + req.output
+        for slot_id, slot in enumerate(self.slots):
+            if slot.req is not None or not self.waiting:
+                continue
+            req = self.waiting.pop(0)
+            # output is non-empty after a preemption: recompute it
+            ctx = req.prompt + req.output
+            slot.req, slot.pos = req, 0
+            slot.pending, slot.ctx = list(ctx), list(ctx)
+            if self._prefix_cache:
+                matched = self.block_manager.match_and_attach(slot_id, ctx)
+                if matched:
+                    # the shared pages hold the prefix's K/V: point the
+                    # rows (target and draft) at them and prefill the rest
+                    # over that history
+                    self._set_rows(slot_id,
+                                   self.block_manager.table_row(slot_id))
+                    self._set_lengths([slot_id], [matched])
+                    slot.pos = matched
+                    slot.pending = list(ctx[matched:])
+                    self.prefix_hit_tokens += matched
 
     def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]):
         """Sample one token per row (a prefill's first tokens) with the
@@ -317,10 +424,14 @@ class Engine:
             seqs[row] = i
             last[row] = len(chunk) - 1
         dev = self.device
-        logits, self.caches = prefill_batch(
-            self.params, self.cfg, self.caches,
-            torch.as_tensor(toks).to(dev), torch.as_tensor(seqs).to(dev),
-            torch.as_tensor(last).to(dev))
+        args = (torch.as_tensor(toks).to(dev), torch.as_tensor(seqs).to(dev),
+                torch.as_tensor(last).to(dev))
+        logits, self.caches = prefill_batch(self.params, self.cfg,
+                                            self.caches, *args)
+        if self.dcaches is not None:
+            # the draft's mirror: the same tokens into its caches
+            _, self.dcaches = prefill_batch(self.draft_params, self.draft_cfg,
+                                            self.dcaches, *args)
         # bucket padding wrote extra positions: restore the true lengths
         self._set_lengths(ok, [len(self.slots[i].pending) for i in ok])
         firsts, flps = self._sample_rows(logits[:len(ok)],
@@ -330,6 +441,7 @@ class Engine:
             slot.pos = len(slot.pending)
             self.prefill_tokens += slot.pos
             slot.pending = []
+            self._register_prefix(i)
             self._emit(i, int(firsts[row]),
                        float(flps[row]) if flps is not None else None)
         return set(ok)
@@ -355,15 +467,22 @@ class Engine:
             return False
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = chunk
+        toks_t = torch.as_tensor(toks).to(self.device)
         logits, self.caches = prefill(
-            self.params, self.cfg, self.caches,
-            torch.as_tensor(toks).to(self.device), slot_id, slot.pos, n - 1,
-            hist_len=slot.pos)
+            self.params, self.cfg, self.caches, toks_t, slot_id, slot.pos,
+            n - 1, hist_len=slot.pos)
+        if self.dcaches is not None:
+            # the draft's mirror of this chunk: it sees the token stream,
+            # and the chunking, the target saw
+            _, self.dcaches = prefill(
+                self.draft_params, self.draft_cfg, self.dcaches, toks_t,
+                slot_id, slot.pos, n - 1, hist_len=slot.pos)
         true_len = slot.pos + n
         self._set_lengths([slot_id], [true_len])
         slot.pos = true_len
         slot.pending = slot.pending[n:]
         self.prefill_tokens += n
+        self._register_prefix(slot_id)
         if not slot.pending:
             first, lp = self._sample_rows(logits, [slot.req])
             self._emit(slot_id, int(first[0]),
@@ -410,6 +529,7 @@ class Engine:
         slot.pos = hist + n
         slot.pending = slot.pending[n:]
         self.prefill_tokens += n
+        self._register_prefix(piggy)
         if not slot.pending:
             self._emit(piggy, int(ptok[0]))
         return toks.cpu().numpy()
@@ -479,8 +599,14 @@ class Engine:
         live_reqs = [s.req for s in self.slots if s.req is not None]
         ctl_live = (uses_logit_controls([r.sampling for r in live_reqs])
                     or any(r.logprobs for r in live_reqs))
-        piggy = (self._pick_piggy(handled)
-                 if self.piggyback and not ctl_live else None)
+        if self._spec_on:
+            ready = [i for i, s in enumerate(self.slots) if s.ready]
+            piggy = (self._pick_piggy(handled)
+                     if self._spec_piggyback_ok and ready and not ctl_live
+                     and self._spec_ok(ready) else None)
+        else:
+            piggy = (self._pick_piggy(handled)
+                     if self._piggyback_ok and not ctl_live else None)
         # one prefill chunk per remaining pending slot per step: running
         # sequences wait at most one chunk's latency
         for i, s in enumerate(self.slots):
@@ -495,6 +621,18 @@ class Engine:
         busy = any(s.req is not None for s in self.slots)
         if not active:
             return busy or bool(self.waiting)
+        if self._spec_on:
+            if self._spec_ok(active):
+                with self._phase("spec"):
+                    self._spec_step(active, piggy)
+                return True
+            if piggy is not None:
+                # a request that rules out speculation became ready after
+                # the piggy was picked: its chunk takes the plain
+                # (draft-mirroring) prefill, not the target-only piggyback
+                with self._phase("prefill"):
+                    self._prefill_step(piggy)
+                piggy = None
         chunk = self.decode_chunk
         tokens = np.zeros((self.max_seqs,), np.int32)
         positions = np.zeros((self.max_seqs,), np.int32)
@@ -552,6 +690,150 @@ class Engine:
         self.decode_steps += chunk
         self._apply_chunk(toks, lps, active, reqs)
         return True
+
+    # ---------------- speculative decoding ----------------
+
+    def _spec_ok(self, active: List[int]) -> bool:
+        """Rounds keep greedy and plain temperature sampling only (the
+        accept rule scores the raw target logits): any live top-k, top-p,
+        logit-controls or logprobs request takes normal decode chunks."""
+        for i in active:
+            req = self.slots[i].req
+            sp = req.sampling
+            if (sp.top_k and sp.top_k > 0) or sp.top_p < 1.0 \
+                    or sp.min_p > 0.0 or sp.repetition_penalty != 1.0 \
+                    or sp.min_new_tokens > 0 or req.logprobs:
+                return False
+        return True
+
+    def _plookup_state(self, seq_ids: np.ndarray,
+                       positions: np.ndarray) -> PLookupState:
+        """Each decoding row's last ``spec_window`` tokens (prompt +
+        output), with slack columns for the rounds' appends."""
+        toks = np.zeros((self.max_seqs, self._plookup_T), np.int32)
+        lens = np.zeros((self.max_seqs,), np.int32)
+        for i, s in enumerate(self.slots):
+            if seq_ids[i] != i or s.req is None:
+                continue
+            seq = s.req.prompt + s.req.output
+            tail = seq[-min(len(seq), self.spec_window):]
+            toks[i, :len(tail)] = tail
+            lens[i] = len(tail)
+        dev = self.device
+        return PLookupState(tokens=torch.from_numpy(toks).to(dev),
+                            length=torch.from_numpy(lens).to(dev),
+                            positions=torch.from_numpy(positions).to(dev))
+
+    def _spec_step(self, active: List[int], piggy: Optional[int]) -> None:
+        """One call of ``spec_rounds`` rounds for every decoding slot; with
+        ``piggy``, that pending slot's prefill chunk (and the draft's
+        mirror) rides the call.  The emitted tokens and counts are read
+        once, after the call."""
+        worst = self.spec_rounds * (self.spec_gamma + 1)
+        b = self.max_seqs
+        prev = np.zeros((b,), np.int32)
+        cur = np.zeros((b,), np.int32)
+        positions = np.ones((b,), np.int32)
+        seq_ids = np.full((b,), b, np.int32)
+        for i in list(active):
+            s = self.slots[i]
+            while True:
+                try:
+                    self._ensure_pages(i, s.pos + worst + 1)
+                    break
+                except RuntimeError:
+                    victims = [j for j, t in enumerate(self.slots)
+                               if t.req is not None and j != i]
+                    if not victims:
+                        raise RuntimeError(
+                            "KV pool too small for a single sequence")
+                    self._preempt(min(
+                        victims, key=lambda j: len(self.slots[j].req.output)))
+                    if self.slots[i].req is None:
+                        break
+            if not s.ready:
+                continue
+            seq_ids[i] = i
+            cur[i] = s.req.output[-1]
+            prev[i] = (s.req.output[-2] if len(s.req.output) >= 2
+                       else s.req.prompt[-1])
+            positions[i] = s.pos
+        temps = np.zeros((b,), np.float32)
+        for i, s in enumerate(self.slots):
+            if s.req is not None:
+                temps[i] = s.req.sampling.temperature
+        greedy = bool((temps <= 0.0).all())
+        dev = self.device
+        t_dev = torch.from_numpy(temps).to(dev)
+        sid = torch.from_numpy(seq_ids).to(dev)
+        if self._plookup:
+            state = self._plookup_state(seq_ids, positions)
+        else:
+            state = SpecState(prev=torch.from_numpy(prev).to(dev),
+                              cur=torch.from_numpy(cur).to(dev),
+                              positions=torch.from_numpy(positions).to(dev))
+        kw = dict(gamma=self.spec_gamma, n_rounds=self.spec_rounds,
+                  greedy=greedy)
+        if self._plookup:
+            kw["ngram"] = self.spec_ngram
+        slot = self.slots[piggy] if piggy is not None else None
+        if slot is not None and slot.req is not None and slot.pending:
+            pchunk = slot.pending[:self.prefill_chunk]
+            n = len(pchunk)
+            hist = slot.pos
+            ptoks = np.zeros((1, self._bucket(n)), np.int32)
+            ptoks[0, :n] = pchunk
+            pt, pk, pp = self._sampling_arrays([slot.req])
+            pargs = (torch.from_numpy(ptoks).to(dev), piggy, hist, n - 1,
+                     hist + n, pt, pk, pp, state, sid, self._gen, t_dev)
+            pkw = dict(kw, hist_len=hist,
+                       sample_mode=pick_sample_mode([slot.req.sampling]))
+            if self._plookup:
+                ptok, emitted, n_emitted, _, self.caches = \
+                    plookup_prefill_decode(self.params, self.cfg, self.caches,
+                                           *pargs, **pkw)
+            else:
+                ptok, emitted, n_emitted, _, self.caches, self.dcaches = \
+                    spec_prefill_decode(self.params, self.draft_params,
+                                        self.cfg, self.draft_cfg, self.caches,
+                                        self.dcaches, *pargs, **pkw)
+            slot.pos = hist + n
+            slot.pending = slot.pending[n:]
+            self.prefill_tokens += n
+            self._register_prefix(piggy)
+            if not slot.pending:
+                self._emit(piggy, int(ptok[0]))
+        elif self._plookup:
+            emitted, n_emitted, _, self.caches = plookup_decode_multi(
+                self.params, self.cfg, self.caches, state, sid, self._gen,
+                t_dev, **kw)
+        else:
+            emitted, n_emitted, _, self.caches, self.dcaches = \
+                spec_decode_multi(self.params, self.draft_params, self.cfg,
+                                  self.draft_cfg, self.caches, self.dcaches,
+                                  state, sid, self._gen, t_dev, **kw)
+        emitted = emitted.cpu().numpy()          # (rounds, B, gamma + 1)
+        n_emitted = n_emitted.cpu().numpy()      # (rounds, B)
+        self.phase_steps["spec"] += self.spec_rounds
+        for r in range(emitted.shape[0]):
+            for i in list(active):
+                if not self.slots[i].ready:
+                    continue
+                n = int(n_emitted[r, i])
+                self.spec_proposed += self.spec_gamma
+                self.spec_accepted += n - 1
+                for t in emitted[r, i, :n]:
+                    # _emit may release the slot: check the live slot
+                    if not self.slots[i].ready:
+                        break
+                    self.slots[i].pos += 1
+                    self.decode_tokens += 1
+                    self._emit(i, int(t))
+        # the device lengths ran ahead for finished and truncated slots:
+        # the slots' own counts hold
+        live = [i for i in active if self.slots[i].ready]
+        if live:
+            self._set_lengths(live, [self.slots[i].pos for i in live])
 
     def run(self, requests: List[Request]) -> List[Request]:
         for r in requests:

@@ -19,7 +19,10 @@ split-plane weights, per consumer or stacked, dense Llama or Mixtral
     loop (the JAX package's lax.scan), with the logit controls and the
     chosen tokens' logprobs when asked;
   * ``prefill_decode`` is the piggybacked step: one slot's prefill chunk,
-    its length fix and first-token sample, then a decode chunk.
+    its length fix and first-token sample, then a decode chunk;
+  * ``verify_block`` scores S tokens of every slot at once (speculative
+    verify): the B*S positions run as rows of the paged decode attention,
+    each clamped to its own position by the ``lengths`` override.
 """
 
 from __future__ import annotations
@@ -284,6 +287,18 @@ def decode_multi(params: Params, cfg: ModelConfig, caches: Caches,
     return torch.stack(out), caches
 
 
+def prefill_true_len(params: Params, cfg: ModelConfig, caches: Caches,
+                     ptokens: torch.Tensor, pseq_id: int, pstart, plast,
+                     ptrue_len: int, hist_len: int) -> Tuple[torch.Tensor, Caches]:
+    """A piggybacked slot's prefill chunk, then its true length: bucket
+    padding over-wrote it -> (logits (1, V), caches)."""
+    logits, caches = prefill(params, cfg, caches, ptokens, pseq_id, pstart,
+                             plast, hist_len=hist_len)
+    for c in caches:
+        c.lengths[pseq_id] = ptrue_len
+    return logits, caches
+
+
 def prefill_decode(params: Params, cfg: ModelConfig, caches: Caches,
                    ptokens: torch.Tensor, pseq_id: int, pstart, plast,
                    ptrue_len, ptemp: torch.Tensor, ptop_k: torch.Tensor,
@@ -301,13 +316,51 @@ def prefill_decode(params: Params, cfg: ModelConfig, caches: Caches,
     so the order changes no value against separate calls.  Returns
     (prefill first token (1,) int32, decode tokens (n_steps, B), caches).
     """
-    plogits, caches = prefill(params, cfg, caches, ptokens, pseq_id, pstart,
-                              plast, hist_len=hist_len)
-    # bucket padding over-wrote the length; restore the true count
-    for c in caches:
-        c.lengths[pseq_id] = ptrue_len
+    plogits, caches = prefill_true_len(params, cfg, caches, ptokens, pseq_id,
+                                       pstart, plast, ptrue_len, hist_len)
     ptok = sample_batch(plogits, gen, ptemp, ptop_k, ptop_p, mode=sample_mode)
     dtoks, caches = decode_multi(params, cfg, caches, dtokens, dseq_ids,
                                  dpositions, gen, temps, top_k, top_p,
                                  n_steps=n_steps, sample_mode=sample_mode)
     return ptok, dtoks, caches
+
+
+def verify_block(params: Params, cfg: ModelConfig, caches: Caches,
+                 tokens: torch.Tensor, seq_ids: torch.Tensor,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, Caches]:
+    """Speculative verify: tokens (B, S) starting at per-slot ``positions``
+    -> (f32 logits (B, S, V), caches).
+
+    Every layer appends the K/V of all B*S tokens first (K rotated inside
+    the append, as the decode step does), then runs the B*S positions as
+    rows of the paged decode attention, row (b, j) reading its sequence up
+    to its own position through the per-row ``lengths`` override: each row
+    sees exactly the quantized history a plain decode step would.  The
+    projections run per site at M = B*S (not the residual pairs), as the
+    JAX package's ``verify_block`` does.
+    """
+    b, s = tokens.shape
+    dev = tokens.device
+    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    h = params["embed"][tokens.long()].to(torch.bfloat16)
+    pos = (positions.to(torch.int32)[:, None]
+           + torch.arange(s, dtype=torch.int32, device=dev)[None])
+    flat_pos = pos.reshape(-1)
+    flat_seq = seq_ids.to(torch.int32).repeat_interleave(s)
+    ang = rope_angles(flat_pos, cfg)
+    rope = (torch.cos(ang), torch.sin(ang))
+    inv = rope_inv_freq(hd, cfg.rope_theta, cfg.rope_scaling, device=dev)
+    rows = flat_pos + 1
+    for p, cache in zip(params["layers"], caches):
+        q, k, v = _qkv(h, p, cfg)                     # (B, S, H, D)
+        append_kv(cache, flat_seq, flat_pos, k.reshape(b * s, nkv, hd),
+                  v.reshape(b * s, nkv, hd), rope=rope)
+        out = paged_decode_attention(q.reshape(b * s, nh, hd), cache,
+                                     flat_seq, rope_positions=flat_pos,
+                                     rope_inv_freq=inv,
+                                     sliding_window=cfg.sliding_window,
+                                     lengths=rows)
+        h = h + _o_proj(out.reshape(b, s, nh * hd), p)
+        h = h + _mlp(h, p, cfg)
+    h = rmsnorm(h, params["final_ln"], cfg.rms_eps)
+    return lm_logits(h, params["lm_head"]), caches

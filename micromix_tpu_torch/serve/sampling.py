@@ -96,10 +96,14 @@ def chosen_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits.to(torch.float32), dim=-1)[rows, tokens.long()]
 
 
-def _categorical(x: torch.Tensor, gen: Optional[torch.Generator]) -> torch.Tensor:
-    """One draw per row from softmax(x) (Gumbel-max; -inf rows excluded)."""
-    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+def _categorical(x: torch.Tensor, gen: Optional[torch.Generator],
+                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One draw per row from softmax(x) (Gumbel-max; -inf rows excluded).
+    ``gumbel``: the noise to add instead of drawing it from ``gen``."""
+    if gumbel is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device,
+                       dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(x + gumbel, dim=-1)
 
 

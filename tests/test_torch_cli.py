@@ -12,16 +12,25 @@
   kernel, as the port's prefill runs Kernel E's plain version: the JAX
   runner's CPU branch (XLA attention) rounds the probabilities to bf16,
   which parts a near tie on this model (ROADMAP 3.2).
+* ``serve`` with the prefix cache, alone, with prompt-lookup speculation
+  (``--spec-ngram 2``) and with a draft model (``--draft-model``, a dense
+  1-layer HF directory cut from the checkpoint) prints the same greedy
+  completions as the JAX package's ``serve --prefix-cache``: the JAX
+  runner is pointed at its TPU branches there (flash and paged prefill
+  kernels in interpret mode), since a cache hit prefills over history.
 * Every flag whose path is not ported exits naming its ROADMAP.md item;
   ``--platform auto`` raises without a GPU.
 * The shell's modules import without jax, micromix_tpu, ml_dtypes,
   safetensors and transformers (a subprocess with those blocked).
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +42,7 @@ from test_real_tokenizer_pipeline import (  # noqa: F401 (fixture)
     CORPUS, GOLDEN_QUANT_PPL, bpe_ckpt)
 from test_torch_checkpoint import _assert_port_trees_equal
 
+import jax
 from micromix_tpu.cli import main as jax_main
 from micromix_tpu.kernels.flash_attention import flash_attention as j_flash
 from micromix_tpu.serve import runner as jrunner
@@ -173,14 +183,79 @@ def test_serve_on_a_jax_baked_checkpoint(ckpt, tmp_path, capsys,  # noqa: F811
         assert gs[key] == rs[key], key
 
 
+@pytest.fixture(scope="module")
+def served(ckpt, tmp_path_factory):  # noqa: F811
+    """The port's calibrate and quantize on the WordLevel checkpoint, a
+    dense 1-layer draft cut from it (layer 0, the embed, the final norm
+    and the head), and the JAX package's ``serve --prefix-cache`` of three
+    prompts on two slots: the third shares the first's 20 words, so when
+    it is admitted (a slot frees) it hits the first's cached page.
+    -> (serve argv, its printed lines, the draft directory)."""
+    from safetensors.numpy import load_file, save_file
+    d = tmp_path_factory.mktemp("served")
+    calib, qdir = str(d / "calib.npz"), str(d / "quantized")
+    main(["--platform", "cpu", "calibrate", "--model", ckpt, "--samples",
+          "2", "--seqlen", "32", "--dataset", "synthetic", "--output", calib])
+    main(["--platform", "cpu", "quantize", "--model", ckpt, "--calibration",
+          calib, "--output", qdir])
+    draft = d / "draft"
+    draft.mkdir()
+    tensors = load_file(os.path.join(ckpt, "model.safetensors"))
+    save_file({k: v for k, v in tensors.items()
+               if not k.startswith("model.layers.1.")},
+              str(draft / "model.safetensors"))
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = json.load(f)
+    with open(draft / "config.json", "w") as f:
+        json.dump({**cfg, "num_hidden_layers": 1}, f)
+    words = [f"w{i}" for i in np.random.default_rng(4).integers(0, 62, 26)]
+    prompts = d / "prompts.txt"
+    prompts.write_text("\n".join([" ".join(words[:20]), " ".join(words[20:]),
+                                   " ".join(words[:20] + ["w7", "w9"])]) + "\n")
+    argv = ["serve", "--model", ckpt, "--quantized-ckpt", qdir, "--prompts",
+            str(prompts), "--prefix-cache"] + SERVE
+    proxy = types.ModuleType("jax_on_tpu")
+    proxy.__getattr__ = lambda name: getattr(jax, name)
+    proxy.default_backend = lambda: "tpu"
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(jrunner, "jax", proxy)
+        mp.setattr(jrunner, "_can_pair", lambda *a: False)
+        jax_main(argv)
+    return argv, out.getvalue().strip().splitlines(), str(draft)
+
+
+SPEC = {"prefix-cache": [], "spec-ngram": ["--spec-ngram", "2"],
+        "draft-model": ["--draft-model", None, "--spec-gamma", "3"]}
+
+
+@pytest.mark.parametrize("mode", list(SPEC))
+def test_serve_prefix_cache_and_speculation_print_jax_completions(
+        served, capsys, mode):
+    """``serve --prefix-cache``, and with it ``--spec-ngram 2`` or
+    ``--draft-model DIR``: the completions equal the JAX package's; the
+    third prompt hits one 16-token page; the speculative runs print
+    ``spec_accept_rate``."""
+    argv, ref, draft = served
+    flags = [draft if f is None else f for f in SPEC[mode]]
+    got = _run(argv + flags, capsys).strip().splitlines()
+    assert got[:-1] == ref[:-1]
+    assert sum(ln.startswith("--- [") for ln in got) == 3
+    gs, rs = json.loads(got[-1]), json.loads(ref[-1])
+    assert gs["prefix_hit_tokens"] == rs["prefix_hit_tokens"] == 16
+    for key in ("requests", "prefill_tokens", "decode_tokens", "preemptions"):
+        assert gs[key] == rs[key], key
+    if mode == "prefix-cache":
+        assert "spec_accept_rate" not in gs
+    else:
+        assert 0.0 <= gs["spec_accept_rate"] <= 1.0
+
+
 REFUSED = [
     ("serve", ["--tp", "2"], "item 9"), ("serve", ["--ep", "2"], "item 9"),
     ("quantize", ["--hetero"], "item 8"),
     ("eval", ["--weight-only", "mxfp8"], "item 8"),
     ("quantize", ["--int8-turbo"], "item 8"),
-    ("serve", ["--draft-model", "x"], "item 7"),
-    ("serve", ["--spec-ngram", "2"], "item 7"),
-    ("serve", ["--prefix-cache"], "item 6"),
     ("serve", ["--profile", "x"], "item 8"),
     ("eval", ["--tasks", "hellaswag"], "item 8"),
 ]

@@ -234,6 +234,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "sys.modules['jax'] = None\n"
         "import micromix_tpu_torch, micromix_tpu_torch.convert\n"
         "import micromix_tpu_torch.serve, micromix_tpu_torch.models\n"
+        "import micromix_tpu_torch.serve.speculative\n"
+        "import micromix_tpu_torch.serve.prefix_cache\n"
         "import micromix_tpu_torch.kernels, micromix_tpu_torch.ops\n"
         "bad = [m for m in sys.modules if m == 'micromix_tpu'\n"
         "       or m.startswith('micromix_tpu.')]\n"
