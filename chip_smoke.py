@@ -27,10 +27,12 @@ and runs these phases; any failure exits non-zero before the result line.
      at 2048, 4096 and 8192 tokens, over int8 pages, with a 1024-token
      window, with the ``lengths`` override and the (m, den) state, and at
      the speculative verify's 40 rows (8 sequences x 5 positions under the
-     override; D, F at q|k|v and B at o there too);
-     paged prefill attention (H) at S=512 over int4 and int8 pages;
+     override; D, F at q|k|v and B at o there too), over bf16 pages and
+     at Qwen2-7B's 28 / 4 heads (G = 7) on int4 and bf16 pages;
+     paged prefill attention (H) at S=512 over int4, int8 and bf16 pages,
+     and at G = 3, 5, 6 and 7 (the groups that do not divide 64);
      Kernel D's whole append (K's RoPE, quantize, slot index, stores,
-     lengths) at T=8 with RoPE and T=1024, int4 and int8, bit-exact,
+     lengths) at T=8 with RoPE and T=1024, int4, int8 and bf16, bit-exact,
      beside the composition the port ran before (``old_path_ms``) and
      with the host time of a call; ``mixed_matmul_w8_site`` (A then B) at
      the last layer's down; then the logit-controls stage and the chosen
@@ -58,7 +60,9 @@ and runs these phases; any failure exits non-zero before the result line.
      stop ids from a probe run of the batch), with its decode ms/step,
      device busy and CUDA launches a step beside the plain batch's; then
      the per-consumer engine (``MICROMIX_NO_STACK=1``) at 4 layers
-     answers 8 requests of 96-128 tokens;
+     answers 8 requests of 96-128 tokens; the default engine decodes
+     pipelined, and a window serves 8 greedy and sampled requests with and
+     without pipelining, in turns, their token streams equal;
   5. serving Mixtral-8x7B at full depth (32 layers, random weights made
      on the card and grouped layer by layer) with the default engine and
      phase 4's traffic; then the per-expert engine (``MICROMIX_NO_STACK=1``)
@@ -93,13 +97,21 @@ and runs these phases; any failure exits non-zero before the result line.
      the draft-model engine (the target's first 4 layers, aliased) and
      the prompt-lookup engine, each emitted token held against the
      target's greedy chain; the prefix-cache engine (7 x 1024 hit tokens,
-     an exact replay) (``phase9``).
+     an exact replay) (``phase9``);
+ 10. Qwen2-7B at its published widths and full depth (28 layers; q/k/v
+     bias, an untied 152064-row head, 28 / 4 heads): the default engine on
+     phase 4's kind of traffic, on int4 and on bf16 KV pages, then 2
+     layers card against CPU as phase 3, on both page widths
+     (``phase10``).
 
-In phases 4 to 9 every kernel launch counter is reset just before each
+In phases 4 to 10 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel), and no run may take the plain PyTorch append or the
-pre-quantized one.  Kernel launches per decode step and layer, host ms,
+pre-quantized one.  Every pipelined decode dispatch of an engine runs
+under ``torch.cuda.set_sync_debug_mode("error")``: a stream synchronize
+or a blocking copy there fails the run.  Kernel launches per decode step
+and layer, host ms,
 device busy ms and all CUDA launches per step (``torch.profiler``) are
 taken for every form.  It prints the per-kernel JSON line, and last
 ``{"ok": true, "device": ...}``.  Per-shape results also go to
@@ -118,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -147,6 +160,17 @@ def llama31_8b(num_layers: int):
                        rope_theta=500000.0, rms_eps=1e-5,
                        max_position_embeddings=131072,
                        rope_scaling=LLAMA3_SCALING)
+
+
+def qwen2_7b(num_layers: int):
+    """Qwen/Qwen2-7B's published config.json widths (q/k/v bias, an
+    untied head, ``use_sliding_window`` false); depth as given."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    return ModelConfig(arch="qwen2", vocab_size=152064, hidden_size=3584,
+                       intermediate_size=18944, num_layers=num_layers,
+                       num_heads=28, num_kv_heads=4, head_dim=128,
+                       rope_theta=1e6, rms_eps=1e-6, qkv_bias=True,
+                       tie_embeddings=False, max_position_embeddings=131072)
 
 
 def mixtral_8x7b(num_layers: int):
@@ -352,17 +376,29 @@ def check_gemm(results, timer):
 
 def _decode_cache(rng, b, mp, bits=4, ps=128, hkv=8, d=128):
     """b rows of mp random pages each (codes, scales in [0.01, 0.1],
-    integer zero points as kv_quantize makes them, a shuffled table)."""
+    integer zero points as kv_quantize makes them, a shuffled table; bf16
+    pages hold normal values)."""
     from micromix_tpu_torch.serve.kv_cache import make_cache
     cache = make_cache(b * mp + 1, ps, hkv, d, b, mp, bits=bits, device=DEV)
-    cache.k_codes.random_(0, 256)
-    cache.v_codes.random_(0, 256)
+    for codes in (cache.k_codes, cache.v_codes):
+        if bits == 16:
+            codes.copy_(torch.randn(codes.shape, device=DEV))
+        else:
+            codes.random_(0, 256)
     for sz in (cache.k_sz, cache.v_sz):
         sz[:, :, 0].uniform_(0.01, 0.1)
-        sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape, device=DEV))
+        sz[:, :, 1].copy_(torch.randint(0, 2 ** min(bits, 8), sz[:, :, 1].shape,
+                                        device=DEV))
     cache.page_table.copy_(torch.from_numpy(
         1 + rng.permutation(b * mp).reshape(b, mp).astype(np.int32)))
     return cache
+
+
+def _page_bytes(bits: int, d: int) -> int:
+    """Bytes a token and KV head of K (or V) take in pages that a kernel
+    reads: the codes and the [scale, zero] pair; bf16 pages the values
+    alone (their pairs are not read)."""
+    return 2 * d if bits == 16 else (d // 2 if bits == 4 else d) + 4
 
 
 def check_decode(results, timer, rng):
@@ -371,31 +407,39 @@ def check_decode(results, timer, rng):
     int8 pages, with a 1024-token window at 4096, with the ``lengths``
     override (8 rows of one 4096-token sequence at successive positions)
     and the (m, den) state: m within 2^-16 max(1, |m|), den within 2^-12
-    relative (f32 sums in another order), and at the speculative verify's
+    relative (f32 sums in another order), at the speculative verify's
     shape (phase 9: gamma 4, 8 sequences of 100-600 tokens, 5 rows each at
-    their last 5 positions, 40 rows under the override).  The bound counts
-    every K/V code and [scale, zero] pair of each sequence's attended
-    range once, q and the output."""
+    their last 5 positions, 40 rows under the override), over bf16 pages
+    and at Qwen2-7B's heads (28 over 4 KV heads: G = 7) on int4 and bf16
+    pages.  The bound counts every K/V code and [scale, zero]
+    pair (bf16 pages: every value) of each sequence's attended range
+    once, q and the output."""
     from micromix_tpu_torch.models.common import rope_inv_freq
     from micromix_tpu_torch.serve.attention import (
         decode_split, paged_decode_attention, paged_decode_attention_plain)
-    h, hkv, d, ps = 32, 8, 128, 128
+    d, ps = 128, 128
     inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
-    cases = (("len 100..600", 8, np.linspace(100, 600, 8), 4, None, None),
+    short = np.linspace(100, 600, 8)
+    cases = (("len 100..600", 8, short, 4, None, None),
              ("len 2048", 8, np.full(8, 2048), 4, None, None),
              ("len 4096", 8, np.full(8, 4096), 4, None, None),
              ("len 8192", 1, np.full(1, 8192), 4, None, None),
-             ("len 100..600 int8", 8, np.linspace(100, 600, 8), 8, None, None),
+             ("len 100..600 int8", 8, short, 8, None, None),
              ("len 4096 window 1024", 8, np.full(8, 4096), 4, 1024, None),
              ("lengths 4089..4096 state", 8, np.arange(4089, 4097), 4, None, "one"),
              ("verify 8x5 len 100..600", 40,
-              (np.linspace(100, 600, 8).astype(int)[:, None]
-               + np.arange(-4, 1)[None]).reshape(-1), 4, None, "verify"))
-    for label, b, lengths, bits, window, override in cases:
+              (short.astype(int)[:, None] + np.arange(-4, 1)[None]).reshape(-1),
+              4, None, "verify"),
+             ("len 100..600 bf16", 8, short, 16, None, None),
+             ("len 4096 bf16", 8, np.full(8, 4096), 16, None, None))
+    cases = [c + (32, 8) for c in cases] + [
+        ("len 100..600", 8, short, 4, None, None, 28, 4),
+        ("len 100..600 bf16", 8, short, 16, None, None, 28, 4)]
+    for label, b, lengths, bits, window, override, h, hkv in cases:
         lengths = lengths.astype(np.int32)
         mp = -(-int(lengths.max()) // ps)
         seqs = {None: b, "one": 1, "verify": b // 5}[override]
-        cache = _decode_cache(rng, seqs, mp, bits)
+        cache = _decode_cache(rng, seqs, mp, bits, hkv=hkv)
         seq = torch.arange(b, device=DEV, dtype=torch.int32)
         if override:      # rows of a sequence at successive positions
             seq = seq // (b // seqs)
@@ -429,8 +473,7 @@ def check_decode(results, timer, rng):
         tokens = int(attended.sum())
         # the function's inputs read once: each sequence's attended pages
         read = int(attended.reshape(seqs, -1).max(axis=1).sum())
-        dq = d // 2 if bits == 4 else d
-        nbytes = 2 * b * h * d * 2 + 2 * read * hkv * (dq + 4) + b * mp * 4
+        nbytes = 2 * b * h * d * 2 + 2 * read * hkv * _page_bytes(bits, d) + b * mp * 4
         splits, pps = decode_split(b, hkv, mp)
         record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} {label}",
                err, tol, ok, timer.ms(run), nbytes, 4.0 * tokens * h * d,
@@ -529,16 +572,18 @@ def check_append_quant(results, timer, rng):
     0), bit-exact against its
     plain version (codes, [scale, zero] as int16 bits, lengths), timed
     beside it, beside the old composition (``old_path_ms``) and with the
-    host time of a call for both (``host_ms``, ``old_path_host_ms``).  The
-    bound counts K and V, the RoPE tables, the indices, the page-table
-    entries and lengths the tokens touch once, and the codes and pairs
-    written; or about 7 f32 operations an element (4 more for K's RoPE)
-    at 67 TFLOP/s, whichever is larger."""
+    host time of a call for both (``host_ms``, ``old_path_host_ms``); and
+    on bf16 pages (the rotated values and [1, 0] stored) at T=8 with RoPE
+    and T=1024, where no old composition existed.  The bound
+    counts K and V, the RoPE tables, the indices, the page-table entries
+    and lengths the tokens touch once, and the codes (values) and pairs
+    written; or about 7 f32 operations an element (4 more for K's RoPE;
+    bf16 pages: those 4 alone) at 67 TFLOP/s, whichever is larger."""
     from micromix_tpu_torch.models.common import rope_inv_freq
     from micromix_tpu_torch.serve.kv_cache import append_kv, append_kv_plain
     hkv, d, ps = 8, 128, 128
     inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
-    for bits in (4, 8):
+    for bits in (4, 8, 16):
         shapes = ((8, "rope"), (40, "verify"), (1024, "prefill"))
         for t, label in shapes if bits == 4 else shapes[::2]:
             seqs, mp = (8, 1) if label == "prefill" else (8, 4)
@@ -576,23 +621,27 @@ def check_append_quant(results, timer, rng):
                 if g.dtype == torch.bfloat16:
                     g, r = g.view(torch.int16), r.view(torch.int16)
                 err = max(err, float((g.float() - r.float()).abs().max()))
-            dq = d // 2 if bits == 4 else d
             slots = len(set((seq.long() * mp + pos.long() // ps).tolist()))
             nbytes = (2 * t * hkv * d * 2 + (2 * t * d * 4 if rope else 0)
                       + 2 * t * 4 + slots * 4 + seqs * 8
-                      + 2 * t * hkv * (dq + 4))
-            ops = t * hkv * d * (7 * 2 + (4 if rope else 0))
+                      + 2 * t * hkv * _page_bytes(bits, d)
+                      + (2 * t * hkv * 4 if bits == 16 else 0))
+            ops = t * hkv * d * ((0 if bits == 16 else 7 * 2) + (4 if rope else 0))
+            extra = dict(host_ms=host_ms(lambda: append_kv(got, seq, pos, k, v,
+                                                           rope=rope)))
+            if bits != 16:
+                extra.update(
+                    old_path_ms=timer.ms(lambda: _old_append(old, seq, pos, k, v, rope)),
+                    old_path_host_ms=host_ms(lambda: _old_append(old, seq, pos, k, v,
+                                                                  rope)))
+            width = "bf16" if bits == 16 else f"int{bits}"
             record(results, "append_kv_quant",
-                   f"T={t} Hkv={hkv} D={d} int{bits} {label}", err,
+                   f"T={t} Hkv={hkv} D={d} {width} {label}", err,
                    "bit-exact (sz as int16 bits)", err == 0.0,
                    timer.ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
                    nbytes, ops,
                    timer.ms(lambda: append_kv_plain(ref, seq, pos, k, v, rope=rope)),
-                   flops_peak=PEAK_F32_S,
-                   old_path_ms=timer.ms(lambda: _old_append(old, seq, pos, k, v, rope)),
-                   host_ms=host_ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
-                   old_path_host_ms=host_ms(lambda: _old_append(old, seq, pos, k, v,
-                                                                 rope)))
+                   flops_peak=PEAK_F32_S, **extra)
             del cache, got, ref, old
 
 
@@ -833,24 +882,34 @@ def check_prefill(results, timer, rng):
     call computes the same function (the history is quantized);
     ``sdpa_bf16_ms`` times SDPA over the history dequantized to bf16
     beforehand plus the chunk, with an explicit mask: a yardstick only,
-    its dequantization not timed."""
+    its dequantization not timed.  Also over bf16 pages (at
+    Llama's 32 / 8 heads and Qwen2-7B's 28 / 4), and at the GQA groups
+    that do not divide 64, int4, 1536 history positions: G = 3
+    (Llama-3.2-3B, 24 / 8 heads), 5 (Qwen2.5-14B, 40 / 8), 6 (Qwen2-1.5B,
+    12 / 2) and 7 (Qwen2-7B, 28 / 4)."""
     import torch.nn.functional as F
     from micromix_tpu_torch.serve.kv_cache import kv_dequantize_page, make_cache
     from micromix_tpu_torch.serve.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
-    h, hkv, d, ps = 32, 8, 128, 128
-    for s, hist, bits in ((512, 1536, 4), (512, 512, 4), (512, 1024, 4),
-                          (120, 0, 4), (2048, 0, 4), (512, 1536, 8),
-                          (512, 1024, 8)):
+    d, ps = 128, 128
+    cases = [c + (32, 8) for c in ((512, 1536, 4), (512, 512, 4), (512, 1024, 4),
+                                   (120, 0, 4), (2048, 0, 4), (512, 1536, 8),
+                                   (512, 1024, 8), (512, 1536, 16))]
+    cases += [(512, 1536, 4, 24, 8), (512, 1536, 4, 40, 8), (512, 1536, 4, 12, 2),
+              (512, 1536, 4, 28, 4), (512, 1536, 16, 28, 4)]
+    for s, hist, bits, h, hkv in cases:
         mp = -(-(hist + s) // ps)
         cache = make_cache(mp + 1, ps, hkv, d, 1, mp, bits=bits, device=DEV)
-        cache.k_codes.random_(0, 256)
-        cache.v_codes.random_(0, 256)
+        for codes in (cache.k_codes, cache.v_codes):
+            if bits == 16:
+                codes.copy_(torch.randn(codes.shape, device=DEV))
+            else:
+                codes.random_(0, 256)
         # values (c - z) s within about +-1.5 at either width
         smax = 0.1 if bits == 4 else 0.006
         for sz in (cache.k_sz, cache.v_sz):
             sz[:, :, 0].uniform_(smax / 10, smax)
-            sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape,
+            sz[:, :, 1].copy_(torch.randint(0, 2 ** min(bits, 8), sz[:, :, 1].shape,
                                             device=DEV))
         cache.page_table[0] = torch.from_numpy(
             1 + rng.permutation(mp).astype(np.int32)).to(DEV)
@@ -881,9 +940,10 @@ def check_prefill(results, timer, rng):
             lib, extra = None, {"sdpa_bf16_ms": timer.ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                        enable_gqa=True))}
-        dq = d // 2 if bits == 4 else d
-        nbytes = 2 * s * (h + 2 * hkv) * d + 2 * s * h * d + 2 * hist * hkv * (dq + 4)
-        label = f"S={s} hist={hist} H={h} Hkv={hkv} D={d}" + (" int8" if bits == 8 else "")
+        nbytes = (2 * s * (h + 2 * hkv) * d + 2 * s * h * d
+                  + 2 * hist * hkv * _page_bytes(bits, d))
+        label = (f"S={s} hist={hist} H={h} Hkv={hkv} D={d}"
+                 + {4: "", 8: " int8", 16: " bf16"}[bits])
         record(results, "paged_prefill", label,
                err, "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run), nbytes,
                4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), lib, **extra)
@@ -1346,7 +1406,8 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     pages of ``bits``.  With ``near_tie``, a last chunk whose two top CPU
     logits lie closer than that unit's card/CPU difference may give either
     of the two as its greedy token on the card (the decode steps' tokens
-    must be equal).  On int8 pages Kernels H and C must launch on them."""
+    must be equal).  On int8 or bf16 pages Kernels H and C must launch on
+    them."""
     from micromix_tpu_torch.kernels import build
     from micromix_tpu_torch.models.surgery import (default_calibration,
                                                    random_quantized_model,
@@ -1400,7 +1461,8 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
         card.append(g_tok)
         cpu.append(c_tok)
     launches = dict(build.launches)
-    on_pages = {f"{k}/int{b}": n for (k, b), n in build.page_launches.items()}
+    on_pages = {f"{k}/{'bf16' if b == 16 else f'int{b}'}": n
+                for (k, b), n in build.page_launches.items()}
     tol = 0.5
     wall = time.perf_counter() - t0
     print(f"  {name}, 2-layer full width, stacked: prompt {len(prompt)} "
@@ -1425,9 +1487,9 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     if max(rels) > tol:
         fail(f"phase 3 ({name}): logit error {max(rels):.3e} over {tol}")
     missing = [n for n in must_launch if not launches.get(n)]
-    if bits == 8:
-        missing += [f"{k}/int8" for k in ("paged_prefill", "paged_decode")
-                    if not build.page_launches.get((k, 8))]
+    if bits != 4:
+        missing += [f"{k}/{bits}-bit" for k in ("paged_prefill", "paged_decode")
+                    if not build.page_launches.get((k, bits))]
     if missing:
         fail(f"phase 3 ({name}): kernels not launched on the card: {missing}")
     return dict(logit_rel_err=rels, first_chunk_rel_err=rels[0],
@@ -1514,27 +1576,61 @@ def counted_run(label: str, fn, must_launch=(), pages=None):
     if launches.get("append_kv"):
         fail(f"{label}: the pre-quantized append (the old composition) ran")
     missing = [n for n in must_launch if not launches.get(n)]
-    missing += [f"{k}/int{pages}" for k in ("paged_prefill", "paged_decode")
+    missing += [f"{k}/{pages}-bit" for k in ("paged_prefill", "paged_decode")
                 if pages and not by_page.get((k, pages))]
     if missing:
         fail(f"{label}: kernels not launched: {missing}")
     return out, wall, launches, by_page
 
 
-def engine_run(eng, reqs, phase: str):
-    """``eng.run(reqs)`` under ``counted_run`` -> (host wall s, launches)."""
-    _, wall, launches, _ = counted_run(phase, lambda: eng.run(reqs))
-    return wall, launches
+def engine_run(eng, reqs, phase: str, pages=None):
+    """``eng.run(reqs)`` under ``counted_run`` -> (host wall s, launches,
+    launches by (kernel, page bits))."""
+    _, wall, launches, by_page = counted_run(phase, lambda: eng.run(reqs),
+                                             pages=pages)
+    return wall, launches, by_page
+
+
+def strict_dispatch(eng, label: str) -> list:
+    """Run every pipelined dispatch of ``eng`` (the chunk enqueued while
+    the one before it is in flight) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a stream synchronize or a
+    blocking copy there fails the run.  -> a one-element list counting the
+    dispatches."""
+    count = [0]
+    # a weak reference: a closure over the engine stored on the engine
+    # would keep it (its stacked params, its caches) until a cyclic GC
+    engine = weakref.ref(eng)
+
+    def strict(*args):
+        count[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return type(engine())._dispatch(engine(), *args)
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            fail(f"{label}: the pipelined dispatch waited for the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng._dispatch = strict
+    return count
 
 
 def serve(cfg, params, reqs, phase="phase 4", **kw):
-    """One engine run (``engine_run``) of a fresh default engine; every
-    request must finish with its ``max_new_tokens``."""
+    """One engine run (``engine_run``) of a fresh default engine, its
+    pipelined dispatches under ``strict_dispatch``; every request must
+    finish with its ``max_new_tokens``.  On KV pages of other than 4 bits
+    C and H must launch on them."""
     from micromix_tpu_torch.serve.engine import Engine
     eng = Engine(params, cfg, seed=SEED, device=DEV, **kw)
+    pipelined = strict_dispatch(eng, phase)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wall, launches = engine_run(eng, reqs, phase)
+    bits = kw.get("kv_bits", 4)
+    wall, launches, by_page = engine_run(eng, reqs, phase,
+                                         pages=bits if bits != 4 else None)
     n_new = reqs[0].max_new_tokens
     done = sum(r.done and len(r.output) == n_new for r in reqs)
     out_toks = sum(len(r.output) for r in reqs)
@@ -1550,7 +1646,8 @@ def serve(cfg, params, reqs, phase="phase 4", **kw):
         decode_steps=steps, preemptions=eng.preemptions,
         end_to_end_tok_s=out_toks / wall, wall_s=wall,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        launches=launches)
+        launches=launches, pipelined_chunks=pipelined[0],
+        page_launches={f"{k}/{b}": n for (k, b), n in by_page.items()})
     if done != len(reqs):
         fail(f"{phase}: {done} of {len(reqs)} requests finished with "
              f"{n_new} tokens")
@@ -1582,8 +1679,11 @@ def phase4(rng) -> dict:
         fail(f"phase 4: kernels never launched on the main path: {missing}")
     if not stats["decode_steps"]["mixed"]:
         fail("phase 4: no prefill chunk rode a decode call")
+    if not stats["pipelined_chunks"]:
+        fail("phase 4: the default engine dispatched no pipelined chunk")
     stats["decode_window"] = decode_window(eng, cfg)
     print("  stacked, 32 layers: " + json.dumps(stats), flush=True)
+    stats["pipeline_window"] = pipeline_window(params, cfg, rng, "phase 4")
     ctl = controls_batch(eng, cfg, rng)
     for label, st in (("plain batch", stats), ("controls batch", ctl)):
         w = st["decode_window"]
@@ -1622,6 +1722,59 @@ def phase4(rng) -> dict:
           f"{stats4['decode_window']['kernel_launches_per_layer_step']:.2f}",
           flush=True)
     return dict(stacked=stats, per_consumer=stats4, controls=ctl)
+
+
+def pipeline_window(params, cfg, rng, phase: str) -> dict:
+    """The engine with and without pipelined decode on the same eight
+    requests (96-128 prompt tokens, batched in one prefill; 40-64 new
+    tokens, staggered; four greedy, four sampled at temperature 0.8), in
+    turns: unpipelined, pipelined, pipelined, unpipelined, twice, each a
+    fresh engine from one seed.  Every run's token streams must be equal
+    (the generator draws alike); each pipelined dispatch runs under
+    ``strict_dispatch``.  Host ms a decode step (``phase_s["decode"]`` over
+    the steps: dispatch, and the wait for the tokens) and wall for each,
+    and each mode's median."""
+    from micromix_tpu_torch.serve.engine import Engine, Request
+    from micromix_tpu_torch.serve.sampling import SamplingParams
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(96, 129))).tolist()
+               for _ in range(8)]
+
+    def reqs():
+        return [Request(i, list(p), max_new_tokens=40 + 8 * (i % 4),
+                        sampling=SamplingParams(temperature=0.8 * (i % 2)))
+                for i, p in enumerate(prompts)]
+
+    runs, streams = [], []
+    for pipeline in (False, True, True, False) * 2:
+        eng = Engine(params, cfg, seed=SEED, device=DEV, pipeline=pipeline,
+                     max_seqs=8, page_size=128, max_pages_per_seq=2,
+                     decode_chunk=8)
+        count = strict_dispatch(eng, f"{phase} (pipeline window)")
+        rs = reqs()
+        wall, _, _ = engine_run(eng, rs, f"{phase} (pipeline window)")
+        streams.append([r.output for r in rs])
+        runs.append(dict(pipeline=pipeline, wall_s=wall, pipelined_chunks=count[0],
+                         decode_steps=eng.phase_steps["decode"],
+                         decode_ms_per_step=1e3 * eng.phase_s["decode"]
+                         / eng.phase_steps["decode"]))
+        del eng
+    if any(s != streams[0] for s in streams):
+        fail(f"{phase}: pipelined and unpipelined token streams differ")
+    if not all(r["pipelined_chunks"] for r in runs if r["pipeline"]):
+        fail(f"{phase}: the pipelined engine dispatched no pipelined chunk")
+    out = dict(runs=runs, streams_equal=True)
+    for p, name in ((False, "unpipelined"), (True, "pipelined")):
+        ms = [r["decode_ms_per_step"] for r in runs if r["pipeline"] == p]
+        out[f"{name}_ms_per_step"] = ms
+        out[f"{name}_median_ms_per_step"] = statistics.median(ms)
+    print(f"  {phase} pipeline window, 8 requests x 40-64 tokens, greedy and "
+          f"sampled: streams equal in all {len(runs)} runs; decode host "
+          f"ms/step unpipelined {['%.3f' % x for x in out['unpipelined_ms_per_step']]} "
+          f"(median {out['unpipelined_median_ms_per_step']:.3f}), pipelined "
+          f"{['%.3f' % x for x in out['pipelined_ms_per_step']]} (median "
+          f"{out['pipelined_median_ms_per_step']:.3f}); "
+          f"{[r['pipelined_chunks'] for r in runs]} pipelined chunks", flush=True)
+    return out
 
 
 CANCELLED, CANCEL_AT, MIN_NEW = 6, 5, 16
@@ -1690,7 +1843,7 @@ def controls_batch(eng, cfg, rng) -> dict:
     reqs, streams = batch(ids)
     d0, s0 = eng.phase_s["decode"], eng.phase_steps["decode"]
     torch.cuda.reset_peak_memory_stats()
-    wall, launches = engine_run(eng, reqs, "phase 4 (controls)")
+    wall, launches, _ = engine_run(eng, reqs, "phase 4 (controls)")
     steps = eng.phase_steps["decode"] - s0
     r0 = reqs[0]
     if r0.output != out0[:k0 + 1]:
@@ -2934,7 +3087,7 @@ def phase9(rng, p4: dict) -> dict:
                         ("replay", [replay])):
         h0 = pc.prefix_hit_tokens
         p0 = pc.phase_s["prefill"] + pc.phase_s["mixed"]
-        wall, ln = engine_run(pc, reqs, f"phase 9 (prefix cache, {label})")
+        wall, ln, _ = engine_run(pc, reqs, f"phase 9 (prefix cache, {label})")
         launches.update(ln)
         if not all(r.done and len(r.output) == 32 for r in reqs):
             fail(f"phase 9 (d): {label} requests did not finish")
@@ -2994,6 +3147,78 @@ def phase9(rng, p4: dict) -> dict:
         fail(f"phase 9 (plain): the harness does not reproduce the plain "
              f"engine: {plain['teacher_forced']}")
     out["seconds"] = time.perf_counter() - t9
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+P10_LAYERS = 28
+
+
+def phase10(rng) -> dict:
+    """Qwen2-7B at its published widths and full depth (28 layers of
+    random ScaledW8 weights made on the card; q|k|v N = 4608 with its
+    biases, gate|up N = 37888, down K = 18944, a 152064 x 3584 head, G =
+    7): the default engine (stacked, paired decode since 3584 is a
+    multiple of 512, pipelined) on phase 4's kind of traffic (two prompts
+    of 1200-1500 tokens, so H runs at G = 7 over the history of every
+    chunk after the first), then the same engine on bf16 KV pages; then 2
+    layers on the card against the CPU as phase 3 does, on int4 and on
+    bf16 pages."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.serve.runner import _can_pair
+    cfg = qwen2_7b(P10_LAYERS)
+    t10 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lay = params["layers"][0]
+    codes_gib = sum(lay[n].w.codes.numel() for n in
+                    ("q", "k", "v", "o", "gate", "up", "down")) * cfg.num_layers / 2 ** 30
+    if lay["q"].bias is None:
+        fail("phase 10: the Qwen2 model has no q/k/v bias")
+    out = {}
+    for bits in (4, 16):
+        label = f"phase 10 ({'bf16' if bits == 16 else 'int4'} KV)"
+        eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size), label,
+                           max_seqs=8, page_size=128, max_pages_per_seq=16,
+                           decode_chunk=8, prefill_chunk=512, kv_bits=bits)
+        if "qkv_stack" not in eng.params["layers"][0] \
+                or not _can_pair(eng.params, cfg, 8):
+            fail(f"{label}: the engine did not stack and pair its params")
+        missing = [n for n in LLAMA_KERNELS if not stats["launches"].get(n)]
+        if missing:
+            fail(f"{label}: kernels never launched: {missing}")
+        if not stats["decode_steps"]["mixed"] or not stats["pipelined_chunks"]:
+            fail(f"{label}: no piggybacked chunk or no pipelined dispatch")
+        stats["decode_window"] = decode_window(eng, cfg)
+        stats.update(model_build_s=build_s, codes_gib=codes_gib)
+        w = stats["decode_window"]
+        print(f"  qwen2-7b, {P10_LAYERS} layers, {label}: engine "
+              f"{stats['decode_ms_per_step']:.3f} ms/step, decode window "
+              f"{w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step; "
+              f"{stats['pipelined_chunks']} pipelined chunks; peak "
+              f"{stats['peak_mem_gib']:.2f} GiB; " + json.dumps(stats), flush=True)
+        out["bf16" if bits == 16 else "int4"] = stats
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    cfg2 = qwen2_7b(2)
+    for bits in (4, 16):
+        out[f"card_vs_cpu_{'bf16' if bits == 16 else 'int4'}"] = card_vs_cpu(
+            cfg2, 8, ("flash_attention", "paged_prefill", "paged_decode",
+                      "w8_stack", "w8_pair"),
+            lambda p: _can_pair(p, cfg2, 1),
+            name=f"qwen2-7b {'bf16' if bits == 16 else 'int4'} KV", bits=bits)
+    out["seconds"] = time.perf_counter() - t10
     return out
 
 
@@ -3091,7 +3316,26 @@ VERIFY_ENTRIES = {
 }
 
 
-def kernel_line(results, launches, page_launches, verify_launches) -> dict:
+# the kernels again on bf16 pages: entry -> (kernel, the shape
+# reported); their launches are phase 10's bf16 engine run's
+BF16_ENTRIES = {
+    "paged_decode_bf16": ("paged_decode", "B=8 H=32 Hkv=8 D=128 len 100..600 bf16"),
+    "paged_prefill_bf16": ("paged_prefill", "S=512 hist=1536 H=32 Hkv=8 D=128 bf16"),
+    "append_kv_quant_bf16": ("append_kv_quant", "T=8 Hkv=8 D=128 bf16 rope"),
+}
+# C and H at Qwen2-7B's GQA group of 7 (28 / 4 heads); their
+# launches are phase 10's two engine runs' (int4 and bf16 pages)
+G7_ENTRIES = {
+    "paged_decode_g7": ("paged_decode", "B=8 H=28 Hkv=4 D=128 len 100..600"),
+    "paged_prefill_g7": ("paged_prefill", "S=512 hist=1536 H=28 Hkv=4 D=128"),
+}
+
+
+def kernel_line(results, launches, page_launches, verify_launches,
+                bf16_launches, g7_launches) -> dict:
+    """The per-kernel JSON line: every kernel at its main shape, then the
+    entries of another page width, row count or head group, each with the
+    largest error over its rows (those whose shape names it)."""
     out = []
     entries = [(name, name, shape, launches.get(name, 0), None)
                for name, (_, _, shape) in KERNELS.items()]
@@ -3099,10 +3343,14 @@ def kernel_line(results, launches, page_launches, verify_launches) -> dict:
                 for entry, (kernel, shape) in INT8_ENTRIES.items()]
     entries += [(entry, kernel, shape, verify_launches.get(key, 0), shape)
                 for entry, (kernel, shape, key) in VERIFY_ENTRIES.items()]
-    for entry, kernel, shape, n, suffix in entries:
+    entries += [(entry, kernel, shape, bf16_launches.get(kernel, 0), "bf16")
+                for entry, (kernel, shape) in BF16_ENTRIES.items()]
+    entries += [(entry, kernel, shape, g7_launches.get(kernel, 0), "H=28 Hkv=4")
+                for entry, (kernel, shape) in G7_ENTRIES.items()]
+    for entry, kernel, shape, n, part in entries:
         src, replaces, _ = KERNELS[kernel]
         rows = [r for r in results if r["kernel"] == kernel
-                and (suffix is None or r["shape"].endswith(suffix))]
+                and (part is None or part in r["shape"])]
         rep = next(r for r in rows if r["shape"].startswith(shape))
         out.append(dict(name=entry, route="cuda", source=src, replaces=replaces,
                         launches=n,
@@ -3201,13 +3449,22 @@ def main() -> int:
           f"the prefix cache, Llama-3.1-8B widths at 32 layers", flush=True)
     p9 = phase9(rng, p4)
     print(f"  phase 9 took {p9['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 10: Qwen2-7B at {P10_LAYERS} layers, the default (pipelined) "
+          f"engine on int4 and bf16 KV pages, then 2 layers card against CPU",
+          flush=True)
+    p10 = phase10(rng)
+    print(f"  phase 10 took {p10['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
                          ("Mixtral grouped", p5["grouped"]),
                          ("Mixtral per-expert", p5["per_expert"]),
                          ("split-plane stacked", p6["stacked"]),
-                         ("split-plane per-consumer", p6["per_consumer"])):
+                         ("split-plane per-consumer", p6["per_consumer"]),
+                         ("Qwen2-7B int4 KV", p10["int4"]),
+                         ("Qwen2-7B bf16 KV", p10["bf16"])):
         w = stats["decode_window"]
         print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
@@ -3227,14 +3484,22 @@ def main() -> int:
         main_launches.update(p9[label]["launches"])
     for run in p9["prefix"].values():
         main_launches.update(run["launches"])
+    main_launches.update(p10["int4"]["launches"])
+    main_launches.update(p10["bf16"]["launches"])
+    # bf16 pages: C's and H's launches on them, D's in that run
+    bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
+                     for k in ("paged_decode", "paged_prefill")}
+    bf16_launches["append_kv_quant"] = p10["bf16"]["launches"].get("append_kv_quant", 0)
+    g7_launches = collections.Counter(p10["int4"]["launches"])
+    g7_launches.update(p10["bf16"]["launches"])
     line = kernel_line(results, main_launches, p8_pages,
-                       p9["draft"]["row_launches"])
+                       p9["draft"]["row_launches"], bf16_launches, g7_launches)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
-                       phase8=p8, phase9=p9,
+                       phase8=p8, phase9=p9, phase10=p10,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

@@ -24,6 +24,8 @@
 //   zero  = clamp(rint(-gmin / scale), 0, qmax)       (+0.0, never -0.0)
 //   q     = clamp(rint(x / scale) + zero, 0, qmax)     (IEEE divisions)
 // int4 packs dim i in a byte's low nibble and dim i + D/2 in its high one.
+// bf16 pages (bits 16) take the (rotated) bf16 values themselves and the
+// pair [1, 0], as the JAX package's kv_quantize makes them for bits 16.
 // Codes and [bf16(scale), bf16(zero)] go to column pos % ps of page
 // page_table[seq, pos / ps]; lengths[seq] = max(lengths[seq], pos + 1) by
 // atomicMax.  A row whose sequence, page index or page id lies outside the
@@ -41,12 +43,12 @@
 // xor shuffles, exact in any order.  A warp loads all its rows and their
 // indices before it computes.  The codes are staged in shared memory in
 // the page's own token-minor order (a row of 32 tokens, pitch 36 bytes so
-// the warp's byte stores hit distinct banks), then stored: tokens of one
-// sequence fill consecutive columns of a page, so a block whose 32 tokens
-// form one such run from a 4-aligned column stores each code row as eight
-// 4-byte words (one 32-byte sector from an aligned column), and any other
-// block one byte per thread with neighbouring threads on neighbouring
-// tokens.  Decode (T <= 32) and prefill take the same kernel and one
+// the warp's byte stores hit distinct banks; bf16 values 68), then
+// stored: tokens of one sequence fill consecutive columns of a page, so a
+// block whose 32 tokens form one such run from a column of a 4-byte
+// boundary stores each code row as eight 4-byte words (one 32-byte sector
+// from an aligned column; sixteen for bf16), and any other block one
+// element per thread with neighbouring threads on neighbouring tokens.  Decode (T <= 32) and prefill take the same kernel and one
 // launch.  On the H100 no single part of the work dominates
 // (scripts/torch_append_ablation.py: loading the page-table entries
 // early, one row a warp, multiplies for the divisions and no global
@@ -57,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,7 +98,6 @@ __global__ void append_kernel(uint8_t* __restrict__ kc, uint8_t* __restrict__ vc
 constexpr int kRunTokens = 32;            // tokens a block takes
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kRunTokens / kWarps;
-constexpr int kPitch = kRunTokens + 4;    // staged code row: 9 words
 
 struct QuantArgs {
   uint8_t* kc;
@@ -120,10 +123,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 template <int BITS, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 append_quant_kernel(const QuantArgs a) {
+  // a code byte, or a bf16 value's bits for bf16 pages
+  using E = typename std::conditional<BITS == 16, uint16_t, uint8_t>::type;
   constexpr int NE = D / 32;                // elements a lane holds
   constexpr int DQ = BITS == 4 ? D / 2 : D;
   constexpr float QMAX = BITS == 4 ? 15.f : 255.f;
-  __shared__ __align__(16) uint8_t stage[DQ * kPitch];
+  // staged code row: 9 words (bf16: 17), an odd count for distinct banks
+  constexpr int PITCH = BITS == 16 ? kRunTokens + 2 : kRunTokens + 4;
+  constexpr int PER_WORD = 4 / sizeof(E);   // elements a 4-byte word
+  __shared__ __align__(16) E stage[DQ * PITCH];
   __shared__ __nv_bfloat16 sz_s[2][kRunTokens];
   __shared__ int dst_page[kRunTokens], dst_col[kRunTokens];
 
@@ -166,34 +174,41 @@ append_quant_kernel(const QuantArgs a) {
         x[j + NE / 2] = round_bf16(__fadd_rn(__fmul_rn(hi, c[f]), __fmul_rn(lo, s[f])));
       }
     }
-    float mx = x[0], mn = x[0];
+    float scale = 1.f, z = 0.f;
+    if constexpr (BITS == 16) {
 #pragma unroll
-    for (int j = 1; j < NE; ++j) {
-      mx = fmaxf(mx, x[j]);
-      mn = fminf(mn, x[j]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    }
-    const float scale = __fmul_rn(fmaxf(__fsub_rn(mx, mn), 1e-5f), a.recip);
-    float z = rintf(__fdiv_rn(-mn, scale));
-    z = z > 0.f ? fminf(z, QMAX) : 0.f;      // a rounded -0.0 becomes +0.0
-    uint8_t q[NE];
-#pragma unroll
-    for (int j = 0; j < NE; ++j) {
-      const float c = __fadd_rn(rintf(__fdiv_rn(x[j], scale)), z);
-      q[j] = static_cast<uint8_t>(fminf(fmaxf(c, 0.f), QMAX));
-    }
-    if constexpr (BITS == 4) {
-#pragma unroll
-      for (int j = 0; j < NE / 2; ++j)
-        stage[(lane + 32 * j) * kPitch + i] =
-            static_cast<uint8_t>(q[j] | (q[j + NE / 2] << 4));
+      for (int j = 0; j < NE; ++j)
+        stage[(lane + 32 * j) * PITCH + i] = __bfloat16_as_ushort(__float2bfloat16_rn(x[j]));
     } else {
+      float mx = x[0], mn = x[0];
 #pragma unroll
-      for (int j = 0; j < NE; ++j) stage[(lane + 32 * j) * kPitch + i] = q[j];
+      for (int j = 1; j < NE; ++j) {
+        mx = fmaxf(mx, x[j]);
+        mn = fminf(mn, x[j]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      }
+      scale = __fmul_rn(fmaxf(__fsub_rn(mx, mn), 1e-5f), a.recip);
+      z = rintf(__fdiv_rn(-mn, scale));
+      z = z > 0.f ? fminf(z, QMAX) : 0.f;      // a rounded -0.0 becomes +0.0
+      uint8_t q[NE];
+#pragma unroll
+      for (int j = 0; j < NE; ++j) {
+        const float c = __fadd_rn(rintf(__fdiv_rn(x[j], scale)), z);
+        q[j] = static_cast<uint8_t>(fminf(fmaxf(c, 0.f), QMAX));
+      }
+      if constexpr (BITS == 4) {
+#pragma unroll
+        for (int j = 0; j < NE / 2; ++j)
+          stage[(lane + 32 * j) * PITCH + i] =
+              static_cast<uint8_t>(q[j] | (q[j + NE / 2] << 4));
+      } else {
+#pragma unroll
+        for (int j = 0; j < NE; ++j) stage[(lane + 32 * j) * PITCH + i] = q[j];
+      }
     }
     if (lane == 0) {
       const int sq = seq[u], p = pos[u];
@@ -211,21 +226,21 @@ append_quant_kernel(const QuantArgs a) {
   }
   __syncthreads();
 
-  uint8_t* codes = is_v ? a.vc : a.kc;
+  E* codes = reinterpret_cast<E*>(is_v ? a.vc : a.kc);
   __nv_bfloat16* sz = is_v ? a.vsz : a.ksz;
   const int tid = threadIdx.x;
   const int p0 = dst_page[0], c0 = dst_col[0];
   const bool in_run = tid >= kRunTokens ||
                       (dst_page[tid] == p0 && dst_col[tid] == c0 + tid);
   const bool run = __syncthreads_and(in_run && n == kRunTokens && p0 >= 0 &&
-                                     (c0 & 3) == 0 && (a.ps & 3) == 0);
+                                     c0 % PER_WORD == 0 && a.ps % PER_WORD == 0);
   if (run) {
-    constexpr int W = kRunTokens / 4;       // 4-byte words a code row
+    constexpr int W = kRunTokens / PER_WORD;  // 4-byte words a code row
     const size_t base = (static_cast<size_t>(p0) * a.H + h) * DQ;
     for (int idx = tid; idx < DQ * W; idx += blockDim.x) {
       const int r = idx / W, w = idx % W;
-      *reinterpret_cast<uint32_t*>(codes + (base + r) * a.ps + c0 + 4 * w) =
-          *reinterpret_cast<const uint32_t*>(stage + r * kPitch + 4 * w);
+      *reinterpret_cast<uint32_t*>(codes + (base + r) * a.ps + c0 + PER_WORD * w) =
+          *reinterpret_cast<const uint32_t*>(stage + r * PITCH + PER_WORD * w);
     }
   } else {
     for (int idx = tid; idx < DQ * n; idx += blockDim.x) {
@@ -233,7 +248,7 @@ append_quant_kernel(const QuantArgs a) {
       const int p = dst_page[i];
       if (p >= 0)
         codes[((static_cast<size_t>(p) * a.H + h) * DQ + r) * a.ps + dst_col[i]] =
-            stage[r * kPitch + i];
+            stage[r * PITCH + i];
     }
   }
   for (int idx = tid; idx < 2 * n; idx += blockDim.x) {
@@ -291,5 +306,7 @@ extern "C" int append_kv_quant(void* kc, void* vc, void* ksz, void* vsz,
   if (bits == 4 && D == 64) return launch_quant<4, 64>(a, s);
   if (bits == 8 && D == 128) return launch_quant<8, 128>(a, s);
   if (bits == 8 && D == 64) return launch_quant<8, 64>(a, s);
+  if (bits == 16 && D == 128) return launch_quant<16, 128>(a, s);
+  if (bits == 16 && D == 64) return launch_quant<16, 64>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,13 +3,14 @@
 // q-side RoPE fused.
 //
 // Replaces micromix_tpu/serve/attention.py::paged_decode_attention
-// (_decode_kernel), the whole function: int4 and int8 pages, a sliding
-// window, a per-row ``lengths`` override and the (m, den) state.  q (B, H,
-// D) bf16, unrotated when positions are given; pages are the JAX package's
-// token-minor layout: codes (P, Hkv, dq, ps) u8 (int4: dq = D/2, dim i in
-// the low nibble and dim i + D/2 in the high one; int8: dq = D), sz (P,
-// Hkv, 2, ps) bf16 holding [scale, zero] per token; value = (c - zero) *
-// scale.  Row b attends to positions [lo, n): n is the stored length of
+// (_decode_kernel), the whole function: int4, int8 and bf16 pages, a
+// sliding window, a per-row ``lengths`` override and the (m, den) state.
+// q (B, H, D) bf16, unrotated when positions are given; pages are the JAX
+// package's token-minor layout: codes (P, Hkv, dq, ps) u8 (int4: dq = D/2,
+// dim i in the low nibble and dim i + D/2 in the high one; int8: dq = D),
+// sz (P, Hkv, 2, ps) bf16 holding [scale, zero] per token; value = (c -
+// zero) * scale.  bf16 pages (bits 16) hold the values, (P, Hkv, D, ps)
+// bf16, and their sz pages are not read (nor are they by the JAX kernel).  Row b attends to positions [lo, n): n is the stored length of
 // its sequence or lengths[b]; with a window, lo = positions[b] + 1 - window
 // (the query's own position, as the JAX kernel takes it when RoPE is
 // fused; the stored length without positions).  Output acc / max(den,
@@ -19,7 +20,7 @@
 //
 // Bound on the H100: bytes.  Each row reads every K/V code and [scale,
 // zero] pair of its attended range once (D/2 + 4 bytes a token, head and
-// K or V, for int4) and does about 4 operations per byte.
+// K or V, for int4; 2 D for bf16) and does about 4 operations per byte.
 //
 // Design.  Grid (Hkv, B, S): S splits of the page-table row, each of
 // ``pps`` pages; the wrapper derives both from B, Hkv and
@@ -47,6 +48,10 @@
 //           terms (as Kernels E and H) and each slice's product added to
 //           O in f32; V's A operand is two tokens' codes of one row, a
 //           16-bit load.
+// bf16 pages: a row of a page is 2 ps bytes, swizzled by the same 16-byte
+// chunks (8 tokens); the A operands are the values themselves (two dims
+// of one token for the scores, two tokens of one dim for P.V, a 32-bit
+// load), with every scale 1.
 // A page's per-token scales and zero points go to shared memory once, a
 // masked token's (past n, below the floor) as 0, and it takes p = 0.  The
 // block reads its page ids once, at the start; registers are capped at 128
@@ -106,7 +111,8 @@ struct Smem {
   int stage, ring, qs, tok, pt, st, bytes;
   __host__ __device__ Smem(int bits, int D, int ps, int pps) {
     const int dq = bits == 4 ? D / 2 : D;
-    stage = 2 * dq * ps + 8 * ps;
+    const int rb = bits == 16 ? 2 * ps : ps;     // bytes a code row
+    stage = 2 * dq * rb + (bits == 16 ? 0 : 8 * ps);
     const int warps_state = WARPS * HP * (D + 2) * 4;
     ring = 2 * stage > warps_state ? 2 * stage : warps_state;
     qs = ring;
@@ -144,7 +150,9 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   const int g = lane >> 2, t4 = lane & 3;
   const int ps = a.ps;
   const int G = a.H / a.Hkv;
-  const int nch = ps / 16;             // 16-byte chunks a code row (a power of two)
+  const int rb = BITS == 16 ? 2 * ps : ps;   // bytes a code row
+  const int nch = rb / 16;             // 16-byte chunks a code row (a power of two)
+  const int nsl = ps / 16;             // 16-token slices a page
   const Smem L(BITS, D, ps, a.pps);
 
   const int seq = a.seq_ids[b];
@@ -192,14 +200,18 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   for (int i = tid; i < pend - pbeg; i += THREADS) pids[i] = trow[pbeg + i];
   auto stage = [&](int st, int p) {
     const size_t ph = static_cast<size_t>(pids[p - pbeg]) * a.Hkv + kvh;
-    const uint8_t* kp = a.kc + ph * DQ * ps;
-    const uint8_t* vp = a.vc + ph * DQ * ps;
+    const uint8_t* kp = a.kc + ph * DQ * rb;
+    const uint8_t* vp = a.vc + ph * DQ * rb;
     uint8_t* kd = smem + st * L.stage;
     for (int c = tid; c < DQ * nch; c += THREADS) {
       const int r = c / nch, cc = c % nch;
-      const int dst = r * ps + ((cc ^ (r & (nch - 1))) << 4);
+      const int dst = r * rb + ((cc ^ (r & (nch - 1))) << 4);
       ptx::cp_async16(kd + dst, kp + static_cast<size_t>(c) * 16, true);
-      ptx::cp_async16(kd + DQ * ps + dst, vp + static_cast<size_t>(c) * 16, true);
+      ptx::cp_async16(kd + DQ * rb + dst, vp + static_cast<size_t>(c) * 16, true);
+    }
+    if (BITS == 16) {       // no [scale, zero] pages
+      ptx::cp_async_commit();
+      return;
     }
     uint8_t* sd = kd + 2 * DQ * ps;
     const __nv_bfloat16* ks = a.ksz + ph * 2 * ps;
@@ -266,8 +278,13 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
     __syncthreads();      // page p landed; page p - 1 and its token arrays done
     if (p + 1 < pend) stage(st ^ 1, p + 1);
     const uint8_t* kp = smem + st * L.stage;
-    const uint8_t* vp = kp + DQ * ps;
-    if (tid < ps) {       // the page's tokens: scales, zero points; masked: 0
+    const uint8_t* vp = kp + DQ * rb;
+    if (BITS == 16 && tid < ps) {   // the page's tokens: scale 1; masked: 0
+      const int pos = p * ps + tid;
+      const bool ok = pos < n && pos >= lo;
+      ksc[tid] = ok ? 1.0f : 0.0f;
+      vsc[tid] = ok ? 1.0f : 0.0f;
+    } else if (tid < ps) {  // the page's tokens: scales, zero points; masked: 0
       const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(vp + DQ * ps);
       const int pos = p * ps + tid;
       const bool ok = pos < n && pos >= lo;
@@ -285,7 +302,11 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
     }
     __syncthreads();
 
-    for (int sl = warp; sl < nch; sl += WARPS) {   // 16-token slices
+    // bf16 value of code row r, token j: chunk j / 8 of the swizzled row
+    auto bf16_at = [&](const uint8_t* base, int r, int j) -> const uint8_t* {
+      return base + r * rb + ((((j >> 3) ^ (r & (nch - 1)))) << 4) + 2 * (j & 7);
+    };
+    for (int sl = warp; sl < nsl; sl += WARPS) {   // 16-token slices
       const int t0 = sl * 16 + g, t1 = t0 + 8;    // this thread's score rows
       // ---- scores: S^T = (K - z) Q^T
       float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -297,7 +318,15 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
         for (int j = 0; j < 2; ++j) {
           const int m = 8 * kk + t4 + 4 * j;
           const int off = ((sl ^ (m & (nch - 1))) << 4) + g;
-          if (BITS == 4) {
+          if (BITS == 16) {
+            const int m2 = m + HALF;
+            af[2 * j] = *reinterpret_cast<const uint16_t*>(bf16_at(kp, m, t0)) |
+                        (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(
+                             bf16_at(kp, m2, t0))) << 16);
+            af[2 * j + 1] = *reinterpret_cast<const uint16_t*>(bf16_at(kp, m, t1)) |
+                            (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(
+                                 bf16_at(kp, m2, t1))) << 16);
+          } else if (BITS == 4) {
             const uint32_t b0 = kp[m * ps + off], b1 = kp[m * ps + off + 8];
             af[2 * j] = hsub(0x43004300u | (b0 & 0xFu) | ((b0 & 0xF0u) << 12), z0);
             af[2 * j + 1] = hsub(0x43004300u | (b1 & 0xFu) | ((b1 & 0xF0u) << 12), z1);
@@ -362,6 +391,19 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
       const int j0 = sl * 16 + 2 * t4;
 #pragma unroll
       for (int mt = 0; mt < (BITS == 4 ? MT / 2 : MT); ++mt) {
+        if (BITS == 16) {   // rows r, r + 8 x tokens j0 (+1), j0 + 8 (+9): the values
+          uint32_t av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[i] = *reinterpret_cast<const uint32_t*>(
+                bf16_at(vp, 16 * mt + g + 8 * (i & 1), j0 + 8 * (i >> 1)));
+          float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int i = 0; i < PV_TERMS; ++i) ptx::mma(t, av, pb[i][0], pb[i][1]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) o[mt][r] += t[r];
+          continue;
+        }
         uint32_t w[4];   // rows r, r + 8 x tokens j0, j0 + 8
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -552,7 +594,7 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
 
 }  // namespace
 
-// bits 4 or 8; D 64 or 128; ps in {16, 32, 64, 128}; H / Hkv <= 8;
+// bits 4, 8 or 16; D 64 or 128; ps in {16, 32, 64, 128}; H / Hkv <= 8;
 // splits <= 32; window <= 0: none; positions / inv_freq null: no RoPE;
 // lengths_per_row: lengths is (B,) (the override) rather than the cache's
 // per-sequence lengths; m_out / den_out null: no state.  Zero points are
@@ -582,5 +624,7 @@ extern "C" int paged_decode(const void* q, const void* kc, const void* vc,
   if (bits == 4 && D == 64) return launch<4, 64>(a, B, splits, s);
   if (bits == 8 && D == 128) return launch<8, 128>(a, B, splits, s);
   if (bits == 8 && D == 64) return launch<8, 64>(a, B, splits, s);
+  if (bits == 16 && D == 128) return launch<16, 128>(a, B, splits, s);
+  if (bits == 16 && D == 64) return launch<16, 64>(a, B, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,15 @@
-// Chunked-prefill attention over the paged int4 or int8 history, then
-// in-chunk causal.
+// Chunked-prefill attention over the paged int4, int8 or bf16 history,
+// then in-chunk causal.
 //
 // Replaces micromix_tpu/serve/prefill_attention.py::paged_prefill_attention
-// (_prefill_kernel) for bits = 4 and 8.  q (S, H, D) bf16, post-RoPE, at
+// (_prefill_kernel) for bits = 4, 8 and 16.  q (S, H, D) bf16, post-RoPE, at
 // positions [start, start + S); the chunk's own exact bf16 K/V (S, Hkv, D);
 // the history of the sequence in the JAX package's token-minor pages:
 // codes (P, Hkv, DQ, ps) u8 -- int4: DQ = D/2, dim i in the low nibble and
 // dim i + D/2 in the high nibble; int8: DQ = D, a byte a dim -- and sz
-// (P, Hkv, 2, ps) bf16 [scale, zero] per token, value (c - zero) * scale.
+// (P, Hkv, 2, ps) bf16 [scale, zero] per token, value (c - zero) * scale;
+// bf16 pages (bits 16) hold the values themselves, (P, Hkv, D, ps) bf16,
+// and their sz pages are not read (the JAX kernel reads none either).
 // One online-softmax recurrence in f32 covers the history positions from
 // the window floor up to start, masked to kpos < start (and the window),
 // then the chunk causally (and the window); q is scaled by 1/sqrt(D), the
@@ -21,8 +23,17 @@
 // bf16, f32 accumulators, ldmatrix, the online softmax on the accumulator
 // registers, P split into bf16 terms) for both phases, with GQA batched
 // as Kernel C batches it: one block of 4 warps per (q tile, KV head)
-// holds 64 query rows, the G = H / Hkv heads of that KV head times 64 / G
-// chunk positions, so each K/V tile it loads serves all G heads.
+// holds 64 query rows, the G = H / Hkv heads of that KV head times
+// RQ = floor(64 / G) chunk positions, so each K/V tile it loads serves
+// all G heads.  Any G from 1 to 8 maps so: rows G RQ .. 63 are spare (1
+// of 64 at G = 3 or 7, 4 at G = 5 or 6, none where G divides 64); they
+// load zero queries, which score 0 everywhere and stay finite, and are
+// never stored.  Blocks of G ceil(64 / G) rows (70 at G = 7) would waste
+// none of a row's keys but would need a fifth warp, another query tile
+// and other launch bounds for the G that do not divide 64; a spare row
+// costs at most 1/16 of a block's MMAs (G = 5, 6).  A block's RQ
+// positions may then straddle two 64-key chunk tiles; the chunk loop and
+// its masks take the block's first and last position, never a tile.
 //
 // History: 64 positions a tile (two tiles a 128-token page; a 16-token
 // page is a quarter of one), their code rows and [scale, zero] bf16
@@ -46,6 +57,14 @@
 // splitting K and V into bf16 hi + lo, doubles the Q K^T products and
 // needs twice the shared memory per tile.)
 //
+// bf16 pages: the code ring and the unpacking go; a 2-stage ring of the
+// dims-major K and V tiles themselves takes the pages' rows by cp.async
+// (8 tokens, 16 bytes, a copy when ps % 8 == 0, else 4), and the tensor
+// cores read them as they are, with the scale 1/sqrt(D) on the scores
+// and 1 on p.  A copy that starts below start may carry up to 7 tokens
+// at or past it, from the same page: their scores are masked and their
+// per-token scales 0, as for the quantized pages.
+//
 // Chunk: the chunk's bf16 K/V rows through the same 2-stage ring as E,
 // keys-major.  Masked scores are -1e30 as in the JAX kernel; history
 // tokens at or past start, whose codes and scales may be stale, unpack
@@ -65,21 +84,23 @@ constexpr int THREADS = WARPS * 32;
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Shared memory, byte offsets.  Phase 2's K/V ring over the whole buffer;
-// phase 1's dims-major K and V tiles, the raw ring (codes, then
-// [scale, zero] pairs) and the tile's per-token scales, with the query
-// tile after them (in registers before phase 2 overwrites it).  The raw
-// ring holds DQ code rows of K and of V a stage: at D = 128 and int8,
-// 32 KiB of the 86.5 KiB a block takes (the opt-in limit is 227 KiB).
+// phase 1's dims-major K and V tiles (two stages of them for bf16 pages,
+// which land there directly), the raw ring (codes, then [scale, zero]
+// pairs; none for bf16 pages) and the tile's per-token scales, with the
+// query tile after them (in registers before phase 2 overwrites it).  The
+// raw ring holds DQ code rows of K and of V a stage: at D = 128 and int8,
+// 32 KiB of the 86.5 KiB a block takes; bf16 pages take 90 KiB (the
+// opt-in limit is 227 KiB).
 template <int D, int BITS>
 struct Smem {
   static constexpr int LD = fa::Tile<D>::LD;
   static constexpr int DQ = BITS == 4 ? D / 2 : D;
   static constexpr int RING = 4 * BK * LD * 2;      // [2][BK][LD] K, then V
-  static constexpr int KT = 0;                      // [D][LDT] bf16 (c - z)
-  static constexpr int VT = KT + D * LDT * 2;
-  static constexpr int RAW = VT + D * LDT * 2;      // [2][2 DQ][BK] u8: K rows, V rows
-  static constexpr int SZ = RAW + 2 * 2 * DQ * BK;  // [2][4][BK] bf16: ks, kz, vs, vz
-  static constexpr int SC = SZ + 2 * 4 * BK * 2;    // [2][BK] f32: ks / sqrt(D), vs
+  static constexpr int TILES = 2 * D * LDT * 2;     // [D][LDT] bf16 K, then V
+  static constexpr int KT = 0;                      // (c - z), or the bf16 values
+  static constexpr int RAW = (BITS == 16 ? 2 : 1) * TILES;  // [2][2 DQ][BK] u8: K rows, V rows
+  static constexpr int SZ = RAW + (BITS == 16 ? 0 : 2 * 2 * DQ * BK);  // [2][4][BK] bf16
+  static constexpr int SC = SZ + (BITS == 16 ? 0 : 2 * 4 * BK * 2);    // [2][BK] f32: ks / sqrt(D), vs
   static constexpr int Q = SC + 2 * BK * 4;         // [BQ][LD] bf16
   static constexpr int BYTES = cmax(RING, Q + BQ * LD * 2);
 };
@@ -122,21 +143,24 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   using L = Smem<D, BITS>;
   constexpr int LD = L::LD, DQ = L::DQ;
   extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* KT = reinterpret_cast<__nv_bfloat16*>(smem + L::KT);
-  __nv_bfloat16* VT = reinterpret_cast<__nv_bfloat16*>(smem + L::VT);
+  // stage st's dims-major K tile (one stage unless the pages are bf16);
+  // its V tile follows at + D * LDT
+  auto ktile = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L::KT + (BITS == 16 ? st * L::TILES : 0));
+  };
   float* ksc = reinterpret_cast<float*>(smem + L::SC);
   float* vsc = ksc + BK;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
 
-  const int G = H / Hkv, RQ = BQ / G;
+  const int G = H / Hkv, RQ = BQ / G, ROWS = G * RQ;  // rows ROWS.. are spare
   const int kvh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * RQ;  // the most keys first
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int start = *start_ptr;
 
-  // block row r: head kvh * G + r / RQ at chunk position q0 + r % RQ; this
-  // thread's rows are warp * 16 + g and + 8
+  // block row r < ROWS: head kvh * G + r / RQ at chunk position q0 + r %
+  // RQ; this thread's rows are warp * 16 + g and + 8
   int lp[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) lp[i] = q0 + (warp * 16 + g + 8 * i) % RQ;
@@ -144,17 +168,46 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = tid; i < BQ * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
     const int pos = q0 + r % RQ;
-    const bool ok = pos < S;
+    const bool ok = pos < S && r < ROWS;
     const __nv_bfloat16* src =
         ok ? q + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D + c : q;
     ptx::cp_async16(Qs + r * LD + c, src, ok);
   }
   ptx::cp_async_commit();
 
-  // ---------------- phase 1: the quantized history ----------------
+  // ---------------- phase 1: the paged history ----------------
   // tile t covers history positions [64 t, 64 t + 64); positions at or
   // past start are not read (zero-filled)
   auto load_hist = [&](int t, int stage) {
+    if constexpr (BITS == 16) {  // straight into the stage's K and V tiles
+      const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(kc);
+      const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(vc);
+      __nv_bfloat16* kd = ktile(stage);
+      __nv_bfloat16* vd = kd + D * LDT;
+      const int t0 = t * BK;
+      if (ps % 8 == 0) {  // 8 tokens a copy: column tid % 8, rows tid / 8 + 16 i
+        const int c = (tid % 8) * 8, pos = t0 + c;
+        const bool ok = pos < start;
+        const size_t off =
+            ok ? (static_cast<size_t>(table[pos / ps]) * Hkv + kvh) * D * ps + pos % ps : 0;
+        for (int i = tid / 8; i < D; i += THREADS / 8) {
+          const size_t o = off + static_cast<size_t>(i) * ps;
+          ptx::cp_async16(kd + i * LDT + c, kp + o, ok);
+          ptx::cp_async16(vd + i * LDT + c, vp + o, ok);
+        }
+      } else {  // 4 tokens a copy: column tid % 16, rows tid / 16 + 8 i
+        const int c = (tid % 16) * 4, pos = t0 + c;
+        const bool ok = pos < start;
+        const size_t off =
+            ok ? (static_cast<size_t>(table[pos / ps]) * Hkv + kvh) * D * ps + pos % ps : 0;
+        for (int i = tid / 16; i < D; i += THREADS / 16) {
+          const size_t o = off + static_cast<size_t>(i) * ps;
+          ptx::cp_async_ca<8>(kd + i * LDT + c, kp + o, ok);
+          ptx::cp_async_ca<8>(vd + i * LDT + c, vp + o, ok);
+        }
+      }
+      return;
+    }
     uint8_t* raw = smem + L::RAW + stage * 2 * DQ * BK;
     __nv_bfloat16* sz = reinterpret_cast<__nv_bfloat16*>(smem + L::SZ) + stage * 4 * BK;
     const int t0 = t * BK;
@@ -191,8 +244,19 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   // raw stage -> KT, VT (c - z) and the per-token scales.  Thread: tokens
-  // 4 (tid % 16) .. + 3 of code rows tid / 16 + 8 i.
+  // 4 (tid % 16) .. + 3 of code rows tid / 16 + 8 i.  bf16 pages: the
+  // scales alone (1/sqrt(D) and 1; 0 at or past start).
   auto unpack = [&](int t, int stage) {
+    if constexpr (BITS == 16) {
+      if (tid < BK) {
+        const bool ok = t * BK + tid < start;
+        ksc[tid] = ok ? scale : 0.0f;
+        vsc[tid] = ok ? 1.0f : 0.0f;
+      }
+      return;
+    }
+    __nv_bfloat16* KT = ktile(0);
+    __nv_bfloat16* VT = KT + D * LDT;
     const uint8_t* raw = smem + L::RAW + stage * 2 * DQ * BK;
     const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(smem + L::SZ) + stage * 4 * BK;
     const int t0 = t * BK, c = (tid % 16) * 4;
@@ -251,16 +315,26 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   sm.init();
   for (int t = h_lo; t < h_hi; ++t) {
     const int st = (t - h_lo) & 1;
-    if (t + 1 < h_hi) {  // its stage was last read by unpack(t - 1)
-      load_hist(t + 1, st ^ 1);
-      ptx::cp_async_commit();
-      ptx::cp_async_wait<1>();
-    } else {
+    if constexpr (BITS == 16) {
       ptx::cp_async_wait<0>();
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
+      if (t + 1 < h_hi) {  // into tile t - 1's stage
+        load_hist(t + 1, st ^ 1);
+        ptx::cp_async_commit();
+      }
+    } else {
+      if (t + 1 < h_hi) {  // its stage was last read by unpack(t - 1)
+        load_hist(t + 1, st ^ 1);
+        ptx::cp_async_commit();
+        ptx::cp_async_wait<1>();
+      } else {
+        ptx::cp_async_wait<0>();
+      }
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
     }
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
     unpack(t, st);
     __syncthreads();
+    const __nv_bfloat16* KT = ktile(st);
 
     float s[BK / 8][4];
     fa::scores<D, true>(qf, KT, s);
@@ -285,7 +359,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[nt][r] *= vsc[nt * 8 + t4 * 2 + (r & 1)];
-    sm.template pv<true>(s, VT);
+    sm.template pv<true>(s, KT + D * LDT);
   }
 
   // ---------------- phase 2: the chunk, causally ----------------
@@ -338,7 +412,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + g + half * 8, pos = lp[half];
-    if (pos >= S) continue;
+    if (pos >= S || r >= ROWS) continue;
     __nv_bfloat16* o = out + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D + t4 * 2;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
@@ -352,6 +426,7 @@ int launch(const void* q, const void* kch, const void* vch, const void* kc,
            const void* vc, const void* ksz, const void* vsz, const void* table,
            const void* start, void* out, int S, int H, int Hkv, int ps,
            int window, float scale, cudaStream_t stream) {
+  if (Hkv < 1 || H % Hkv || H / Hkv > 8) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Smem<D, BITS>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D, BITS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -371,9 +446,9 @@ int launch(const void* q, const void* kch, const void* vch, const void* kc,
 }  // namespace
 
 // table: the sequence's page-table row; start: one device int32.  bits is
-// 4 or 8, D 64 or 128, H / Hkv divides 64, ps is a multiple of 4; window
-// <= 0: none.  Zero points are integers in [0, 2^bits - 1] (kv_quantize
-// rounds them).
+// 4, 8 or 16, D 64 or 128, H / Hkv at most 8, ps is a multiple of 4;
+// window <= 0: none.  Zero points are integers in [0, 2^bits - 1]
+// (kv_quantize rounds them); bf16 pages have no sz pages to read.
 extern "C" int paged_prefill(const void* q, const void* kch, const void* vch,
                              const void* kc, const void* vc, const void* ksz,
                              const void* vsz, const void* table,
@@ -389,6 +464,8 @@ extern "C" int paged_prefill(const void* q, const void* kch, const void* vch,
   MM_PREFILL(64, 4)
   MM_PREFILL(128, 8)
   MM_PREFILL(64, 8)
+  MM_PREFILL(128, 16)
+  MM_PREFILL(64, 16)
 #undef MM_PREFILL
   return static_cast<int>(cudaErrorInvalidValue);
 }

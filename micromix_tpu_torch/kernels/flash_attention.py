@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, limits
 
 _NEG = -1e30
 _SIG = {"flash_attention": [build.PTR, build.PTR, build.PTR, build.PTR,
@@ -58,8 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)}")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, sliding_window)
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {d}")
+    limits.check("flash", head_dim=d, num_heads=h, num_kv_heads=hkv)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError("flash_attention takes bf16 q, k, v")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

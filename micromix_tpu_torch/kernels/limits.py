@@ -1,0 +1,64 @@
+"""What the card's attention and KV-cache kernels take.
+
+One statement shared by the wrappers of Kernels E (``flash_attention``),
+C (``paged_decode_attention``), H (``paged_prefill_attention``) and D
+(``append_kv_quant``), and by the engine's refusal before it makes any
+cache (``serve.engine.check_card_serves``), so that the engine refuses
+exactly what one of its kernels would refuse later:
+
+  * head_dim 64 or 128 (E's and H's tiles, C's dim pairs (m, m + D/2), D's
+    lane holding dims i and i + D/2);
+  * at most 8 query heads per KV head for C (the heads are its MMA's 8
+    columns) and H (a 64-row block holds G x floor(64 / G) rows); E takes
+    any group;
+  * KV pages of 4, 8 or 16 bits (int4, int8, bf16) for C, D and H;
+  * page sizes 16, 32, 64 and 128 for C (a page row is whole 16-byte
+    chunks, swizzled by a power of two), any multiple of 4 for H (its
+    smallest page copy is 4 tokens); the engine runs both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8
+KV_BITS = (4, 8, 16)
+DECODE_PAGE_SIZES = (16, 32, 64, 128)
+KERNELS = ("flash", "decode", "prefill", "append", "engine")
+
+
+def refusal(kernel: str, *, head_dim: int, num_heads: Optional[int] = None,
+            num_kv_heads: Optional[int] = None, bits: Optional[int] = None,
+            page_size: Optional[int] = None) -> Optional[str]:
+    """Why ``kernel`` (one of ``KERNELS``; "engine" is C, D, E and H
+    together) cannot take these shapes on the card, or None.  Arguments
+    left None are not checked."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    why = []
+    if head_dim not in HEAD_DIMS:
+        why.append(f"head_dim {head_dim} (takes {HEAD_DIMS})")
+    if num_heads is not None:
+        if num_kv_heads < 1 or num_heads % num_kv_heads:
+            why.append(f"{num_heads} query heads over {num_kv_heads} KV heads")
+        elif kernel != "flash" and num_heads // num_kv_heads > MAX_GROUP:
+            why.append(f"{num_heads // num_kv_heads} query heads per KV head "
+                       f"(takes at most {MAX_GROUP})")
+    if bits is not None and kernel != "flash" and bits not in KV_BITS:
+        why.append(f"{bits}-bit KV pages (takes {KV_BITS})")
+    if page_size is not None and kernel in ("decode", "prefill", "engine"):
+        ok = (page_size % 4 == 0 if kernel == "prefill"
+              else page_size in DECODE_PAGE_SIZES)
+        if page_size < 1 or not ok:
+            why.append(f"page_size {page_size} (takes "
+                       + ("a multiple of 4" if kernel == "prefill"
+                          else str(DECODE_PAGE_SIZES)) + ")")
+    return "; ".join(why) or None
+
+
+def check(kernel: str, **shapes) -> None:
+    """``refusal`` as a ValueError."""
+    why = refusal(kernel, **shapes)
+    if why is not None:
+        raise ValueError(f"the card's {kernel} kernel does not take {why}")

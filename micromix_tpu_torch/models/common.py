@@ -159,7 +159,9 @@ def rope_inv_freq(head_dim: int, theta: float,
     """Per-pair inverse frequencies (head_dim // 2,) f32, with scaling."""
     exps = div(torch.arange(0, head_dim, 2, dtype=torch.float32, device=device),
                head_dim)
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # torch.full, not torch.tensor: a Python number copied to the card by
+    # torch.tensor ends in a stream synchronize, once a decode step
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
     if rope_scaling is None:
         return inv
     kind = rope_scaling[0]

@@ -351,7 +351,8 @@ def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
                            layout: str = "auto") -> Dict[str, Any]:
     """Full-size random model made on ``device``: each layer's dense
     weights are drawn there (torch.Generator, N(0, 1/sqrt(K)) like
-    random_dense_params), quantized (``layout``, ``weight_fp4_only`` as in
+    random_dense_params, and with ``cfg.qkv_bias`` the q/k/v biases from
+    N(0, 0.01) as there), quantized (``layout``, ``weight_fp4_only`` as in
     ``quantize_linear``) and freed before the next layer, so peak memory
     is one dense layer plus the codes.  A Mixtral layer's ScaledW8 experts
     are grouped at once (``group_experts``, the engine's serving form,
@@ -368,15 +369,17 @@ def random_quantized_model(cfg: ModelConfig, calibs: List[LayerCalib], *,
         t = torch.empty(shape, dtype=torch.float32, device=device)
         return t.normal_(0.0, std, generator=gen).to(torch.bfloat16)
 
-    def lin(n, k):
-        return DenseLinear(w=normal((n, k), 1.0 / np.sqrt(k)))
+    def lin(n, k, bias=False):
+        return DenseLinear(w=normal((n, k), 1.0 / np.sqrt(k)),
+                           bias=normal((n,), 0.01) if bias else None)
 
     layers = []
     for calib in calibs:
         ones = torch.ones(hid, dtype=torch.bfloat16, device=device)
         dense = {"ln1": ones, "ln2": ones.clone(),
-                 "q": lin(odim, hid), "k": lin(kvdim, hid),
-                 "v": lin(kvdim, hid), "o": lin(hid, odim)}
+                 "q": lin(odim, hid, cfg.qkv_bias),
+                 "k": lin(kvdim, hid, cfg.qkv_bias),
+                 "v": lin(kvdim, hid, cfg.qkv_bias), "o": lin(hid, odim)}
         if cfg.is_moe:
             dense["router"] = lin(cfg.num_experts, hid)
             dense["experts"] = [{"w1": lin(inter, hid), "w3": lin(inter, hid),

@@ -23,13 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, limits
 
 _SIG = {"append_kv": [build.PTR] * 10 + [build.INT] * 4 + [build.PTR],
         "append_kv_quant": ([build.PTR] * 12 + [build.INT] * 10 + [build.FLOAT]
                             + [build.PTR])}
-# head dims the quantizing kernel takes (a lane holds dims i and i + D/2)
-QUANT_HEAD_DIMS = (64, 128)
 
 
 def append_kv_plain(k_codes, v_codes, k_sz, v_sz, page_id, off,
@@ -85,17 +83,17 @@ def append_kv_quant(k_codes: torch.Tensor, v_codes: torch.Tensor,
 
     k/v (T, H, D) bf16 with heads and dims dense (any token stride);
     seq_ids/positions (T,) int32; cos/sin (T, D) f32 or both None;
-    ``recip`` the f32 1 / (2^bits - 1).  Raises on anything else: nothing
-    is converted or copied on the way."""
+    ``recip`` the f32 1 / (2^bits - 1) (unread for bf16 pages, bits 16).
+    Raises on anything else: nothing is converted or copied on the way."""
     t, h, d = k.shape
     dq = d // 2 if bits == 4 else d
     tensors = (k_codes, v_codes, k_sz, v_sz, page_table, lengths, seq_ids,
                positions, k, v) + (() if cos is None else (cos, sin))
     if any(a.device != k_codes.device for a in tensors) or not k_codes.is_cuda:
         raise ValueError("append_kv_quant: every tensor on one CUDA device")
-    if bits not in (4, 8) or d not in QUANT_HEAD_DIMS:
-        raise ValueError(f"append_kv_quant: bits {bits}, head dim {d}: takes "
-                         f"4 / 8 and {QUANT_HEAD_DIMS}")
+    limits.check("append", head_dim=d, bits=bits)
+    if k_codes.dtype != (torch.bfloat16 if bits == 16 else torch.uint8):
+        raise ValueError(f"append_kv_quant: {k_codes.dtype} pages for {bits} bits")
     if (k_codes.shape[1:3] != (h, dq) or v.shape != k.shape
             or seq_ids.shape != (t,) or positions.shape != (t,)):
         raise ValueError(f"append_kv_quant shapes: pages {tuple(k_codes.shape)}, "

@@ -3,7 +3,7 @@
 Counterpart of ``micromix_tpu/serve/attention.py``.  ``paged_decode_attention``
 launches ``csrc/paged_decode.cu`` on CUDA tensors and runs its plain
 version on CPU tensors; both compute the whole of the JAX package's
-function: int4 and int8 pages, q-side RoPE fused, a sliding window, a
+function: int4, int8 and bf16 pages, q-side RoPE fused, a sliding window, a
 per-row ``lengths`` override and the flash state ``(m, den)``.  The plain
 version is the JAX package's dense-gather reference
 (``paged_decode_attention_xla``) with the same fused f32 q rotation the
@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, limits
 from .kv_cache import PagedKVCache, kv_dequantize_page
 
 _NEG = -1e30
@@ -138,13 +138,8 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                                             rope_positions, rope_inv_freq,
                                             lengths, with_state)
     hkv, ps = cache.n_kv_heads, cache.page_size
-    if cache.bits not in (4, 8):
-        raise ValueError(f"the decode kernel takes int4 / int8 pages, not "
-                         f"{cache.bits} bits")
-    if d not in (64, 128) or ps not in (16, 32, 64, 128) or h % hkv or h // hkv > 8:
-        raise ValueError(f"decode kernel limits: D 64 or 128 (as Kernels E and "
-                         f"H), page_size 16, 32, 64 or 128, G <= 8 (got D={d}, "
-                         f"ps={ps}, H={h}, Hkv={hkv})")
+    limits.check("decode", head_dim=d, num_heads=h, num_kv_heads=hkv,
+                 bits=cache.bits, page_size=ps)
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window {sliding_window} < 1")
     if (rope_positions is None) != (rope_inv_freq is None):

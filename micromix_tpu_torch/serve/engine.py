@@ -48,12 +48,31 @@ every prefill chunk registers its full pages, and a finished request
 registers its generated tokens' pages too.  In spec mode the draft's
 caches mirror the shared pages at the same physical ids.
 
+Pipelined decode, on by default as in the JAX engine (``pipeline=True``;
+off under speculation and the prefix cache): a plain decode chunk's
+tokens are not fetched when it is dispatched.  The next ``step`` first
+dispatches the chunk after it from the in-flight chunk's last tokens,
+which stay on the device, and only then waits for the in-flight chunk's
+tokens and emits them, so the card runs chunk k + 1 while the host
+processes chunk k.  Any scheduling event drains the pipeline and takes the
+normal path: a pending prefill, a changed active set or request identity
+(a finish, a cancel), controls or logprobs, another sample mode, a page
+stall.  A slot that uses up ``max_new_tokens`` inside the in-flight chunk
+is pointed at the scratch row in the next one; one that ends at eos or a
+stop id decodes one more chunk into pages it still owns, whose tokens are
+dropped.  The host never waits for the card in the dispatch: the tokens
+come back by a ``non_blocking`` copy into pinned memory and an event, and
+every host-to-device copy of the engine goes through pinned memory
+without a stream synchronize (``_to_device``).  The sampler's generator
+advances as in the unpipelined engine (the same chunks in the same order,
+each draw a (B, V) array), so greedy and sampled streams are the same;
+as in the JAX engine, a chunk dispatched before an eos is seen still
+carries the ended request's sampling mode.
+
 The shell reads the JAX engine's stats: ``prefill_tokens``,
 ``decode_tokens``, ``preemptions``, ``phase_s`` (with ``"spec"``),
 ``ttft`` (req_id -> seconds from ``submit`` to the request's first
 token), ``spec_proposed``, ``spec_accepted`` and ``prefix_hit_tokens``.
-
-Not ported: pipelined decode (the JAX engine's ``pipeline=True``).
 """
 
 from __future__ import annotations
@@ -68,6 +87,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import limits
 from ..models.common import ModelConfig
 from ..models.surgery import stack_layer_projections
 from .block_manager import BlockManager
@@ -106,30 +126,29 @@ class Request:
 
 def check_card_serves(device: torch.device, cfg: ModelConfig,
                       kv_bits: int,
-                      draft_cfg: Optional[ModelConfig] = None) -> None:
-    """Refuse, before any cache is made, what the card's attention kernels
-    cannot serve yet: KV pages of other than 4 or 8 bits (bf16 pages,
-    ROADMAP 2b), which Kernels C, D and H do not read, and a model (the
-    target, or the draft of speculative decoding) whose head_dim is not 64
-    or 128 or that has more than 8 query heads per KV head, which Kernel
-    C does not take.  A sliding window runs on the card (Kernels C, E and
-    H apply it).  The CPU serves what ``make_cache`` makes through the
-    plain versions."""
+                      draft_cfg: Optional[ModelConfig] = None,
+                      page_size: Optional[int] = None) -> None:
+    """Refuse, before any cache is made, what one of the card's attention
+    and KV kernels (C, D, E, H) would refuse later, by their shared
+    statement (``kernels/limits.py``): a model (the target, or the draft
+    of speculative decoding) whose head_dim is not 64 or 128 or that has
+    more than 8 query heads per KV head, KV pages of other than 4, 8 or
+    16 bits, a page size C does not take.  A sliding window runs on the
+    card (C, E and H apply it).  The CPU serves what ``make_cache`` makes
+    through the plain versions."""
     if device.type != "cuda":
         return
-    if kv_bits not in (4, 8):
-        raise NotImplementedError(
-            f"the card serves int4 and int8 KV pages, not kv_bits={kv_bits} "
-            "(ROADMAP 2b); pass device='cpu' for the plain versions")
     for name, c in (("model", cfg), ("draft", draft_cfg)):
         if c is None:
             continue
-        if c.head_dim not in (64, 128) or c.num_heads % c.num_kv_heads \
-                or c.num_heads // c.num_kv_heads > 8:
+        why = limits.refusal("engine", head_dim=c.head_dim,
+                             num_heads=c.num_heads,
+                             num_kv_heads=c.num_kv_heads, bits=kv_bits,
+                             page_size=page_size)
+        if why is not None:
             raise NotImplementedError(
-                f"the card's attention takes head_dim 64 or 128 and at most 8 "
-                f"query heads per KV head; the {name} has head_dim "
-                f"{c.head_dim}, {c.num_heads} / {c.num_kv_heads} heads")
+                f"the card does not serve the {name}: {why}; pass "
+                "device='cpu' for the plain versions")
 
 
 @dataclasses.dataclass
@@ -159,14 +178,16 @@ class Engine:
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_gamma: int = 4, spec_rounds: Optional[int] = None,
                  spec_ngram: int = 0, spec_window: int = 256,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, pipeline: bool = True,
+                 device=None):
         self.device = resolve_device(device)
         if spec_ngram > 0 and draft_params is not None:
             raise ValueError("spec_ngram and draft_params are mutually "
                              "exclusive speculation modes")
         self.draft_cfg = draft_cfg if draft_cfg is not None else (
             cfg if draft_params is not None else None)
-        check_card_serves(self.device, cfg, kv_bits, self.draft_cfg)
+        check_card_serves(self.device, cfg, kv_bits, self.draft_cfg,
+                          page_size)
         if not os.environ.get("MICROMIX_NO_STACK"):
             # one stacked GEMM per site at decode, one wide product at
             # prefill, the experts grouped; MICROMIX_NO_STACK=1 keeps the
@@ -224,6 +245,10 @@ class Engine:
         # window columns: the lookup window and slack for the rounds' appends
         self._plookup_T = spec_window + self.spec_rounds * (spec_gamma + 1)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # pipelined decode (the JAX engine's conditions): the in-flight
+        # chunk's record, or None
+        self._pipeline_ok = pipeline and not self._spec_on and not prefix_cache
+        self._inflight: Optional[Dict[str, Any]] = None
         # stats: host wall seconds and steps per phase ("mixed" is a
         # piggybacked prefill chunk + decode chunk; "spec" counts rounds)
         self.prefill_tokens = 0
@@ -253,14 +278,24 @@ class Engine:
     def _all_caches(self):
         return self.caches + (self.dcaches or [])
 
+    def _to_device(self, a, dtype=None) -> torch.Tensor:
+        """A host array on the engine's device, without waiting for the
+        card: a copy in pinned memory sent ``non_blocking`` (PyTorch's
+        pinned allocator reuses that buffer only after the copy has run),
+        where a blocking copy would end in a stream synchronize."""
+        t = torch.from_numpy(np.array(a, dtype=dtype))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _set_rows(self, slot_id: int, row: np.ndarray) -> None:
-        row_t = torch.as_tensor(row, dtype=torch.int32).to(self.device)
+        row_t = self._to_device(row, np.int32)
         for c in self._all_caches():
             c.page_table[slot_id] = row_t
 
     def _set_lengths(self, slot_ids: List[int], lengths: List[int]) -> None:
-        idx = torch.as_tensor(slot_ids, dtype=torch.long).to(self.device)
-        val = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
+        idx = self._to_device(slot_ids, np.int64)
+        val = self._to_device(lengths, np.int32)
         for c in self._all_caches():
             c.lengths[idx] = val
 
@@ -382,16 +417,13 @@ class Engine:
             ban[i, :len(ids)] = ids
         packed = np.packbits(presence, axis=1, bitorder="little")
         mps = minp_shifts([r.sampling if r is not None else None for r in reqs])
-        dev = self.device
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in (packed, pen, ban, mrem, mps))
+        return tuple(self._to_device(a) for a in (packed, pen, ban, mrem, mps))
 
     def _sampling_arrays(self, reqs: List[Optional[Request]]):
         sp = [r.sampling if r is not None else SamplingParams() for r in reqs]
-        dev = self.device
-        return (torch.tensor([s.temperature for s in sp], dtype=torch.float32, device=dev),
-                torch.tensor([s.top_k for s in sp], dtype=torch.int32, device=dev),
-                torch.tensor([s.top_p for s in sp], dtype=torch.float32, device=dev))
+        return (self._to_device([s.temperature for s in sp], np.float32),
+                self._to_device([s.top_k for s in sp], np.int32),
+                self._to_device([s.top_p for s in sp], np.float32))
 
     def _prefill_batch_pass(self) -> set:
         """Prefill every fresh prompt of at most ``prefill_chunk`` tokens
@@ -423,9 +455,8 @@ class Engine:
             toks[row, :len(chunk)] = chunk
             seqs[row] = i
             last[row] = len(chunk) - 1
-        dev = self.device
-        args = (torch.as_tensor(toks).to(dev), torch.as_tensor(seqs).to(dev),
-                torch.as_tensor(last).to(dev))
+        args = (self._to_device(toks), self._to_device(seqs),
+                self._to_device(last))
         logits, self.caches = prefill_batch(self.params, self.cfg,
                                             self.caches, *args)
         if self.dcaches is not None:
@@ -467,7 +498,7 @@ class Engine:
             return False
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = chunk
-        toks_t = torch.as_tensor(toks).to(self.device)
+        toks_t = self._to_device(toks)
         logits, self.caches = prefill(
             self.params, self.cfg, self.caches, toks_t, slot_id, slot.pos,
             n - 1, hist_len=slot.pos)
@@ -519,12 +550,11 @@ class Engine:
         mode = pick_sample_mode([s.req.sampling for s in self.slots
                                  if s.req is not None])
         pt, pk, pp = self._sampling_arrays([slot.req])
-        dev = self.device
         ptok, toks, self.caches = prefill_decode(
-            self.params, self.cfg, self.caches, torch.as_tensor(ptoks).to(dev),
+            self.params, self.cfg, self.caches, self._to_device(ptoks),
             piggy, hist, n - 1, hist + n, pt, pk, pp,
-            torch.as_tensor(tokens).to(dev), torch.as_tensor(seq_ids).to(dev),
-            torch.as_tensor(positions).to(dev), self._gen, t, k, p,
+            self._to_device(tokens), self._to_device(seq_ids),
+            self._to_device(positions), self._gen, t, k, p,
             hist_len=hist, n_steps=self.decode_chunk, sample_mode=mode)
         slot.pos = hist + n
         slot.pending = slot.pending[n:]
@@ -588,10 +618,115 @@ class Engine:
                 self._emit(i, int(toks[j, i]),
                            float(lps[j, i]) if lps is not None else None)
 
+    # ---------------- pipelined decode ----------------
+
+    def _defer(self, toks_dev: torch.Tensor, **rec) -> None:
+        """Keep a dispatched chunk in flight: its tokens (chunk, B) start
+        back to the host by a ``non_blocking`` copy into pinned memory,
+        with an event behind it; its last step's tokens stay on the device
+        to feed the next chunk."""
+        if toks_dev.is_cuda:
+            host = torch.empty(toks_dev.shape, dtype=toks_dev.dtype,
+                               pin_memory=True)
+            host.copy_(toks_dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = toks_dev, None
+        self._inflight = dict(rec, toks=host, done=done, last=toks_dev[-1])
+
+    def _process_inflight(self, rec: Dict[str, Any]) -> None:
+        """Wait for the in-flight chunk's tokens (its event only: the
+        chunk dispatched after it keeps running) and emit them."""
+        with self._phase("decode"):
+            if rec["done"] is not None:
+                rec["done"].synchronize()
+            toks = rec["toks"].numpy()
+        self._apply_chunk(toks, None, rec["active"], rec["reqs"])
+
+    def _try_pipeline(self) -> bool:
+        """Steady state: dispatch the next decode chunk from the in-flight
+        chunk's last tokens, then process the in-flight chunk while the
+        new one runs.  False (the caller drains and takes the normal path)
+        on a scheduling event: a pending prefill, a changed active set or
+        request identity (a finish, a cancel), controls or logprobs,
+        another sample mode, a page stall.  (Queued arrivals do not stop
+        it: ``_admit`` ran, so every slot is taken.)"""
+        rec = self._inflight
+        if rec is None or not self._pipeline_ok:
+            return False
+        if any(s.req is not None and s.pending for s in self.slots):
+            return False
+        live = []
+        for i in rec["active"]:
+            s = self.slots[i]
+            if s.req is None or s.req is not rec["reqs"][i]:
+                return False
+            live.append(s.req)
+        if [i for i, s in enumerate(self.slots) if s.ready] != rec["active"]:
+            return False
+        if uses_logit_controls([r.sampling for r in live]) \
+                or any(r.logprobs for r in live):
+            return False
+        chunk = self.decode_chunk
+        # a slot that uses up max_new_tokens inside the in-flight chunk
+        # goes to the scratch row (an eos is seen only when the chunk is
+        # processed: that slot decodes one more chunk, whose rows drop)
+        live_ids = [i for i in rec["active"]
+                    if len(rec["reqs"][i].output) + chunk
+                    < rec["reqs"][i].max_new_tokens]
+        if not live_ids:
+            return False
+        # the mode the unpipelined engine would pick after the in-flight
+        # chunk retires those slots, so that the generator draws alike
+        mode = pick_sample_mode([rec["reqs"][i].sampling for i in live_ids])
+        if mode != rec["mode"]:
+            return False
+        positions = rec["positions"].copy()
+        positions[live_ids] += chunk
+        for i in live_ids:
+            try:
+                self._ensure_pages(i, int(positions[i]) + chunk + 1)
+            except RuntimeError:
+                return False
+        with self._phase("decode"):
+            self._dispatch(rec, live_ids, positions)
+        self._process_inflight(rec)
+        return True
+
+    def _dispatch(self, rec: Dict[str, Any], live_ids: List[int],
+                  positions: np.ndarray) -> None:
+        """Enqueue the chunk after ``rec`` for ``live_ids`` and make it
+        the in-flight chunk.  Nothing here waits for the card: the tokens
+        are the in-flight chunk's last ones on the device, the seq ids and
+        sampling arrays its own (new seq ids and the positions go by
+        ``_to_device``)."""
+        seq_ids = rec["seq_ids"]
+        if live_ids != rec["active"]:
+            sid = np.full((self.max_seqs,), self.max_seqs, np.int32)
+            sid[live_ids] = live_ids
+            seq_ids = self._to_device(sid)
+        t, k, p = rec["tkp"]
+        chunk = self.decode_chunk
+        toks_dev, self.caches = decode_multi(
+            self.params, self.cfg, self.caches, rec["last"], seq_ids,
+            self._to_device(positions), self._gen, t, k, p, None,
+            n_steps=chunk, sample_mode=rec["mode"])
+        self.decode_steps += chunk
+        self.phase_steps["decode"] += chunk
+        self._defer(toks_dev, active=live_ids, seq_ids=seq_ids,
+                    positions=positions, tkp=rec["tkp"], mode=rec["mode"],
+                    reqs={i: rec["reqs"][i] for i in live_ids})
+
     def step(self) -> bool:
         """Admit, drive pending prefill chunks, run one decode chunk.
         Returns False when there is no work left."""
         self._admit()
+        if self._inflight is not None:
+            if self._try_pipeline():
+                return True
+            rec, self._inflight = self._inflight, None
+            self._process_inflight(rec)
         with self._phase("prefill"):
             handled = self._prefill_batch_pass()
         # the piggybacked call has no controls stage and no logprobs, so a
@@ -657,9 +792,9 @@ class Engine:
                         victims, key=lambda j: len(self.slots[j].req.output)))
             tokens[i] = s.req.output[-1] if s.req.output else s.req.prompt[-1]
             positions[i] = s.pos
-        dev = self.device
         reqs = {i: self.slots[i].req for i in active}
         lps = None
+        self.decode_steps += chunk
         if piggy is not None and self.slots[piggy].pending:
             with self._phase("mixed"):
                 toks = self._piggy_decode(piggy, tokens, seq_ids, positions)
@@ -675,19 +810,26 @@ class Engine:
                    if uses_logit_controls([r.sampling for r in live
                                            if r is not None]) else None)
             need_lp = any(r is not None and r.logprobs for r in live)
+            sid_dev = self._to_device(seq_ids)
             with self._phase("decode"):
                 out = decode_multi(
                     self.params, self.cfg, self.caches,
-                    torch.as_tensor(tokens).to(dev),
-                    torch.as_tensor(seq_ids).to(dev),
-                    torch.as_tensor(positions).to(dev), self._gen, t, k, p,
+                    self._to_device(tokens), sid_dev,
+                    self._to_device(positions), self._gen, t, k, p,
                     ctl, n_steps=chunk, sample_mode=mode,
                     with_logprobs=need_lp)
-                toks, self.caches = out[0].cpu().numpy(), out[-1]
+                self.caches = out[-1]
+                self.phase_steps["decode"] += chunk
+                if self._pipeline_ok and ctl is None and not need_lp:
+                    # the fetch waits for the next step, which first
+                    # dispatches the chunk after this one
+                    self._defer(out[0], active=active, seq_ids=sid_dev,
+                                positions=positions, tkp=(t, k, p),
+                                mode=mode, reqs=reqs)
+                    return True
+                toks = out[0].cpu().numpy()
                 if need_lp:
                     lps = out[1].cpu().numpy()
-            self.phase_steps["decode"] += chunk
-        self.decode_steps += chunk
         self._apply_chunk(toks, lps, active, reqs)
         return True
 

@@ -1,11 +1,15 @@
-"""Quantized paged KV cache in the JAX package's token-minor layout.
+"""Quantized (or bf16) paged KV cache in the JAX package's token-minor
+layout.
 
 Counterpart of ``micromix_tpu/serve/kv_cache.py``.  Per layer:
 
   * codes: (n_pages, n_kv_heads, dq, page_size) uint8, dq = D/2 for int4
-    (low nibble = dim i, high nibble = dim i + D/2) or D for int8;
+    (low nibble = dim i, high nibble = dim i + D/2) or D for int8; bf16
+    pages (``bits=16``) hold the values themselves, (n_pages, n_kv_heads,
+    D, page_size) bf16;
   * sz: (n_pages, n_kv_heads, 2, page_size) bf16, [scale, zero] per
-    (token, head): an asymmetric uint grid over head_dim, round-half-even;
+    (token, head): an asymmetric uint grid over head_dim, round-half-even
+    ([1, 0] for bf16 pages, which no attention reads);
   * page_table (max_seqs, max_pages_per_seq) int32; lengths (max_seqs,).
 
 Unlike the JAX package's functional updates, ``append_kv`` writes the page
@@ -13,8 +17,7 @@ arrays and lengths in place (one copy of the cache in device memory) and
 returns the same cache object.  On the card it is one launch of Kernel D
 (``append_kernel.append_kv_quant``), K's RoPE included when the decode
 step hands it the tables; ``append_kv_plain`` is its plain version.
-Decode and prefill attention on the GPU take int4 and int8 pages; bf16
-pages are not ported (ROADMAP 2b).
+Decode and prefill attention on the GPU take all three page widths.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ _F32_RECIP = {b: float(np.float32(1.0) / np.float32(2 ** b - 1)) for b in (4, 8)
 
 @dataclasses.dataclass
 class PagedKVCache:
-    k_codes: torch.Tensor   # (P, Hkv, dq, ps) uint8
+    k_codes: torch.Tensor   # (P, Hkv, dq, ps) uint8, or (P, Hkv, D, ps) bf16
     v_codes: torch.Tensor
     k_sz: torch.Tensor      # (P, Hkv, 2, ps) bf16: [scale, zero]
     v_sz: torch.Tensor
@@ -65,13 +68,14 @@ def make_cache(n_pages: int, page_size: int, n_kv: int, head_dim: int,
                max_seqs: int, max_pages_per_seq: int, bits: int = 4,
                device=None) -> PagedKVCache:
     """An empty cache on ``device`` (default the GPU; raises without one)."""
-    if bits not in (4, 8):
-        raise ValueError(f"kv bits {bits}: the port keeps int4 / int8 pages")
+    if bits not in (4, 8, 16):
+        raise ValueError(f"kv bits {bits}: the pages are int4, int8 or bf16")
     device = resolve_device(device)
     dq = head_dim // 2 if bits == 4 else head_dim
+    dt = torch.bfloat16 if bits == 16 else torch.uint8
 
     def z8():
-        return torch.zeros((n_pages, n_kv, dq, page_size), dtype=torch.uint8,
+        return torch.zeros((n_pages, n_kv, dq, page_size), dtype=dt,
                            device=device)
 
     def zs():
@@ -88,7 +92,11 @@ def make_cache(n_pages: int, page_size: int, n_kv: int, head_dim: int,
 
 def kv_quantize(x: torch.Tensor, bits: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (..., D) -> (codes u8 (..., dq), scale bf16 (...), zero bf16 (...))."""
+    """x (..., D) -> (codes u8 (..., dq), scale bf16 (...), zero bf16 (...));
+    bits 16 is the identity: the bf16 values, scale 1 and zero 0."""
+    if bits == 16:
+        ones = torch.ones(x.shape[:-1], dtype=torch.bfloat16, device=x.device)
+        return x.to(torch.bfloat16), ones, torch.zeros_like(ones)
     xf = x.to(torch.float32)
     gmax = xf.amax(dim=-1, keepdim=True)
     gmin = xf.amin(dim=-1, keepdim=True)
@@ -204,7 +212,7 @@ def append_kv(cache: PagedKVCache, seq_ids: torch.Tensor,
     cos, sin = rope if rope is not None else (None, None)
     append_kv_quant(cache.k_codes, cache.v_codes, cache.k_sz, cache.v_sz,
                     cache.page_table, cache.lengths, seq_ids, positions, k, v,
-                    cache.bits, _F32_RECIP[cache.bits], cos, sin)
+                    cache.bits, _F32_RECIP.get(cache.bits, 0.0), cos, sin)
     return cache
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``micromix_tpu/serve/prefill_attention.py``.
 ``paged_prefill_attention`` launches ``csrc/paged_prefill.cu`` on CUDA
-tensors (int4 or int8 pages) and its plain version on CPU tensors.  The plain
+tensors (int4, int8 or bf16 pages, any GQA group up to 8) and its plain
+version on CPU tensors.  The plain
 version computes what the TPU kernel computes: probabilities in f32, the
 history read from the quantized pages and the chunk from its exact bf16
 K/V.  (The JAX runner's CPU branch, ``gather_kv`` plus XLA attention,
@@ -17,12 +18,11 @@ from typing import Optional, Union
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, limits
 from ..kernels.flash_attention import causal_mask
 from .kv_cache import PagedKVCache, kv_dequantize_page
 
 _NEG = -1e30
-_BQ = 64        # query rows per block of the kernel (G heads x 64/G positions)
 _SIG = {"paged_prefill": [build.PTR] * 10 + [build.INT] * 7
         + [build.FLOAT, build.PTR]}
 
@@ -90,12 +90,8 @@ def paged_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
         return paged_prefill_attention_plain(q, k_chunk, v_chunk, cache, seq_id,
                                              start_pos, sliding_window)
     ps = cache.page_size
-    if cache.bits not in (4, 8):
-        raise NotImplementedError("the prefill kernel takes int4 and int8 pages")
-    if d not in (64, 128) or ps % 4 or _BQ % (h // hkv):
-        raise ValueError(f"prefill kernel limits: D 64 or 128, page_size % 4 "
-                         f"== 0, H / Hkv divides {_BQ} (got D={d}, ps={ps}, "
-                         f"H={h}, Hkv={hkv})")
+    limits.check("prefill", head_dim=d, num_heads=h, num_kv_heads=hkv,
+                 bits=cache.bits, page_size=ps)
     if not (q.dtype == k_chunk.dtype == v_chunk.dtype == torch.bfloat16):
         raise ValueError("paged_prefill_attention takes bf16 q, k, v")
     if not 0 <= seq_id < cache.page_table.shape[0]:

@@ -47,10 +47,15 @@ def rng():
 
 def _caches(rng, bits):
     """Random page contents (so untouched columns are checked too), a
-    shuffled table with the scratch row on page 0, random lengths."""
+    shuffled table with the scratch row on page 0, random lengths; bf16
+    pages (bits 16) hold random normal values."""
     dq = D // 2 if bits == 4 else D
-    kc, vc = (rng.integers(0, 256, (P, HKV, dq, PS)).astype(np.uint8)
-              for _ in range(2))
+    if bits == 16:
+        kc, vc = (jnp.asarray(rng.normal(0, 1, (P, HKV, dq, PS)), jnp.bfloat16)
+                  for _ in range(2))
+    else:
+        kc, vc = (rng.integers(0, 256, (P, HKV, dq, PS)).astype(np.uint8)
+                  for _ in range(2))
     ksz, vsz = (np.stack([rng.uniform(0.01, 0.3, (P, HKV, PS)),
                           rng.integers(0, 2 ** bits, (P, HKV, PS))], axis=2
                          ).astype(np.float32) for _ in range(2))
@@ -61,8 +66,10 @@ def _caches(rng, bits):
     jc = jkv.PagedKVCache(
         k_codes=jnp.asarray(kc), v_codes=jnp.asarray(vc), k_sz=jks, v_sz=jvs,
         page_table=jnp.asarray(table), lengths=jnp.asarray(lengths), bits=bits)
+    codes = ((_bf16(kc), _bf16(vc)) if bits == 16 else
+             (torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())))
     tc = tkv.PagedKVCache(
-        k_codes=torch.from_numpy(kc.copy()), v_codes=torch.from_numpy(vc.copy()),
+        k_codes=codes[0], v_codes=codes[1],
         k_sz=_bf16(jks), v_sz=_bf16(jvs), page_table=torch.from_numpy(table.copy()),
         lengths=torch.from_numpy(lengths.copy()), bits=bits)
     return jc, tc
@@ -85,13 +92,14 @@ def _kv(rng, t):
 
 
 def _pages(c):
-    """The page arrays as numpy: codes u8, sz as int16 bits; lengths."""
+    """The page arrays as numpy: codes u8 (bf16 pages, and sz, as int16
+    bits); lengths."""
+    arrays = [c.k_codes, c.v_codes, c.k_sz, c.v_sz]
     if isinstance(c, tkv.PagedKVCache):
-        sz = [c.k_sz.view(torch.int16).numpy(), c.v_sz.view(torch.int16).numpy()]
-        return ([c.k_codes.numpy(), c.v_codes.numpy()] + sz, c.lengths.numpy())
-    sz = [np.asarray(c.k_sz).view(np.int16), np.asarray(c.v_sz).view(np.int16)]
-    return ([np.asarray(c.k_codes), np.asarray(c.v_codes)] + sz,
-            np.asarray(c.lengths))
+        return ([a.view(torch.int16).numpy() if a.dtype == torch.bfloat16
+                 else a.numpy() for a in arrays], c.lengths.numpy())
+    return ([np.asarray(a).view(np.int16) if a.dtype == jnp.bfloat16
+             else np.asarray(a) for a in arrays], np.asarray(c.lengths))
 
 
 def _assert_pages_equal(tc, jc, skip=None):
@@ -116,11 +124,12 @@ def _tables(pos):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 def test_decode_append_matches_jax_runner(rng, bits):
     """The decode form: one token per sequence on its own page, plus two
     rows parked on the scratch row (page 0), K rotated inside the append
-    as the JAX runner's ``_rope1`` + ``append_kv`` program does."""
+    as the JAX runner's ``_rope1`` + ``append_kv`` program does; bf16
+    pages (bits 16) store the rotated values and [1, 0]."""
     jc, tc = _caches(rng, bits)
     seq = np.array(list(range(SEQS)) + [SCRATCH, SCRATCH], np.int32)
     pos = np.concatenate([rng.integers(0, MP * PS, SEQS), [0, 0]]).astype(np.int32)
@@ -151,7 +160,7 @@ def test_decode_append_matches_jax_runner(rng, bits):
     _assert_pages_equal(tc, jref_kr)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 def test_prefill_append_matches_jax(rng, bits):
     """The prefill form (K already rotated): a 40-token run of one sequence
     from position 5, across two page boundaries, and a 24-token run of

@@ -116,10 +116,15 @@ def test_kv_quantize_bit_exact(rng):
 
 
 def _random_caches(rng, bits=4):
-    """The same random page contents as a JAX and a port cache."""
+    """The same random page contents as a JAX and a port cache (bf16
+    pages, bits 16: random normal values)."""
     dq = D // 2 if bits == 4 else D
-    kc, vc = (rng.integers(0, 256, (P, HKV, dq, PS)).astype(np.uint8)
-              for _ in range(2))
+    if bits == 16:
+        kc, vc = (np.asarray(jnp.asarray(rng.normal(0, 1, (P, HKV, dq, PS)),
+                                         jnp.bfloat16)) for _ in range(2))
+    else:
+        kc, vc = (rng.integers(0, 256, (P, HKV, dq, PS)).astype(np.uint8)
+                  for _ in range(2))
     ksz, vsz = (np.stack([rng.uniform(0.01, 0.3, (P, HKV, PS)),
                           rng.integers(0, 16, (P, HKV, PS))], axis=2
                          ).astype(np.float32) for _ in range(2))
@@ -130,8 +135,10 @@ def _random_caches(rng, bits=4):
         k_codes=jnp.asarray(kc), v_codes=jnp.asarray(vc),
         k_sz=jnp.asarray(ksz, jnp.bfloat16), v_sz=jnp.asarray(vsz, jnp.bfloat16),
         page_table=jnp.asarray(table), lengths=jnp.asarray(lengths), bits=bits)
+    codes = [_bf16_pair(a.astype(np.float32))[1] if bits == 16
+             else torch.from_numpy(a.copy()) for a in (kc, vc)]
     tc = tkv.PagedKVCache(
-        k_codes=torch.from_numpy(kc.copy()), v_codes=torch.from_numpy(vc.copy()),
+        k_codes=codes[0], v_codes=codes[1],
         k_sz=_bf16_pair(ksz)[1], v_sz=_bf16_pair(vsz)[1],
         page_table=torch.from_numpy(table.copy()),
         lengths=torch.from_numpy(lengths.copy()), bits=bits)
@@ -269,14 +276,15 @@ def test_decode_window_floor_is_the_query_position(rng):
 # ends with the empty sequence 4
 DECODE_CASES = [(4, None, True, True, True), (4, 20, True, True, True),
                 (8, None, True, False, True), (8, 24, True, False, False),
-                (4, 20, False, False, True)]
+                (4, 20, False, False, True), (16, None, True, False, True),
+                (16, 20, True, True, True)]
 
 
 @pytest.mark.parametrize("bits,window,rope,override,state", DECODE_CASES)
 def test_decode_full_function_matches_pallas(rng, bits, window, rope,
                                              override, state):
     """The port's decode (plain on the CPU) against the Pallas kernel in
-    interpret mode over int4 and int8 pages, a window, the ``lengths``
+    interpret mode over int4, int8 and bf16 pages, a window, the ``lengths``
     override (rows of sequence 3 at successive positions, as speculative
     verify runs them) and the (m, den) state, in the tolerances above."""
     jc, tc = _random_caches(rng, bits=bits)

@@ -265,10 +265,14 @@ def test_paged_decode_kernel(dev, d, ps, h, hkv):
 
 def _decode_cache(dev, rng, b, mp, ps, hkv, d, bits=4):
     """A cache of b rows of mp random pages: codes, scales in [0.01, 0.2],
-    integer zero points (as kv_quantize makes them), a shuffled table."""
+    integer zero points (as kv_quantize makes them), a shuffled table;
+    bf16 pages (bits 16) hold normal values (their sz pages go unread)."""
     cache = make_cache(b * mp + 1, ps, hkv, d, b, mp, bits=bits, device=dev)
-    cache.k_codes.random_(0, 256)
-    cache.v_codes.random_(0, 256)
+    for codes in (cache.k_codes, cache.v_codes):
+        if bits == 16:
+            codes.copy_(torch.randn(codes.shape, device=dev))
+        else:
+            codes.random_(0, 256)
     for sz in (cache.k_sz, cache.v_sz):
         sz[:, :, 0].uniform_(0.01, 0.2)
         sz[:, :, 1].copy_(torch.randint(0, 2 ** bits, sz[:, :, 1].shape, device=dev))
@@ -277,16 +281,18 @@ def _decode_cache(dev, rng, b, mp, ps, hkv, d, bits=4):
     return cache
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("d,ps,h,hkv,mp", [(64, 16, 8, 2, 24), (128, 128, 32, 8, 24),
-                                           (128, 64, 4, 4, 24), (128, 32, 24, 8, 40)])
+                                           (128, 64, 4, 4, 24), (128, 32, 24, 8, 40),
+                                           (128, 16, 28, 4, 24)])
 def test_paged_decode_split_boundaries(dev, bits, window, d, ps, h, hkv, mp):
     """Kernel C across its split-KV grid: lengths 0, 1, ps, one token past
     the first split, every page, and a ragged one; query positions up to
     3 past the stored length (the window counts back from the query);
-    G = 3 pads to 4.  Twice the same bits: the partials merge in split
-    order whichever block finishes last."""
+    G = 3 and Qwen2-7B's G = 7 pad to 8 columns; int4, int8 and bf16
+    pages.  Twice the same bits: the partials merge in split order
+    whichever block finishes last."""
     rng = np.random.default_rng(d + ps + bits)
     b = 6
     _, pps = decode_split(b, hkv, mp)
@@ -304,7 +310,7 @@ def test_paged_decode_split_boundaries(dev, bits, window, d, ps, h, hkv, mp):
     assert torch.equal(got, paged_decode_attention(q, cache, seq, **kw))
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("rope", [True, False])
 def test_paged_decode_lengths_and_state(dev, bits, window, rope):
@@ -414,7 +420,7 @@ def _rope_tables(pos, d):
 
 
 @pytest.mark.parametrize("t", [1, 8, 32])
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 @pytest.mark.parametrize("d", [64, 128])
 def test_append_quant_decode(dev, t, bits, d):
     """Decode appends with K's RoPE inside: one token per sequence on its
@@ -436,10 +442,11 @@ def test_append_quant_decode(dev, t, bits, d):
 
 
 @pytest.mark.parametrize("t,start", [(512, 0), (1024, 0), (512, 12), (1024, 77)])
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 16])
 def test_append_quant_prefill(dev, t, start, bits):
     """Prefill appends (K already rotated): 512-token runs of T / 512
-    sequences from ``start`` (page-aligned, 4-aligned mid-page, and odd)."""
+    sequences from ``start`` (page-aligned, 4-aligned mid-page, and odd;
+    bf16 pages store 4-byte words from an even column)."""
     d, n = 128, t // 512
     mp = -(-(start + 512) // 128)
     cache = _append_cache(dev, bits, n, mp, d)
@@ -810,6 +817,46 @@ def test_paged_prefill_int8(dev, start, s, window, d, ps, group):
     before = build.page_launches[("paged_prefill", 8)]
     got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
     assert build.page_launches[("paged_prefill", 8)] == before + 1
+    _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
+    assert torch.equal(got, paged_prefill_attention(q, k, v, cache, 1, start_t,
+                                                    sliding_window=window))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("start,s,window,d,ps,h,hkv", [
+    (41, 100, 30, 64, 16, 6, 2), (300, 128, None, 128, 128, 5, 1),
+    (200, 65, 90, 128, 128, 14, 2), (57, 70, 30, 128, 12, 3, 1),
+    (50, 40, None, 64, 8, 8, 1), (1536, 512, None, 128, 16, 28, 4),
+    (1024, 512, 700, 128, 128, 28, 4), (0, 70, None, 64, 16, 4, 4)])
+def test_paged_prefill_any_group(dev, bits, start, s, window, d, ps, h, hkv):
+    """Kernel H at GQA groups that do not divide 64 (G = 3, 5, 6, 7: a
+    block's spare rows are never stored, and its positions may straddle
+    two chunk tiles) and at 1 and 8, on int4, int8 and bf16 pages, pages
+    of 8 and 12 tokens (H's smaller copies), ragged chunks, windows, and
+    Qwen2-7B's serving chunk (S = 512 over 1536 positions, 28 / 4 heads,
+    D = 128): against the plain version, one launch a call counted under
+    its page width, equal bits from two calls."""
+    rng = np.random.default_rng(start + s + d + h)
+    mp = -(-(start + s) // ps)
+    cache = make_cache(mp + 2, ps, hkv, d, 2, mp, bits=bits, device=dev)
+    for codes in (cache.k_codes, cache.v_codes):
+        if bits == 16:
+            codes.copy_(torch.randn(codes.shape, device=dev))
+        else:
+            codes.random_(0, 256)
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(0.001, 0.02)
+        sz[:, :, 1].copy_(torch.randint(0, 2 ** min(bits, 8), sz[:, :, 1].shape,
+                                        device=dev))
+    cache.page_table[1] = torch.from_numpy(
+        1 + rng.permutation(mp + 1)[:mp].astype(np.int32)).to(dev)
+    q = torch.randn(s, h, d, device=dev).to(torch.bfloat16)
+    k = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    v = torch.randn(s, hkv, d, device=dev).to(torch.bfloat16)
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = build.page_launches[("paged_prefill", bits)]
+    got = paged_prefill_attention(q, k, v, cache, 1, start_t, sliding_window=window)
+    assert build.page_launches[("paged_prefill", bits)] == before + 1
     _close(got, paged_prefill_attention_plain(q, k, v, cache, 1, start_t, window))
     assert torch.equal(got, paged_prefill_attention(q, k, v, cache, 1, start_t,
                                                     sliding_window=window))

@@ -184,17 +184,21 @@ def test_chunked_prefill_and_paired_decode_match_jax(model, jax_tpu_runner):
 
 
 def test_default_engine_matches_jax_engine(model, jax_tpu_runner):
-    """Both engines with their defaults (stacked params, piggyback on),
-    prefill_chunk 16, prompts of 9-40 tokens, two slots and a pool of 5
-    usable pages: a batched fresh prefill, chunked prefills that ride the
-    decode call, and one preemption whose request is recomputed."""
+    """Both engines with their defaults (stacked params, piggyback on) but
+    pipelining, which both turn off here: prefill_chunk 16, prompts of
+    9-40 tokens, two slots and a pool of 5 usable pages: a batched fresh
+    prefill, chunked prefills that ride the decode call, and one
+    preemption whose request is recomputed.  (Pipelined, neither package
+    preempts on this traffic; the pipelined engines are held against each
+    other in tests/test_torch_pipeline.py.)"""
     jcfg, tcfg, jparams, tparams = model
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, jcfg.vocab_size, n).tolist() for n in (9, 40, 13, 21)]
     new = [16, 12, 10, 8]
     kw = dict(max_seqs=2, page_size=PS, max_pages_per_seq=4, n_pages=6,
-              prefill_buckets=(16, 32), decode_chunk=4, prefill_chunk=16, seed=0)
-    jeng = jengine.Engine(jparams, jcfg, pipeline=False, **kw)
+              prefill_buckets=(16, 32), decode_chunk=4, prefill_chunk=16, seed=0,
+              pipeline=False)
+    jeng = jengine.Engine(jparams, jcfg, **kw)
     jreqs = jeng.run([jengine.Request(i, p, max_new_tokens=n)
                       for i, (p, n) in enumerate(zip(prompts, new))])
     teng = tengine.Engine(tparams, tcfg, device="cpu", **kw)
@@ -207,3 +211,35 @@ def test_default_engine_matches_jax_engine(model, jax_tpu_runner):
         assert tr.done and len(tr.output) == n
         assert tr.output == jr.output
     assert teng.block_manager.num_free == teng.block_manager.n_pages - 1
+
+
+def test_bf16_pages_engine_matches_jax(jax_tpu_runner):
+    """tests/test_engine.py's chunked-prefill case on bf16 KV pages
+    (``kv_bits=16``, so the history is exact): a dense model, a 40-token
+    prompt streamed in chunks of 16 (16 + 16 + 8, each chunk after the
+    first over the paged history) gives the greedy tokens of a single-shot
+    prefill, in the port as in the JAX package, and the two packages'
+    tokens are equal."""
+    jcfg = dataclasses.replace(_llama_cfg(), vocab_size=128, hidden_size=128,
+                               intermediate_size=256, num_heads=2,
+                               num_kv_heads=2, head_dim=64, rope_theta=10000.0,
+                               rms_eps=1e-6)
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jparams = jsurg.random_dense_params(jcfg, seed=40)
+    tparams = tsurg.random_dense_params(tcfg, seed=40, device="cpu")
+    prompt = np.random.default_rng(40).integers(0, 128, 40).tolist()
+
+    def gen(engine, params, cfg, buckets, chunk, **kw):
+        eng = engine.Engine(params, cfg, max_seqs=1, page_size=PS,
+                            max_pages_per_seq=8, prefill_buckets=buckets,
+                            decode_chunk=2, prefill_chunk=chunk, kv_bits=16,
+                            **kw)
+        (req,) = eng.run([engine.Request(0, prompt, max_new_tokens=4)])
+        assert eng.caches[0].k_codes.dtype == (
+            torch.bfloat16 if engine is tengine else jnp.bfloat16)
+        return req.output
+
+    single = gen(tengine, tparams, tcfg, (64,), 64, device="cpu")
+    chunked = gen(tengine, tparams, tcfg, (16,), 16, device="cpu")
+    assert single == chunked
+    assert chunked == gen(jengine, jparams, jcfg, (16,), 16)

@@ -15,8 +15,10 @@ engine's refusals on the card, on the CPU.
   within the JAX package's band for a round-half-even tie the row-moment
   sum order moved (rtol 0.05, atol 1.0, median |diff| <= 0.25;
   tests/test_mixed_matmul_kernel.py test_pair_kernel_matches_unfused_chain).
-* An ``Engine`` on the card refuses int8 KV pages before it makes a
-  cache and accepts a sliding window; on the CPU it serves both.
+* An ``Engine`` on the card refuses, before it makes a cache, exactly
+  what one of its kernels refuses (``kernels/limits.py``): it serves
+  int4, int8 and bf16 pages, any GQA group up to 8 (Qwen2-7B's 7) and a
+  sliding window; on the CPU it serves all of them.
 """
 
 import dataclasses
@@ -211,19 +213,63 @@ def _tiny_llama(**kw):
 @pytest.mark.parametrize("kv_bits,window", [(8, None), (4, 64), (16, None)])
 def test_engine_refuses_what_the_card_cannot_serve(kv_bits, window):
     """The check the engine runs before it makes a cache: on a CUDA
-    device, KV pages of other than 4 or 8 bits (bf16 pages) raise
-    NotImplementedError naming ROADMAP 2b, while int8 pages and a sliding
-    window over int4 pages pass (Kernels C, D and H read int8 pages; C, E
-    and H apply the window); the CPU passes all; int4 pages without a
-    window pass on both."""
+    device int8 and bf16 pages (Kernels C, D and H read both) and a
+    sliding window over int4 pages (C, E and H apply it) pass, while KV
+    pages of 2 bits, head_dim 96, 9 query heads per KV head and a page
+    size C does not take raise NotImplementedError naming what no kernel
+    takes; the CPU passes all."""
     cfg = _tiny_llama(sliding_window=window)
-    if kv_bits in (4, 8):
-        tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP 2b"):
-            tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits)
-    tengine.check_card_serves(torch.device("cpu"), cfg, kv_bits)
+    tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits)
+    tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits, page_size=16)
+    for bad, kw, what in ((cfg, dict(kv_bits=2), "2-bit"),
+                          (_tiny_llama(head_dim=96), {}, "head_dim 96"),
+                          (_tiny_llama(num_heads=18), {}, "9 query heads"),
+                          (cfg, dict(page_size=48), "page_size 48")):
+        args = dict(dict(kv_bits=kv_bits), **kw)
+        with pytest.raises(NotImplementedError, match=what):
+            tengine.check_card_serves(torch.device("cuda"), bad, **args)
+        tengine.check_card_serves(torch.device("cpu"), bad, **args)
     tengine.check_card_serves(torch.device("cuda"), _tiny_llama(), 4)
+
+
+QWEN2_7B = dict(arch="qwen2", vocab_size=152064, hidden_size=3584,
+                intermediate_size=18944, num_layers=28, num_heads=28,
+                num_kv_heads=4, head_dim=128, rope_theta=1e6, rms_eps=1e-6,
+                qkv_bias=True)
+
+
+@pytest.mark.parametrize("heads,kv_heads,head_dim,kv_bits,page_size", [
+    (4 * g, 4, 128, b, 128) for g in range(1, 9) for b in (4, 8, 16)] + [
+    (28, 4, 128, 16, 16), (14, 2, 64, 8, 32), (36, 4, 128, 4, 128),
+    (24, 8, 80, 4, 128), (32, 8, 128, 2, 128), (32, 8, 128, 4, 12),
+    (32, 8, 128, 16, 256), (3, 2, 64, 4, 64)])
+def test_engine_refuses_only_what_a_kernel_refuses(heads, kv_heads, head_dim,
+                                                   kv_bits, page_size):
+    """The engine's card check refuses a configuration exactly when one of
+    its kernels (E, C, H or D, by their shared statement) would: every
+    GQA group G = 1..8 on int4, int8 and bf16 pages is served, and so is
+    the Qwen2-7B config (28 / 4 heads, G = 7, bf16 pages, page 16); G = 9,
+    head_dim 80, 2-bit pages, page sizes 12 and 256 and 3 heads over 2
+    are refused, each by a kernel's own check."""
+    from micromix_tpu_torch.kernels import limits
+    cfg = (ModelConfig(**dict(QWEN2_7B, num_heads=heads, num_kv_heads=kv_heads))
+           if heads == 28 else _tiny_llama(num_heads=heads,
+                                           num_kv_heads=kv_heads,
+                                           head_dim=head_dim))
+    shapes = dict(head_dim=head_dim, num_heads=heads, num_kv_heads=kv_heads,
+                  bits=kv_bits, page_size=page_size)
+    kernels = [limits.refusal(k, **shapes)
+               for k in ("flash", "decode", "prefill", "append")]
+    try:
+        tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits,
+                                  page_size=page_size)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    assert refused == any(w is not None for w in kernels)
+    assert refused == (heads % kv_heads != 0 or heads // kv_heads > 8
+                       or head_dim not in (64, 128) or kv_bits not in (4, 8, 16)
+                       or page_size not in (16, 32, 64, 128))
 
 
 @pytest.mark.parametrize("kv_bits,window", [(8, None), (4, 64)])
