@@ -5,8 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's twelve CUDA kernels from ``micromix_tpu_torch/csrc/``
-and runs these phases; any failure exits non-zero before the result line.
+It builds the port's twelve CUDA kernel sources from
+``micromix_tpu_torch/csrc/`` and runs these phases; any failure exits
+non-zero before the result line.
 
   0. the card's name and power limit, torch / CUDA / nvcc versions;
   1. build the kernels (one nvcc per source, all at once);
@@ -31,6 +32,9 @@ and runs these phases; any failure exits non-zero before the result line.
      at Qwen2-7B's 28 / 4 heads (G = 7) on int4 and bf16 pages;
      paged prefill attention (H) at S=512 over int4, int8 and bf16 pages,
      and at G = 3, 5, 6 and 7 (the groups that do not divide 64);
+     Kernel A's block-format route (the hetero sites: o's plain site and
+     the rms site at 8 rows, the down's silu site, the rms site at 512
+     rows; block formats in runs of 1-7 blocks);
      Kernel D's whole append (K's RoPE, quantize, slot index, stores,
      lengths) at T=8 with RoPE and T=1024, int4, int8 and bf16, bit-exact,
      beside the composition the port ran before (``old_path_ms``) and
@@ -102,13 +106,27 @@ and runs these phases; any failure exits non-zero before the result line.
      bias, an untied 152064-row head, 28 / 4 heads): the default engine on
      phase 4's kind of traffic, on int4 and on bf16 KV pages, then 2
      layers card against CPU as phase 3, on both page widths
-     (``phase10``).
+     (``phase10``);
+ 11. the other single-card weight forms at Llama-3.1-8B widths, 32
+     layers, phase 7's dense model made again from the seed: the hetero
+     form (phase 7's calibrations as its budgets), weight-only MXFP4 and
+     MXFP8 and int8, each served by the default engine on phase 4's
+     traffic (A's block-format route only in the hetero run, B in the
+     hetero and MXFP4 runs, no plain version), then 2 layers of each card
+     against CPU; then the Mixtral calibrate -> smooth -> quantize
+     (segmented and hetero) -> perplexity pipeline at Mixtral-8x7B widths,
+     4 layers, and the hetero Mixtral serving four requests
+     (``phase11``).  Phase 8 also bakes the hetero, weight-only MXFP8 and
+     int8 checkpoints through the CLI, each held against the tree made in
+     memory, and serves the hetero one under ``--profile``, whose trace
+     must name the port's kernels.
 
-In phases 4 to 10 every kernel launch counter is reset just before each
+In phases 4 to 11 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
-ScaledW8 kernel), and no run may take the plain PyTorch append or the
-pre-quantized one.  Every pipelined decode dispatch of an engine runs
+ScaledW8 kernel, phase 11's forms no kernel off their own path), and no
+run may take the plain PyTorch append or the pre-quantized one (nor, in
+phase 11, A's or B's plain version).  Every pipelined decode dispatch of an engine runs
 under ``torch.cuda.set_sync_debug_mode("error")``: a stream synchronize
 or a blocking copy there fails the run.  Kernel launches per decode step
 and layer, host ms,
@@ -265,6 +283,20 @@ def tie_band(got, ref, splits):
     return float((g - r).abs().max()), ok
 
 
+def block_tie_band(got, ref, fmt):
+    """``tie_band`` for a canonical-order site image whose 32-block b has
+    format ``fmt[b]`` (the hetero sites)."""
+    g, r = got.float(), ref.float()
+    diff = g != r
+    gb, rb = g.reshape(g.shape[0], -1, 32), r.reshape(r.shape[0], -1, 32)
+    bmax = torch.maximum(gb.abs().amax(-1), rb.abs().amax(-1)).clamp_min(1e-30)
+    mant = (fmt.long() + 1).to(torch.float32)[None, :]
+    step = torch.exp2(torch.floor(torch.log2(bmax)) - mant)
+    ok = (float(diff.float().mean()) <= 1e-3
+          and bool(((gb - rb).abs() <= step[..., None]).all()))
+    return float((g - r).abs().max()), ok
+
+
 # ----------------------------------------------------------------- phase 2
 
 def check_site(results, timer, rng):
@@ -333,6 +365,56 @@ def check_site(results, timer, rng):
                timer.ms(lambda: fakequant_site(x, *splits, **kw)),
                2 * m * k * 2 + aux, 0.0,
                timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)))
+
+
+def _block_formats(rng, k: int) -> torch.Tensor:
+    """A (K / 32,) int32 block_fmt in runs of 1-7 blocks (32-224
+    channels, so most runs are not multiples of 128) of formats drawn in
+    turn, every format present."""
+    fmt, run = [], 0
+    while len(fmt) < k // 32:
+        f = run if run < 3 else int(rng.integers(0, 3))
+        fmt += [f] * int(rng.integers(1, 8))
+        run += 1
+    return torch.tensor(fmt[:k // 32], dtype=torch.int32, device=DEV)
+
+
+def check_site_blocks(results, timer, rng):
+    """Kernel A's block-format route (the hetero sites) against its plain
+    version: o's plain site (perm) and the q|k|v rms site at decode rows,
+    the down's silu site, the rms site of a 512-row chunk.  Plain images
+    bit-exact, rms and silu within the tie band of each block's format."""
+    from micromix_tpu_torch.kernels.fakequant import (
+        fakequant_site_blocks, fakequant_site_blocks_plain)
+    for producer, m, k in (("plain", 8, 4096), ("rms", 8, 4096),
+                           ("silu", 8, 14336), ("rms", 512, 4096)):
+        x = _site_input(m, k)
+        fmt = _block_formats(rng, k)
+        kw, aux = {}, 0
+        if producer == "silu":
+            kw = dict(producer="silu",
+                      up=torch.randn(m, k, device=DEV).to(torch.bfloat16))
+            aux = m * k * 2
+        else:
+            kw["perm"] = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(DEV)
+            aux = k * 4
+        if producer == "rms":
+            kw.update(producer="rms", eps=1e-5,
+                      gamma=1.0 + 0.1 * torch.randn(k, device=DEV))
+            aux += k * 4
+        got = fakequant_site_blocks(x, fmt, **kw)
+        ref = fakequant_site_blocks_plain(x, fmt, **kw)
+        if producer == "plain":
+            err = float((got.float() - ref.float()).abs().max())
+            ok, tol = err == 0.0, "bit-exact"
+        else:
+            (err, ok), tol = block_tie_band(got, ref, fmt), "tie band"
+        runs = int((fmt[1:] != fmt[:-1]).sum()) + 1
+        record(results, "site_fakequant_blocks",
+               f"{producer} M={m} K={k} ({runs} format runs)", err, tol, ok,
+               timer.ms(lambda: fakequant_site_blocks(x, fmt, **kw)),
+               2 * m * k * 2 + aux + k // 8, 0.0,
+               timer.ms(lambda: fakequant_site_blocks_plain(x, fmt, **kw)))
 
 
 def check_gemm(results, timer):
@@ -1401,9 +1483,11 @@ def window_engine(cfg) -> dict:
 
 
 def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
-                name=None, near_tie=False, bits=4) -> dict:
+                name=None, near_tie=False, bits=4, make=None,
+                prompt_len=300) -> dict:
     """One model of phase 3: its units on the card and on the CPU, KV
-    pages of ``bits``.  With ``near_tie``, a last chunk whose two top CPU
+    pages of ``bits``; the model random_quantized_model's in ``layout``,
+    or ``make()``'s (phase 11's forms), stacked as the engine stacks it.  With ``near_tie``, a last chunk whose two top CPU
     logits lie closer than that unit's card/CPU difference may give either
     of the two as its greedy token on the card (the decode steps' tokens
     must be equal).  On int8 or bf16 pages Kernels H and C must launch on
@@ -1414,14 +1498,18 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
                                                    stack_layer_projections)
     from micromix_tpu_torch.serve.kv_cache import make_cache
     from micromix_tpu_torch.serve.runner import decode_step, prefill
-    calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
-    gpu_params = stack_layer_projections(
-        random_quantized_model(cfg, calib, seed=SEED, device=DEV, layout=layout))
+    if make is None:
+        calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
+        gpu_params = stack_layer_projections(random_quantized_model(
+            cfg, calib, seed=SEED, device=DEV, layout=layout))
+    else:
+        gpu_params = stack_layer_projections(make())
     name = name or f"{cfg.arch} ({layout})"
     if not form_ok(gpu_params):
         fail(f"phase 3 ({name}): the stacked model is not in its serving form")
     cpu_params = params_to(gpu_params, "cpu")
-    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 300).tolist()
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                  prompt_len).tolist()
     ps, chunk = 128, 128
     mp = -(-(len(prompt) + steps + 1) // ps)
     caches = [make_cache(mp + 1, ps, cfg.num_kv_heads, cfg.head_dim, 1, mp,
@@ -2075,9 +2163,11 @@ PPL_RTOL = 2e-3
 
 
 def dense_llama(cfg, seed: int, device):
-    """A seeded dense bf16 Llama made on ``device`` (torch.Generator
-    draws): each linear N(0, 1/sqrt(K)), embed and head N(0, 0.02), norms
-    1 -- the widths and draws of random_dense_params, without numpy."""
+    """A seeded dense bf16 Llama (or, for a MoE config, Mixtral: a router
+    and the experts' w1, w3, w2 in place of gate, up, down) made on
+    ``device`` (torch.Generator draws): each linear N(0, 1/sqrt(K)), embed
+    and head N(0, 0.02), norms 1 -- the widths and draws of
+    random_dense_params, without numpy."""
     from micromix_tpu_torch.models.common import DenseLinear
     gen = torch.Generator(device=device).manual_seed(seed)
     hid, inter = cfg.hidden_size, cfg.intermediate_size
@@ -2093,9 +2183,17 @@ def dense_llama(cfg, seed: int, device):
     def ones():
         return torch.ones(hid, dtype=torch.bfloat16, device=device)
 
+    def mlp():
+        if cfg.is_moe:
+            return dict(router=lin(cfg.num_experts, hid),
+                        experts=[dict(w1=lin(inter, hid), w3=lin(inter, hid),
+                                      w2=lin(hid, inter))
+                                 for _ in range(cfg.num_experts)])
+        return dict(gate=lin(inter, hid), up=lin(inter, hid),
+                    down=lin(hid, inter))
+
     layers = [dict(ln1=ones(), ln2=ones(), q=lin(odim, hid), k=lin(kvdim, hid),
-                   v=lin(kvdim, hid), o=lin(hid, odim), gate=lin(inter, hid),
-                   up=lin(inter, hid), down=lin(hid, inter))
+                   v=lin(kvdim, hid), o=lin(hid, odim), **mlp())
               for _ in range(cfg.num_layers)]
     return {"embed": normal((cfg.vocab_size, hid), 0.02), "final_ln": ones(),
             "lm_head": normal((cfg.vocab_size, hid), 0.02), "layers": layers}
@@ -2170,12 +2268,14 @@ def phase7() -> dict:
     dense_ppl, quant_ppl = res["dense_ppl"], res["quant_ppl"]
     stats = dict(layers=P7_LAYERS, seqlen=P7_SEQLEN, calib_windows=P7_CAL,
                  eval_windows=P7_EVAL, average_bits=res["average_bits"],
+                 calibs=res["calibs"],
                  dense_ppl=dense_ppl, quant_ppl=quant_ppl,
                  model_build_s=build_s, stage_s=res["stage_s"],
                  peak_mem_gib=peak, launches=launches,
                  gemm_route=f"dequantize + torch.matmul (rows >= "
                             f"{W8_PREFILL_DEQUANT_THRESHOLD}), not a kernel")
-    print(f"  {P7_LAYERS} layers: " + json.dumps(stats), flush=True)
+    print(f"  {P7_LAYERS} layers: " + json.dumps(
+        {k: v for k, v in stats.items() if k != "calibs"}), flush=True)
     if not (np.isfinite(dense_ppl) and np.isfinite(quant_ppl)):
         fail("phase 7: perplexity not finite")
     if quant_ppl >= 1.25 * dense_ppl:
@@ -2431,6 +2531,33 @@ def p8_traffic(rng, vocab: int):
     return [rng.integers(0, vocab, n).tolist() for n in lens]
 
 
+# CUDA kernel names of the port that a hetero serve's trace must hold (A's
+# site_kernel, B's w8_gemm_kernel, C's decode_kernel, D's
+# append_quant_kernel, E's flash_kernel)
+P8_TRACE_KERNELS = ("site_kernel", "w8_gemm", "decode_kernel",
+                    "append_quant_kernel", "flash_kernel")
+
+
+def p8_trace(logdir: str) -> dict:
+    """``serve --profile``'s trace: one Chrome-trace JSON file under
+    ``logdir`` whose kernel events name the port's kernels."""
+    files = [os.path.join(r, f) for r, _, fs in os.walk(logdir) for f in fs]
+    if len(files) != 1 or not files[0].endswith(".json"):
+        fail(f"phase 8 (serve --profile): trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(e["name"] for e in events
+                                if e.get("cat") == "kernel")
+    found = {k: sum(n for name, n in names.items() if k in name)
+             for k in P8_TRACE_KERNELS}
+    missing = [k for k, n in found.items() if not n]
+    if missing:
+        fail(f"phase 8 (serve --profile): the trace names none of {missing}; "
+             f"its kernels: {[n[:60] for n in names][:20]}")
+    return dict(bytes=os.path.getsize(files[0]), events=len(events),
+                kernel_events=sum(names.values()), port_kernels=found)
+
+
 def p8_engine_tokens(params, cfg, prompts, n_new, kv_bits):
     """Engine.run of the prompts on a fresh engine with the CLI's serve
     settings -> their greedy tokens."""
@@ -2551,6 +2678,8 @@ def phase8(rng) -> dict:
     from micromix_tpu_torch.eval.datasets import get_loaders
     from micromix_tpu_torch.models import checkpoint
     from micromix_tpu_torch.models.loader import config_from_hf, load_dense_params
+    from micromix_tpu_torch.models.surgery import (quantize_model_int8_turbo,
+                                                   quantize_model_weight_only)
     cfg = llama31_8b(P8_LAYERS)
     if config_from_hf(P8_HF_CONFIG) != cfg:
         fail("phase 8: config.json does not give Llama-3.1-8B's config")
@@ -2662,6 +2791,31 @@ def phase8(rng) -> dict:
                   flush=True)
             if not ok:
                 fail(f"phase 8 ({label}): its stats line or completions")
+        # the forms of ROADMAP item 8: the hetero, weight-only MXFP8 and int8
+        # checkpoints, then a profiled serve of the hetero one
+        for label, flags in (("quantize_hetero", ["--calibration", calib,
+                                                  "--hetero"]),
+                             ("quantize_weight_only", ["--weight-only", "mxfp8"]),
+                             ("quantize_int8_turbo", ["--int8-turbo"])):
+            shell(label, ["quantize", "--model", hf, *flags, "--output",
+                          os.path.join(P8_DIR, label)], ())
+        short = os.path.join(P8_DIR, "short_prompts.txt")
+        with open(short, "w") as f:
+            f.write("\n".join(IntTokenizer().decode(p) for p in traffic[:2]) + "\n")
+        prof_dir = os.path.join(P8_DIR, "profile")
+        lines = shell("serve_profile", [
+            "serve", "--model", hf, "--quantized-ckpt",
+            os.path.join(P8_DIR, "quantize_hetero"), "--prompts", short,
+            "--max-new-tokens", "8", "--max-seqs", "2", "--page-size", "128",
+            "--decode-chunk", "8", "--profile", prof_dir],
+            ("site_fakequant_blocks", "w8_gemm", "paged_decode",
+             "append_kv_quant", "flash_attention")).strip().splitlines()
+        out["serve_profile"] = json.loads(lines[-1])
+        out["profile"] = p8_trace(prof_dir)
+        print(f"  quantize --hetero / --weight-only mxfp8 / --int8-turbo, then "
+              f"serve --profile on the hetero checkpoint: "
+              + json.dumps(out["serve_profile"]) + "; trace "
+              + json.dumps(out["profile"]), flush=True)
     finally:
         cli._tokenizer = tokenizer
         checkpoint.save_params, checkpoint.load_params = saved
@@ -2675,9 +2829,21 @@ def phase8(rng) -> dict:
         fail("phase 8: the loaded dense tree differs from the one written")
     del loaded
     calibs, absmax = load_calibration(calib)
-    qmem = smooth_quantize_model(dense, cfg, {k: {"absmax": v}
-                                              for k, v in absmax.items()},
-                                 calibs, alpha=0.5)
+    smooth = {k: {"absmax": v} for k, v in absmax.items()}
+    for label, make in (
+            ("quantize_hetero", lambda: smooth_quantize_model(
+                dict(dense, layers=list(dense["layers"])), cfg, smooth, calibs,
+                alpha=0.5, hetero=True)),
+            ("quantize_weight_only",
+             lambda: quantize_model_weight_only(dense, cfg, "mxfp8")),
+            ("quantize_int8_turbo", lambda: quantize_model_int8_turbo(dense, cfg))):
+        qload, qcfg, _ = checkpoint.load_params(os.path.join(P8_DIR, label),
+                                                device=DEV)
+        if qcfg != cfg or not _same_tree(qload, make()):
+            fail(f"phase 8 ({label}): the checkpoint differs from the tree "
+                 "quantized in memory")
+        del qload
+    qmem = smooth_quantize_model(dense, cfg, smooth, calibs, alpha=0.5)
     del dense
     t0 = time.perf_counter()
     qload, qcfg, meta = checkpoint.load_params(qdir, device=DEV)
@@ -2720,7 +2886,7 @@ def phase8(rng) -> dict:
     main = collections.Counter()
     pages = collections.Counter()
     for label in ("serve_int4", "serve_int8", "serve_spec_ngram",
-                  "serve_draft", "serve_prefix_cache"):
+                  "serve_draft", "serve_prefix_cache", "serve_profile"):
         main.update(runs[label]["launches"])
         pages.update(runs[label]["page_launches"])
     out["main_launches"], out["main_page_launches"] = main, pages
@@ -3222,11 +3388,254 @@ def phase10(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+P11_LAYERS = 32
+P11_FORMS = ("hetero", "mxfp4", "mxfp8", "int8")
+P11_MOE_LAYERS = 4
+P11_MOE_SEQLEN, P11_MOE_CAL, P11_MOE_EVAL = 512, 2, 2
+ATTENTION_KERNELS = ("paged_decode", "append_kv_quant", "flash_attention",
+                     "paged_prefill")
+# the kernels each form's path launches besides the attention kernels:
+# the hetero sites on A's block-format route, then B per consumer (no
+# stack, no pair); weight-only MXFP4 on B; MXFP8 (dequantize +
+# torch.matmul) and int8 (torch._int_mm) on none of the port's
+FORM_KERNELS = {"hetero": ("site_fakequant_blocks", "w8_gemm"),
+                "mxfp4": ("w8_gemm",), "mxfp8": (), "int8": ()}
+FORM_LINEAR = {"hetero": "QuantLinear", "mxfp4": "WeightOnlyLinear",
+               "mxfp8": "WeightOnlyLinear", "int8": "Int8TurboLinear"}
+
+
+def p11_quantize(form: str, dense, cfg, calibs):
+    """The dense model -> one of phase 11's forms (``dense`` is kept)."""
+    from micromix_tpu_torch.models.hetero import quantize_model_hetero
+    from micromix_tpu_torch.models.surgery import (quantize_model_int8_turbo,
+                                                   quantize_model_weight_only)
+    if form == "hetero":
+        return quantize_model_hetero(dense, cfg, calibs)
+    if form == "int8":
+        return quantize_model_int8_turbo(dense, cfg)
+    return quantize_model_weight_only(dense, cfg, form)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return sum(_tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
+@contextlib.contextmanager
+def refuse_plain(label: str):
+    """Kernel A's (both routes) and Kernel B's plain versions fail the run
+    if anything calls them meanwhile."""
+    import importlib
+    fakequant = importlib.import_module("micromix_tpu_torch.kernels.fakequant")
+    matmul = importlib.import_module("micromix_tpu_torch.kernels.mixed_matmul")
+    names = ((fakequant, "fakequant_site_plain"),
+             (fakequant, "fakequant_site_blocks_plain"),
+             (matmul, "mixed_matmul_w8_plain"))
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+
+    def refuse(*args, **kwargs):
+        fail(f"{label}: a kernel's plain version ran on the card")
+
+    for mod, n in names:
+        setattr(mod, n, refuse)
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def form_serve(cfg, params, reqs, form: str, label: str, **kw):
+    """``serve`` of one form with the plain versions refused; it must
+    launch the attention kernels its traffic needs and its form's
+    kernels, and no other kernel of the port."""
+    allowed = set(ATTENTION_KERNELS) | set(FORM_KERNELS[form])
+    with refuse_plain(label):
+        eng, stats = serve(cfg, params, reqs, label, **kw)
+        stats["decode_window"] = decode_window(eng, cfg)
+    launches = stats["launches"]
+    need = [k for k in ATTENTION_KERNELS
+            if k != "paged_prefill" or kw.get("prefill_chunk")]
+    missing = [k for k in need + list(FORM_KERNELS[form]) if not launches.get(k)]
+    stray = [k for k, n in launches.items() if n and k not in allowed]
+    if missing or stray:
+        fail(f"{label}: kernels not launched {missing}, off its path {stray}")
+    if "qkv_stack" in eng.params["layers"][0]:
+        fail(f"{label}: the engine stacked a {form} layer")
+    return eng, stats
+
+
+def phase11(rng, calibs) -> dict:
+    """Llama-3.1-8B widths, 32 layers, dense weights from SEED made on the
+    card (phase 7's model; its calibrations give the hetero budgets): the
+    default engine serves phase 4's traffic with the hetero form, weight-
+    only MXFP4 and MXFP8 and int8 in turn, each launching its path's
+    kernels and no plain version; then 2 layers of each form card against
+    CPU as phase 3 does (a 200-token prompt in chunks of 128, 4 decode
+    steps); then the Mixtral pipeline (``p11_moe``)."""
+    from micromix_tpu_torch.models.hetero import budgets
+    cfg = llama31_8b(P11_LAYERS)
+    t11 = time.perf_counter()
+    dense = dense_llama(cfg, SEED, DEV)
+    out = {"forms": {}}
+    for form in P11_FORMS:
+        t0 = time.perf_counter()
+        params = p11_quantize(form, dense, cfg, calibs)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        params_gib = _tree_bytes(params["layers"]) / 2 ** 30
+        if form == "hetero":
+            b = sorted(budgets(params))
+            out["hetero_budgets"] = b
+            print(f"  hetero: {len(b)} distinct (k4, k6, k8) budgets over the "
+                  f"{4 * cfg.num_layers} sites of {cfg.num_layers} layers: {b}",
+                  flush=True)
+        label = f"phase 11 ({form})"
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        eng, stats = form_serve(cfg, params, _traffic(rng, cfg.vocab_size),
+                                form, label, max_seqs=8, page_size=128,
+                                max_pages_per_seq=16, decode_chunk=8,
+                                prefill_chunk=512)
+        over = stats["peak_mem_gib"] - resident
+        stats.update(quantize_s=quant_s, params_gib=params_gib,
+                     peak_over_resident_gib=over,
+                     peak_alone_gib=params_gib + over)
+        w = stats["decode_window"]
+        print(f"  {form}, {P11_LAYERS} layers: engine "
+              f"{stats['decode_ms_per_step']:.3f} ms/step; decode window "
+              f"{w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step; "
+              f"weights {params_gib:.2f} GiB, serving peak without the dense "
+              f"model {params_gib + over:.2f} GiB; " + json.dumps(stats),
+              flush=True)
+        out["forms"][form] = stats
+        del eng, params
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+    cfg2 = llama31_8b(2)
+    for form in P11_FORMS:
+        out[f"card_vs_cpu_{form}"] = card_vs_cpu(
+            cfg2, 4, ("flash_attention", "paged_prefill", "paged_decode")
+            + FORM_KERNELS[form],
+            lambda p, form=form: type(p["layers"][0]["q"]).__name__ == FORM_LINEAR[form],
+            name=f"llama {form}", prompt_len=200,
+            make=lambda form=form: p11_quantize(
+                form, dense_llama(cfg2, SEED, DEV), cfg2, calibs[:2]))
+    out["moe"] = p11_moe(rng)
+    out["seconds"] = time.perf_counter() - t11
+    return out
+
+
+def p11_moe(rng) -> dict:
+    """The MoE calibrate -> smooth -> quantize (segmented and hetero) ->
+    perplexity pipeline at Mixtral-8x7B widths, P11_MOE_LAYERS layers (the
+    dense model at full depth, about 93 GB of bf16, exceeds the card; 4
+    layers are about 11.6 GB), dense weights from SEED made on the card:
+    calibration on P11_MOE_CAL windows of P11_MOE_SEQLEN (the experts'
+    routed-row masks), smoothing with the expert fan-out, both quantized
+    forms and every perplexity on the next P11_MOE_EVAL windows; quantized
+    ppl under 1.25 x dense, hetero within 1% of segmented.  Then the
+    hetero Mixtral serves four requests."""
+    from micromix_tpu_torch.calib import (average_bits, collect_calibration,
+                                          smooth_params, stats_to_calibration)
+    from micromix_tpu_torch.eval import eval_ppl, synthetic_tokens
+    from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.models.hetero import budgets, quantize_model_hetero
+    from micromix_tpu_torch.models.surgery import quantize_model
+    from micromix_tpu_torch.serve.engine import Request
+    cfg = mixtral_8x7b(P11_MOE_LAYERS)
+    seqlen, n_cal = P11_MOE_SEQLEN, P11_MOE_CAL
+    stream = synthetic_tokens(cfg.vocab_size, (n_cal + P11_MOE_EVAL) * seqlen,
+                              seed=SEED)
+    windows = [stream[i * seqlen:(i + 1) * seqlen][None, :] for i in range(n_cal)]
+    test = stream[n_cal * seqlen:]
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    dense = timed("make_dense", lambda: dense_llama(cfg, SEED, DEV))
+    stats = timed("calibrate", lambda: collect_calibration(dense, cfg, windows))
+    calibs = stats_to_calibration(stats, cfg)
+    ppl = {"dense": timed("dense_ppl", lambda: eval_ppl(dense, cfg, test,
+                                                         seqlen=seqlen))}
+    smoothed = timed("smooth", lambda: smooth_params(dense, cfg, stats))
+    del dense
+    seg = timed("quantize", lambda: quantize_model(smoothed, cfg, calibs))
+    ppl["segmented"] = timed("quant_ppl", lambda: eval_ppl(seg, cfg, test,
+                                                           seqlen=seqlen))
+    del seg
+    het = timed("quantize_hetero", lambda: quantize_model_hetero(smoothed, cfg,
+                                                                 calibs))
+    del smoothed
+    ppl["hetero"] = timed("hetero_ppl", lambda: eval_ppl(het, cfg, test,
+                                                         seqlen=seqlen))
+    launches = dict(build.launches)
+    out = dict(layers=P11_MOE_LAYERS, seqlen=seqlen, calib_windows=n_cal,
+               eval_windows=P11_MOE_EVAL, ppl=ppl, stage_s=secs,
+               average_bits=average_bits(calibs, cfg),
+               hetero_budgets=len(budgets(het)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    print(f"  Mixtral-8x7B widths, {P11_MOE_LAYERS} layers: " + json.dumps(out),
+          flush=True)
+    if not all(np.isfinite(v) for v in ppl.values()):
+        fail("phase 11 (Mixtral): perplexity not finite")
+    if ppl["segmented"] >= 1.25 * ppl["dense"]:
+        fail(f"phase 11 (Mixtral): quantized ppl {ppl['segmented']} over 1.25 x "
+             f"dense {ppl['dense']}")
+    if abs(ppl["hetero"] - ppl["segmented"]) > 0.01 * ppl["segmented"]:
+        fail(f"phase 11 (Mixtral): hetero ppl {ppl['hetero']} not within 1% "
+             f"of segmented {ppl['segmented']}")
+    missing = [k for k in ("flash_attention", "site_fakequant", "w8_gemm",
+                           "site_fakequant_blocks") if not launches.get(k)]
+    if missing:
+        fail(f"phase 11 (Mixtral pipeline): kernels not launched: {missing}")
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(96, 129))).tolist(),
+                    max_new_tokens=16) for i in range(4)]
+    eng, st = form_serve(cfg, het, reqs, "hetero", "phase 11 (hetero Mixtral)",
+                         max_seqs=4, page_size=128, max_pages_per_seq=2,
+                         decode_chunk=8)
+    w = st["decode_window"]
+    print(f"  hetero Mixtral, {P11_MOE_LAYERS} layers: {st['requests_done']} "
+          f"requests answered; decode window {w['ms_per_step']:.3f} ms/step "
+          f"host, {w['device_busy_ms_per_step']:.3f} busy, "
+          f"{w['cuda_launches_per_step']:.1f} CUDA launches/step", flush=True)
+    out["serve"] = st
+    del eng, het
+    torch.cuda.empty_cache()
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
                        "micromix_tpu/kernels/fakequant.py:103",
                        "rms M=8 K=4096"),
+    # A's block-format route: the hetero sites (jnp in the JAX package,
+    # micromix_tpu/models/hetero.py:67-104)
+    "site_fakequant_blocks": ("micromix_tpu_torch/csrc/site_fakequant.cu",
+                              "micromix_tpu/kernels/fakequant.py:103",
+                              "rms M=8 K=4096"),
     "w8_gemm": ("micromix_tpu_torch/csrc/w8_gemm.cu",
                 "micromix_tpu/kernels/mixed_matmul.py:253",
                 "M=8 N=14336 K=4096"),
@@ -3388,6 +3797,7 @@ def main() -> int:
     timer = Timer()
     print("phase 2: kernels against their plain versions on the card", flush=True)
     check_site(results, timer, rng)
+    check_site_blocks(results, timer, rng)
     check_gemm(results, timer)
     check_decode(results, timer, rng)
     check_append(results, timer, rng)
@@ -3433,6 +3843,7 @@ def main() -> int:
           f"Llama-3.1-8B widths at {P7_LAYERS} layers, then 2 layers card "
           f"against CPU", flush=True)
     p7 = phase7()
+    p7_calibs = p7.pop("calibs")
     torch.cuda.empty_cache()
 
     print(f"phase 8: the shell (HF checkpoint, cli calibrate / quantize / "
@@ -3456,6 +3867,14 @@ def main() -> int:
           flush=True)
     p10 = phase10(rng)
     print(f"  phase 10 took {p10['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 11: the hetero, weight-only MXFP4 / MXFP8 and int8 forms of "
+          f"Llama-3.1-8B at {P11_LAYERS} layers through the default engine, 2 "
+          f"layers of each card against CPU, then the Mixtral-8x7B-width "
+          f"pipeline at {P11_MOE_LAYERS} layers", flush=True)
+    p11 = phase11(rng, p7_calibs)
+    print(f"  phase 11 took {p11['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -3464,7 +3883,9 @@ def main() -> int:
                          ("split-plane stacked", p6["stacked"]),
                          ("split-plane per-consumer", p6["per_consumer"]),
                          ("Qwen2-7B int4 KV", p10["int4"]),
-                         ("Qwen2-7B bf16 KV", p10["bf16"])):
+                         ("Qwen2-7B bf16 KV", p10["bf16"]),
+                         *((f"Llama {form}", p11["forms"][form])
+                           for form in P11_FORMS)):
         w = stats["decode_window"]
         print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
@@ -3486,6 +3907,9 @@ def main() -> int:
         main_launches.update(run["launches"])
     main_launches.update(p10["int4"]["launches"])
     main_launches.update(p10["bf16"]["launches"])
+    for form in P11_FORMS:
+        main_launches.update(p11["forms"][form]["launches"])
+    main_launches.update(p11["moe"]["serve"]["launches"])
     # bf16 pages: C's and H's launches on them, D's in that run
     bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
                      for k in ("paged_decode", "paged_prefill")}
@@ -3499,7 +3923,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
-                       phase8=p8, phase9=p9, phase10=p10,
+                       phase8=p8, phase9=p9, phase10=p10, phase11=p11,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

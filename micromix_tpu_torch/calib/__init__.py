@@ -1,6 +1,6 @@
 """Calibration: activation statistics -> per-site precision allocation,
 and SmoothQuant-style smoothing (torch counterpart of
-``micromix_tpu.calib``; dense models)."""
+``micromix_tpu.calib``; dense Llama and Mixtral)."""
 
 from .allocate import allocate_site, average_bits, stats_to_calibration
 from .artifacts import load_calibration, save_calibration

@@ -5,10 +5,12 @@ Counterpart of ``micromix_tpu/calib/smooth.py``.  Per layer and group,
     s = clamp(act_absmax^alpha / colmax(|W|)^(1-alpha), min=1e-5)
     ln.g <- ln.g / s ;  W_fc <- W_fc * s  (columns)
 
-for (ln1, [q, k, v]) and (ln2, [gate, up]), in f32, rounded to bf16.
+for (ln1, [q, k, v]) and (ln2, [gate, up]), or for a Mixtral (ln2,
+[router] + every expert's [w1, w3]), in f32, rounded to bf16.
 ``smooth_quantize_model`` smooths and quantizes one layer at a time and
 drops each dense layer as it goes, so a full-size model is never held
-dense twice; it equals ``quantize_model(smooth_params(...))``.
+dense twice; it equals ``quantize_model(smooth_params(...))``, or with
+``hetero=True`` ``quantize_model_hetero(smooth_params(...))``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Dict, List
 import torch
 
 from ..models.common import DenseLinear, ModelConfig
+from ..models.hetero import quantize_layer_hetero
 from ..models.surgery import ATTN_IN, MLP_IN, LayerCalib, quantize_layer
 
 
@@ -37,16 +40,22 @@ def _smooth_group(gamma: torch.Tensor, fcs: List[DenseLinear], act_absmax,
 
 def smooth_layer(p: Dict[str, Any], i: int, cfg: ModelConfig, stats,
                  alpha: float = 0.5) -> Dict[str, Any]:
-    """Dense layer ``i`` -> its smoothed copy (dense Llama)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "smoothing a MoE layer needs the MoE calibration taps, which are "
-            "not ported (ROADMAP 1.8)")
+    """Dense layer ``i`` -> its smoothed copy."""
     q = dict(p)
     g1, (fq, fk, fv) = _smooth_group(
         p["ln1"], [p["q"], p["k"], p["v"]],
         stats[f"layer{i}/{ATTN_IN}"]["absmax"], alpha)
     q.update(ln1=g1, q=fq, k=fk, v=fv)
+    if cfg.is_moe:
+        fcs = [p["router"]]
+        for ep in p["experts"]:
+            fcs.extend([ep["w1"], ep["w3"]])
+        g2, new = _smooth_group(p["ln2"], fcs,
+                                stats[f"layer{i}/{MLP_IN}"]["absmax"], alpha)
+        q.update(ln2=g2, router=new[0])
+        q["experts"] = [{**ep, "w1": new[1 + 2 * e], "w3": new[2 + 2 * e]}
+                        for e, ep in enumerate(p["experts"])]
+        return q
     g2, (fg, fu) = _smooth_group(
         p["ln2"], [p["gate"], p["up"]],
         stats[f"layer{i}/{MLP_IN}"]["absmax"], alpha)
@@ -65,16 +74,22 @@ def smooth_params(params: Dict[str, Any], cfg: ModelConfig, stats,
 
 def smooth_quantize_model(params: Dict[str, Any], cfg: ModelConfig, stats,
                           calibs: List[LayerCalib], alpha: float = 0.5,
+                          hetero: bool = False,
                           **quant_kw) -> Dict[str, Any]:
-    """Smooth and quantize layer by layer -> quantized params.  Consumes
-    ``params["layers"]``: each dense layer is dropped once quantized."""
+    """Smooth and quantize layer by layer -> quantized params (the hetero
+    form with ``hetero``, else ``quantize_layer`` with ``quant_kw``).
+    Consumes ``params["layers"]``: each dense layer is dropped once
+    quantized."""
     assert len(calibs) == cfg.num_layers
+    if hetero and quant_kw:
+        raise ValueError(f"the hetero form takes no {sorted(quant_kw)}")
     dense = params["layers"]
     layers = []
     for i, calib in enumerate(calibs):
         p, dense[i] = dense[i], None
-        layers.append(quantize_layer(smooth_layer(p, i, cfg, stats, alpha),
-                                     cfg, calib, **quant_kw))
-        del p
+        sp = smooth_layer(p, i, cfg, stats, alpha)
+        layers.append(quantize_layer_hetero(sp, cfg, calib) if hetero
+                      else quantize_layer(sp, cfg, calib, **quant_kw))
+        del p, sp
     return {"embed": params["embed"], "final_ln": params["final_ln"],
             "lm_head": params["lm_head"], "layers": layers}

@@ -7,8 +7,9 @@ of elements below the per-row thresholds rowmax * (_C4 * lamda) and
 rowmax * (_C6 * lamda), as f32 sums of 0/1 (exact up to 2^24 a call).
 The accumulators stay on the params' device during the run; the result
 is a tree of numpy arrays, as the JAX package's ``device_get`` gives.
-Dense Llama only: the MoE taps (per-expert routed rows) are not ported
-(ROADMAP 1.8).
+A Mixtral's expert sites see only the rows routed to their expert (the
+tap's mask), its ``mlp_in`` (the router's and every expert's input, the
+smoothing site) every row.
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ def calibration_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     """One tapped forward over ``tokens`` (B, S) and the stats update."""
     new = dict(accs)
 
-    def tap(layer_idx, name, x):
+    def tap(layer_idx, name, x, mask=None):
         key = f"layer{layer_idx}/{name}"
-        new[key] = _update_site(new[key], x, lamda)
+        new[key] = _update_site(new[key], x, lamda, mask)
 
     forward(params, cfg, tokens, tap=tap)
     return new
@@ -95,10 +96,6 @@ def collect_calibration(params, cfg: ModelConfig,
                         lamda: float = 1.0) -> Dict[str, Dict[str, np.ndarray]]:
     """Run every calibration sample on the params' device -> the stats
     tree as numpy arrays."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "calibration of MoE models needs the moe_block taps, which are "
-            "not ported (ROADMAP 1.8)")
     dev = params["embed"].device
     accs = init_stats_tree(cfg, dev)
     with torch.inference_mode():

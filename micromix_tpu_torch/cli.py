@@ -4,11 +4,14 @@ Counterpart of ``micromix_tpu/cli.py`` with the same parser, flag for
 flag, and the same printed lines and stats JSON:
 
   * ``calibrate``  activation statistics -> calibration ``.npz``
-  * ``quantize``   smooth + reorder + MX packing, baked once into a
-                   checkpoint (the JAX package's format: either package
-                   loads the other's)
+  * ``quantize``   smooth + reorder + MX packing (segmented, or the
+                   hetero form with ``--hetero``), weight-only MX
+                   (``--weight-only``) or W8A8 int8 (``--int8-turbo``),
+                   baked once into a checkpoint (the JAX package's
+                   format: either package loads the other's)
   * ``eval``       perplexity of a dense, quantized or baked model
-  * ``serve``      batch generation through the engine, or with
+  * ``serve``      batch generation through the engine (a profiler trace
+                   of the run with ``--profile DIR``), or with
                    ``--port N`` the OpenAI-style HTTP server
 
 ``--platform auto`` runs on the card and raises without one; nothing
@@ -30,10 +33,6 @@ import time
 _NOT_PORTED = {
     "tp": (lambda v: v > 1, "item 9 (parallel/ onto torch.distributed)"),
     "ep": (lambda v: v > 1, "item 9 (parallel/ onto torch.distributed)"),
-    "hetero": (bool, "item 8 (models/hetero.py)"),
-    "weight_only": (bool, "item 8 (WeightOnlyLinear)"),
-    "int8_turbo": (bool, "item 8 (Int8TurboLinear)"),
-    "profile": (bool, "item 8 (utils/profiling.py)"),
     "tasks": (bool, "item 8 (eval/lm_eval_adapter.py)"),
 }
 
@@ -80,19 +79,30 @@ def cmd_calibrate(args) -> None:
 
 def _quantize(params, cfg, args):
     """The calibration artifact's smoothing (when it holds absmax and
-    ``--smooth``) and quantization, layer by layer: each dense layer is
-    dropped once quantized.  Equal to quantize_model(smooth_params(...)),
-    as the JAX package computes it."""
+    ``--smooth``) and quantization (the hetero form with ``--hetero``),
+    layer by layer: each dense layer is dropped once quantized.  Equal to
+    quantize_model(smooth_params(...)) or quantize_model_hetero(...), as
+    the JAX package computes it."""
     from .calib import load_calibration, smooth_quantize_model
+    from .models.hetero import quantize_model_hetero
     from .models.surgery import quantize_model
 
     calibs, absmax = load_calibration(args.calibration)
-    kw = dict(weight_fp4_only=not args.symmetric_weights)
+    kw = {} if args.hetero else dict(
+        weight_fp4_only=not args.symmetric_weights)
     if args.smooth and absmax:
         stats = {k: {"absmax": v} for k, v in absmax.items()}
         return smooth_quantize_model(params, cfg, stats, calibs,
-                                     alpha=args.alpha, **kw)
+                                     alpha=args.alpha, hetero=args.hetero,
+                                     **kw)
+    if args.hetero:
+        return quantize_model_hetero(params, cfg, calibs)
     return quantize_model(params, cfg, calibs, **kw)
+
+
+def _weight_only(params, cfg, args):
+    from .models.surgery import quantize_model_weight_only
+    return quantize_model_weight_only(params, cfg, args.weight_only)
 
 
 def cmd_quantize(args) -> None:
@@ -100,7 +110,13 @@ def cmd_quantize(args) -> None:
     from .models.checkpoint import save_params
 
     cfg, params = _load_model(args)
-    params = _quantize(params, cfg, args)
+    if args.int8_turbo:
+        from .models.surgery import quantize_model_int8_turbo
+        params = quantize_model_int8_turbo(params, cfg)
+    elif args.weight_only:
+        params = _weight_only(params, cfg, args)
+    else:
+        params = _quantize(params, cfg, args)
     save_params(args.output, params, cfg,
                 meta={"source": args.model,
                       "calibration": args.calibration,
@@ -110,14 +126,17 @@ def cmd_quantize(args) -> None:
 
 def _load_for_run(args):
     """-> (cfg, params): a baked checkpoint, or the HF directory's dense
-    weights, quantized when ``--do-quant``."""
+    weights, weight-only quantized with ``--weight-only``, else quantized
+    when ``--do-quant``."""
     if args.quantized_ckpt:
         from .models.checkpoint import load_params
         params, cfg, _ = load_params(args.quantized_ckpt, device=args.device)
         assert cfg is not None, "checkpoint has no ModelConfig"
         return cfg, params
     cfg, params = _load_model(args)
-    if args.do_quant:
+    if args.weight_only:
+        params = _weight_only(params, cfg, args)
+    elif args.do_quant:
         params = _quantize(params, cfg, args)
     return cfg, params
 
@@ -211,7 +230,12 @@ def cmd_serve(args) -> None:
         for i, p in enumerate(prompts)
     ]
     t0 = time.time()
-    eng.run(reqs)
+    if args.profile:
+        from .utils.profiling import trace
+        with trace(args.profile):
+            eng.run(reqs)
+    else:
+        eng.run(reqs)
     dt = time.time() - t0
     for r in reqs:
         print(f"--- [{r.req_id}] ---")
@@ -262,11 +286,12 @@ def main(argv=None) -> None:
     q.add_argument("--alpha", type=float, default=0.5)
     q.add_argument("--symmetric-weights", action="store_true")
     q.add_argument("--hetero", action="store_true",
-                   help="budgets-as-data hetero representation (not ported)")
+                   help="budgets-as-data hetero representation")
     q.add_argument("--int8-turbo", action="store_true",
-                   help="W8A8 int8 speed mode (not ported)")
+                   help="W8A8 int8 (out-of-spec speed mode, not MicroMix "
+                        "numerics)")
     q.add_argument("--weight-only", choices=("mxfp4", "mxfp6", "mxfp8"),
-                   default=None, help="weight-only MX mode (not ported)")
+                   default=None)
     q.add_argument("--output", default="saved/quantized")
     q.set_defaults(fn=cmd_quantize)
 
@@ -276,7 +301,8 @@ def main(argv=None) -> None:
                    help="load a baked quantized checkpoint (skips surgery)")
     e.add_argument("--do-quant", action="store_true")
     e.add_argument("--weight-only", choices=("mxfp4", "mxfp6", "mxfp8"),
-                   default=None, help="weight-only MX mode (not ported)")
+                   default=None,
+                   help="weight-only MX quantization (no calibration)")
     e.add_argument("--calibration", default="saved/calibration.npz")
     e.add_argument("--smooth", action="store_true", default=True)
     e.add_argument("--no-smooth", dest="smooth", action="store_false")
@@ -284,7 +310,7 @@ def main(argv=None) -> None:
     e.add_argument("--symmetric-weights", action="store_true",
                    help="W4/6/8 per segment instead of all-MXFP4 weights")
     e.add_argument("--hetero", action="store_true",
-                   help="budgets-as-data hetero representation (not ported)")
+                   help="budgets-as-data hetero representation")
     e.add_argument("--eval-ppl", default="",
                    help="comma list: synthetic, file:<path> (wikitext2, "
                         "ptb, c4 need a download)")
@@ -302,14 +328,14 @@ def main(argv=None) -> None:
     s.add_argument("--quantized-ckpt", default=None)
     s.add_argument("--do-quant", action="store_true")
     s.add_argument("--weight-only", choices=("mxfp4", "mxfp6", "mxfp8"),
-                   default=None, help="weight-only MX mode (not ported)")
+                   default=None, help="weight-only MX mode (bf16 acts)")
     s.add_argument("--calibration", default="saved/calibration.npz")
     s.add_argument("--smooth", action="store_true", default=True)
     s.add_argument("--no-smooth", dest="smooth", action="store_false")
     s.add_argument("--alpha", type=float, default=0.5)
     s.add_argument("--symmetric-weights", action="store_true")
     s.add_argument("--hetero", action="store_true",
-                   help="budgets-as-data hetero representation (not ported)")
+                   help="budgets-as-data hetero representation")
     s.add_argument("--prompts", default=None,
                    help="file, one prompt/line (batch mode)")
     s.add_argument("--port", type=int, default=0, metavar="N",
@@ -336,7 +362,7 @@ def main(argv=None) -> None:
                         "followed the last N-token match in the request's "
                         "own history (no draft model)")
     s.add_argument("--profile", default=None, metavar="LOGDIR",
-                   help="capture a profiler trace of the run (not ported)")
+                   help="write a torch.profiler trace of the run there")
     s.add_argument("--temperature", type=float, default=0.0)
     s.add_argument("--top-k", type=int, default=0)
     s.add_argument("--top-p", type=float, default=1.0)

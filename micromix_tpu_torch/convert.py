@@ -4,11 +4,15 @@
 pytree with its leaves already turned into numpy arrays (``jax.tree.map
 (np.asarray, params)``) and returns the port's parameter dict.  It reads
 the containers by attribute name only (``w.codes``, ``w.base``,
-``w.fp4`` ..., ``site.perm``), so it needs neither ``jax`` nor
-``micromix_tpu``; ``models.checkpoint.load_params`` hands it the JAX
+``w.fp4`` ..., ``site.perm``), and tells the linears that share
+attribute names (``QuantLinear``, ``WeightOnlyLinear``) apart by the
+class name the node carries (``kind``, or its type's name), so it needs
+neither ``jax`` nor ``micromix_tpu``; ``models.checkpoint.load_params`` hands it the JAX
 package's on-disk trees with CPU tensors for leaves.  Weights come over
 as ScaledW8 or as split-plane ``MixedTensor`` (``fp4_packed`` and
-``fp4_only`` kept).
+``fp4_only`` kept); the hetero form's ``FakeQuantSite`` (perm,
+block_fmt), ``WeightOnlyLinear`` (ScaledW8 or MixedTensor) and
+``Int8TurboLinear`` (int8 w, f32 w_scale) come over as the port's.
 The Benes routes are dropped: they encode the same permutation as
 ``perm`` for the TPU's lanes.  A pytree that the JAX package's
 ``stack_layer_projections`` has stacked carries ``qkv_stack`` /
@@ -27,7 +31,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.common import DenseLinear, ModelConfig, QuantLinear, QuantSite
+from .models.common import (DenseLinear, FakeQuantSite, Int8TurboLinear,
+                            ModelConfig, QuantLinear, QuantSite,
+                            WeightOnlyLinear)
 from .mx.mxtensor import MixedTensor, SplitPlaneStack
 from .mx.scaledw8 import GroupedW8, ScaledW8, ScaledW8Stack
 
@@ -45,6 +51,12 @@ def to_tensor(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def kind(node) -> str:
+    """A container's class name: ``kind`` where a checkpoint's decoder set
+    it, else its type's name."""
+    return getattr(node, "kind", type(node).__name__)
 
 
 def mixed_from_jax(t, device) -> MixedTensor:
@@ -107,18 +119,28 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
     """JAX quantized params (numpy leaves) -> the port's params on ``device``."""
     dev = resolve_device(device)
 
-    def lin(q) -> QuantLinear:
-        return QuantLinear(w=weight_from_jax(q.w, dev), bias=None
-                           if q.bias is None else to_tensor(q.bias, dev))
+    def bias(q):
+        return None if q.bias is None else to_tensor(q.bias, dev)
 
-    def site(s) -> QuantSite:
+    def lin(q):
+        if hasattr(q, "w_scale"):
+            return Int8TurboLinear(w=to_tensor(np.asarray(q.w, np.int8), dev),
+                                   w_scale=to_tensor(q.w_scale, dev),
+                                   bias=bias(q))
+        cls = WeightOnlyLinear if kind(q) == "WeightOnlyLinear" else QuantLinear
+        return cls(w=weight_from_jax(q.w, dev), bias=bias(q))
+
+    def site(s):
         perm = None if s.perm is None else to_tensor(
             np.asarray(s.perm, np.int32), dev)
+        if hasattr(s, "block_fmt"):
+            return FakeQuantSite(perm=perm, block_fmt=to_tensor(
+                np.asarray(s.block_fmt, np.int32), dev))
         return QuantSite(k4=s.k4, k6=s.k6, k8=s.k8, perm=perm)
 
     def expert(ep) -> Dict[str, Any]:
-        return {"site_in": site(ep["site_in"]), "site_down": site(ep["site_down"]),
-                **{n: lin(ep[n]) for n in ("w1", "w3", "w2")}}
+        sites = {n: site(ep[n]) for n in ("site_in", "site_down") if n in ep}
+        return {**sites, **{n: lin(ep[n]) for n in ("w1", "w3", "w2")}}
 
     def grouped(gr) -> Dict[str, Any]:
         return {"w13": grouped_from_jax(gr["w13"], dev),
@@ -131,7 +153,7 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
     layers = []
     for p in np_tree["layers"]:
         out = {"ln1": to_tensor(p["ln1"], dev), "ln2": to_tensor(p["ln2"], dev)}
-        out.update({n: site(p[n]) for n in _SITES if n in p})
+        out.update({n: site(p[n]) for n in _SITES if p.get(n) is not None})
         out.update({n: lin(p[n]) for n in _LINEARS if n in p})
         out.update({n: stack_from_jax(p[n], dev) for n in _STACKS if n in p})
         if "router" in p:

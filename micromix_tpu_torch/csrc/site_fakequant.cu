@@ -39,6 +39,16 @@
 // arithmetic live in mx_site.cuh: the UE8M0 exponent from the f32 bits,
 // rintf, IEEE division and sqrtf; built without fast-math, so the plain
 // site is bit-exact with the JAX package's.
+//
+// The block-format route (BF, a non-null fmt): the budgets-as-data sites of
+// micromix_tpu/models/hetero.py (fakequant_site, rmsnorm_fakequant, and
+// the silu site of its down projection), which the JAX package computes
+// in jnp, one format at a time under jnp.where.  Block b is the canonical
+// columns [32 b, 32 b + 32) (no segment interleave) and takes its format
+// from fmt[b] (0 fp4, 1 fp6, 2 fp8); lane jb + 8 sub holds the 16-byte run
+// of members 8 sub .. 8 sub + 7.  Everything else (staging, the gather,
+// the producers, the split launch) is the segmented route's, so a hetero
+// site is one launch.
 
 #include "mx_site.cuh"
 #include "ptx.cuh"
@@ -54,11 +64,12 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int n16) {
                     static_cast<const uint8_t*>(src) + static_cast<size_t>(c) * 16, true);
 }
 
-template <int P, bool WHOLE>
+template <int P, bool WHOLE, bool BF>
 __global__ void __launch_bounds__(THREADS)
 site_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ aux,
-            const int* __restrict__ perm, __nv_bfloat16* __restrict__ out, int K, int k4,
-            int k6, int k8, int perm_rows, float eps, int bpc) {
+            const int* __restrict__ perm, const int* __restrict__ fmt,
+            __nv_bfloat16* __restrict__ out, int K, int k4, int k6, int k8, int perm_rows,
+            float eps, int bpc) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int row = blockIdx.x;
   const int nbk = K / 32;
@@ -102,9 +113,19 @@ site_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ aux,
   const int jb = lane & 7, sub = lane >> 3;
   for (int base = b0 + warp * 8; base < b1; base += THREADS / 4) {
     const bool ok = base + jb < b1;
-    const mx::Block blk = mx::block_of(ok ? base + jb : base, k4, k6, k8);
-    const mx::Fmt f = mx::seg_fmt(blk.seg);
-    const int c0 = blk.off + blk.j + sub * blk.nb, step = 4 * blk.nb;
+    const int b = ok ? base + jb : base;
+    int seg, c0, step;
+    if (BF) {
+      seg = fmt[b];
+      c0 = 32 * b + 8 * sub;
+      step = 1;
+    } else {
+      const mx::Block blk = mx::block_of(b, k4, k6, k8);
+      seg = blk.seg;
+      c0 = blk.off + blk.j + sub * blk.nb;
+      step = 4 * blk.nb;
+    }
+    const mx::Fmt f = mx::seg_fmt(seg);
     float v[8];
     float amax = 0.0f;
 #pragma unroll
@@ -129,9 +150,10 @@ site_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ aux,
   }
 }
 
-template <int P, bool WHOLE>
-int launch(const void* x, const void* aux, const void* perm, void* out, int M, int K,
-           int k4, int k6, int k8, int perm_rows, float eps, int bpc, cudaStream_t stream) {
+template <int P, bool WHOLE, bool BF>
+int launch(const void* x, const void* aux, const void* perm, const void* fmt, void* out,
+           int M, int K, int k4, int k6, int k8, int perm_rows, float eps, int bpc,
+           cudaStream_t stream) {
   size_t smem = 0;
   if (WHOLE || P == 1 || perm != nullptr) {
     smem = static_cast<size_t>(K) * 2;
@@ -146,7 +168,7 @@ int launch(const void* x, const void* aux, const void* perm, void* out, int M, i
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= 64 || done[dev] < static_cast<int>(smem)) {
-      err = cudaFuncSetAttribute(site_kernel<P, WHOLE>,
+      err = cudaFuncSetAttribute(site_kernel<P, WHOLE, BF>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -154,35 +176,51 @@ int launch(const void* x, const void* aux, const void* perm, void* out, int M, i
     }
   }
   dim3 grid(M, (K / 32 + bpc - 1) / bpc);
-  site_kernel<P, WHOLE><<<grid, THREADS, smem, stream>>>(
+  site_kernel<P, WHOLE, BF><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), aux, static_cast<const int*>(perm),
-      static_cast<__nv_bfloat16*>(out), K, k4, k6, k8, perm_rows, eps, bpc);
+      static_cast<const int*>(fmt), static_cast<__nv_bfloat16*>(out), K, k4, k6, k8,
+      perm_rows, eps, bpc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
-int launch_p(const void* x, const void* aux, const void* perm, void* out, int M, int K,
-             int k4, int k6, int k8, int perm_rows, float eps, int bpc, cudaStream_t stream) {
+template <int P, bool BF>
+int launch_w(const void* x, const void* aux, const void* perm, const void* fmt, void* out,
+             int M, int K, int k4, int k6, int k8, int perm_rows, float eps, int bpc,
+             cudaStream_t stream) {
   if (bpc >= K / 32)
-    return launch<P, true>(x, aux, perm, out, M, K, k4, k6, k8, perm_rows, eps, K / 32,
-                           stream);
-  return launch<P, false>(x, aux, perm, out, M, K, k4, k6, k8, perm_rows, eps, bpc, stream);
+    return launch<P, true, BF>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps,
+                               K / 32, stream);
+  return launch<P, false, BF>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps,
+                              bpc, stream);
+}
+
+template <int P>
+int launch_p(const void* x, const void* aux, const void* perm, const void* fmt, void* out,
+             int M, int K, int k4, int k6, int k8, int perm_rows, float eps, int bpc,
+             cudaStream_t stream) {
+  if (fmt != nullptr)
+    return launch_w<P, true>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps, bpc,
+                             stream);
+  return launch_w<P, false>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps, bpc,
+                            stream);
 }
 
 }  // namespace
 
 // perm_rows: rows per permutation of a (G, K) perm array (M / G); with a
 // single (K,) perm it is M.  bpc: 32-blocks a CTA (K / 32: whole rows).
+// fmt: null for the segmented route (k4 | k6 | k8), else the block-format
+// route's (K / 32,) int32 formats (k4, k6 and k8 unread).
 extern "C" int site_fakequant(const void* x, const void* aux, const void* perm,
-                              void* out, int M, int K, int k4, int k6, int k8,
-                              int producer, int perm_rows, float eps, int bpc,
+                              const void* fmt, void* out, int M, int K, int k4, int k6,
+                              int k8, int producer, int perm_rows, float eps, int bpc,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (producer == 0)
-    return launch_p<0>(x, aux, perm, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
+    return launch_p<0>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
   if (producer == 1)
-    return launch_p<1>(x, aux, perm, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
+    return launch_p<1>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
   if (producer == 2)
-    return launch_p<2>(x, aux, perm, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
+    return launch_p<2>(x, aux, perm, fmt, out, M, K, k4, k6, k8, perm_rows, eps, bpc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,6 +6,12 @@ the ScaledW8 GEMM consumes.  ``fakequant_site`` runs the CUDA kernel
 (``csrc/site_fakequant.cu``) on a CUDA tensor, at every M, and its plain
 version ``fakequant_site_plain`` on a CPU tensor.
 
+``fakequant_site_blocks`` is the block-format route of the same kernel:
+the budgets-as-data sites of the hetero form (``models/hetero.py``), where
+each canonical 32-block takes its format from a ``block_fmt`` array
+instead of from a segment; its plain version is
+``fakequant_site_blocks_plain``.
+
 The plain version follows the JAX package's XLA chain
 (``ops/quantize_ops.rmsnorm_fakequant_x`` and its twins) operation by
 operation, so plain images are bit-exact.  rms and silu images may still
@@ -26,7 +32,7 @@ from . import build
 
 _PRODUCERS = {"plain": 0, "rms": 1, "silu": 2}
 _SIG = {"site_fakequant": [build.PTR, build.PTR, build.PTR, build.PTR,
-                           build.INT, build.INT, build.INT, build.INT,
+                           build.PTR, build.INT, build.INT, build.INT, build.INT,
                            build.INT, build.INT, build.INT, build.FLOAT,
                            build.INT, build.PTR]}
 # blocks the kernel's split launch aims at below that many rows: 2 for each
@@ -133,6 +139,18 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
     if not x.is_cuda:
         return fakequant_site_plain(x, k4, k6, k8, producer=producer,
                                     gamma=gamma, up=up, perm=perm, eps=eps)
+    if perm is not None and perm.shape[-1] != k:
+        raise ValueError(f"perm shape {tuple(perm.shape)} != ({k},)")
+    return _launch("site_fakequant", x, producer, gamma, up, perm, None,
+                   (k4, k6, k8), m // groups, eps)
+
+
+def _launch(name: str, x, producer, gamma, up, perm, fmt, splits,
+            perm_rows: int, eps: float) -> torch.Tensor:
+    """One launch of Kernel A on CUDA tensors: the segmented route
+    (``fmt`` None, ``splits`` (k4, k6, k8)) or the block-format route
+    (``fmt`` (K / 32,)), counted under ``name``."""
+    m, k = x.shape
     aux = None
     if producer == "rms":
         aux = gamma.to(torch.float32).contiguous()
@@ -147,17 +165,79 @@ def fakequant_site(x: torch.Tensor, k4: int, k6: int, k8: int, *,
         raise ValueError(f"site input must be bf16, got {x.dtype}")
     if perm is not None:
         perm = perm.to(device=x.device, dtype=torch.int32).contiguous()
-        if perm.shape[-1] != k:
-            raise ValueError(f"perm shape {tuple(perm.shape)} != ({k},)")
-    build.require_cuda("fakequant_site", x, aux, perm)
+    if fmt is not None:
+        fmt = fmt.to(device=x.device, dtype=torch.int32).contiguous()
+    build.require_cuda(name, x, aux, perm, fmt)
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
     lib = build.library("site_fakequant", _SIG)
-    build.launches["site_fakequant"] += 1
+    build.launches[name] += 1
     rc = lib.site_fakequant(build.ptr(x), build.ptr(aux), build.ptr(perm),
-                            build.ptr(out), m, k, k4, k6, k8,
-                            _PRODUCERS[producer], m // groups, float(eps),
+                            build.ptr(fmt), build.ptr(out), m, k, *splits,
+                            _PRODUCERS[producer], perm_rows, float(eps),
                             site_blocks_per_cta(m, k), build.stream())
-    build.check(rc, "site_fakequant")
+    build.check(rc, name)
     return out
+
+
+# block_fmt ids: 0 MXFP4, 1 MXFP6, 2 MXFP8
+BLOCK_FORMATS = (FP4, FP6, FP8)
+
+
+def fakequant_blocks_values(y: torch.Tensor,
+                            block_fmt: torch.Tensor) -> torch.Tensor:
+    """f32 site values (M, K), canonical order -> bf16 grid image: block b
+    (columns 32 b .. 32 b + 31) on the grid of format ``block_fmt[b]``.
+    Every format is computed for every block and the block's own kept by
+    ``torch.where``, in the JAX package's order (``hetero.fakequant_site``)."""
+    m, k = y.shape
+    xb = y.reshape(m, k // BLOCK_SIZE, BLOCK_SIZE)
+    maxv = xb.abs().amax(dim=-1)
+    keep = block_fmt.to(y.device).reshape(1, -1, 1)
+    out = None
+    for fid, fmt in enumerate(BLOCK_FORMATS):
+        e = nx.block_scale_exponent(maxv, fmt)
+        vals = nx.quantize_to_grid(xb * nx.exp2i(-e)[..., None], fmt) \
+            * nx.exp2i(e)[..., None]
+        out = vals if out is None else torch.where(keep == fid, vals, out)
+    return out.reshape(m, k).to(torch.bfloat16)
+
+
+def fakequant_site_blocks_plain(x, block_fmt, *, producer="plain", gamma=None,
+                                up=None, perm=None, eps=1e-6) -> torch.Tensor:
+    aux = gamma if producer == "rms" else up
+    return fakequant_blocks_values(
+        site_producer_values(producer, x, aux, eps, perm), block_fmt)
+
+
+def fakequant_site_blocks(x: torch.Tensor, block_fmt: torch.Tensor, *,
+                          producer: str = "plain",
+                          gamma: Optional[torch.Tensor] = None,
+                          up: Optional[torch.Tensor] = None,
+                          perm: Optional[torch.Tensor] = None,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """(M, K) bf16 site input(s) -> bf16 grid image (M, K), canonical
+    column order, each 32-block in the format ``block_fmt`` ((K / 32,)
+    int32, 0 fp4, 1 fp6, 2 fp8) gives it.
+
+    The producers are the segmented route's: "plain" (optional ``perm``
+    (K,), device column -> source channel), "rms" (``gamma`` (K,) in source
+    order, the row normalised before the gather, 1 / sqrt of the row
+    moment correctly rounded), "silu" (x = gate, ``up`` (M, K), the f32
+    product quantized with no bf16 round).  One launch of Kernel A on a
+    CUDA tensor; the plain version on a CPU tensor.
+    """
+    m, k = x.shape
+    if k % BLOCK_SIZE or block_fmt.shape != (k // BLOCK_SIZE,):
+        raise ValueError(f"block_fmt {tuple(block_fmt.shape)} for site width {k}")
+    if producer == "silu" and perm is not None:
+        raise ValueError("the silu site takes no permutation")
+    if perm is not None and perm.shape != (k,):
+        raise ValueError(f"perm shape {tuple(perm.shape)} != ({k},)")
+    if not x.is_cuda:
+        return fakequant_site_blocks_plain(x, block_fmt, producer=producer,
+                                           gamma=gamma, up=up, perm=perm,
+                                           eps=eps)
+    return _launch("site_fakequant_blocks", x, producer, gamma, up, perm,
+                   block_fmt, (0, 0, 0), m, eps)

@@ -9,14 +9,14 @@ format, so a checkpoint baked by either package loads in the other:
 
 Node kinds: dict / list / tuple / None / array and the containers
 ``MixedTensor``, ``ScaledW8`` (its ``base`` written as the (1, 1) int32
-array the JAX package keeps), ``QuantLinear``, ``DenseLinear`` and
-``QuantSite`` (``benes`` written as none: the port gathers by ``perm``).
+array the JAX package keeps), ``QuantLinear``, ``WeightOnlyLinear``,
+``Int8TurboLinear``, ``DenseLinear``, ``QuantSite`` (``benes`` written as
+none: the port gathers by ``perm``) and ``FakeQuantSite``.
 A quantized tree loads through ``convert.from_jax_params``, which reads
-containers by attribute name; a dense tree comes back in the layout of
-``random_dense_params``.  The JAX package's ``Int8TurboLinear``,
-``WeightOnlyLinear`` and ``FakeQuantSite`` have no counterpart in the port
-yet (ROADMAP item 8), nor do its orbax checkpoints
-(``save_params_async`` / ``load_params_async``).
+containers by attribute name (and the node's kind where names are
+shared); a dense tree comes back in the layout of
+``random_dense_params``.  The JAX package's orbax checkpoints
+(``save_params_async`` / ``load_params_async``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ import torch
 from ..device import resolve_device
 from ..mx.mxtensor import MixedTensor
 from ..mx.scaledw8 import ScaledW8
-from .common import DenseLinear, ModelConfig, QuantLinear, QuantSite
+from .common import (DenseLinear, FakeQuantSite, Int8TurboLinear, ModelConfig,
+                     QuantLinear, QuantSite, WeightOnlyLinear)
 
 FORMAT_VERSION = 1
 
@@ -44,11 +45,13 @@ _NODE_TYPES = {
                     ("fp4_packed", "fp4_only")),
     "ScaledW8": (ScaledW8, ("codes", "base"), ("k4", "k6", "k8")),
     "QuantLinear": (QuantLinear, ("w", "bias"), ()),
+    "Int8TurboLinear": (Int8TurboLinear, ("w", "w_scale", "bias"), ()),
+    "WeightOnlyLinear": (WeightOnlyLinear, ("w", "bias"), ()),
     "DenseLinear": (DenseLinear, ("w", "bias"), ()),
     "QuantSite": (QuantSite, ("perm", "benes"), ("k4", "k6", "k8")),
+    "FakeQuantSite": (FakeQuantSite, ("perm", "block_fmt"), ()),
 }
 _BY_CLASS = {cls: name for name, (cls, _, _) in _NODE_TYPES.items()}
-_NOT_PORTED = ("Int8TurboLinear", "WeightOnlyLinear", "FakeQuantSite")
 
 # dtypes numpy cannot save, as same-width integer views
 _VIEW_AS = {"bfloat16": (torch.bfloat16, torch.int16, np.uint16),
@@ -107,7 +110,8 @@ def _encode(node: Any, arrays: Dict[str, np.ndarray], prefix: str):
 
 def _decode(spec: Dict[str, Any], arrays, kinds: set) -> Any:
     """The manifest's tree -> CPU tensors, containers as attribute objects
-    (``kinds`` collects the container kinds met)."""
+    that carry their ``kind`` (``kinds`` collects the container kinds
+    met)."""
     kind = spec["kind"]
     if kind == "none":
         return None
@@ -122,16 +126,12 @@ def _decode(spec: Dict[str, Any], arrays, kinds: set) -> Any:
     if kind in ("list", "tuple"):
         items = [_decode(v, arrays, kinds) for v in spec["items"]]
         return items if kind == "list" else tuple(items)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"checkpoint node {kind}: the port has no such container yet "
-            "(ROADMAP item 8)")
     if kind not in _NODE_TYPES:
         raise ValueError(f"unknown checkpoint node kind {kind!r}")
     kinds.add(kind)
     kw = {f: _decode(s, arrays, kinds) for f, s in spec["fields"].items()}
     kw.update(spec["statics"])
-    return types.SimpleNamespace(**kw)
+    return types.SimpleNamespace(kind=kind, **kw)
 
 
 def _dense(node: Any, device) -> Any:

@@ -3,10 +3,14 @@
 Counterpart of ``micromix_tpu/models/common.py`` for the Llama and
 Mixtral paths with ScaledW8 or split-plane weights: ``ModelConfig``,
 ``DenseLinear`` (the dense model's linears and the MoE router),
-``QuantLinear``, ``QuantSite``, ``rmsnorm``, ``quantize_int_group`` (the
+``QuantLinear``, ``WeightOnlyLinear`` (MX weights, bf16 activations),
+``Int8TurboLinear`` (W8A8 per-channel int8), ``QuantSite``,
+``FakeQuantSite`` (the hetero form's budgets-as-data site, see
+``models/hetero.py``), ``rmsnorm``, ``quantize_int_group`` (the
 KV fake quantization of the accuracy mode), the RoPE helpers (including
 llama3 frequency scaling) and the legs of ``project_all``: dense (bf16,
-no site), ScaledW8 per consumer, split-plane per
+weight-only or int8 linears, no site), hetero (Kernel A's block-format
+route, then ScaledW8 per consumer), ScaledW8 per consumer, split-plane per
 consumer (the MX quantize, then one split-plane GEMM per consumer), a
 single split-plane consumer wrapped as a one-section stack, and the
 stacked legs of both layouts.  Parameters
@@ -23,12 +27,12 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
-from ..kernels.fakequant import fakequant_site
+from ..kernels.fakequant import fakequant_site, fakequant_site_blocks
 from ..kernels.mixed_matmul import (W8_STACK_MAX_M, mixed_matmul,
                                     mixed_matmul_sp_stack,
                                     mixed_matmul_w8_site,
                                     mixed_matmul_w8_stack)
-from ..mx.mxtensor import (MixedTensor, SplitPlaneStack,
+from ..mx.mxtensor import (MixedTensor, SplitPlaneStack, dequantize_mixed,
                            dequantize_mixed_device, stack_split_plane)
 from ..mx.numerics import div
 from ..mx.scaledw8 import ScaledW8, ScaledW8Stack, dequantize_stack
@@ -103,6 +107,85 @@ class QuantLinear:
 
 
 @dataclasses.dataclass
+class WeightOnlyLinear:
+    """Weight-only MX linear (bf16 activations, no calibration): a
+    canonical-column-order ScaledW8 (MXFP4) or an MX ``MixedTensor`` (any
+    format, its segments interleaved as stored)."""
+
+    w: Union[ScaledW8, MixedTensor]
+    bias: Optional[torch.Tensor] = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """ScaledW8: the ScaledW8 GEMM (Kernel B) on the bf16 rows, plus
+        bias in bf16.  MixedTensor: the weight dequantized in canonical
+        order (exact in f32), one f32 product, the bias added before the
+        one round to bf16, as the JAX package's ``jnp.dot`` with f32
+        output; the same path on every device."""
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        if isinstance(self.w, ScaledW8):
+            y = add_bias(mixed_matmul(x2d, self.w), self.bias)
+        else:
+            y = torch.matmul(x2d.to(torch.float32),
+                             dequantize_mixed(self.w, torch.float32).t())
+            if self.bias is not None:
+                y = y + self.bias.to(torch.float32)
+            y = y.to(torch.bfloat16)
+        return y.reshape(*lead, y.shape[-1])
+
+
+# ``max |x| / 127.0`` as the JAX package's jitted programs compute it: XLA
+# folds the constant divisor into a multiply by its f32 reciprocal
+_INV_127 = 1.0 / 127.0
+
+
+def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xq (M, K) int8 . w (N, K) int8 ^T -> exact int32 (M, N).
+
+    ``torch._int_mm`` (the JAX package leaves the product to XLA).  Its
+    CUDA route takes more than 16 rows and K and N multiples of 8, so on
+    the card the rows are zero-padded to a multiple of 8, at least 32 (a
+    decode step's 8 rows become 32), and the padding cut off after."""
+    m, k = xq.shape
+    if not xq.is_cuda:
+        return torch._int_mm(xq, w.t())
+    if k % 8 or w.shape[0] % 8:
+        raise ValueError(f"int8 product on the card needs K and N multiples "
+                         f"of 8, got K={k} N={w.shape[0]}")
+    mp = max(32, -(-m // 8) * 8)
+    if mp != m:
+        xq = torch.cat([xq, xq.new_zeros((mp - m, k))])
+    return torch._int_mm(xq, w.t())[:m]
+
+
+@dataclasses.dataclass
+class Int8TurboLinear:
+    """W8A8 linear: symmetric per-output-channel int8 weights (``w`` (N,
+    K) int8, ``w_scale`` (N,) f32) and dynamic per-row int8 activations.
+    Not MX numerics: the JAX package's out-of-spec speed mode."""
+
+    w: torch.Tensor
+    w_scale: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Each row quantized by its own max / 127 (round half to even,
+        clipped to +-127), the exact int32 product, times the row scale,
+        then the channel scale, in that order; bias; one round to bf16."""
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        sa = xf.abs().amax(dim=-1, keepdim=True) * torch.full(
+            (), _INV_127, dtype=torch.float32, device=xf.device)
+        sa = torch.clamp(sa, min=1e-12)
+        xq = torch.clamp(torch.round(xf / sa), -127, 127).to(torch.int8)
+        y = int8_matmul(xq, self.w).to(torch.float32) * sa * self.w_scale
+        if self.bias is not None:
+            y = y + self.bias.to(torch.float32)
+        y = y.to(torch.bfloat16)
+        return y.reshape(*lead, y.shape[-1])
+
+
+@dataclasses.dataclass
 class QuantSite:
     """One activation-quantization site: segment split and gather.
 
@@ -123,6 +206,18 @@ class QuantSite:
     @property
     def splits(self):
         return (self.k4, self.k6, self.k8)
+
+
+@dataclasses.dataclass
+class FakeQuantSite:
+    """The hetero form's activation site (``models/hetero.py``): budgets as
+    data.  ``perm`` (K,) int32 maps canonical (saliency-sorted) position ->
+    source channel, or None (the down site: gate / up rows carry the
+    sort); ``block_fmt`` (K / 32,) int32 gives each canonical 32-block's
+    format, 0 MXFP4, 1 MXFP6, 2 MXFP8."""
+
+    perm: Optional[torch.Tensor]
+    block_fmt: torch.Tensor
 
 
 def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -253,10 +348,12 @@ def project_all(x: torch.Tensor, site: Optional[QuantSite],
     """[rmsnorm ->] the site's quantize -> every consumer of the site.
 
     x (..., K) -> [(..., N_i)].  The site runs once and feeds the sibling
-    consumers (q/k/v, gate/up): ScaledW8 consumers take its bf16 image,
+    consumers (q/k/v, gate/up): a ``FakeQuantSite`` (hetero) gives its
+    consumers the block-format route's image; ScaledW8 consumers of a
+    segmented site take its bf16 image,
     split-plane ones its MX codes; a single split-plane consumer (o) runs
-    as a one-section stack.  Dense linears take x (rmsnormed when
-    ``norm_gamma`` is given) with no site.  ``stack``: the consumers
+    as a one-section stack.  Dense, weight-only and int8 linears
+    take x (rmsnormed when ``norm_gamma`` is given) with no site.  ``stack``: the consumers
     row-stacked (``stack_layer_projections``, a ScaledW8Stack or
     SplitPlaneStack); ``linears`` is then ignored and the stacked leg
     runs.
@@ -265,10 +362,17 @@ def project_all(x: torch.Tensor, site: Optional[QuantSite],
     if stack is not None:
         return _project_stack(x, site, stack, norm_gamma, rms_eps, lead)
     if not isinstance(linears[0], QuantLinear):
-        # the dense model: [rmsnorm ->] each bf16 linear, no site
+        # dense, weight-only or int8 linears: [rmsnorm ->] each, no site
         xn = rmsnorm(x, norm_gamma, rms_eps) if norm_gamma is not None else x
         return [lin(xn) for lin in linears]
     x2d = x.reshape(-1, x.shape[-1])
+    if isinstance(site, FakeQuantSite):
+        # hetero: one launch of Kernel A's block-format route, whose image
+        # every (canonical-order ScaledW8) consumer takes
+        kw = {} if norm_gamma is None else dict(producer="rms",
+                                                 gamma=norm_gamma, eps=rms_eps)
+        qx = fakequant_site_blocks(x2d, site.block_fmt, perm=site.perm, **kw)
+        return [lin(qx).reshape(*lead, -1) for lin in linears]
     if linears[0].w.segments() != site.splits:
         raise ValueError(f"site {site.splits} vs weight {linears[0].w.segments()}")
     if all(isinstance(lin.w, ScaledW8) for lin in linears):

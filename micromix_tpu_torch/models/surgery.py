@@ -13,6 +13,12 @@ is baked into the gate / up (an expert's w1 / w3) weight rows, so the
 silu site needs no gather.  The MoE router stays bf16.  Codes, scales and
 base are bit-identical to the JAX package's for the same dense weights.
 
+``quantize_model_weight_only`` (MX weights, bf16 activations, no
+calibration) and ``quantize_model_int8_turbo`` (W8A8 per-channel int8)
+turn every decoder linear into a ``WeightOnlyLinear`` or an
+``Int8TurboLinear``, with no sites; ``models/hetero.py`` holds the
+budgets-as-data form.
+
 ``stack_layer_projections`` is the serving engine's init transform: each
 site's consumers (q|k|v, gate|up) become one ``ScaledW8Stack`` or
 ``SplitPlaneStack``, and a layer's ScaledW8 experts one grouped form
@@ -30,11 +36,13 @@ import torch
 
 from ..device import resolve_device
 from ..mx import layout as lay
-from ..mx.mxtensor import (MixedTensor, pack_mixed, quantize_mixed,
-                           stack_split_plane)
-from ..mx.scaledw8 import (ScaledW8, group_scaled_w8, pack_scaled_w8,
-                           stack_scaled_w8)
-from .common import DenseLinear, ModelConfig, QuantLinear, QuantSite
+from ..mx.mxtensor import (MixedTensor, dequantize_mixed, pack_mixed,
+                           quantize_mixed, stack_split_plane)
+from ..mx.numerics import div
+from ..mx.scaledw8 import (ScaledW8, encode_scaled_values, group_scaled_w8,
+                           pack_scaled_w8, stack_scaled_w8)
+from .common import (DenseLinear, Int8TurboLinear, ModelConfig, QuantLinear,
+                     QuantSite, WeightOnlyLinear)
 
 ATTN_IN = "attn_in"    # -> q, k, v
 O_IN = "o_in"          # -> o
@@ -168,6 +176,76 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig,
                                   layout=layout)
                    for p, c in zip(params["layers"], calibs)],
     }
+
+
+def _convert_linears(params: Dict[str, Any], cfg: ModelConfig,
+                     conv) -> Dict[str, Any]:
+    """Every decoder linear through ``conv`` (the MoE router, embeddings,
+    norms and head stay bf16); no sites."""
+
+    def layer(p):
+        out = {"ln1": p["ln1"], "ln2": p["ln2"]}
+        for name in ("q", "k", "v", "o"):
+            out[name] = conv(p[name])
+        if cfg.is_moe:
+            out["router"] = p["router"]
+            out["experts"] = [{n: conv(ep[n]) for n in ("w1", "w3", "w2")}
+                              for ep in p["experts"]]
+        else:
+            for name in ("gate", "up", "down"):
+                out[name] = conv(p[name])
+        return out
+
+    return {"embed": params["embed"], "final_ln": params["final_ln"],
+            "lm_head": params["lm_head"],
+            "layers": [layer(p) for p in params["layers"]]}
+
+
+WEIGHT_ONLY_FORMATS = {"mxfp4": lambda k: (k, 0, 0),
+                       "mxfp6": lambda k: (0, k, 0),
+                       "mxfp8": lambda k: (0, 0, k)}
+
+
+def quantize_model_weight_only(params: Dict[str, Any], cfg: ModelConfig,
+                               fmt: str = "mxfp8") -> Dict[str, Any]:
+    """Weight-only MX quantization: every decoder linear a
+    ``WeightOnlyLinear`` with the whole K axis in one MX format, in its
+    own column order (no calibration, no reorder).  MXFP4 is a
+    canonical-order ScaledW8 (Kernel B runs it), MXFP6 and MXFP8 a
+    ``MixedTensor``."""
+    if fmt not in WEIGHT_ONLY_FORMATS:
+        raise ValueError(f"weight-only format {fmt!r} not in "
+                         f"{tuple(WEIGHT_ONLY_FORMATS)}")
+    budget = WEIGHT_ONLY_FORMATS[fmt]
+
+    def conv(lin):
+        k = lin.w.shape[1]
+        wq = quantize_mixed(lin.w.to(torch.float32), *budget(k),
+                            weight_fp4_only=False)
+        if fmt == "mxfp4":
+            codes, base = encode_scaled_values(dequantize_mixed(wq))
+            wq = ScaledW8(codes=codes, base=base, k4=k, k6=0, k8=0)
+        return WeightOnlyLinear(w=wq, bias=None if lin.bias is None
+                                else lin.bias.to(torch.bfloat16))
+
+    return _convert_linears(params, cfg, conv)
+
+
+def quantize_model_int8_turbo(params: Dict[str, Any],
+                              cfg: ModelConfig) -> Dict[str, Any]:
+    """Every decoder linear -> ``Int8TurboLinear``: symmetric
+    per-output-channel int8 weights, scale max |w| / 127 (true divisions,
+    round half to even, clipped to +-127), as the JAX package computes
+    them in f32 numpy."""
+
+    def conv(lin):
+        w = lin.w.to(torch.float32)
+        s = div(torch.clamp(w.abs().amax(dim=1), min=1e-12), 127.0)
+        q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+        return Int8TurboLinear(w=q, w_scale=s, bias=None if lin.bias is None
+                               else lin.bias.to(torch.bfloat16))
+
+    return _convert_linears(params, cfg, conv)
 
 
 _STACKS = (("qkv_stack", ("q", "k", "v"), "attn_site"),

@@ -2,18 +2,21 @@
 quantized Mixtral.
 
 Counterpart of ``micromix_tpu/models/transformer.py`` (``forward``,
-``attention_block``, ``mlp_block``, the ScaledW8 and split-plane branches
-of ``_down_proj_q``, and the Mixtral ``moe_block`` with dense or capacity
-dispatch); quantized layers carry per-consumer q/k/v and gate/up or their
+``attention_block``, ``mlp_block``, the hetero, ScaledW8 and split-plane
+branches of ``_down_proj_q``, and the Mixtral ``moe_block`` with dense or
+capacity dispatch, over quantized, hetero, weight-only, int8 or dense
+experts); quantized layers carry per-consumer q/k/v and gate/up or their
 stacks (``qkv_stack``, ``gateup_stack``: ScaledW8Stack or
 SplitPlaneStack), and per-expert dicts (``experts``) or, for ScaledW8
 experts, their grouped form (``experts_grouped``).  A dense Llama layer
 (``DenseLinear``s, no sites) runs its bf16 linears; its calibration taps
-(``tap``) see the four site inputs, and ``kv_quant_bits`` fake-quantizes
-K and V per head (``quantize_int_group``).  Prefill attention goes through
-``flash_attention``: the CUDA kernel on the GPU, its plain f32 version on
-the CPU.  The expert-parallel forms and the MoE calibration taps are not
-ported.
+(``tap``) see the four site inputs, a dense Mixtral layer's the router
+input and each expert's two site inputs with its routed-row mask, and
+``kv_quant_bits`` fake-quantizes K and V per head
+(``quantize_int_group``).  Weight-only and int8 layers (no sites) run as
+the dense forms do.  Prefill attention goes through ``flash_attention``:
+the CUDA kernel on the GPU, its plain f32 version on the CPU.  The
+expert-parallel forms are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from ..kernels.fakequant import fakequant_site
+from ..kernels.fakequant import fakequant_site, fakequant_site_blocks
 from ..kernels.flash_attention import flash_attention
 from ..kernels.mixed_matmul import (GROUPED_MAX_C, mixed_matmul,
                                     mixed_matmul_sp_stack,
@@ -32,9 +35,10 @@ from ..kernels.mixed_matmul import (GROUPED_MAX_C, mixed_matmul,
 from ..mx.mxtensor import stack_split_plane
 from ..mx.scaledw8 import GroupedW8, ScaledW8, dequantize_grouped
 from ..ops.quantize_ops import silu_mul_quantize_x
-from .common import (STACK_KERNEL_MAX_M, ModelConfig, QuantLinear, QuantSite,
-                     _sp_fusable, add_bias, apply_rope, lm_logits, project_all,
-                     quantize_int_group, rmsnorm, rope_table)
+from .common import (STACK_KERNEL_MAX_M, FakeQuantSite, ModelConfig,
+                     QuantLinear, _sp_fusable, add_bias, apply_rope,
+                     lm_logits, project_all, quantize_int_group, rmsnorm,
+                     rope_table)
 
 Params = Dict[str, Any]
 
@@ -102,19 +106,24 @@ def mlp_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
     return p["down"](_silu(gate).to(torch.bfloat16) * up)
 
 
-def _down_proj_q(g: torch.Tensor, u: torch.Tensor, site: QuantSite,
+def _down_proj_q(g: torch.Tensor, u: torch.Tensor, site,
                  down: QuantLinear) -> torch.Tensor:
     """silu(g) * u -> the silu site -> ``down``; keeps g's leading shape.
 
-    ScaledW8: the site image and the ScaledW8 GEMM, at every M.
-    Split-plane, up to ``STACK_KERNEL_MAX_M`` rows with 128-aligned rows:
+    Hetero (``FakeQuantSite``): Kernel A's block-format route on the f32
+    product, then the canonical-order ScaledW8 GEMM.  ScaledW8: the site
+    image and the ScaledW8 GEMM, at every M.  Split-plane, up to ``STACK_KERNEL_MAX_M`` rows with 128-aligned rows:
     the site and the stacked GEMM on a one-section stack (no copy); else
     the MX quantize and ``mixed_matmul`` (the split-plane GEMM below 512
     rows, one dense product from 512)."""
     lead = g.shape[:-1]
+    g2d, u2d = g.reshape(-1, g.shape[-1]), u.reshape(-1, u.shape[-1])
+    if isinstance(site, FakeQuantSite):
+        y = down(fakequant_site_blocks(g2d, site.block_fmt, producer="silu",
+                                       up=u2d))
+        return y.reshape(*lead, y.shape[-1])
     if down.w.segments() != site.splits:
         raise ValueError(f"down site {site.splits} vs weight {down.w.segments()}")
-    g2d, u2d = g.reshape(-1, g.shape[-1]), u.reshape(-1, u.shape[-1])
     if isinstance(down.w, ScaledW8):
         y = mixed_matmul_w8_site(g2d, down.w, producer="silu", up=u2d)
     elif _sp_fusable([down]) and g2d.shape[0] <= STACK_KERNEL_MAX_M:
@@ -157,9 +166,14 @@ def capacity_dispatch(weights: torch.Tensor, capacity: int):
 
 
 def _expert_out(ep: Params, toks: torch.Tensor) -> torch.Tensor:
-    """One expert's FFN on ``toks`` (the per-expert form)."""
-    g, u = project_all(toks, ep["site_in"], [ep["w1"], ep["w3"]])
-    return _down_proj_q(g, u, ep["site_down"], ep["w2"])
+    """One expert's FFN on ``toks`` (the per-expert form): quantized or
+    hetero through its sites; dense, weight-only or int8 as the dense
+    forward's (silu(gate) rounded to bf16 before the product)."""
+    if isinstance(ep["w1"], QuantLinear):
+        g, u = project_all(toks, ep["site_in"], [ep["w1"], ep["w3"]])
+        return _down_proj_q(g, u, ep["site_down"], ep["w2"])
+    g, u = ep["w1"](toks), ep["w3"](toks)
+    return ep["w2"](_silu(g).to(torch.bfloat16) * u)
 
 
 def _grouped_apply(qx: torch.Tensor, gw: GroupedW8) -> List[torch.Tensor]:
@@ -245,15 +259,24 @@ def route(xn: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return torch.zeros_like(probs).scatter_(1, top_i, top_w)
 
 
-def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
+              tap: Optional[Callable] = None) -> torch.Tensor:
     """The Mixtral sparse-MoE block: rmsnorm, the bf16 router, top-k
     routing weights, then the experts, grouped (``experts_grouped``) or
     one by one (``experts``), under dense dispatch (every expert on every
     token, mixed by the routing weights) or capacity dispatch
-    (``cfg.moe_capacity_factor``)."""
+    (``cfg.moe_capacity_factor``).
+
+    ``tap`` (dense experts, dense dispatch): called with ("mlp_in", xn),
+    the router's and every expert's input, then per expert e with
+    ("expert{e}_mlp_in", xn, routed) and ("expert{e}_down_in", silu(w1)
+    * w3 rounded once to bf16, routed), routed = weights[:, e] > 0 the
+    rows routed to e."""
     b, s, k = h.shape
     xn = rmsnorm(h.reshape(-1, k), p["ln2"], cfg.rms_eps)
     weights = route(xn, p, cfg)
+    if tap is not None:
+        return _moe_tapped(xn, weights, p, tap).to(torch.bfloat16).reshape(b, s, k)
     gr = p.get("experts_grouped")
     if gr is not None:
         return _moe_grouped(xn, weights, gr, cfg).to(torch.bfloat16).reshape(b, s, k)
@@ -273,13 +296,27 @@ def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return out.to(torch.bfloat16).reshape(b, s, k)
 
 
+def _moe_tapped(xn: torch.Tensor, weights: torch.Tensor, p: Params,
+                tap: Callable) -> torch.Tensor:
+    """The calibration forward of a dense MoE block: every expert on every
+    row (dense dispatch), its two site inputs tapped with the routed-row
+    mask.  f32 (T, hidden) out."""
+    tap("mlp_in", xn)
+    out = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
+    for e, ep in enumerate(p["experts"]):
+        routed = weights[:, e] > 0
+        tap(f"expert{e}_mlp_in", xn, routed)
+        g, u = ep["w1"](xn), ep["w3"](xn)
+        act = (_silu(g) * u.to(torch.float32)).to(torch.bfloat16)
+        tap(f"expert{e}_down_in", act, routed)
+        out = out + ep["w2"](act).to(torch.float32) * weights[:, e][:, None]
+    return out
+
+
 def decoder_layer(h, p, cfg, cos, sin, kv_quant_bits=None, tap=None):
     h = h + attention_block(h, p, cfg, cos, sin, kv_quant_bits, tap)
     if cfg.is_moe:
-        if tap is not None:
-            raise NotImplementedError(
-                "the MoE calibration taps are not ported (ROADMAP 1.8)")
-        return h + moe_block(h, p, cfg)
+        return h + moe_block(h, p, cfg, tap)
     return h + mlp_block(h, p, cfg, tap)
 
 
@@ -288,8 +325,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             tap: Optional[Callable] = None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) f32, causal.
 
-    ``tap(layer_idx, site_name, x)``: the calibration hook, dense params
-    only; ``kv_quant_bits``: fake-quantize K and V per head to that many
+    ``tap(layer_idx, site_name, x[, mask])``: the calibration hook, dense
+    params only (``mask``: a MoE expert's routed rows); ``kv_quant_bits``: fake-quantize K and V per head to that many
     bits (the accuracy mode)."""
     b, s = tokens.shape
     h = params["embed"][tokens].to(torch.bfloat16)

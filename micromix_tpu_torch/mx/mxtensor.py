@@ -105,39 +105,43 @@ def _codes(t: MixedTensor):
     return out
 
 
-def dequantize_mixed(t: MixedTensor, dtype=torch.float32) -> torch.Tensor:
-    """MixedTensor -> dense (rows, K) in *canonical* column order (each
-    segment de-interleaved), for comparisons with unquantized values."""
-    parts = [nx.dequantize_blocks(lay.deinterleave(c), sf, fmt)
-             for c, sf, fmt in _codes(t)]
+def _dequantize(t: MixedTensor, dtype, canonical: bool) -> torch.Tensor:
+    """Each code looked up in its format's table of ``decode`` values (one
+    gather, bit-identical to the arithmetic decode) and times its block's
+    2^(sf - 127) in f32 (exact: an MX value has at most 4 significant
+    bits), then cast to ``dtype``.  ``canonical``: the codes are
+    de-interleaved as bytes first, so block b is columns 32b..32b+31;
+    else device column c of a segment with nb blocks is element
+    (c // nb, c % nb) of the row seen as (K / nb, nb).  Zero codes with
+    zero scale bytes (padding rows) decode to exactly 0.0."""
+    parts = []
+    for codes, sf, fmt in _codes(t):
+        rows, kseg = codes.shape
+        nb = sf.shape[1]
+        if canonical:
+            codes = lay.deinterleave(codes)
+        vals = nx.decode_table(fmt, codes.device)[codes.to(torch.int32)]
+        scale = nx.exp2i(sf.to(torch.int32) - UE8M0_BIAS)
+        vals = (vals.reshape(rows, nb, -1) * scale[:, :, None] if canonical
+                else vals.reshape(rows, -1, nb) * scale[:, None, :])
+        parts.append(vals.reshape(rows, kseg).to(dtype))
     if not parts:
         return torch.zeros((t.rows, 0), dtype=dtype, device=t.fp4.device)
-    return torch.cat(parts, dim=-1).to(dtype)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def dequantize_mixed(t: MixedTensor, dtype=torch.float32) -> torch.Tensor:
+    """MixedTensor -> dense (rows, K) in *canonical* column order (each
+    segment de-interleaved): what the weight-only linears multiply, and
+    the values comparisons with unquantized ones take."""
+    return _dequantize(t, dtype, canonical=True)
 
 
 def dequantize_mixed_device(t: MixedTensor,
                             dtype=torch.bfloat16) -> torch.Tensor:
     """MixedTensor -> dense (rows, K) in device (block-interleaved) order:
-    the exact operand the GEMMs multiply.
-
-    Each code is looked up in its format's table of ``decode`` values
-    (one gather, bit-identical to the arithmetic decode) and times its
-    block's 2^(sf - 127): device column c of a segment with nb blocks is
-    element (c // nb, c % nb) of the row seen as (K / nb, nb), so the
-    (rows, nb) scale row broadcasts over it.  Zero codes with zero scale
-    bytes (padding rows) decode to exactly 0.0.
-    """
-    parts = []
-    for codes, sf, fmt in _codes(t):
-        rows, kseg = codes.shape
-        nb = sf.shape[1]
-        vals = nx.decode_table(fmt, codes.device)[codes.to(torch.int32)]
-        scale = nx.exp2i(sf.to(torch.int32) - UE8M0_BIAS)
-        parts.append((vals.reshape(rows, kseg // nb, nb) * scale[:, None, :])
-                     .reshape(rows, kseg).to(dtype))
-    if not parts:
-        return torch.zeros((t.rows, 0), dtype=dtype, device=t.fp4.device)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    the exact operand the GEMMs multiply."""
+    return _dequantize(t, dtype, canonical=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,8 @@ uint32 shift.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .formats import BLOCK_SIZE, FormatInfo, UE8M0_BIAS
@@ -113,8 +115,11 @@ def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
     return (vb * scale[..., None]).reshape(vals.shape)
 
 
+@functools.lru_cache(maxsize=None)
 def decode_table(fmt: FormatInfo, device=None) -> torch.Tensor:
-    """The f32 value of each of the 256 byte codes (``decode`` of each)."""
+    """The f32 value of each of the 256 byte codes (``decode`` of each),
+    made once per (format, device): the weight-only linears look their
+    codes up in it on every call.  Read only."""
     return decode(torch.arange(256, dtype=_I32, device=device), fmt)
 
 

@@ -98,8 +98,11 @@ def patch(src_dir: str, out_dir: str, patches) -> None:
 
 
 def build_variants(src_dir: str, out_dir: str):
-    """{variant: (ctypes function, whether it takes the row split)}."""
-    split = "int bpc" in open(os.path.join(src_dir, "site_fakequant.cu")).read()
+    """{variant: (ctypes function, whether it takes the row split, whether
+    it takes the block-format array)}."""
+    text = open(os.path.join(src_dir, "site_fakequant.cu")).read()
+    split = "int bpc" in text
+    fmt = "const void* fmt" in text
     procs = []
     for name, patches in VARIANTS.items():
         d = os.path.join(out_dir, name)
@@ -113,10 +116,10 @@ def build_variants(src_dir: str, out_dir: str):
         if proc.wait() != 0:
             raise SystemExit(f"{name}: nvcc failed")
         fn = ctypes.CDLL(lib).site_fakequant
-        fn.argtypes = ([build.PTR] * 4 + [build.INT] * 7 + [build.FLOAT]
+        fn.argtypes = ([build.PTR] * (4 + fmt) + [build.INT] * 7 + [build.FLOAT]
                        + [build.INT] * split + [build.PTR])
         fn.restype = ctypes.c_int
-        fns[name] = (fn, split)
+        fns[name] = (fn, split, fmt)
     return fns
 
 
@@ -156,12 +159,14 @@ def main() -> int:
         stream = build.stream()
         for src, fns in libs.items():
             row = []
-            for name, (fn, split) in fns.items():
+            for name, (fn, split, fmt) in fns.items():
                 extra = [site_blocks_per_cta(m, k)] if split else []
+                no_fmt = [None] if fmt else []
 
-                def run(fn=fn, extra=extra):
+                def run(fn=fn, extra=extra, no_fmt=no_fmt):
                     build.check(fn(build.ptr(x), build.ptr(aux), build.ptr(perm),
-                                   build.ptr(out), m, k, *splits, PRODUCERS[producer],
+                                   *no_fmt, build.ptr(out), m, k, *splits,
+                                   PRODUCERS[producer],
                                    m // max(groups, 1), 1e-5, *extra, stream),
                                 "site_fakequant")
                 row.append(f"{name}={timer.ms(run):.4f}")

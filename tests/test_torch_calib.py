@@ -252,13 +252,6 @@ def test_golden_pipeline_port_alone(golden):
     np.testing.assert_allclose(quant_ppl, GOLDEN["quant_ppl"], rtol=2e-3)
 
 
-def test_moe_calibration_is_refused():
-    cfg = ModelConfig(**dict(CFG, arch="mixtral", num_experts=4,
-                             num_experts_per_tok=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        tstats.collect_calibration({"embed": torch.zeros(1)}, cfg, [])
-
-
 class _ToyTokenizer:
     """HF-tokenizer stand-in: whitespace words hashed by their bytes."""
 

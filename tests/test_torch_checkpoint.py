@@ -8,7 +8,10 @@ and the port's ``forward`` gives the same logits on both, exactly (they
 are the same tensors).  The port's ``save_params`` of that model loads in
 the JAX package with every array equal to the original tree's
 (``QuantSite.benes`` is written as none: the port gathers by ``perm``).
-Dense trees round-trip in both directions.  Tolerances: none.
+The node kinds of the int8, weight-only and hetero forms
+(``Int8TurboLinear``, ``WeightOnlyLinear``, ``FakeQuantSite``) cross both
+ways the same way.  Dense trees round-trip in both directions.
+Tolerances: none.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from micromix_tpu.models import checkpoint as jck
 from micromix_tpu.models import common as jcommon
+from micromix_tpu.models import hetero as jhet
 from micromix_tpu.models import surgery as jsurg
 from micromix_tpu_torch.convert import from_jax_params
 from micromix_tpu_torch.models import checkpoint as tck
@@ -152,11 +156,62 @@ def test_dense_round_trip(tmp_path):
     _assert_jax_trees_equal(back, jp)
 
 
+SMALL = dict(BASE, hidden_size=128, intermediate_size=128, num_heads=2,
+             num_layers=2, rope_scaling=None)
+
+
+def _item8_tree(kind, jcfg):
+    """A JAX tree holding ``kind``: int8 linears; weight-only linears, an
+    MXFP8 MixedTensor layer and an MXFP4 ScaledW8 layer; a hetero Mixtral
+    (FakeQuantSite top-level and expert sites, perm None on the down
+    sites)."""
+    jp = jsurg.random_dense_params(jcfg, seed=9)
+    if kind == "Int8TurboLinear":
+        return jsurg.quantize_model_int8_turbo(jp, jcfg)
+    if kind == "WeightOnlyLinear":
+        tree = jsurg.quantize_model_weight_only(jp, jcfg, "mxfp8")
+        mx4 = jsurg.quantize_model_weight_only(jp, jcfg, "mxfp4")
+        return dict(tree, layers=[tree["layers"][0], mx4["layers"][1]])
+    return jhet.quantize_model_hetero(
+        jp, jcfg, jsurg.default_calibration(jcfg, p6=32, p8=32, seed=9))
+
+
 @pytest.mark.parametrize("kind", ["Int8TurboLinear", "WeightOnlyLinear",
-                                  "FakeQuantSite", "orbax"])
+                                  "FakeQuantSite"])
+def test_item8_nodes_cross_packages(tmp_path, kind):
+    """The three node kinds of the weight-only, int8 and hetero forms: a
+    JAX checkpoint read by the port equals the JAX tree carried across
+    (and runs the same forward), and the port's checkpoint of it read by
+    JAX equals the JAX tree."""
+    base = dict(SMALL, arch="mixtral", num_layers=1, num_experts=4,
+                num_experts_per_tok=2) if kind == "FakeQuantSite" else SMALL
+    jcfg, tcfg = jcommon.ModelConfig(**base), ModelConfig(**base)
+    jq = _item8_tree(kind, jcfg)
+    jdir = str(tmp_path / "jax")
+    jck.save_params(jdir, jq, jcfg)
+    got, cfg, _ = tck.load_params(jdir, device="cpu")
+    assert cfg == tcfg
+    ref = from_jax_params(jax.tree.map(np.asarray, jq), tcfg, device="cpu")
+    _assert_port_trees_equal(got, ref)
+    leaf = got["layers"][0]
+    if kind == "FakeQuantSite":
+        leaf = leaf["experts"][0]
+        assert leaf["site_down"].perm is None
+    assert kind in {type(v).__name__ for v in leaf.values()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, tcfg.vocab_size, (1, 8)))
+    with torch.inference_mode():
+        assert torch.equal(forward(got, tcfg, toks), forward(ref, tcfg, toks))
+    tdir = str(tmp_path / "port")
+    tck.save_params(tdir, got, tcfg)
+    back, cfg2, _ = jck.load_params(tdir)
+    assert cfg2 == jcfg
+    _assert_jax_trees_equal(back, jq)
+
+
+@pytest.mark.parametrize("kind", ["orbax"])
 def test_unported_nodes_raise(tmp_path, kind):
-    """The JAX package's containers without a port counterpart, and its
-    orbax checkpoints, raise NotImplementedError naming their item."""
+    """The JAX package's orbax checkpoints raise NotImplementedError."""
     arr = {"kind": "array", "key": "a0", "dtype": "int32", "path": "params.w"}
     tree = {"kind": "dict", "items": {"x": {
         "kind": kind, "fields": {"w": arr}, "statics": {}}}}
@@ -167,8 +222,7 @@ def test_unported_nodes_raise(tmp_path, kind):
     np.savez(tmp_path / "ck" / "arrays.npz", a0=np.zeros(3, np.int32))
     with open(tmp_path / "ck" / "manifest.json", "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError,
-                       match="orbax" if kind == "orbax" else "ROADMAP item 8"):
+    with pytest.raises(NotImplementedError, match="orbax"):
         tck.load_params(str(tmp_path / "ck"), device="cpu")
 
 

@@ -18,6 +18,10 @@
   completions as the JAX package's ``serve --prefix-cache``: the JAX
   runner is pointed at its TPU branches there (flash and paged prefill
   kernels in interpret mode), since a cache hit prefills over history.
+* ``quantize --hetero``, ``eval --weight-only mxfp8``, ``quantize
+  --int8-turbo`` and ``serve --profile DIR`` run end to end: the baked
+  checkpoints hold their containers and serve, the weight-only eval
+  prints a finite perplexity, the profile is a trace file.
 * Every flag whose path is not ported exits naming its ROADMAP.md item;
   ``--platform auto`` raises without a GPU.
 * The shell's modules import without jax, micromix_tpu, ml_dtypes,
@@ -253,12 +257,57 @@ def test_serve_prefix_cache_and_speculation_print_jax_completions(
 
 REFUSED = [
     ("serve", ["--tp", "2"], "item 9"), ("serve", ["--ep", "2"], "item 9"),
-    ("quantize", ["--hetero"], "item 8"),
-    ("eval", ["--weight-only", "mxfp8"], "item 8"),
-    ("quantize", ["--int8-turbo"], "item 8"),
-    ("serve", ["--profile", "x"], "item 8"),
     ("eval", ["--tasks", "hellaswag"], "item 8"),
 ]
+
+
+def _first_leaf_kinds(qdir):
+    """The container kinds of the baked checkpoint's first layer."""
+    with open(os.path.join(qdir, "manifest.json")) as f:
+        layer = json.load(f)["tree"]["items"]["layers"]["items"][0]["items"]
+    return {k: v["kind"] for k, v in layer.items()}
+
+
+@pytest.mark.parametrize("flag", ["hetero", "weight-only", "int8-turbo",
+                                  "profile"])
+def test_item8_flags_run_end_to_end(ckpt, tmp_path, capsys, flag):  # noqa: F811
+    """Each flag ported in this slice, through the shell on the CPU."""
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("w1 w2 w3\nw4 w5 w6 w7\n")
+    qdir = str(tmp_path / "q")
+    if flag == "weight-only":
+        out = _run(["eval", "--model", ckpt, "--weight-only", "mxfp8",
+                    "--eval-ppl", "synthetic", "--seqlen", "32",
+                    "--log-dir", ""], capsys)
+        assert np.isfinite(float(out.split("synthetic perplexity:")[1]))
+        return
+    if flag == "hetero":
+        calib = str(tmp_path / "calib.npz")
+        _run(["calibrate", "--model", ckpt, "--samples", "2", "--seqlen", "32",
+              "--dataset", "synthetic", "--output", calib], capsys)
+        _run(["quantize", "--model", ckpt, "--calibration", calib, "--hetero",
+              "--output", qdir], capsys)
+        kinds = _first_leaf_kinds(qdir)
+        assert kinds["attn_site"] == kinds["down_site"] == "FakeQuantSite"
+        assert kinds["q"] == "QuantLinear"
+    elif flag == "int8-turbo":
+        _run(["quantize", "--model", ckpt, "--int8-turbo", "--output", qdir],
+             capsys)
+        kinds = _first_leaf_kinds(qdir)
+        assert kinds["q"] == kinds["down"] == "Int8TurboLinear"
+        assert "attn_site" not in kinds
+    serve = ["serve", "--model", ckpt, "--prompts", str(prompts)] + SERVE
+    if flag == "profile":
+        logdir = str(tmp_path / "trace")
+        out = _run(serve + ["--weight-only", "mxfp4", "--profile", logdir],
+                   capsys)
+        (name,) = os.listdir(logdir)
+        with open(os.path.join(logdir, name)) as f:
+            assert json.load(f)["traceEvents"]
+    else:
+        out = _run(serve + ["--quantized-ckpt", qdir], capsys)
+    stats = _serve_stats(out)
+    assert stats["requests"] == 2 and stats["decode_tokens"] > 0
 
 
 @pytest.mark.parametrize("cmd,flags,item", REFUSED,
@@ -284,6 +333,8 @@ def test_shell_imports_without_jax_or_hf_packages():
         "    sys.modules[m] = None\n"
         "import micromix_tpu_torch.cli, micromix_tpu_torch.models.loader\n"
         "import micromix_tpu_torch.models.checkpoint\n"
+        "import micromix_tpu_torch.models.hetero, micromix_tpu_torch.calib\n"
+        "import micromix_tpu_torch.utils.profiling\n"
         "import micromix_tpu_torch.models.safetensors_io\n"
         "import micromix_tpu_torch.serve.api, micromix_tpu_torch.serve.router\n"
         "print('ok')\n")

@@ -31,6 +31,8 @@ import torch
 
 from micromix_tpu_torch.kernels import build
 from micromix_tpu_torch.kernels.fakequant import (fakequant_site,
+                                                  fakequant_site_blocks,
+                                                  fakequant_site_blocks_plain,
                                                   fakequant_site_plain,
                                                   fakequant_values)
 from micromix_tpu_torch.kernels.flash_attention import (flash_attention,
@@ -186,6 +188,84 @@ def test_site_kernel_perm_rows(dev, m, groups):
     for i in range(groups):
         one = fakequant_site(x[i * rows:(i + 1) * rows].contiguous(), *splits, perm=perm[i])
         assert torch.equal(got[i * rows:(i + 1) * rows], one)
+
+
+@pytest.mark.parametrize("m", [1, 8, 130, 512, 4096])
+@pytest.mark.parametrize("producer,k", [("plain", 4096), ("rms", 4096),
+                                        ("silu", 14336), ("rms", 4064),
+                                        ("plain", 4064)])
+def test_site_blocks_kernel(dev, m, producer, k):
+    """Kernel A's block-format route (the hetero sites): block formats in
+    runs of 1-7 blocks, both launch forms (split rows below 264, whole
+    rows above), a short last CTA at K = 4064; one launch a call, the
+    plain image bit-exact, rms and silu within each block's tie band."""
+    rng = np.random.default_rng(m + k)
+    nb = k // 32
+    fmt = np.repeat(rng.integers(0, 3, nb), rng.integers(1, 8, nb))[:nb]
+    fmt = torch.from_numpy(np.resize(fmt, nb).astype(np.int32)).to(dev)
+    x = torch.randn(m, k, device=dev)
+    x[:, torch.randperm(k, device=dev)[:16]] *= 30.0
+    x = x.to(torch.bfloat16)
+    kw = {}
+    if producer == "silu":
+        kw = dict(producer="silu", up=torch.randn(m, k, device=dev).to(torch.bfloat16))
+    else:
+        kw["perm"] = torch.from_numpy(rng.permutation(k).astype(np.int32)).to(dev)
+    if producer == "rms":
+        kw.update(producer="rms", eps=1e-5, gamma=torch.rand(k, device=dev) + 0.5)
+    before = build.launches["site_fakequant_blocks"]
+    got = fakequant_site_blocks(x, fmt, **kw)
+    assert build.launches["site_fakequant_blocks"] == before + 1
+    ref = fakequant_site_blocks_plain(x, fmt, **kw)
+    if producer == "plain":
+        assert torch.equal(got, ref)
+        return
+    g, r = got.float(), ref.float()
+    assert float((g != r).float().mean()) <= 1e-3
+    gb, rb = g.reshape(m, nb, 32), r.reshape(m, nb, 32)
+    bmax = torch.maximum(gb.abs().amax(-1), rb.abs().amax(-1)).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(bmax)) - (fmt.float() + 1)[None, :])
+    assert bool(((gb - rb).abs() <= step[..., None]).all())
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 300])
+def test_int8_turbo_linear_card_equals_cpu(dev, m):
+    """torch._int_mm on the card (rows padded to a multiple of 8, at least
+    32) and the f32 scaling: the CPU's output bit for bit."""
+    from micromix_tpu_torch.models.common import Int8TurboLinear
+    w = torch.randint(-127, 128, (1024, 512), dtype=torch.int8)
+    lin = Int8TurboLinear(w=w, w_scale=torch.rand(1024) * 1e-2 + 1e-4,
+                          bias=torch.randn(1024).to(torch.bfloat16))
+    x = (torch.randn(m, 512) * 3).to(torch.bfloat16)
+    card = Int8TurboLinear(w=w.to(dev), w_scale=lin.w_scale.to(dev),
+                           bias=lin.bias.to(dev))(x.to(dev))
+    assert torch.equal(card.cpu(), lin(x))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("fmt", ["mxfp4", "mxfp6", "mxfp8"])
+def test_weight_only_linear_card_vs_cpu(dev, fmt, bias):
+    """A weight-only linear on the card (Kernel B for MXFP4, the f32
+    dequantized product otherwise, its bias added before the one round to
+    bf16) against the same linear on the CPU."""
+    from micromix_tpu_torch.models.common import DenseLinear
+    from micromix_tpu_torch.models.surgery import quantize_model_weight_only
+    from micromix_tpu_torch.models.common import ModelConfig
+    cfg = ModelConfig(arch="llama", vocab_size=8, hidden_size=512,
+                      intermediate_size=1024, num_layers=1, num_heads=4,
+                      num_kv_heads=4, head_dim=128)
+    lin = DenseLinear(w=(torch.randn(1024, 512) / 512 ** 0.5).to(torch.bfloat16),
+                      bias=torch.randn(1024).to(torch.bfloat16) if bias else None)
+    dense = {"embed": None, "final_ln": None, "lm_head": None, "layers": [
+        {"ln1": None, "ln2": None, **{n: lin for n in
+                                       ("q", "k", "v", "o", "gate", "up", "down")}}]}
+    q = quantize_model_weight_only(dense, cfg, fmt)["layers"][0]["q"]
+    x = torch.randn(9, 512).to(torch.bfloat16)
+    card = dataclasses.replace(q, w=dataclasses.replace(q.w, **{
+        f.name: getattr(q.w, f.name).to(dev) for f in dataclasses.fields(q.w)
+        if isinstance(getattr(q.w, f.name), torch.Tensor)}),
+        bias=None if q.bias is None else q.bias.to(dev))(x.to(dev))
+    _close(card.cpu(), q(x))
 
 
 @pytest.mark.parametrize("m", [1, 5, 17, 100])
