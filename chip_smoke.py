@@ -119,16 +119,33 @@ non-zero before the result line.
      (``phase11``).  Phase 8 also bakes the hetero, weight-only MXFP8 and
      int8 checkpoints through the CLI, each held against the tree made in
      memory, and serves the hetero one under ``--profile``, whose trace
-     must name the port's kernels.
+     must name the port's kernels;
+ 12. tensor and expert parallelism on the one card, two ranks (two
+     processes on cuda:0 over gloo, ``parallel.spawn``): B and K with f32
+     output against their plain versions at Llama-3.1-8B's tp=2
+     row-parallel shard shapes, their bf16 output equal to the f32 one
+     rounded, bit for bit; Llama-3.1-8B widths at 32 layers, tp=2, each
+     rank quantizing its own shard from the seed with phase 7's
+     calibrations, on phase 4's traffic; 2 layers of it card against CPU,
+     and at identity calibration with k4-only budgets against the single
+     card; the hetero and symmetric-weights forms at 4 layers;
+     Mixtral-8x7B widths at 4 layers, ep=2, under dense and capacity
+     dispatch, and 2 layers card against CPU; ``cli serve --tp 2`` on
+     phase 8's checkpoint (run in phase 8) (``phase12``).  Every rank
+     must launch its path's kernels and no plain version, and the ranks'
+     streams must be equal; their decode windows count the blocking
+     all_reduces a step.
 
-In phases 4 to 11 every kernel launch counter is reset just before each
+In phases 4 to 12 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel, phase 11's forms no kernel off their own path), and no
 run may take the plain PyTorch append or the pre-quantized one (nor, in
-phase 11, A's or B's plain version).  Every pipelined decode dispatch of an engine runs
-under ``torch.cuda.set_sync_debug_mode("error")``: a stream synchronize
-or a blocking copy there fails the run.  Kernel launches per decode step
+phase 11, A's or B's plain version; in phase 12, A's, B's, J's or K's).
+Every pipelined decode dispatch of a single-card engine (phases 4-11)
+runs under ``torch.cuda.set_sync_debug_mode("error")``: a stream
+synchronize or a blocking copy there fails the run.  Phase 12's do not:
+gloo's all_reduce of a CUDA tensor blocks on a copy to the host.  Kernel launches per decode step
 and layer, host ms,
 device busy ms and all CUDA launches per step (``torch.profiler``) are
 taken for every form.  It prints the per-kernel JSON line, and last
@@ -1387,6 +1404,8 @@ def params_to(params, device):
             return {k: move(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(move(v) for v in x)
+        if not dataclasses.is_dataclass(x):
+            return x
         return dataclasses.replace(x, **{f.name: move(getattr(x, f.name))
                                          for f in dataclasses.fields(x)})
     return move(params)
@@ -2162,41 +2181,50 @@ STATS_RTOL = {"absmax": 0.05, "saliency": 0.05, "below4": 5e-3,
 PPL_RTOL = 2e-3
 
 
+def _normal(gen, shape, std, device):
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.normal_(0.0, std, generator=gen).to(torch.bfloat16)
+
+
+def dense_layer(cfg, gen, device) -> dict:
+    """One seeded dense layer, drawn from ``gen`` (``dense_llama``'s
+    draws for a layer, in its order)."""
+    from micromix_tpu_torch.models.common import DenseLinear
+    hid, inter = cfg.hidden_size, cfg.intermediate_size
+    odim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def lin(n, k):
+        return DenseLinear(w=_normal(gen, (n, k), 1.0 / np.sqrt(k), device))
+
+    def ones():
+        return torch.ones(hid, dtype=torch.bfloat16, device=device)
+
+    attn = dict(ln1=ones(), ln2=ones(), q=lin(odim, hid), k=lin(kvdim, hid),
+                v=lin(kvdim, hid), o=lin(hid, odim))
+    if cfg.is_moe:
+        return dict(attn, router=lin(cfg.num_experts, hid),
+                    experts=[dict(w1=lin(inter, hid), w3=lin(inter, hid),
+                                  w2=lin(hid, inter))
+                             for _ in range(cfg.num_experts)])
+    return dict(attn, gate=lin(inter, hid), up=lin(inter, hid),
+                down=lin(hid, inter))
+
+
 def dense_llama(cfg, seed: int, device):
     """A seeded dense bf16 Llama (or, for a MoE config, Mixtral: a router
     and the experts' w1, w3, w2 in place of gate, up, down) made on
     ``device`` (torch.Generator draws): each linear N(0, 1/sqrt(K)), embed
     and head N(0, 0.02), norms 1 -- the widths and draws of
-    random_dense_params, without numpy."""
-    from micromix_tpu_torch.models.common import DenseLinear
+    random_dense_params, without numpy.  The layers are drawn first, then
+    the embedding, then the head (``p12_tp_model`` draws them so too)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    hid, inter = cfg.hidden_size, cfg.intermediate_size
-    odim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-
-    def normal(shape, std):
-        t = torch.empty(shape, dtype=torch.float32, device=device)
-        return t.normal_(0.0, std, generator=gen).to(torch.bfloat16)
-
-    def lin(n, k):
-        return DenseLinear(w=normal((n, k), 1.0 / np.sqrt(k)))
-
-    def ones():
-        return torch.ones(hid, dtype=torch.bfloat16, device=device)
-
-    def mlp():
-        if cfg.is_moe:
-            return dict(router=lin(cfg.num_experts, hid),
-                        experts=[dict(w1=lin(inter, hid), w3=lin(inter, hid),
-                                      w2=lin(hid, inter))
-                                 for _ in range(cfg.num_experts)])
-        return dict(gate=lin(inter, hid), up=lin(inter, hid),
-                    down=lin(hid, inter))
-
-    layers = [dict(ln1=ones(), ln2=ones(), q=lin(odim, hid), k=lin(kvdim, hid),
-                   v=lin(kvdim, hid), o=lin(hid, odim), **mlp())
-              for _ in range(cfg.num_layers)]
-    return {"embed": normal((cfg.vocab_size, hid), 0.02), "final_ln": ones(),
-            "lm_head": normal((cfg.vocab_size, hid), 0.02), "layers": layers}
+    hid = cfg.hidden_size
+    layers = [dense_layer(cfg, gen, device) for _ in range(cfg.num_layers)]
+    embed = _normal(gen, (cfg.vocab_size, hid), 0.02, device)
+    return {"embed": embed,
+            "final_ln": torch.ones(hid, dtype=torch.bfloat16, device=device),
+            "lm_head": _normal(gen, (cfg.vocab_size, hid), 0.02, device),
+            "layers": layers}
 
 
 def calib_pipeline(params, cfg, seqlen: int, n_cal: int, n_eval: int,
@@ -2812,6 +2840,22 @@ def phase8(rng) -> dict:
              "append_kv_quant", "flash_attention")).strip().splitlines()
         out["serve_profile"] = json.loads(lines[-1])
         out["profile"] = p8_trace(prof_dir)
+        # phase 12 (f): serve --tp 2 on this checkpoint, two ranks that each
+        # quantize their shard from the dense weights after the
+        # calibration's smoothing (their kernels launch in the ranks)
+        lines = shell("serve_tp", [
+            "serve", "--model", hf, "--do-quant", "--calibration", calib,
+            "--prompts", short, "--tp", "2", "--max-new-tokens", "8",
+            "--max-seqs", "2", "--page-size", "128", "--decode-chunk", "8"],
+            ()).strip().splitlines()
+        toks = [[int(w) for w in lines[i + 1].split()]
+                for i, ln in enumerate(lines[:-1]) if ln.startswith("--- [")]
+        out["serve_tp"] = dict(stats=json.loads(lines[-1]), tokens=toks)
+        if len(toks) != 2 or not all(len(t) == 8 and all(
+                0 <= w < cfg.vocab_size for w in t) for t in toks):
+            fail(f"phase 12 (f): serve --tp 2 printed {toks}")
+        print("  phase 12 (f), serve --tp 2: " + json.dumps(out["serve_tp"]),
+              flush=True)
         print(f"  quantize --hetero / --weight-only mxfp8 / --int8-turbo, then "
               f"serve --profile on the hetero checkpoint: "
               + json.dumps(out["serve_profile"]) + "; trace "
@@ -3626,6 +3670,608 @@ def p11_moe(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+P12_TP = 2
+P12_SMALL_LAYERS = 4
+# the row-parallel shard shapes of Llama-3.1-8B at tp=2: o (N=4096,
+# K=4096/2) and down (K=14336/2), at decode rows and a 512-row chunk
+P12_GEMMS = ((8, 4096, 2048, "o"), (8, 4096, 7168, "down"),
+             (512, 4096, 2048, "o chunk"))
+SPLIT_2048 = (1792, 128, 128)
+SPLIT_7168 = (6912, 128, 128)
+# what each phase 12 run must launch on every rank
+TP_KERNELS = ("site_fakequant", "w8_gemm", "w8_gemm_f32", "paged_decode",
+              "append_kv_quant", "flash_attention", "paged_prefill",
+              "mx_quantize")
+TP_HETERO_KERNELS = ("site_fakequant_blocks", "w8_gemm", "w8_gemm_f32",
+                     "paged_decode", "append_kv_quant", "flash_attention")
+TP_SYMMETRIC_KERNELS = ("mx_quantize", "sp_gemm", "sp_gemm_f32",
+                        "paged_decode", "append_kv_quant", "flash_attention")
+EP_KERNELS = ("site_fakequant", "w8_gemm", "w8_grouped", "paged_decode",
+              "append_kv_quant", "flash_attention")
+
+
+def close_f32(got, ref, a, w):
+    """f32 outputs of the same exact products summed in another order:
+    |got - ref| <= 2 K 2^-24 (|A| |W|^T), each side's bound for a sum of K
+    terms in any order (gamma_K)."""
+    k = a.shape[1]
+    bound = 2 * k * 2.0 ** -24 * torch.matmul(a.abs().float(), w.abs().float().t())
+    err = (got.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= bound).all())
+
+
+def check_f32_gemms(results, timer) -> dict:
+    """Kernels B and K with f32 output (a tensor-parallel rank's partial)
+    at the row-parallel shard shapes of Llama-3.1-8B at tp=2, against
+    their plain versions; B's and K's bf16 output must equal their f32
+    output rounded to bf16, bit for bit, on the same inputs and split."""
+    from micromix_tpu_torch.kernels.fakequant import fakequant_values
+    from micromix_tpu_torch.kernels.mixed_matmul import (
+        mixed_matmul_sp, mixed_matmul_sp_plain, mixed_matmul_w8,
+        mixed_matmul_w8_plain)
+    from micromix_tpu_torch.kernels.quantize import quantize_mixed
+    from micromix_tpu_torch.mx.mxtensor import dequantize_mixed_device
+    from micromix_tpu_torch.mx.scaledw8 import dequantize_scaled_w8
+    f32 = torch.float32
+    rounded = {}
+    for m, n, k, what in P12_GEMMS:
+        splits = SPLIT_2048 if k == 2048 else SPLIT_7168
+        w = _w8_weight(n, k, splits)
+        wd = dequantize_scaled_w8(w, torch.bfloat16)
+        a = fakequant_values(torch.randn(m, k, device=DEV), *splits)
+        got = mixed_matmul_w8(a, w, f32)
+        err, ok = close_f32(got, mixed_matmul_w8_plain(a, w, f32), a, wd)
+        same = torch.equal(mixed_matmul_w8(a, w), got.to(torch.bfloat16))
+        rounded[f"w8_gemm M={m} K={k}"] = same
+        record(results, "w8_gemm", f"M={m} N={n} K={k} f32 ({what}, tp=2)", err,
+               "2K 2^-24 (|A||W|^T); bf16 out == f32 out rounded", ok and same,
+               timer.ms(lambda: mixed_matmul_w8(a, w, f32)),
+               m * k * 2 + n * k + m * n * 4, 2.0 * m * n * k,
+               timer.ms(lambda: mixed_matmul_w8_plain(a, w, f32)),
+               timer.ms(lambda: torch.matmul(a, wd.t())))
+        del w, wd
+    # K at a shard's budgets as phase 7's calibration splits them: the
+    # fp6 / fp8 widths are multiples of 32, not 128 (partial steps)
+    for m, n, k, what, splits in (
+            (8, 4096, 2048, "o", SPLIT_2048), (8, 4096, 7168, "down", SPLIT_7168),
+            (8, 4096, 2048, "o, segments of 32s", (576, 1024, 448))):
+        w = _sp_weight(n, k, splits, fp4_only=False)
+        a = quantize_mixed(_site_input(m, k), *splits)
+        ad, wd = dequantize_mixed_device(a), dequantize_mixed_device(w)
+        got = mixed_matmul_sp(a, w, f32)
+        err, ok = close_f32(got, mixed_matmul_sp_plain(a, w, f32), ad, wd)
+        same = torch.equal(mixed_matmul_sp(a, w), got.to(torch.bfloat16))
+        rounded[f"sp_gemm M={m} K={k} {splits}"] = same
+        record(results, "sp_gemm", f"M={m} N={n} K={k} f32 fp6/fp8 {splits} ({what}, tp=2)",
+               err, "2K 2^-24 (|A||W|^T); bf16 out == f32 out rounded",
+               ok and same, timer.ms(lambda: mixed_matmul_sp(a, w, f32)),
+               _mx_bytes(a) + _mx_bytes(w) + m * n * 4, 2.0 * m * n * k,
+               timer.ms(lambda: mixed_matmul_sp_plain(a, w, f32)),
+               timer.ms(lambda: torch.matmul(ad, wd.t())))
+        del w, wd
+    return rounded
+
+
+@contextlib.contextmanager
+def refuse_plain_kernels(label: str):
+    """The plain versions of A (both routes), B, J and K, and the plain
+    PyTorch append, fail the run if anything on the card calls them."""
+    import importlib
+    mods = {m: importlib.import_module(f"micromix_tpu_torch.{m}") for m in
+            ("kernels.fakequant", "kernels.mixed_matmul", "kernels.quantize",
+             "serve.kv_cache")}
+    names = (("kernels.fakequant", "fakequant_site_plain"),
+             ("kernels.fakequant", "fakequant_site_blocks_plain"),
+             ("kernels.mixed_matmul", "mixed_matmul_w8_plain"),
+             ("kernels.mixed_matmul", "mixed_matmul_sp_plain"),
+             ("kernels.quantize", "quantize_mixed_plain"),
+             ("serve.kv_cache", "append_kv_plain"))
+    saved = [(mods[m], n, getattr(mods[m], n)) for m, n in names]
+
+    def refuse(*args, **kwargs):
+        fail(f"{label}: a kernel's plain version ran on the card")
+
+    for mod, n, _ in saved:
+        setattr(mod, n, refuse)
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def p12_requests(specs):
+    from micromix_tpu_torch.serve.engine import Request
+    return [Request(i, list(p), max_new_tokens=n) for i, (p, n) in enumerate(specs)]
+
+
+def p12_specs(rng, vocab: int, lens, new: int):
+    return [(rng.integers(0, vocab, n).tolist(), new) for n in lens]
+
+
+def p12_tp_model(cfg, calibs, group, seed: int, hetero=False,
+                 weight_fp4_only=True):
+    """The rank's tree of a tensor-parallel Llama: each dense layer drawn
+    from the seed (``dense_layer``, as ``dense_llama`` draws them), the
+    rank's shard of it quantized (``group``: the common bases and
+    fallbacks agreed over the ranks), the dense layer dropped; then the
+    embedding and head, whole."""
+    from micromix_tpu_torch.parallel.tp_hetero import quantize_layer_tp_hetero
+    from micromix_tpu_torch.parallel.tp_quant import quantize_layer_tp
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    layers = []
+    for calib in calibs:
+        p = dense_layer(cfg, gen, DEV)
+        if hetero:
+            layers.append(quantize_layer_tp_hetero(p, cfg, calib, group.world,
+                                                   group=group))
+        else:
+            layers.append(quantize_layer_tp(p, cfg, calib, group.world,
+                                            weight_fp4_only=weight_fp4_only,
+                                            group=group))
+        del p
+    hid = cfg.hidden_size
+    embed = _normal(gen, (cfg.vocab_size, hid), 0.02, DEV)
+    return {"embed": embed,
+            "final_ln": torch.ones(hid, dtype=torch.bfloat16, device=DEV),
+            "lm_head": _normal(gen, (cfg.vocab_size, hid), 0.02, DEV),
+            "layers": layers}
+
+
+def p12_window(eng, group, steps: int = 8) -> dict:
+    """A rank's decode window (``decode_window`` through the engine's own
+    step program): host ms, kernel launches, all_reduces and their host
+    ms a step over one chunk, then device busy ms and all CUDA launches a
+    step under ``torch.profiler`` over one more."""
+    from micromix_tpu_torch.kernels import build
+    from torch.profiler import ProfilerActivity, profile
+    b = eng.max_seqs
+    z = torch.zeros(b, dtype=torch.int32, device=DEV)
+    seq = torch.full((b,), b, dtype=torch.int32, device=DEV)
+    kw = dict(gen=None, temps=torch.zeros(b, device=DEV), top_k=z,
+              top_p=torch.ones(b, device=DEV), controls=None, n_steps=steps,
+              sample_mode="greedy")
+
+    def chunk(start):
+        eng._sf.decode_multi(eng.params, eng.caches, z, seq, z + start, **kw)
+        torch.cuda.synchronize()
+
+    chunk(0)
+    build.reset_launches()
+    group.reset_counts()
+    t0 = time.perf_counter()
+    chunk(steps)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = {k: v / steps for k, v in build.launches.items()}
+    reduces, reduce_ms = group.reduces / steps, group.reduce_s * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk(2 * steps)
+    busy, cuda_launches = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total / 1e3
+            cuda_launches += 1
+    if busy <= 0.0:
+        fail("phase 12: the profiler saw no device time")
+    return dict(ms_per_step=ms, kernel_launches_per_step=sum(launches.values()),
+                by_kernel=launches, all_reduces_per_step=reduces,
+                all_reduce_ms_per_step=reduce_ms,
+                device_busy_ms_per_step=busy / steps,
+                cuda_launches_per_step=cuda_launches / steps)
+
+
+def p12_serve(eng, specs, group, label: str, must_launch) -> dict:
+    """A rank's engine run with the launch counters and the group's reduce
+    counts reset just before it and read just after, the plain versions
+    refused; every request must finish with its tokens; then the decode
+    window."""
+    from micromix_tpu_torch.kernels import build
+    reqs = p12_requests(specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    group.reset_counts()
+    with refuse_plain_kernels(label):
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    missing = [k for k in must_launch if not launches.get(k)]
+    # an f32 call of B or K counts under its kernel's name too: the bf16
+    # output is proven by more launches there than f32 ones
+    missing += [f"{k} (bf16 out)" for k in ("w8_gemm", "sp_gemm")
+                if f"{k}_f32" in must_launch
+                and launches.get(k, 0) <= launches.get(f"{k}_f32", 0)]
+    if missing:
+        fail(f"{label}: rank {group.rank}: kernels not launched: {missing}")
+    if not all(r.done and len(r.output) == r.max_new_tokens for r in reqs):
+        fail(f"{label}: rank {group.rank}: a request did not finish")
+    steps = eng.phase_steps["decode"]
+    stats = dict(tokens=[r.output for r in reqs], launches=launches, wall_s=wall,
+                 prefill_s=eng.phase_s["prefill"],
+                 decode_ms_per_step=(1e3 * eng.phase_s["decode"] / steps
+                                     if steps else None),
+                 decode_steps=steps, all_reduces=group.reduces,
+                 all_reduce_s=group.reduce_s,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with refuse_plain_kernels(label):
+        stats["decode_window"] = p12_window(eng, group)
+    return stats
+
+
+def _p12_pick(g, c, rel: float, tie_ok: bool):
+    """Greedy tokens of one unit on both sides: equal, or, where
+    ``tie_ok`` (phase 3's rule: the last prefill chunk only), a near tie
+    (the CPU's two top logits closer than the unit's difference, and the
+    card on the CPU's second) -> (card token, cpu token, accepted)."""
+    gt, ct = int(torch.argmax(g)), int(torch.argmax(c))
+    if gt == ct:
+        return gt, ct, True
+    if not tie_ok:
+        return gt, ct, False
+    top = torch.topk(c, 2)
+    margin = float(top.values[0] - top.values[1]) / float(c.abs().max())
+    return gt, ct, margin < rel and gt == int(top.indices[1])
+
+
+def p12_units(run_a, run_b, cfg, prompt, steps: int, chunk: int = 128,
+              label: str = "") -> dict:
+    """A prompt in chunks (a flash chunk, then chunks over the paged
+    history), then greedy decode steps, each unit run by ``run_a(kind,
+    args)`` and ``run_b(kind, args)`` -> logits (1, V) on each side; the
+    units follow side A's tokens.  Greedy tokens equal at every unit but
+    the last prefill chunk, which may be a near tie (phase 3's rule);
+    logits within 0.5 of side B's range."""
+    rels, toks_a, toks_b, ties = [], [], [], 0
+
+    def unit(kind, args, tie_ok=False):
+        nonlocal ties
+        g = run_a(kind, args)[0].float().cpu()
+        c = run_b(kind, args)[0].float().cpu()
+        rel = float((g - c).abs().max()) / float(c.abs().max())
+        rels.append(rel)
+        gt, ct, ok = _p12_pick(g, c, rel, tie_ok)
+        if not ok:
+            fail(f"phase 12 ({label}): {kind} greedy tokens {gt} / {ct} differ")
+        ties += gt != ct
+        toks_a.append(gt)
+        toks_b.append(ct)
+
+    starts = range(0, len(prompt), chunk)
+    for start in starts:
+        unit("prefill", (prompt[start:start + chunk], start),
+             tie_ok=start == starts[-1])
+    for i in range(steps):
+        unit("decode", (toks_a[-1], len(prompt) + i))
+    if max(rels) > 0.5:
+        fail(f"phase 12 ({label}): logit error {max(rels):.3e} over 0.5")
+    return dict(tokens=toks_a, other_tokens=toks_b, near_ties=ties,
+                logit_rel_err=rels)
+
+
+def _p12_caches(cfg, n_kv, device, prompt_len, steps, ps=128):
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    mp = -(-(prompt_len + steps + 1) // ps)
+    caches = [make_cache(mp + 1, ps, n_kv, cfg.head_dim, 1, mp, device=device)
+              for _ in range(cfg.num_layers)]
+    for c in caches:
+        c.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
+    return caches
+
+
+def _p12_runner(params, cfg, caches, device, prefill_fn, decode_fn):
+    """run(kind, args) over ``caches`` (kept in a one-element list)."""
+    def run(kind, args):
+        if kind == "prefill":
+            toks, start = args
+            t = torch.tensor([toks], device=device)
+            logits, caches[0] = prefill_fn(params, cfg, caches[0], t, 0, start,
+                                           hist_len=start)
+        else:
+            tok, pos = args
+            logits, caches[0] = decode_fn(
+                params, cfg, caches[0], torch.tensor([tok], device=device),
+                torch.zeros(1, dtype=torch.int32, device=device),
+                torch.tensor([pos], dtype=torch.int32, device=device))
+        return logits
+    return run
+
+
+def p12_card_vs_cpu(params, cfg_run, group, prefill_fn, decode_fn, n_kv,
+                    prompt_len, steps, label) -> dict:
+    """The rank's units on the card and, from a CPU copy of the card's
+    state taken just before each, the same units on the CPU (its
+    all_reduces over gloo too); the card goes on from its own result."""
+    cpu_params = params_to(params, "cpu")
+    prompt = np.random.default_rng(SEED).integers(0, cfg_run.vocab_size,
+                                                  prompt_len).tolist()
+    gcaches = [_p12_caches(cfg_run, n_kv, DEV, prompt_len, steps)]
+    card = _p12_runner(params, cfg_run, gcaches, DEV, prefill_fn, decode_fn)
+    before = []
+
+    def card_unit(kind, args):
+        before.append(params_to(gcaches[0], "cpu"))
+        return card(kind, args)
+
+    def cpu_unit(kind, args):
+        return _p12_runner(cpu_params, cfg_run, [before.pop()], "cpu",
+                           prefill_fn, decode_fn)(kind, args)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // group.world))
+    t0 = time.perf_counter()
+    try:
+        out = p12_units(card_unit, cpu_unit, cfg_run, prompt, steps, label=label)
+    finally:
+        torch.set_num_threads(threads)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def p12_tp_rank(group, calibs, specs, small_specs) -> dict:
+    """One rank of phase 12's tensor-parallel runs (b)-(d) on the card."""
+    import functools
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   quantize_layer,
+                                                   stack_layer_projections)
+    from micromix_tpu_torch.parallel import make_tp_engine
+    from micromix_tpu_torch.parallel.tp_quant import (local_config,
+                                                      quantize_layer_tp)
+    from micromix_tpu_torch.parallel.tp_serve import tp_decode_step, tp_prefill
+    from micromix_tpu_torch.serve.runner import decode_step, prefill
+    out = {"backend": group.backend, "device": str(group.device)}
+    eng_kw = dict(seed=SEED, max_seqs=8, page_size=128, decode_chunk=8)
+
+    # (b) Llama-3.1-8B widths, 32 layers
+    cfg = llama31_8b(32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = p12_tp_model(cfg, calibs, group, SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    codes = _tree_bytes(tree["layers"])
+    eng = make_tp_engine(tree, cfg, group, max_pages_per_seq=16,
+                         prefill_chunk=512, **eng_kw)
+    if eng.caches[0].n_kv_heads != cfg.num_kv_heads // group.world:
+        fail("phase 12 (b): the rank's cache does not hold nkv / tp heads")
+    st = p12_serve(eng, specs, group, "phase 12 (b)", TP_KERNELS)
+    st.update(model_build_s=build_s, build_peak_mem_gib=build_peak,
+              layer_bytes=codes, cache_heads=eng.caches[0].n_kv_heads)
+    out["b"] = st
+    del eng, tree
+    torch.cuda.empty_cache()
+
+    # (c) two layers: the ranks on the card against the same ranks on the
+    # CPU; then identity calibration and k4-only budgets against the
+    # single-card runner (rank 0) on the same dense weights
+    cfg2 = llama31_8b(2)
+    cfg2_l = local_config(cfg2, group.world)
+    tp_pre = functools.partial(tp_prefill, group=group)
+    tp_dec = functools.partial(tp_decode_step, group=group)
+    tree = p12_tp_model(cfg2, calibs[:2], group, SEED + 12)
+    out["c_cpu"] = p12_card_vs_cpu(tree, cfg2_l, group, tp_pre, tp_dec,
+                                   cfg2_l.num_kv_heads, 200, 4,
+                                   "c: card against CPU")
+    del tree
+    ident = default_calibration(cfg2)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    layers, single = [], []
+    for calib in ident:
+        p = dense_layer(cfg2, gen, DEV)
+        layers.append(quantize_layer_tp(p, cfg2, calib, group.world, group=group))
+        if group.rank == 0:
+            single.append(quantize_layer(p, cfg2, calib))
+        del p
+    head = dict(embed=_normal(gen, (cfg2.vocab_size, cfg2.hidden_size), 0.02, DEV),
+                final_ln=torch.ones(cfg2.hidden_size, dtype=torch.bfloat16,
+                                    device=DEV))
+    head["lm_head"] = _normal(gen, (cfg2.vocab_size, cfg2.hidden_size), 0.02, DEV)
+    tree = dict(head, layers=layers)
+    prompt = np.random.default_rng(SEED + 1).integers(0, cfg2.vocab_size,
+                                                      200).tolist()
+    tcaches = [_p12_caches(cfg2_l, cfg2_l.num_kv_heads, DEV, 200, 4)]
+    run_tp = _p12_runner(tree, cfg2_l, tcaches, DEV, tp_pre, tp_dec)
+    if group.rank == 0:
+        sparams = stack_layer_projections(dict(head, layers=single))
+        scaches = [_p12_caches(cfg2, cfg2.num_kv_heads, DEV, 200, 4)]
+        other = _p12_runner(sparams, cfg2, scaches, DEV, prefill, decode_step)
+    else:
+        # the other ranks run the same TP units (their collectives) and
+        # hold them against themselves
+        last = []
+        tp_unit = run_tp
+        run_tp = lambda kind, args: last.append(tp_unit(kind, args)) or last[-1]  # noqa: E731
+        other = lambda kind, args: last[-1]  # noqa: E731
+    out["c_single"] = p12_units(run_tp, other, cfg2, prompt, 4,
+                                label="c: TP against single card")
+    if group.rank:
+        out["c_single"] = None
+    del tree, single, head, tcaches
+    torch.cuda.empty_cache()
+
+    # (d) the hetero form, then the symmetric-weights form (split-plane
+    # o / down: K's f32 output), 4 layers, 8 requests of 96-128 tokens
+    cfg4 = llama31_8b(P12_SMALL_LAYERS)
+    for key, kw, must in (("d_hetero", dict(hetero=True), TP_HETERO_KERNELS),
+                          ("d_symmetric", dict(weight_fp4_only=False),
+                           TP_SYMMETRIC_KERNELS)):
+        tree = p12_tp_model(cfg4, calibs[:P12_SMALL_LAYERS], group, SEED, **kw)
+        eng = make_tp_engine(tree, cfg4, group, max_pages_per_seq=2,
+                             **eng_kw)
+        out[key] = p12_serve(eng, small_specs, group, f"phase 12 ({key})", must)
+        del eng, tree
+        torch.cuda.empty_cache()
+    return out
+
+
+def p12_ep_model(cfg, group):
+    """The rank's tree of an expert-parallel Mixtral: the quantized model
+    made from the seed, each layer's experts grouped as it is made
+    (``random_quantized_model``), then split over the ranks
+    (``shard_params_ep``: the rank keeps its E / ep experts)."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.parallel import shard_params_ep
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    for p in params["layers"]:
+        p["experts_grouped_ep"] = p.pop("experts_grouped")
+    mine = shard_params_ep(params, group)
+    del params
+    torch.cuda.empty_cache()
+    return mine
+
+
+def p12_ep_rank(group, specs) -> dict:
+    """One rank of phase 12's expert-parallel runs (e): Mixtral-8x7B widths
+    at 4 layers under dense then capacity dispatch, then 2 layers card
+    against CPU."""
+    from micromix_tpu_torch.parallel import make_ep_step_fns
+    from micromix_tpu_torch.serve.engine import Engine
+    from micromix_tpu_torch.serve.runner import decode_step, prefill
+    out = {"backend": group.backend}
+    cfg = mixtral_8x7b(P12_SMALL_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mine = p12_ep_model(cfg, group)
+    torch.cuda.synchronize()
+    out["model_build_s"] = time.perf_counter() - t0
+    out["build_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["layer_bytes"] = _tree_bytes(mine["layers"])
+    for key, c in (("e_dense", cfg),
+                   ("e_capacity", dataclasses.replace(cfg, moe_capacity_factor=1.25))):
+        eng = Engine(mine, c, step_fns=make_ep_step_fns(c), seed=SEED,
+                     device=DEV, max_seqs=4, page_size=128, max_pages_per_seq=2,
+                     decode_chunk=8)
+        out[key] = p12_serve(eng, specs, group, f"phase 12 ({key})", EP_KERNELS)
+        del eng
+    del mine
+    torch.cuda.empty_cache()
+    cfg2 = mixtral_8x7b(2)
+    mine = p12_ep_model(cfg2, group)
+    out["e_cpu"] = p12_card_vs_cpu(mine, cfg2, group, prefill, decode_step,
+                                   cfg2.num_kv_heads, 128, 2,
+                                   "e: card against CPU")
+    del mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12(rng, calibs, p8_tp) -> dict:
+    """Tensor and expert parallelism on the one card: two ranks, two
+    processes on cuda:0 over gloo (NCCL refuses two ranks on one card).
+
+      a. B and K with f32 output (``check_f32_gemms``);
+      b. Llama-3.1-8B widths, 32 layers, tp=2, phase 7's calibrations:
+         each rank draws its dense layers from the seed one at a time and
+         quantizes its shard alone (half the codes each, the embedding
+         and head whole); phase 4's traffic (chunked and batched prefill);
+      c. 2 layers of (b), the ranks on the card against the same ranks on
+         the CPU from one state per unit; and at identity calibration with
+         k4-only budgets the TP ranks against the single-card runner on
+         the same dense weights (greedy tokens equal; the last prefill
+         chunk may be a near tie, phase 3's rule);
+      d. the hetero form (``--hetero``), then the symmetric-weights form
+         (split-plane o / down: K's f32 output), 4 layers, 8 requests of
+         96-128 tokens;
+      e. Mixtral-8x7B widths, 4 layers (93 GB of bf16 at full depth), ep=2:
+         4 local experts a rank, four requests under dense and then
+         capacity dispatch; 2 layers card against CPU;
+      f. ``cli serve --tp 2`` (run inside phase 8, on its checkpoint): its
+         stats line names (b)'s backend and rank count.
+
+    Every rank must launch its path's kernels and no plain version, and
+    the ranks' token streams must be equal.  These runs are not under
+    ``torch.cuda.set_sync_debug_mode("error")``: gloo's all_reduce of a
+    CUDA tensor copies it to the host and back and blocks the calling
+    thread, so every row-parallel projection and MoE block of a dispatch
+    synchronizes; the decode window counts these blocking collectives a
+    step instead (``all_reduces_per_step``).  The numbers measure TP and
+    EP on one card over host-staged collectives, not TP performance."""
+    from micromix_tpu_torch.parallel import spawn
+    t_start = time.perf_counter()
+    out = {}
+    results = []
+    timer = Timer()
+    out["f32_rounding"] = check_f32_gemms(results, timer)
+    del timer
+    torch.cuda.empty_cache()
+    out["checks"] = results
+    vocab = llama31_8b(1).vocab_size
+    specs = [(r.prompt, r.max_new_tokens) for r in _traffic(rng, vocab)]
+    small = p12_specs(rng, vocab, [int(rng.integers(96, 129)) for _ in range(8)], 32)
+    ranks = spawn(p12_tp_rank, P12_TP, calibs, specs, small, device=DEV)
+    for key in ("b", "d_hetero", "d_symmetric"):
+        toks = [r[key]["tokens"] for r in ranks]
+        if any(t != toks[0] for t in toks[1:]):
+            fail(f"phase 12 ({key}): the ranks' token streams differ")
+        out[key] = [{k: v for k, v in r[key].items() if k != "tokens"}
+                    for r in ranks]
+        for rank, st in enumerate(out[key]):
+            w = st["decode_window"]
+            print(f"  ({key}) rank {rank}: engine {st['decode_ms_per_step']:.3f} "
+                  f"ms/step; window {w['ms_per_step']:.3f} ms/step host, "
+                  f"{w['device_busy_ms_per_step']:.3f} busy, "
+                  f"{w['cuda_launches_per_step']:.1f} CUDA launches, "
+                  f"{w['all_reduces_per_step']:.1f} all_reduces "
+                  f"({w['all_reduce_ms_per_step']:.3f} ms) a step; peak "
+                  f"{st['peak_mem_gib']:.2f} GiB", flush=True)
+    out["b_tokens"] = ranks[0]["b"]["tokens"]
+    out["c_cpu"] = ranks[0]["c_cpu"]
+    out["c_single"] = ranks[0]["c_single"]
+    if ranks[1]["c_cpu"]["tokens"] != out["c_cpu"]["tokens"]:
+        fail("phase 12 (c): the ranks' card tokens differ")
+    print(f"  (c) card against CPU: tokens {out['c_cpu']['tokens']}, near ties "
+          f"{out['c_cpu']['near_ties']}, max rel err "
+          f"{max(out['c_cpu']['logit_rel_err']):.3e}; TP against single card: "
+          f"tokens {out['c_single']['tokens']} / "
+          f"{out['c_single']['other_tokens']}, near ties "
+          f"{out['c_single']['near_ties']}", flush=True)
+    backend = ranks[0]["backend"]
+    print(f"  (b) backend {backend}, {P12_TP} ranks on {ranks[0]['device']}; "
+          f"rank 0 layers {ranks[0]['b']['layer_bytes'] / 2 ** 30:.2f} GiB, "
+          f"built in {ranks[0]['b']['model_build_s']:.1f}s", flush=True)
+    ep_specs = p12_specs(rng, mixtral_8x7b(1).vocab_size,
+                         [int(rng.integers(96, 129)) for _ in range(4)], 16)
+    eranks = spawn(p12_ep_rank, P12_TP, ep_specs, device=DEV, axis="expert")
+    for key in ("e_dense", "e_capacity"):
+        toks = [r[key]["tokens"] for r in eranks]
+        if any(t != toks[0] for t in toks[1:]):
+            fail(f"phase 12 ({key}): the ranks' token streams differ")
+        out[key] = [{k: v for k, v in r[key].items() if k != "tokens"}
+                    for r in eranks]
+        for rank, st in enumerate(out[key]):
+            w = st["decode_window"]
+            print(f"  ({key}) rank {rank}: window {w['ms_per_step']:.3f} ms/step "
+                  f"host, {w['device_busy_ms_per_step']:.3f} busy, "
+                  f"{w['all_reduces_per_step']:.1f} all_reduces a step; I "
+                  f"launches {st['launches'].get('w8_grouped')}", flush=True)
+    out["e_cpu"] = eranks[0]["e_cpu"]
+    print(f"  (e) card against CPU: tokens {out['e_cpu']['tokens']}, max rel "
+          f"err {max(out['e_cpu']['logit_rel_err']):.3e}", flush=True)
+    if p8_tp["stats"].get("backend") != backend or \
+            p8_tp["stats"].get("ranks") != P12_TP:
+        fail(f"phase 12 (f): serve --tp printed {p8_tp['stats']}, not "
+             f"{P12_TP} ranks over {backend}")
+    out["f"] = p8_tp
+    out["launches"] = collections.Counter()
+    for r in ranks:
+        for key in ("b", "d_hetero", "d_symmetric"):
+            out["launches"].update(r[key]["launches"])
+    for r in eranks:
+        for key in ("e_dense", "e_capacity"):
+            out["launches"].update(r[key]["launches"])
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -3738,10 +4384,16 @@ G7_ENTRIES = {
     "paged_decode_g7": ("paged_decode", "B=8 H=28 Hkv=4 D=128 len 100..600"),
     "paged_prefill_g7": ("paged_prefill", "S=512 hist=1536 H=28 Hkv=4 D=128"),
 }
+# B and K with f32 output (a tensor-parallel rank's row-parallel
+# partial); their launches are phase 12's, on every rank
+F32_ENTRIES = {
+    "w8_gemm_f32": ("w8_gemm", "M=8 N=4096 K=2048 f32"),
+    "sp_gemm_f32": ("sp_gemm", "M=8 N=4096 K=2048 f32"),
+}
 
 
 def kernel_line(results, launches, page_launches, verify_launches,
-                bf16_launches, g7_launches) -> dict:
+                bf16_launches, g7_launches, f32_launches) -> dict:
     """The per-kernel JSON line: every kernel at its main shape, then the
     entries of another page width, row count or head group, each with the
     largest error over its rows (those whose shape names it)."""
@@ -3756,6 +4408,8 @@ def kernel_line(results, launches, page_launches, verify_launches,
                 for entry, (kernel, shape) in BF16_ENTRIES.items()]
     entries += [(entry, kernel, shape, g7_launches.get(kernel, 0), "H=28 Hkv=4")
                 for entry, (kernel, shape) in G7_ENTRIES.items()]
+    entries += [(entry, kernel, shape, f32_launches.get(entry, 0), "f32")
+                for entry, (kernel, shape) in F32_ENTRIES.items()]
     for entry, kernel, shape, n, part in entries:
         src, replaces, _ = KERNELS[kernel]
         rows = [r for r in results if r["kernel"] == kernel
@@ -3875,6 +4529,17 @@ def main() -> int:
           f"pipeline at {P11_MOE_LAYERS} layers", flush=True)
     p11 = phase11(rng, p7_calibs)
     print(f"  phase 11 took {p11['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 12: tensor and expert parallelism, {P12_TP} ranks on the "
+          f"card over gloo: B and K with f32 output, Llama-3.1-8B tp=2 at 32 "
+          f"layers, 2 layers card against CPU and against the single card, "
+          f"the hetero and symmetric forms at {P12_SMALL_LAYERS} layers, "
+          f"Mixtral-8x7B ep=2 at {P12_SMALL_LAYERS} layers, serve --tp 2",
+          flush=True)
+    p12 = phase12(rng, p7_calibs, p8["serve_tp"])
+    results.extend(p12.pop("checks"))
+    print(f"  phase 12 took {p12['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -3910,6 +4575,7 @@ def main() -> int:
     for form in P11_FORMS:
         main_launches.update(p11["forms"][form]["launches"])
     main_launches.update(p11["moe"]["serve"]["launches"])
+    main_launches.update(p12["launches"])
     # bf16 pages: C's and H's launches on them, D's in that run
     bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
                      for k in ("paged_decode", "paged_prefill")}
@@ -3917,13 +4583,15 @@ def main() -> int:
     g7_launches = collections.Counter(p10["int4"]["launches"])
     g7_launches.update(p10["bf16"]["launches"])
     line = kernel_line(results, main_launches, p8_pages,
-                       p9["draft"]["row_launches"], bf16_launches, g7_launches)
+                       p9["draft"]["row_launches"], bf16_launches, g7_launches,
+                       p12["launches"])
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
                        phase8=p8, phase9=p9, phase10=p10, phase11=p11,
+                       phase12=p12,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

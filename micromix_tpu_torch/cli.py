@@ -12,7 +12,13 @@ flag, and the same printed lines and stats JSON:
   * ``eval``       perplexity of a dense, quantized or baked model
   * ``serve``      batch generation through the engine (a profiler trace
                    of the run with ``--profile DIR``), or with
-                   ``--port N`` the OpenAI-style HTTP server
+                   ``--port N`` the OpenAI-style HTTP server; with
+                   ``--tp N`` / ``--ep N`` over N ranks
+                   (``parallel.spawn``: N processes, each quantizing its
+                   shard from the dense checkpoint and serving it with its
+                   own engine; this process tokenizes, checks that every
+                   rank emitted the same tokens, and prints rank 0's
+                   completions and stats)
 
 ``--platform auto`` runs on the card and raises without one; nothing
 falls back to the CPU.  ``--platform cpu`` runs the plain PyTorch
@@ -31,10 +37,11 @@ import time
 
 # flag -> (is it set?, the ROADMAP.md item that ports its path)
 _NOT_PORTED = {
-    "tp": (lambda v: v > 1, "item 9 (parallel/ onto torch.distributed)"),
-    "ep": (lambda v: v > 1, "item 9 (parallel/ onto torch.distributed)"),
     "tasks": (bool, "item 8 (eval/lm_eval_adapter.py)"),
 }
+# serve flags that the multi-rank serve does not run yet
+_RANKS_ITEM = ("ROADMAP.md item 1.2b (the HTTP server, the router and the "
+               "profiler over --tp / --ep ranks)")
 
 
 def _refuse_unported(args) -> None:
@@ -167,13 +174,154 @@ def cmd_eval(args) -> None:
             json.dump(results, f, indent=2, default=str)
 
 
+def _check_ranks(args) -> int:
+    """The --tp / --ep checks the JAX package makes before loading
+    anything; -> the rank count (1 without either)."""
+    if args.tp > 1 and args.ep > 1:
+        raise SystemExit("--tp and --ep are mutually exclusive (TP serves "
+                         "dense models; EP serves Mixtral experts)")
+    n = max(args.tp, args.ep)
+    if n <= 1:
+        return 1
+    if args.quantized_ckpt or args.weight_only:
+        # the ranks quantize their shards from the dense weights
+        raise SystemExit("--tp requires --do-quant from a dense model "
+                         "(not --quantized-ckpt or --weight-only)")
+    if args.port:
+        raise SystemExit("serve --port with --tp / --ep is not ported: an "
+                         "HTTP server on rank 0 would have to send each "
+                         f"admitted request to the other ranks; {_RANKS_ITEM}")
+    if args.profile:
+        raise SystemExit(f"serve --profile with --tp / --ep is not ported; "
+                         f"{_RANKS_ITEM}")
+    if not args.prompts:
+        raise SystemExit("serve --tp / --ep: need --prompts FILE")
+    if args.ep > 1:
+        from .models.loader import config_from_hf
+        with open(os.path.join(args.model, "config.json")) as f:
+            if not config_from_hf(json.load(f)).is_moe:
+                raise SystemExit("--ep requires a Mixtral (MoE) checkpoint")
+    return n
+
+
+def _serve_rank(group, args, prompts, eos_id):
+    """One rank of ``serve --tp`` / ``--ep``: the dense checkpoint, the
+    calibration's smoothing, the rank's shard quantized, its engine over
+    the prompt token ids -> (outputs, stats)."""
+    from .calib import load_calibration, smooth_params
+    from .parallel import (make_ep_engine, make_tp_engine, quantize_model_ep,
+                           quantize_model_tp, quantize_model_tp_hetero)
+    from .serve import Request
+    from .serve.sampling import SamplingParams
+
+    args.device = str(group.device)
+    cfg, params = _load_model(args)
+    calibs, absmax = load_calibration(args.calibration)
+    if args.smooth and absmax:
+        stats = {k: {"absmax": v} for k, v in absmax.items()}
+        params = smooth_params(params, cfg, stats, alpha=args.alpha)
+    if args.tp > 1:
+        if args.hetero:
+            tparams = quantize_model_tp_hetero(params, cfg, calibs, args.tp,
+                                               group=group)
+        else:
+            tparams = quantize_model_tp(
+                params, cfg, calibs, args.tp,
+                weight_fp4_only=not args.symmetric_weights, group=group)
+        del params
+        eng = make_tp_engine(tparams, cfg, group,
+                             **_engine_kw(args, group.device))
+    else:
+        qm = quantize_model_ep(params, cfg, calibs)
+        del params
+        eng = make_ep_engine(qm, cfg, group, **_engine_kw(args, group.device))
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, min_p=args.min_p)
+    reqs = [Request(req_id=i, prompt=ids, max_new_tokens=args.max_new_tokens,
+                    sampling=sampling, eos_id=eos_id)
+            for i, ids in enumerate(prompts)]
+    group.reset_counts()
+    t0 = time.time()
+    eng.run(reqs)
+    dt = time.time() - t0
+    stats = _serve_stats(eng, reqs, dt)
+    stats.update(ranks=group.world, backend=group.backend,
+                 all_reduces=group.reduces)
+    return [r.output for r in reqs], stats
+
+
+def _engine_kw(args, device) -> dict:
+    """The engine's keywords from the serve flags (speculation included)."""
+    spec_kw = {}
+    if args.draft_model:
+        # the draft stays dense bf16: it is small, and the target model
+        # dominates both memory and operations
+        from .models.loader import config_from_hf, load_dense_params
+        with open(os.path.join(args.draft_model, "config.json")) as f:
+            dcfg = config_from_hf(json.load(f))
+        spec_kw = dict(draft_params=load_dense_params(args.draft_model, dcfg,
+                                                      device=device),
+                       draft_cfg=dcfg, spec_gamma=args.spec_gamma)
+    elif args.spec_ngram:
+        spec_kw = dict(spec_ngram=args.spec_ngram, spec_gamma=args.spec_gamma)
+    return dict(max_seqs=args.max_seqs, page_size=args.page_size,
+                kv_bits=args.kv_bits or 4, decode_chunk=args.decode_chunk,
+                prefix_cache=args.prefix_cache, device=device, **spec_kw)
+
+
+def _serve_stats(eng, reqs, dt: float) -> dict:
+    import numpy as np
+    ttfts = [eng.ttft[r.req_id] for r in reqs if r.req_id in eng.ttft]
+    stats = {
+        "requests": len(reqs),
+        "prefill_tokens": eng.prefill_tokens,
+        "decode_tokens": eng.decode_tokens,
+        "preemptions": eng.preemptions,
+        "wall_s": round(dt, 3),
+        "decode_tokens_per_s": round(eng.decode_tokens / dt, 2),
+        "mean_ttft_ms": round(1e3 * float(np.mean(ttfts)), 2),
+        # host wall seconds per engine phase ("mixed" = piggybacked
+        # prefill + decode calls)
+        "phase_s": {k: round(v, 3) for k, v in eng.phase_s.items() if v},
+    }
+    if eng.spec_proposed:
+        stats["spec_accept_rate"] = round(
+            eng.spec_accepted / eng.spec_proposed, 3)
+    if eng.prefix_hit_tokens:
+        stats["prefix_hit_tokens"] = eng.prefix_hit_tokens
+    return stats
+
+
+def _serve_ranks(args, n: int) -> None:
+    """``serve --tp N`` / ``--ep N``: N ranks over the prompts file."""
+    from .parallel import spawn
+
+    tok = _tokenizer(args)
+    with open(args.prompts) as f:
+        prompts = [tok(ln.rstrip("\n"))["input_ids"] for ln in f if ln.strip()]
+    outs = spawn(_serve_rank, n, args, prompts, tok.eos_token_id,
+                 device=args.device or "cuda",
+                 axis="model" if args.tp > 1 else "expert")
+    for r, (toks, _) in enumerate(outs[1:], start=1):
+        if toks != outs[0][0]:
+            raise SystemExit(f"rank {r} emitted other tokens than rank 0")
+    toks, stats = outs[0]
+    for i, ids in enumerate(toks):
+        print(f"--- [{i}] ---")
+        print(tok.decode(ids, skip_special_tokens=True))
+    print(json.dumps(stats))
+
+
 def cmd_serve(args) -> None:
     """Batch-generate with the continuous-batching engine: one prompt per
     line, completions and stats printed; or the HTTP API with --port."""
-    import numpy as np
     from .serve import Engine, Request
     from .serve.sampling import SamplingParams
 
+    n_ranks = _check_ranks(args)
+    if n_ranks > 1:
+        _serve_ranks(args, n_ranks)
+        return
     if not args.port and not args.prompts:
         raise SystemExit("serve: need --prompts FILE (batch mode) or "
                          "--port N (HTTP API mode)")
@@ -183,23 +331,7 @@ def cmd_serve(args) -> None:
     if args.prompts:
         with open(args.prompts) as f:
             prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
-    spec_kw = {}
-    if args.draft_model:
-        # the draft stays dense bf16: it is small, and the target model
-        # dominates both memory and operations
-        from .models.loader import config_from_hf, load_dense_params
-        with open(os.path.join(args.draft_model, "config.json")) as f:
-            dcfg = config_from_hf(json.load(f))
-        spec_kw = dict(draft_params=load_dense_params(args.draft_model, dcfg,
-                                                      device=args.device),
-                       draft_cfg=dcfg, spec_gamma=args.spec_gamma)
-    elif args.spec_ngram:
-        spec_kw = dict(spec_ngram=args.spec_ngram, spec_gamma=args.spec_gamma)
-    eng = Engine(params, cfg, max_seqs=args.max_seqs,
-                 page_size=args.page_size, kv_bits=args.kv_bits or 4,
-                 decode_chunk=args.decode_chunk,
-                 prefix_cache=args.prefix_cache, device=args.device,
-                 **spec_kw)
+    eng = Engine(params, cfg, **_engine_kw(args, args.device))
     if args.port:
         from .serve.api import ApiServer
         chat_tpl = None
@@ -240,25 +372,7 @@ def cmd_serve(args) -> None:
     for r in reqs:
         print(f"--- [{r.req_id}] ---")
         print(tok.decode(r.output, skip_special_tokens=True))
-    ttfts = [eng.ttft[r.req_id] for r in reqs if r.req_id in eng.ttft]
-    stats = {
-        "requests": len(reqs),
-        "prefill_tokens": eng.prefill_tokens,
-        "decode_tokens": eng.decode_tokens,
-        "preemptions": eng.preemptions,
-        "wall_s": round(dt, 3),
-        "decode_tokens_per_s": round(eng.decode_tokens / dt, 2),
-        "mean_ttft_ms": round(1e3 * float(np.mean(ttfts)), 2),
-        # host wall seconds per engine phase ("mixed" = piggybacked
-        # prefill + decode calls)
-        "phase_s": {k: round(v, 3) for k, v in eng.phase_s.items() if v},
-    }
-    if eng.spec_proposed:
-        stats["spec_accept_rate"] = round(
-            eng.spec_accepted / eng.spec_proposed, 3)
-    if eng.prefix_hit_tokens:
-        stats["prefix_hit_tokens"] = eng.prefix_hit_tokens
-    print(json.dumps(stats))
+    print(json.dumps(_serve_stats(eng, reqs, dt)))
 
 
 def main(argv=None) -> None:
@@ -348,9 +462,9 @@ def main(argv=None) -> None:
     s.add_argument("--kv-bits", type=int, default=4)
     s.add_argument("--decode-chunk", type=int, default=8)
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported)")
+                   help="tensor-parallel ranks (dense models)")
     s.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel ways (not ported)")
+                   help="expert-parallel ranks (Mixtral)")
     s.add_argument("--prefix-cache", action="store_true",
                    help="share KV pages across common prompt prefixes")
     s.add_argument("--draft-model", default=None, metavar="DIR",

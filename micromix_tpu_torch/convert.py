@@ -21,6 +21,12 @@ and gate/up, and
 ``experts_grouped`` (two GroupedW8 and the (E, K) site permutations) in
 place of ``experts``; they come over as the port's containers with their
 own padding.  A Mixtral router comes over as a bf16 ``DenseLinear``.
+The tensor- and expert-parallel trees of ``micromix_tpu.parallel`` come
+over whole (the global trees, which ``parallel.shard_params_tp`` /
+``shard_params_ep`` split): the hetero TP form's ``{"w", "bias"}`` o and
+down, and a Mixtral layer's ``experts_grouped_ep`` (as
+``experts_grouped``) or ``experts_stacked`` (each leaf's leading expert
+dim; ``parallel.moe_ep.stack_tree``'s form).
 """
 
 from __future__ import annotations
@@ -114,6 +120,31 @@ def grouped_from_jax(gw, device) -> GroupedW8:
         k4=gw.k4, k6=gw.k6, k8=gw.k8)
 
 
+class _Expert:
+    """Expert i of a JAX stacked-experts node: its arrays' row i, its
+    statics as they are."""
+
+    def __init__(self, node, i: int):
+        self._node, self._i = node, i
+
+    @property
+    def kind(self) -> str:
+        return kind(self._node)
+
+    def __getattr__(self, name):
+        return _expert(getattr(self._node, name), self._i)
+
+
+def _expert(node, i: int):
+    if node is None or isinstance(node, (bool, int, float, str)):
+        return node
+    if isinstance(node, dict):
+        return {k: _expert(v, i) for k, v in node.items()}
+    if hasattr(node, "shape"):
+        return np.asarray(node)[i]
+    return _Expert(node, i)
+
+
 def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     """JAX quantized params (numpy leaves) -> the port's params on ``device``."""
@@ -123,6 +154,10 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
         return None if q.bias is None else to_tensor(q.bias, dev)
 
     def lin(q):
+        if isinstance(q, dict):
+            # the hetero TP form's row-parallel linears
+            return {"w": weight_from_jax(q["w"], dev),
+                    "bias": None if q["bias"] is None else to_tensor(q["bias"], dev)}
         if hasattr(q, "w_scale"):
             return Int8TurboLinear(w=to_tensor(np.asarray(q.w, np.int8), dev),
                                    w_scale=to_tensor(q.w_scale, dev),
@@ -163,8 +198,15 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ModelConfig,
                 bias=None if r.bias is None else to_tensor(r.bias, dev))
         if "experts" in p:
             out["experts"] = [expert(ep) for ep in p["experts"]]
-        if "experts_grouped" in p:
-            out["experts_grouped"] = grouped(p["experts_grouped"])
+        for key in ("experts_grouped", "experts_grouped_ep"):
+            if key in p:
+                out[key] = grouped(p[key])
+        if "experts_stacked" in p:
+            from .parallel.moe_ep import stack_tree
+            st = p["experts_stacked"]
+            n = np.asarray(st["w2"].w.codes).shape[0]
+            out["experts_stacked"] = stack_tree([expert(_expert(st, i))
+                                                 for i in range(n)])
         layers.append(out)
     return {"embed": to_tensor(np_tree["embed"], dev),
             "final_ln": to_tensor(np_tree["final_ln"], dev),

@@ -21,7 +21,10 @@
 // accumulation.  K is split over gridDim.z as the wrapper asks
 // (sp_split_k: a function of M and K only, so that Kernel L, given the
 // same M and K, sums every output in the same order); a last kernel adds
-// the f32 partials in a fixed order.
+// the f32 partials in a fixed order.  The output is bf16 (each sum rounded
+// once) or f32 (a tensor-parallel rank's partial, summed over the ranks
+// before its one round), stored by one template: the bf16 output is the
+// f32 one rounded, bit for bit.
 
 #include "sp_tile.cuh"
 
@@ -50,10 +53,21 @@ __global__ void decode_codes(sp::Operand a, sp::Segs s, __nv_bfloat16* __restric
   d[1] = make_uint4(v[4], v[5], v[6], v[7]);
 }
 
-template <int BM>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float c0, float c1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(c0, c1);
+}
+__device__ __forceinline__ void store_pair(float* p, float c0, float c1) {
+  *reinterpret_cast<float2*>(p) = make_float2(c0, c1);
+}
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+
+template <int BM, typename OutT>
 __global__ void __launch_bounds__(sp::Tile<BM>::THREADS)
 sp_gemm_kernel(const __nv_bfloat16* __restrict__ A, sp::Operand w, sp::Segs s,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+               OutT* __restrict__ out, float* __restrict__ partial,
                int M, int N, int t_chunk) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int n0 = blockIdx.x * sp::Tile<BM>::BN, m0 = blockIdx.y * BM;
@@ -63,8 +77,7 @@ sp_gemm_kernel(const __nv_bfloat16* __restrict__ A, sp::Operand w, sp::Segs s,
   sp::for_each_pair<BM>(acc, m0, n0, [&](int m, int n, float c0, float c1) {
     if (m >= M || n >= N) return;
     if (partial == nullptr) {
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
-          __floats2bfloat162_rn(c0, c1);
+      store_pair(out + static_cast<size_t>(m) * N + n, c0, c1);
     } else {
       float* p = partial + (static_cast<size_t>(blockIdx.z) * M + m) * N + n;
       *reinterpret_cast<float2*>(p) = make_float2(c0, c1);
@@ -72,29 +85,43 @@ sp_gemm_kernel(const __nv_bfloat16* __restrict__ A, sp::Operand w, sp::Segs s,
   });
 }
 
+template <typename OutT>
 __global__ void sum_partials(const float* __restrict__ partial,
-                             __nv_bfloat16* __restrict__ out, size_t mn,
-                             int splits) {
+                             OutT* __restrict__ out, size_t mn, int splits) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= mn) return;
   float acc = 0.0f;
   for (int z = 0; z < splits; ++z) acc += partial[z * mn + i];
-  out[i] = __float2bfloat16_rn(acc);
+  store_one(out + i, acc);
 }
 
-template <int BM>
+template <int BM, typename OutT>
 cudaError_t launch_gemm(const __nv_bfloat16* A, const sp::Operand& w, const sp::Segs& s,
-                        __nv_bfloat16* Y, float* p, int M, int N, int splits,
+                        OutT* Y, float* p, int M, int N, int splits,
                         cudaStream_t st) {
   static int allowed = 0;
   const int smem = sp::tile_smem<BM>(s);
   constexpr int BN = sp::Tile<BM>::BN;
-  cudaError_t err = sp::allow_dynamic_smem(sp_gemm_kernel<BM>, smem, allowed);
+  cudaError_t err = sp::allow_dynamic_smem(sp_gemm_kernel<BM, OutT>, smem, allowed);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  sp_gemm_kernel<BM><<<grid, sp::Tile<BM>::THREADS, smem, st>>>(A, w, s, Y, p, M, N,
-                                                     s.steps() / splits);
+  sp_gemm_kernel<BM, OutT><<<grid, sp::Tile<BM>::THREADS, smem, st>>>(A, w, s, Y, p, M, N,
+                                                             s.steps() / splits);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+int run(const __nv_bfloat16* img, const sp::Operand& wo, const sp::Segs& s, OutT* Y,
+        float* p, int M, int N, int splits, cudaStream_t st) {
+  cudaError_t err;
+  const int bm = sp::block_m(M);
+  if (bm == 16) err = launch_gemm<16>(img, wo, s, Y, p, M, N, splits, st);
+  else if (bm == 64) err = launch_gemm<64>(img, wo, s, Y, p, M, N, splits, st);
+  else err = launch_gemm<128>(img, wo, s, Y, p, M, N, splits, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t mn = static_cast<size_t>(M) * N;
+  sum_partials<OutT><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(p, Y, mn, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -102,10 +129,11 @@ cudaError_t launch_gemm(const __nv_bfloat16* A, const sp::Operand& w, const sp::
 // a / w: 6 pointers each, codes of the fp4, fp6, fp8 segments then their
 // scales (A: (M, kseg) codes; W: (N, k4/2) packed, (N, k6), (N, k8));
 // image: bf16 (M, K) scratch for the decoded activation; partial: f32
-// (splits, M, N) scratch when splits > 1, else unused.
+// (splits, M, N) scratch when splits > 1, else unused; out: bf16 (M, N),
+// or f32 when out_f32.
 extern "C" int sp_gemm(const void* const* a, const void* const* w, void* image, void* out,
                        void* partial, int M, int N, int k4, int k6, int k8,
-                       int fp4_only, int splits, void* stream) {
+                       int fp4_only, int splits, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   sp::Operand ao, wo;
   for (int i = 0; i < 3; ++i) {
@@ -121,13 +149,6 @@ extern "C" int sp_gemm(const void* const* a, const void* const* w, void* image, 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   float* p = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  auto* Y = static_cast<__nv_bfloat16*>(out);
-  const int bm = sp::block_m(M);
-  if (bm == 16) err = launch_gemm<16>(img, wo, s, Y, p, M, N, splits, st);
-  else if (bm == 64) err = launch_gemm<64>(img, wo, s, Y, p, M, N, splits, st);
-  else err = launch_gemm<128>(img, wo, s, Y, p, M, N, splits, st);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t mn = static_cast<size_t>(M) * N;
-  sum_partials<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(p, Y, mn, splits);
-  return static_cast<int>(cudaGetLastError());
+  if (out_f32) return run(img, wo, s, static_cast<float*>(out), p, M, N, splits, st);
+  return run(img, wo, s, static_cast<__nv_bfloat16*>(out), p, M, N, splits, st);
 }

@@ -12,9 +12,14 @@
 //   scales       UE8M0 bytes (N, kseg/32), value 2^(sf-127), byte 0 -> 0.0.
 //
 // The K axis runs in steps of 128 device columns: a fp4 step covers 64
-// packed bytes, i.e. device columns [b0, b0+64) and [k4/2+b0, k4/2+b0+64)
-// (k4 is a multiple of 128, so k4/2 is one of 64 and a step never splits
-// a plane), then the fp6 and fp8 segments 128 columns at a time.
+// packed bytes, i.e. device columns [b0, b0+64) and [k4/2+b0, k4/2+b0+64),
+// then the fp6 and fp8 segments 128 columns at a time.  A segment's width
+// is a multiple of 32 (an MX block; a tensor-parallel shard's budgets are
+// rounded to 32, not 128), so its last step may be partial: the copies
+// past the segment's end (past k4/2 packed bytes in the fp4 plane) are
+// zero-filled, in the A tile and in the raw weight tile, and those
+// columns add exact zeros to the sums.  Where every width is a multiple
+// of 128 no step is partial.
 //
 // Tile: BM = block_m(M) rows of A (16, 64, or 128 for prefill M, so a
 // 256-row chunk decodes each weight tile twice, not four times) by BN
@@ -56,13 +61,15 @@ constexpr int LD = BK + PAD;
 // prefill chunk's rows decode each weight tile once per 128).
 inline int block_m(int M) { return M <= 16 ? 16 : (M <= 64 ? 64 : 128); }
 
-// Segment widths in device columns (multiples of 128), and the weight's
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Segment widths in device columns (multiples of 32), and the weight's
 // grid (fp4_only: FP4 codes in all three segments).
 struct Segs {
   int k4, k6, k8;
   int fp4_only;
   __host__ __device__ int k() const { return k4 + k6 + k8; }
-  __host__ __device__ int steps() const { return k() / BK; }
+  __host__ __device__ int steps() const { return cdiv(k4, BK) + cdiv(k6, BK) + cdiv(k8, BK); }
   __host__ __device__ int nbt() const { return k() / 32; }
 };
 
@@ -107,7 +114,7 @@ struct Step {
 };
 
 __device__ __forceinline__ Step step_of(const Segs& s, int t) {
-  const int t4 = s.k4 / BK, t6 = s.k6 / BK;
+  const int t4 = cdiv(s.k4, BK), t6 = cdiv(s.k6, BK);
   if (t < t4) return {0, t * (BK / 2)};
   if (t < t4 + t6) return {1, (t - t4) * BK};
   return {2, (t - t4 - t6) * BK};
@@ -326,22 +333,26 @@ __device__ __forceinline__ void mainloop(const __nv_bfloat16* __restrict__ A, in
   const size_t cp_step = static_cast<size_t>(AR) * K;
   auto load = [&](int t, int slot) {
     const Step st = step_of(s, t);
+    // the step's columns in its segment's row (fp4: packed bytes of one
+    // plane half) end at `width`; chunks past it are zero-filled
+    const int width = st.seg == 0 ? s.k4 / 2 : seg_width(s, st.seg);
+    const bool a_in = st.c0 + (st.seg == 0 ? cp_c % (BK / 2) : cp_c) < width;
     const __nv_bfloat16* src = cp_src + seg_offset(s, st.seg) + seg_col(s, st, cp_c);
     __nv_bfloat16* a_dst = As + slot * BM * LD + cp_r * LD + cp_c;
 #pragma unroll
     for (int i = 0; i < BM / AR; ++i) {
-      const bool ok = m0 + cp_r + i * AR < M;
+      const bool ok = a_in && m0 + cp_r + i * AR < M;
       ptx::cp_async16(a_dst + i * AR * LD, ok ? src + i * cp_step : A, ok);
     }
     const int per_row = st.seg == 0 ? 4 : 8;  // 16-byte chunks a weight row
     const int wr = THREADS / per_row;          // rows between a thread's chunks
     const int w_r = tid / per_row, w_c = (tid % per_row) * 16;
-    const int width = st.seg == 0 ? s.k4 / 2 : seg_width(s, st.seg);
+    const bool w_in = st.c0 + w_c < width;
     const uint8_t* wsrc = pick(w.c, st.seg);
     const uint8_t* wp = wsrc + static_cast<size_t>(n0 + w_r) * width + st.c0 + w_c;
     uint8_t* w_dst = Wr + slot * BN * BK + w_r * BK + w_c;
     for (int r = 0; r < BN; r += wr) {
-      const bool ok = n0 + w_r + r < N;
+      const bool ok = w_in && n0 + w_r + r < N;
       ptx::cp_async16(w_dst + r * BK, ok ? wp + static_cast<size_t>(r) * width : wsrc, ok);
     }
   };

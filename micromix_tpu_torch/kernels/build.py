@@ -9,7 +9,8 @@ go to ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of source and flags, so an edited source is rebuilt.
 
 Every wrapper counts its launches in ``launches`` (one per kernel launch
-made by a wrapper call), so a run can show that its main path went
+made by a wrapper call; B's and K's calls with f32 output also under
+"w8_gemm_f32" / "sp_gemm_f32"), so a run can show that its main path went
 through the kernels; the attention kernels over KV pages (C and H) also
 count each launch by page width in ``page_launches`` ((name, bits) ->
 launches), so a run can show which pages they read; B, F, C and D, which

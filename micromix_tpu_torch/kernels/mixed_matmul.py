@@ -58,7 +58,12 @@ _BM_WIDE, _BN_WIDE = 128, 256   # csrc/w8_tile128.cuh: B's, F's and I's tiles ab
 _W8_BLOCK_FIXED_STEPS = 3.4      # a wide block's fixed cost, in 128-deep steps
 _W8_PARTIAL_BYTES_PER_STEP = 2.0e7   # partials written and read in one step's time
 _SIG = {"w8_gemm": [build.PTR, build.PTR, build.PTR, build.PTR, build.INT,
-                    build.INT, build.INT, build.FLOAT, build.INT, build.PTR]}
+                    build.INT, build.INT, build.FLOAT, build.INT, build.INT,
+                    build.PTR]}
+# the output types of Kernels B and K: bf16 (each f32 sum rounded once) or
+# the f32 sums (a tensor-parallel rank's partial, rounded after the sum
+# over the ranks)
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 _SIG_STACK = {"w8_stack": [build.PTR, build.PTR, build.PTR, build.INTS,
                            build.INTS, build.INTS, build.FLOATS, build.PTRS,
                            build.INT, build.INT, build.INT, build.INT,
@@ -101,10 +106,16 @@ def _partials(splits: int, m: int, n: int, device) -> Optional[torch.Tensor]:
             if splits > 1 else None)
 
 
-def mixed_matmul_w8_plain(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
-    """Y = A . dq(W)^T in f32, rounded to bf16 (the kernel's function)."""
+def _check_out_dtype(name: str, out_dtype) -> None:
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"{name} writes bf16 or f32, not {out_dtype}")
+
+
+def mixed_matmul_w8_plain(a: torch.Tensor, w: ScaledW8,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Y = A . dq(W)^T in f32, as ``out_dtype`` (the kernel's function)."""
     wd = dequantize_scaled_w8(w, torch.float32)
-    return torch.matmul(a.to(torch.float32), wd.t()).to(torch.bfloat16)
+    return torch.matmul(a.to(torch.float32), wd.t()).to(out_dtype)
 
 
 def split_k(m: int, n: int, k: int) -> int:
@@ -138,56 +149,69 @@ def w8_gemm_split(m: int, n: int, k: int) -> int:
     return min((d for d in range(1, min(steps, 16) + 1) if steps % d == 0), key=cost)
 
 
-def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8) -> torch.Tensor:
-    """Y (M, N) bf16 = A (M, K) bf16 . decode(W)^T, f32 accumulation.
+def mixed_matmul_w8(a: torch.Tensor, w: ScaledW8,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Y (M, N) = A (M, K) bf16 . decode(W)^T, f32 accumulation; bf16
+    out (each sum rounded once) or, with ``out_dtype=torch.float32``, the
+    f32 sums.
 
     ``a`` is the exact bf16 image of the quantized activation in device
     column order.
     """
     m, k = a.shape
     n = w.rows
+    _check_out_dtype("mixed_matmul_w8", out_dtype)
     if w.k != k:
         raise ValueError(f"K mismatch: activation {k}, weight {w.k}")
     if not a.is_cuda:
-        return mixed_matmul_w8_plain(a, w)
+        return mixed_matmul_w8_plain(a, w, out_dtype)
     _check_gemm_operands("mixed_matmul_w8", a, w.codes)
     if n % 8:
         raise ValueError(f"mixed_matmul_w8 needs N % 8 == 0, got {n}")
     a = a.contiguous()
     build.require_cuda("mixed_matmul_w8", a, w.codes)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0:
         return out
     splits = w8_gemm_split(m, n, k)
     partial = _partials(splits, m, n, a.device)
     lib = build.library("w8_gemm", _SIG)
+    f32 = out_dtype == torch.float32
     build.launches["w8_gemm"] += 1
+    if f32:
+        build.launches["w8_gemm_f32"] += 1
     build.row_launches[("w8_gemm", m)] += 1
     rc = lib.w8_gemm(build.ptr(a), build.ptr(w.codes), build.ptr(out),
                      build.ptr(partial), m, n, k, w8_scale(w), splits,
-                     build.stream())
+                     int(f32), build.stream())
     build.check(rc, "w8_gemm")
     return out
 
 
-def mixed_matmul(a, w) -> torch.Tensor:
-    """Y (M, N) bf16 = dq(A) . dq(W)^T.
+def mixed_matmul(a, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Y (M, N) = dq(A) . dq(W)^T, f32 sums; bf16 out, or the f32 sums
+    with ``out_dtype=torch.float32`` (a tensor-parallel rank's partial).
 
     ScaledW8 ``w``: ``a`` is the bf16 activation image (or a MixedTensor,
     decoded to it); below ``W8_PREFILL_DEQUANT_THRESHOLD`` rows the
-    ScaledW8 GEMM, from it on a one-shot dequant to bf16 and one dense
-    product.  Split-plane ``w`` (MixedTensor): ``a`` a MixedTensor of
-    activation codes; below ``PREFILL_DEQUANT_THRESHOLD`` rows the
-    split-plane GEMM, from it on both operands dequantized and one dense
-    product.
+    ScaledW8 GEMM, from it on a one-shot dequant and one dense product.
+    Split-plane ``w`` (MixedTensor): ``a`` a MixedTensor of activation
+    codes; below ``PREFILL_DEQUANT_THRESHOLD`` rows the split-plane GEMM,
+    from it on both operands dequantized and one dense product.  The
+    dense products take bf16 operands with bf16 out, and f32 operands
+    (the exact decoded values) with f32 out, as the JAX package's dot
+    with f32 accumulation.
     """
+    _check_out_dtype("mixed_matmul", out_dtype)
+    f32 = out_dtype == torch.float32
     if isinstance(w, MixedTensor):
         if a.rows >= PREFILL_DEQUANT_THRESHOLD:
             if not a.fp4.is_cuda:
-                return mixed_matmul_sp_plain(a, w)
-            return torch.matmul(dequantize_mixed_device(a),
-                                dequantize_mixed_device(w).t())
-        return mixed_matmul_sp(a, w)
+                return mixed_matmul_sp_plain(a, w, out_dtype)
+            dt = torch.float32 if f32 else torch.bfloat16
+            return torch.matmul(dequantize_mixed_device(a, dt),
+                                dequantize_mixed_device(w, dt).t())
+        return mixed_matmul_sp(a, w, out_dtype)
     if not isinstance(w, ScaledW8):
         raise TypeError(f"no GEMM for weights of type {type(w).__name__}")
     if isinstance(a, MixedTensor):
@@ -199,9 +223,12 @@ def mixed_matmul(a, w) -> torch.Tensor:
         a = dequantize_mixed_device(a)
     if a.shape[0] >= W8_PREFILL_DEQUANT_THRESHOLD:
         if not a.is_cuda:
-            return mixed_matmul_w8_plain(a, w)
+            return mixed_matmul_w8_plain(a, w, out_dtype)
+        if f32:
+            return torch.matmul(a.to(torch.float32),
+                                dequantize_scaled_w8(w, torch.float32).t())
         return torch.matmul(a, dequantize_scaled_w8(w, torch.bfloat16).t())
-    return mixed_matmul_w8(a, w)
+    return mixed_matmul_w8(a, w, out_dtype)
 
 
 def mixed_matmul_w8_site(x: torch.Tensor, w: ScaledW8, *,
@@ -575,7 +602,7 @@ _SP_STRIP = 128
 
 _MX_FIELDS = ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")
 _SIG_SP = {"sp_gemm": [build.PTRS, build.PTRS, build.PTR, build.PTR, build.PTR]
-           + [build.INT] * 7 + [build.PTR]}
+           + [build.INT] * 8 + [build.PTR]}
 _SIG_SP_STACK = {"sp_stack": [build.PTR, build.PTRS, build.PTR, build.INTS,
                               build.INTS, build.PTRS] + [build.INT] * 7
                  + [build.PTR]}
@@ -594,6 +621,12 @@ def sp_split_k(m: int, k: int) -> int:
                 if steps % d == 0 and steps // d <= most)
 
 
+def sp_steps(segments) -> int:
+    """The split-plane tile's 128-column steps over segments of multiples
+    of 32: a segment's last step may be partial (``csrc/sp_tile.cuh``)."""
+    return sum(-(-kseg // _BK) for kseg in segments)
+
+
 def _mx_ptrs(t: MixedTensor):
     return (ctypes.c_void_p * 6)(*[build.ptr(getattr(t, f)) for f in _MX_FIELDS])
 
@@ -601,8 +634,8 @@ def _mx_ptrs(t: MixedTensor):
 def _check_sp_weight(name: str, w: MixedTensor, k: int) -> None:
     if w.k != k:
         raise ValueError(f"K mismatch: activation {k}, weight {w.k}")
-    if any(s % _BK for s in w.segments()) or (w.segments()[0] and not w.fp4_packed):
-        raise ValueError(f"{name} takes segments of multiples of {_BK} "
+    if any(s % 32 for s in w.segments()) or (w.segments()[0] and not w.fp4_packed):
+        raise ValueError(f"{name} takes segments of multiples of 32 "
                          f"columns, fp4 packed: {w.segments()}")
 
 
@@ -620,39 +653,47 @@ def _require_mx(name: str, a: Optional[MixedTensor], w: MixedTensor) -> None:
                                  "non-contiguous")
 
 
-def mixed_matmul_sp_plain(a: MixedTensor, w: MixedTensor) -> torch.Tensor:
-    """dq(A) . dq(W)^T in f32, rounded to bf16 (the kernel's function)."""
+def mixed_matmul_sp_plain(a: MixedTensor, w: MixedTensor,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """dq(A) . dq(W)^T in f32, as ``out_dtype`` (the kernel's function)."""
     return torch.matmul(dequantize_mixed_device(a, torch.float32),
                         dequantize_mixed_device(w, torch.float32).t()
-                        ).to(torch.bfloat16)
+                        ).to(out_dtype)
 
 
-def mixed_matmul_sp(a: MixedTensor, w: MixedTensor) -> torch.Tensor:
-    """Kernel K: Y (M, N) bf16 = dq(A codes) . dq(W)^T, f32 accumulation.
+def mixed_matmul_sp(a: MixedTensor, w: MixedTensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel K: Y (M, N) = dq(A codes) . dq(W)^T, f32 accumulation; bf16
+    out, or the f32 sums with ``out_dtype=torch.float32``.
     ``a``: activation codes (fp4 unpacked, ``kernels.quantize``); ``w``:
     a split-plane weight, fp4 packed, FP4 or FP6/FP8 codes in the fp6 and
-    fp8 segments (``fp4_only``)."""
+    fp8 segments (``fp4_only``); segments of multiples of 32 (a
+    tensor-parallel shard's budgets are rounded to 32)."""
+    _check_out_dtype("mixed_matmul_sp", out_dtype)
     if a.segments() != w.segments() or a.fp4_packed:
         raise ValueError(f"activation segments {a.segments()} (packed "
                          f"{a.fp4_packed}) vs weight {w.segments()}")
     if not a.fp4.is_cuda:
-        return mixed_matmul_sp_plain(a, w)
+        return mixed_matmul_sp_plain(a, w, out_dtype)
     m, n, k = a.rows, w.rows, a.k
     _check_sp_weight("sp_gemm", w, k)
     if n % 8:
         raise ValueError(f"sp_gemm needs N % 8 == 0, got {n}")
     _require_mx("sp_gemm", a, w)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.fp4.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.fp4.device)
     if m == 0:
         return out
-    splits = sp_split_k(m, k)
+    splits = sp_split_k(m, _BK * sp_steps(w.segments()))
     partial = _partials(splits, m, n, out.device)
     image = torch.empty((m, k), dtype=torch.bfloat16, device=out.device)
     lib = build.library("sp_gemm", _SIG_SP)
+    f32 = out_dtype == torch.float32
     build.launches["sp_gemm"] += 1
+    if f32:
+        build.launches["sp_gemm_f32"] += 1
     rc = lib.sp_gemm(_mx_ptrs(a), _mx_ptrs(w), build.ptr(image), build.ptr(out),
                      build.ptr(partial), m, n, *w.segments(),
-                     int(w.fp4_only), splits, build.stream())
+                     int(w.fp4_only), splits, int(f32), build.stream())
     build.check(rc, "sp_gemm")
     return out
 
@@ -690,7 +731,7 @@ def sp_stack_gemm(qx: torch.Tensor, st: SplitPlaneStack) -> List[torch.Tensor]:
     if m == 0:
         return outs
     total = sum(st.padded)
-    splits = sp_split_k(m, k)
+    splits = sp_split_k(m, _BK * sp_steps(st.segments()))
     partial = _partials(splits, m, total, qx.device)
     lib = build.library("sp_stack", _SIG_SP_STACK)
     build.launches["sp_stack"] += 1

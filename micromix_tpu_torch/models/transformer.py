@@ -16,11 +16,16 @@ input and each expert's two site inputs with its routed-row mask, and
 (``quantize_int_group``).  Weight-only and int8 layers (no sites) run as
 the dense forms do.  Prefill attention goes through ``flash_attention``:
 the CUDA kernel on the GPU, its plain f32 version on the CPU.  The
-expert-parallel forms are not ported.
+expert-parallel forms (``parallel/ep_serve.py``): a rank's layer carries
+its local experts grouped (``experts_grouped_ep``) or stacked
+(``experts_stacked``, the hetero experts) and its ``ep_group``; the block
+runs the local experts with their global indices into the routing and
+sums the partial over the ranks with one f32 ``all_reduce``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional
 
@@ -196,21 +201,27 @@ def _add_group_bias(y: torch.Tensor, b) -> torch.Tensor:
 
 
 def _moe_grouped(xn: torch.Tensor, weights: torch.Tensor, gr: Params,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, e_off: Optional[int] = None) -> torch.Tensor:
     """The grouped expert path: gather (capacity) or broadcast (dense) the
     tokens per expert, then two grouped calls, w1|w3 behind each expert's
     own plain site and w2 behind the silu site, then the combine.  f32
     (T, hidden) out.  Up to ``GROUPED_MAX_C`` rows per expert the grouped
-    GEMM runs; above, the site and one dequantized batched product."""
+    GEMM runs; above, the site and one dequantized batched product.
+    ``e_off``: the groups are one rank's local experts from this global
+    index on (expert parallelism); the result is the rank's partial."""
     w13, w2 = gr["w13"], gr["w2"]
     e = w13.groups
     t, k = xn.shape
     if cfg.moe_capacity_factor is not None:
         idx, gate = capacity_dispatch(weights, moe_capacity(cfg, t))
+        if e_off is not None:
+            idx, gate = idx[e_off:e_off + e], gate[e_off:e_off + e]
         xn_pad = torch.cat([xn, xn.new_zeros((1, k))])
         xg = xn_pad[idx.long()]                          # (E, C, K)
     else:
         idx, gate = None, weights.t()
+        if e_off is not None:
+            gate = gate[e_off:e_off + e]
         xg = xn.expand(e, t, k).contiguous()
     c = xg.shape[1]
     if c <= GROUPED_MAX_C:
@@ -247,16 +258,36 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return ex / ex.sum(dim=-1, keepdim=True)
 
 
-def route(xn: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Router -> dense routing weights (T, E) f32: the top-k softmax
-    probabilities renormalised, zero off the top-k.  Ties go to the lower
-    expert index, as jax.lax.top_k breaks them (a stable sort)."""
-    probs = _softmax(p["router"](xn).to(torch.float32))
+def routing_weights(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """f32 router logits (T, E) -> dense routing weights (T, E): the top-k
+    softmax probabilities renormalised, zero off the top-k.  Ties go to
+    the lower expert index, as jax.lax.top_k breaks them (a stable sort)."""
+    probs = _softmax(logits)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w = top_w[:, :cfg.num_experts_per_tok]
-    top_i = top_i[:, :cfg.num_experts_per_tok]
+    top_w, top_i = top_w[:, :top_k], top_i[:, :top_k]
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     return torch.zeros_like(probs).scatter_(1, top_i, top_w)
+
+
+def route(xn: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The bf16 router -> dense routing weights (T, E) f32."""
+    return routing_weights(p["router"](xn).to(torch.float32),
+                           cfg.num_experts_per_tok)
+
+
+def index_tree(tree, i: int):
+    """Expert ``i`` of a stacked tree (``parallel/moe_ep.stack_tree``):
+    every tensor's row i, every stacked int (a tuple) its entry i."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, tuple):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: index_tree(getattr(tree, f.name), i)
+                             for f in dataclasses.fields(tree)})
+    return tree
 
 
 def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
@@ -280,20 +311,38 @@ def moe_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
     gr = p.get("experts_grouped")
     if gr is not None:
         return _moe_grouped(xn, weights, gr, cfg).to(torch.bfloat16).reshape(b, s, k)
+    group = p.get("ep_group")
+    gre = p.get("experts_grouped_ep")
+    if gre is not None:
+        # expert parallelism, grouped: the local experts in one grouped
+        # call, one f32 sum over the ranks
+        out = _moe_grouped(xn, weights, gre, cfg,
+                           e_off=group.rank * gre["w13"].groups)
+        return group.all_reduce(out).to(torch.bfloat16).reshape(b, s, k)
+    st = p.get("experts_stacked")
+    if st is not None:
+        # expert parallelism, stacked: the local experts one by one with
+        # their global indices, one f32 sum over the ranks
+        el = st["w2"].w.codes.shape[0]
+        experts = [(group.rank * el + i, index_tree(st, i)) for i in range(el)]
+        combine = group.all_reduce
+    else:
+        experts = list(enumerate(p["experts"]))
+        combine = lambda o: o                                # noqa: E731
     t = xn.shape[0]
     if cfg.moe_capacity_factor is not None:
         idx, gate = capacity_dispatch(weights, moe_capacity(cfg, t))
         xn_pad = torch.cat([xn, xn.new_zeros((1, k))])
         out_pad = torch.zeros((t + 1, k), dtype=torch.float32, device=h.device)
-        for e, ep in enumerate(p["experts"]):
+        for e, ep in experts:
             rows = idx[e].long()
             ye = _expert_out(ep, xn_pad[rows])
             out_pad.index_add_(0, rows, ye.to(torch.float32) * gate[e][:, None])
-        return out_pad[:-1].to(torch.bfloat16).reshape(b, s, k)
+        return combine(out_pad[:-1].contiguous()).to(torch.bfloat16).reshape(b, s, k)
     out = torch.zeros((t, k), dtype=torch.float32, device=h.device)
-    for e, ep in enumerate(p["experts"]):
+    for e, ep in experts:
         out = out + _expert_out(ep, xn).to(torch.float32) * weights[:, e][:, None]
-    return out.to(torch.bfloat16).reshape(b, s, k)
+    return combine(out).to(torch.bfloat16).reshape(b, s, k)
 
 
 def _moe_tapped(xn: torch.Tensor, weights: torch.Tensor, p: Params,

@@ -57,35 +57,54 @@ class ScaledW8:
         return (self.k4, self.k6, self.k8)
 
 
-def pack_scaled_w8(t: MixedTensor) -> ScaledW8:
+def pack_scaled_w8(t: MixedTensor, base: Optional[int] = None) -> ScaledW8:
     """All-MXFP4 MixedTensor -> ScaledW8; raises ValueError when the
-    scaled-exponent spread exceeds the 6-bit field (over 62)."""
+    scaled-exponent spread exceeds the 6-bit field (over 62).  ``base``
+    overrides the per-tensor exponent offset: the shards of one weight
+    that must decode with one common base (``parallel/tp_quant.py``)."""
     assert t.fp4_only or t.segments()[1:] == (0, 0), \
         "ScaledW8 requires fp4-only weights (1 mantissa bit)"
     codes, base = encode_scaled_values(
-        dequantize_mixed_device(t, dtype=torch.float32))
+        dequantize_mixed_device(t, dtype=torch.float32), base=base)
     k4, k6, k8 = t.segments()
     return ScaledW8(codes=codes, base=base, k4=k4, k6=k6, k8=k8)
 
 
-def encode_scaled_values(vals: torch.Tensor):
-    """Exact scaled values (one mantissa bit) -> (u8 codes, int base)."""
+def exponent_range(vals: torch.Tensor) -> Tuple[int, int]:
+    """(least, largest) biased f32 exponent of the non-zero values; (0xFF,
+    0) when all are zero.  A weight split in shards has the range of the
+    least and largest of its shards' (``parallel/tp_quant.py``)."""
+    expf = (vals.to(torch.float32).view(_I32) >> 23) & 0xFF
+    nonzero = vals != 0.0
+    return (int(torch.where(nonzero, expf, 0xFF).min()),
+            int(torch.where(nonzero, expf, 0).max()))
+
+
+def check_base(emin: int, emax: int, base: int) -> None:
+    """ValueError unless every non-zero exponent in [emin, emax] maps into
+    the 6-bit field under ``base`` and 2^(base+126) stays a normal f32."""
+    if emin <= emax and not (emin - 127 - base + 1 >= 1
+                             and emax - 127 - base + 1 <= 63):
+        raise ValueError(f"scaled-weight exponents [{emin}, {emax}] under "
+                         f"base {base}: the span {emax - emin} exceeds 62 "
+                         "or the base is above the least")
+    if base > 1:
+        # the decode rescales by 2^(base+126), which must stay normal
+        raise ValueError(f"scaled-weight base exponent {base} > 1")
+
+
+def encode_scaled_values(vals: torch.Tensor, base: Optional[int] = None):
+    """Exact scaled values (one mantissa bit) -> (u8 codes, int base).
+    The base is the least exponent's unless ``base`` is given."""
     bits = vals.to(torch.float32).view(_I32)
     expf = (bits >> 23) & 0xFF            # biased f32 exponent
     mant = (bits >> 22) & 1               # fp4 has one mantissa bit
     sign = (bits >> 31) & 1
     nonzero = vals != 0.0
-    base = 0
-    if bool(nonzero.any()):
-        emax = int(torch.where(nonzero, expf, 0).max())
-        emin = int(torch.where(nonzero, expf, 0xFF).min())
-        base = emin - 127
-        if emax - emin > 62:
-            raise ValueError(
-                f"scaled-weight exponent span {emax - emin} exceeds 62")
-        if base > 1:
-            # the decode rescales by 2^(base+126), which must stay normal
-            raise ValueError(f"scaled-weight base exponent {base} > 1")
+    emin, emax = exponent_range(vals)
+    if base is None:
+        base = emin - 127 if emin <= emax else 0
+    check_base(emin, emax, base)
     e6 = torch.clamp(expf - 127 - base + 1, 1, 63)
     code = (sign << 7) | (e6 << 1) | mant
     code = torch.where(nonzero, code, torch.zeros_like(code))

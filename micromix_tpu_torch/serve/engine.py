@@ -69,6 +69,19 @@ each draw a (B, V) array), so greedy and sampled streams are the same;
 as in the JAX engine, a chunk dispatched before an eos is seen still
 carries the ended request's sampling mode.
 
+Custom step programs, as in the JAX engine (``step_fns``, a ``StepFns``;
+``parallel/tp_serve.py`` and ``parallel/ep_serve.py`` make them for one
+rank of a tensor- or expert-parallel run): the parameters are not
+stacked, nothing piggybacks, a chunk over history (chunked prefill, a
+prefix-cache hit) needs ``prefill_hist`` (without it a prompt is
+prefilled in one call up to the largest bucket), batched prefill needs
+``prefill_batch``, speculation needs the ``spec_multi`` /
+``plookup_multi`` factories (the draft and its caches stay whole on every
+rank, its prefill mirror the runner's), and pipelined decode needs
+``decode_multi_returns_last``.  ``cache_sharding`` gives a rank's share
+of the KV heads: the engine makes its caches with that many heads, and
+never the whole cache.
+
 The shell reads the JAX engine's stats: ``prefill_tokens``,
 ``decode_tokens``, ``preemptions``, ``phase_s`` (with ``"spec"``),
 ``ttft`` (req_id -> seconds from ``submit`` to the request's first
@@ -81,7 +94,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -152,6 +165,61 @@ def check_card_serves(device: torch.device, cfg: ModelConfig,
 
 
 @dataclasses.dataclass
+class StepFns:
+    """The engine's step programs (the JAX engine's ``StepFns``), each
+    taking ``runner``'s arguments without the config:
+
+      * ``prefill(params, caches, tokens, seq_id, start_pos, last_idx)``
+        and ``decode_multi(params, caches, tokens, seq_ids, positions, gen,
+        temps, top_k, top_p, controls, *, n_steps, sample_mode,
+        with_logprobs)``, as ``runner.prefill`` (no history) and
+        ``runner.decode_multi``;
+      * ``prefill_hist``: ``prefill`` with ``hist_len=`` (a chunk over the
+        quantized history), enabling chunked prefill and the prefix cache;
+      * ``prefill_batch(params, caches, tokens, seq_ids, last_idx)``,
+        enabling batched fresh prefill;
+      * ``spec_multi(draft_cfg, gamma, n_rounds)`` -> fn(tparams, dparams,
+        tcaches, dcaches, state, seq_ids, gen, temps, *, greedy), and
+        ``plookup_multi(gamma, n_rounds, ngram)`` -> fn(tparams, tcaches,
+        state, seq_ids, gen, temps, *, greedy): speculative rounds, as
+        ``speculative.spec_decode_multi`` / ``plookup_decode_multi``;
+      * ``decode_multi_returns_last``: ``decode_multi``'s tokens stay on
+        the device and its last row feeds the next chunk, enabling
+        pipelined decode.
+    """
+
+    prefill: Callable
+    decode_multi: Callable
+    prefill_hist: Optional[Callable] = None
+    prefill_batch: Optional[Callable] = None
+    spec_multi: Optional[Callable] = None
+    plookup_multi: Optional[Callable] = None
+    decode_multi_returns_last: bool = False
+
+
+def _bind(fn: Callable, cfg: ModelConfig) -> Callable:
+    return lambda params, caches, *a, **kw: fn(params, cfg, caches, *a, **kw)
+
+
+def runner_step_fns(cfg: ModelConfig) -> StepFns:
+    """The single-card programs: the runner's and ``speculative``'s."""
+    def spec_multi(dcfg, gamma, n_rounds):
+        return lambda tp, dp, tc, dc, *a, **kw: spec_decode_multi(
+            tp, dp, cfg, dcfg, tc, dc, *a, gamma=gamma, n_rounds=n_rounds, **kw)
+
+    def plookup_multi(gamma, n_rounds, ngram):
+        return lambda tp, tc, *a, **kw: plookup_decode_multi(
+            tp, cfg, tc, *a, gamma=gamma, n_rounds=n_rounds, ngram=ngram, **kw)
+
+    return StepFns(prefill=_bind(prefill, cfg),
+                   decode_multi=_bind(decode_multi, cfg),
+                   prefill_hist=_bind(prefill, cfg),
+                   prefill_batch=_bind(prefill_batch, cfg),
+                   spec_multi=spec_multi, plookup_multi=plookup_multi,
+                   decode_multi_returns_last=True)
+
+
+@dataclasses.dataclass
 class _Slot:
     req: Optional[Request] = None
     pos: int = 0
@@ -179,6 +247,8 @@ class Engine:
                  spec_gamma: int = 4, spec_rounds: Optional[int] = None,
                  spec_ngram: int = 0, spec_window: int = 256,
                  prefix_cache: bool = False, pipeline: bool = True,
+                 step_fns: Optional[StepFns] = None,
+                 cache_sharding: Optional[Callable[[int], int]] = None,
                  device=None):
         self.device = resolve_device(device)
         if spec_ngram > 0 and draft_params is not None:
@@ -188,7 +258,8 @@ class Engine:
             cfg if draft_params is not None else None)
         check_card_serves(self.device, cfg, kv_bits, self.draft_cfg,
                           page_size)
-        if not os.environ.get("MICROMIX_NO_STACK"):
+        custom = step_fns is not None
+        if not custom and not os.environ.get("MICROMIX_NO_STACK"):
             # one stacked GEMM per site at decode, one wide product at
             # prefill, the experts grouped; MICROMIX_NO_STACK=1 keeps the
             # per-consumer and per-expert form.  Per-expert params are
@@ -208,19 +279,35 @@ class Engine:
         self.buckets = tuple(sorted(prefill_buckets))
         n_pages = n_pages or (max_seqs * max_pages_per_seq + 1)
 
-        def caches(c: ModelConfig):
+        def caches(c: ModelConfig, n_kv: int):
             # one extra page-table row: inactive and mid-prefill slots
             # decode against it, so their real pages are never written
-            return [make_cache(n_pages, page_size, c.num_kv_heads, c.head_dim,
+            return [make_cache(n_pages, page_size, n_kv, c.head_dim,
                                max_seqs + 1, max_pages_per_seq, bits=kv_bits,
                                device=self.device)
                     for _ in range(c.num_layers)]
 
-        self.caches = caches(cfg)
+        self.caches = caches(cfg, cfg.num_kv_heads if cache_sharding is None
+                             else cache_sharding(cfg.num_kv_heads))
         # the draft's caches take every page-table row and length the
-        # engine writes into the target's
-        self.dcaches = caches(self.draft_cfg) if draft_params is not None \
-            else None
+        # engine writes into the target's; a rank keeps the whole draft
+        self.dcaches = (caches(self.draft_cfg, self.draft_cfg.num_kv_heads)
+                        if draft_params is not None else None)
+        if custom:
+            if prefix_cache and step_fns.prefill_hist is None:
+                # a hit prefills from the match point, over history
+                raise ValueError("prefix_cache with custom step_fns "
+                                 "requires StepFns.prefill_hist")
+            if spec_ngram > 0 and step_fns.plookup_multi is None:
+                raise ValueError("prompt-lookup speculation with custom "
+                                 "step_fns requires StepFns.plookup_multi")
+            if draft_params is not None and step_fns.spec_multi is None:
+                raise ValueError("speculative decoding with custom step_fns "
+                                 "requires StepFns.spec_multi")
+        self._sf = step_fns if custom else runner_step_fns(cfg)
+        # the draft runs the runner's programs (whole on every rank)
+        self._dsf = (runner_step_fns(self.draft_cfg)
+                     if draft_params is not None else None)
         self._prefix_cache = prefix_cache
         self.block_manager = (PrefixBlockManager if prefix_cache
                               else BlockManager)(n_pages, page_size, max_seqs,
@@ -230,6 +317,9 @@ class Engine:
         self.decode_chunk = max(1, decode_chunk)
         self.prefill_chunk = min(prefill_chunk or self.buckets[-1],
                                  self.buckets[-1])
+        if self._sf.prefill_hist is None:
+            # no chunk over history: each prompt in one call
+            self.prefill_chunk = self.buckets[-1]
         # speculation: a draft model, or prompt lookup over each request's
         # own tokens (no draft, no mirror); the plain piggyback runs the
         # target alone, so spec mode has its own fused call instead
@@ -240,14 +330,21 @@ class Engine:
         self.spec_window = spec_window
         self._plookup = spec_ngram > 0
         self._spec_on = self._plookup or draft_params is not None
-        self._piggyback_ok = piggyback and not self._spec_on
-        self._spec_piggyback_ok = piggyback and self._spec_on
+        self._piggyback_ok = piggyback and not self._spec_on and not custom
+        self._spec_piggyback_ok = piggyback and self._spec_on and not custom
+        if self._plookup:
+            self._plookup_multi = self._sf.plookup_multi(
+                spec_gamma, self.spec_rounds, spec_ngram)
+        elif draft_params is not None:
+            self._spec_multi = self._sf.spec_multi(
+                self.draft_cfg, spec_gamma, self.spec_rounds)
         # window columns: the lookup window and slack for the rounds' appends
         self._plookup_T = spec_window + self.spec_rounds * (spec_gamma + 1)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # pipelined decode (the JAX engine's conditions): the in-flight
         # chunk's record, or None
-        self._pipeline_ok = pipeline and not self._spec_on and not prefix_cache
+        self._pipeline_ok = (pipeline and not self._spec_on and not prefix_cache
+                             and self._sf.decode_multi_returns_last)
         self._inflight: Optional[Dict[str, Any]] = None
         # stats: host wall seconds and steps per phase ("mixed" is a
         # piggybacked prefill chunk + decode chunk; "spec" counts rounds)
@@ -432,7 +529,7 @@ class Engine:
         fresh = [i for i, s in enumerate(self.slots)
                  if s.req is not None and s.pending and s.pos == 0
                  and len(s.pending) <= self.prefill_chunk]
-        if len(fresh) < 2:
+        if len(fresh) < 2 or self._sf.prefill_batch is None:
             return set()
         bucket = self._bucket(max(len(self.slots[i].pending) for i in fresh))
         ok = []
@@ -457,12 +554,12 @@ class Engine:
             last[row] = len(chunk) - 1
         args = (self._to_device(toks), self._to_device(seqs),
                 self._to_device(last))
-        logits, self.caches = prefill_batch(self.params, self.cfg,
-                                            self.caches, *args)
+        logits, self.caches = self._sf.prefill_batch(self.params, self.caches,
+                                                     *args)
         if self.dcaches is not None:
             # the draft's mirror: the same tokens into its caches
-            _, self.dcaches = prefill_batch(self.draft_params, self.draft_cfg,
-                                            self.dcaches, *args)
+            _, self.dcaches = self._dsf.prefill_batch(self.draft_params,
+                                                      self.dcaches, *args)
         # bucket padding wrote extra positions: restore the true lengths
         self._set_lengths(ok, [len(self.slots[i].pending) for i in ok])
         firsts, flps = self._sample_rows(logits[:len(ok)],
@@ -499,15 +596,18 @@ class Engine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = chunk
         toks_t = self._to_device(toks)
-        logits, self.caches = prefill(
-            self.params, self.cfg, self.caches, toks_t, slot_id, slot.pos,
-            n - 1, hist_len=slot.pos)
+        args = (toks_t, slot_id, slot.pos, n - 1)
+        if slot.pos:
+            logits, self.caches = self._sf.prefill_hist(
+                self.params, self.caches, *args, hist_len=slot.pos)
+        else:
+            logits, self.caches = self._sf.prefill(self.params, self.caches,
+                                                   *args)
         if self.dcaches is not None:
             # the draft's mirror of this chunk: it sees the token stream,
             # and the chunking, the target saw
-            _, self.dcaches = prefill(
-                self.draft_params, self.draft_cfg, self.dcaches, toks_t,
-                slot_id, slot.pos, n - 1, hist_len=slot.pos)
+            _, self.dcaches = self._dsf.prefill_hist(
+                self.draft_params, self.dcaches, *args, hist_len=slot.pos)
         true_len = slot.pos + n
         self._set_lengths([slot_id], [true_len])
         slot.pos = true_len
@@ -708,8 +808,8 @@ class Engine:
             seq_ids = self._to_device(sid)
         t, k, p = rec["tkp"]
         chunk = self.decode_chunk
-        toks_dev, self.caches = decode_multi(
-            self.params, self.cfg, self.caches, rec["last"], seq_ids,
+        toks_dev, self.caches = self._sf.decode_multi(
+            self.params, self.caches, rec["last"], seq_ids,
             self._to_device(positions), self._gen, t, k, p, None,
             n_steps=chunk, sample_mode=rec["mode"])
         self.decode_steps += chunk
@@ -812,8 +912,8 @@ class Engine:
             need_lp = any(r is not None and r.logprobs for r in live)
             sid_dev = self._to_device(seq_ids)
             with self._phase("decode"):
-                out = decode_multi(
-                    self.params, self.cfg, self.caches,
+                out = self._sf.decode_multi(
+                    self.params, self.caches,
                     self._to_device(tokens), sid_dev,
                     self._to_device(positions), self._gen, t, k, p,
                     ctl, n_steps=chunk, sample_mode=mode,
@@ -946,14 +1046,14 @@ class Engine:
             if not slot.pending:
                 self._emit(piggy, int(ptok[0]))
         elif self._plookup:
-            emitted, n_emitted, _, self.caches = plookup_decode_multi(
-                self.params, self.cfg, self.caches, state, sid, self._gen,
-                t_dev, **kw)
+            emitted, n_emitted, _, self.caches = self._plookup_multi(
+                self.params, self.caches, state, sid, self._gen, t_dev,
+                greedy=greedy)
         else:
             emitted, n_emitted, _, self.caches, self.dcaches = \
-                spec_decode_multi(self.params, self.draft_params, self.cfg,
-                                  self.draft_cfg, self.caches, self.dcaches,
-                                  state, sid, self._gen, t_dev, **kw)
+                self._spec_multi(self.params, self.draft_params, self.caches,
+                                 self.dcaches, state, sid, self._gen, t_dev,
+                                 greedy=greedy)
         emitted = emitted.cpu().numpy()          # (rounds, B, gamma + 1)
         n_emitted = n_emitted.cpu().numpy()      # (rounds, B)
         self.phase_steps["spec"] += self.spec_rounds

@@ -243,7 +243,7 @@ def decode_multi(params: Params, cfg: ModelConfig, caches: Caches,
                  positions: torch.Tensor, gen: Optional[torch.Generator],
                  temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
                  controls=None, *, n_steps: int, sample_mode: str = "full",
-                 with_logprobs: bool = False):
+                 with_logprobs: bool = False, step_fn=None):
     """``n_steps`` decode + sample steps; each step feeds the previous
     step's samples.
 
@@ -256,10 +256,12 @@ def decode_multi(params: Params, cfg: ModelConfig, caches: Caches,
     chunk, and min-p as a log-space offset (-inf = off).
     ``with_logprobs``: also the chosen tokens' RAW log-probabilities
     (log_softmax of the untempered, unpenalized logits), (n_steps, B)
-    f32.
+    f32.  ``step_fn``: the decode step (``decode_step``'s signature; a
+    tensor-parallel rank's own).
 
     Returns (tokens (n_steps, B) int32[, logprobs], caches).
     """
+    step_fn = step_fn or decode_step
     if controls is not None:
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         presence_bits, penalties, ban_ids, min_remaining, mps = controls
@@ -269,7 +271,7 @@ def decode_multi(params: Params, cfg: ModelConfig, caches: Caches,
     out, lps = [], []
     toks, pos = tokens, positions
     for i in range(n_steps):
-        logits, caches = decode_step(params, cfg, caches, toks, seq_ids, pos)
+        logits, caches = step_fn(params, cfg, caches, toks, seq_ids, pos)
         lg = logits
         if controls is not None:
             suppress = (min_remaining > i)[:, None] & banned

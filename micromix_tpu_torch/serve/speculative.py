@@ -204,15 +204,17 @@ def spec_round(tparams: Params, dparams: Params, cfg: ModelConfig,
                dcfg: ModelConfig, tcaches: Caches, dcaches: Caches,
                state: SpecState, seq_ids: torch.Tensor,
                gen: Optional[torch.Generator], temps: torch.Tensor, *,
-               gamma: int, greedy: bool = False):
+               gamma: int, greedy: bool = False, verify_fn=verify_block):
     """One draft + verify + accept round -> (emitted (B, gamma + 1),
-    n_emitted (B,), the new state, tcaches, dcaches)."""
+    n_emitted (B,), the new state, tcaches, dcaches).  ``verify_fn``: the
+    target's verify (``runner.verify_block``'s signature; a tensor-parallel
+    rank's own)."""
     proposed, dprobs, dcaches = draft_propose(
         dparams, dcfg, dcaches, state, seq_ids, gen, temps, gamma=gamma,
         greedy=greedy)
     block = torch.cat([state.cur[:, None].to(torch.int32), proposed], dim=1)
-    tlogits, tcaches = verify_block(tparams, cfg, tcaches, block, seq_ids,
-                                    state.positions)
+    tlogits, tcaches = verify_fn(tparams, cfg, tcaches, block, seq_ids,
+                                 state.positions)
     emitted, n_emitted, _ = accept_tokens(proposed, dprobs, tlogits, gen,
                                           temps, greedy=greedy)
     new_pos = state.positions + n_emitted
@@ -230,7 +232,8 @@ def spec_decode_multi(tparams: Params, dparams: Params, cfg: ModelConfig,
                       dcfg: ModelConfig, tcaches: Caches, dcaches: Caches,
                       state: SpecState, seq_ids: torch.Tensor,
                       gen: Optional[torch.Generator], temps: torch.Tensor, *,
-                      gamma: int, n_rounds: int, greedy: bool = False):
+                      gamma: int, n_rounds: int, greedy: bool = False,
+                      verify_fn=verify_block):
     """``n_rounds`` rounds -> (emitted (n_rounds, B, gamma + 1), n_emitted
     (n_rounds, B), the final state, tcaches, dcaches); the caller keeps
     each round's first ``n_emitted`` tokens per slot."""
@@ -238,7 +241,7 @@ def spec_decode_multi(tparams: Params, dparams: Params, cfg: ModelConfig,
     for _ in range(n_rounds):
         e, n, state, tcaches, dcaches = spec_round(
             tparams, dparams, cfg, dcfg, tcaches, dcaches, state, seq_ids,
-            gen, temps, gamma=gamma, greedy=greedy)
+            gen, temps, gamma=gamma, greedy=greedy, verify_fn=verify_fn)
         emitted.append(e)
         n_emitted.append(n)
     return (torch.stack(emitted), torch.stack(n_emitted), state, tcaches,
@@ -280,7 +283,8 @@ def plookup_propose(tokens: torch.Tensor, length: torch.Tensor, *,
 def plookup_round(tparams: Params, cfg: ModelConfig, tcaches: Caches,
                   state: PLookupState, seq_ids: torch.Tensor,
                   gen: Optional[torch.Generator], temps: torch.Tensor, *,
-                  gamma: int, ngram: int, greedy: bool = False):
+                  gamma: int, ngram: int, greedy: bool = False,
+                  verify_fn=verify_block):
     """One propose / verify / accept round without a draft model ->
     (emitted (B, gamma + 1), n_emitted (B,), the new state, tcaches)."""
     b, t = state.tokens.shape
@@ -290,8 +294,8 @@ def plookup_round(tparams: Params, cfg: ModelConfig, tcaches: Caches,
     last = torch.clamp(state.length.long() - 1, min=0)[:, None]
     cur = state.tokens.to(torch.int32).gather(1, last)
     block = torch.cat([cur, proposed], dim=1)
-    tlogits, tcaches = verify_block(tparams, cfg, tcaches, block, seq_ids,
-                                    state.positions)
+    tlogits, tcaches = verify_fn(tparams, cfg, tcaches, block, seq_ids,
+                                 state.positions)
     # a deterministic draft: q = one-hot(proposed)
     dprobs = (None if greedy else
               F.one_hot(proposed.long(), tlogits.shape[-1]).to(torch.float32))
@@ -317,14 +321,14 @@ def plookup_decode_multi(tparams: Params, cfg: ModelConfig, tcaches: Caches,
                          state: PLookupState, seq_ids: torch.Tensor,
                          gen: Optional[torch.Generator], temps: torch.Tensor,
                          *, gamma: int, ngram: int, n_rounds: int,
-                         greedy: bool = False):
+                         greedy: bool = False, verify_fn=verify_block):
     """``n_rounds`` prompt-lookup rounds -> (emitted (n_rounds, B,
     gamma + 1), n_emitted (n_rounds, B), the final state, tcaches)."""
     emitted, n_emitted = [], []
     for _ in range(n_rounds):
         e, n, state, tcaches = plookup_round(
             tparams, cfg, tcaches, state, seq_ids, gen, temps, gamma=gamma,
-            ngram=ngram, greedy=greedy)
+            ngram=ngram, greedy=greedy, verify_fn=verify_fn)
         emitted.append(e)
         n_emitted.append(n)
     return torch.stack(emitted), torch.stack(n_emitted), state, tcaches

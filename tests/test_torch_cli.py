@@ -22,8 +22,12 @@
   --int8-turbo`` and ``serve --profile DIR`` run end to end: the baked
   checkpoints hold their containers and serve, the weight-only eval
   prints a finite perplexity, the profile is a trace file.
-* Every flag whose path is not ported exits naming its ROADMAP.md item;
-  ``--platform auto`` raises without a GPU.
+* ``serve --tp 2`` and ``serve --ep 2`` (two gloo ranks, each quantizing
+  its shard from the dense checkpoint) print the same completions as the
+  library's two ranks on the global tree, sliced.
+* Every flag whose path is not ported exits naming its ROADMAP.md item
+  (``serve --tp / --ep`` with ``--port``: item 1.2b); ``--platform auto``
+  raises without a GPU.
 * The shell's modules import without jax, micromix_tpu, ml_dtypes,
   safetensors and transformers (a subprocess with those blocked).
 """
@@ -256,9 +260,109 @@ def test_serve_prefix_cache_and_speculation_print_jax_completions(
 
 
 REFUSED = [
-    ("serve", ["--tp", "2"], "item 9"), ("serve", ["--ep", "2"], "item 9"),
+    ("serve", ["--tp", "2", "--port", "8000"], "item 1.2b"),
+    ("serve", ["--ep", "2", "--port", "8000"], "item 1.2b"),
     ("eval", ["--tasks", "hellaswag"], "item 8"),
 ]
+
+
+@pytest.fixture(scope="module")
+def moe_ckpt(ckpt, tmp_path_factory):  # noqa: F811
+    """A tiny Mixtral HF directory (4 experts, the WordLevel tokenizer of
+    ``ckpt``) and a seeded calibration of one budget for every expert
+    (grouping the experts needs one) -> (directory, calibration)."""
+    import shutil
+    from safetensors.numpy import save_file
+    from micromix_tpu.models import ModelConfig as JConfig
+    from micromix_tpu.models import random_dense_params
+    from micromix_tpu.models.loader import export_dense_params
+    from micromix_tpu_torch.calib import save_calibration
+    from micromix_tpu_torch.models.surgery import default_calibration
+    from micromix_tpu_torch.models.common import ModelConfig
+    d = tmp_path_factory.mktemp("mixtral-tiny")
+    hf = dict(model_type="mixtral", vocab_size=64, hidden_size=128,
+              intermediate_size=256, num_hidden_layers=2,
+              num_attention_heads=2, num_key_value_heads=2,
+              rope_theta=10000.0, rms_norm_eps=1e-6, num_local_experts=4,
+              num_experts_per_tok=2)
+    kw = dict(arch="mixtral", vocab_size=64, hidden_size=128,
+              intermediate_size=256, num_layers=2, num_heads=2,
+              num_kv_heads=2, head_dim=64, rope_theta=10000.0, rms_eps=1e-6,
+              num_experts=4, num_experts_per_tok=2)
+    jcfg = JConfig(**kw)
+    save_file({k: v.astype(np.float32) for k, v in export_dense_params(
+        random_dense_params(jcfg, seed=6), jcfg).items()},
+        str(d / "model.safetensors"))
+    with open(d / "config.json", "w") as f:
+        json.dump(hf, f)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(ckpt, name), d / name)
+    calib = str(d / "calib.npz")
+    save_calibration(calib, default_calibration(ModelConfig(**kw), seed=6))
+    return str(d), calib
+
+
+def _library_ranks(model, calib, prompts, tok, mode):
+    """The library run of ``serve --tp 2`` / ``--ep 2``: the dense
+    checkpoint, the calibration's smoothing, the global tree
+    (``quantize_model_tp`` / ``quantize_model_ep``) sliced on 2 ranks,
+    greedy, the CLI's engine settings -> each rank's completions."""
+    import torch_ranks
+    from micromix_tpu_torch.calib import load_calibration, smooth_params
+    from micromix_tpu_torch.models.loader import config_from_hf, load_dense_params
+    from micromix_tpu_torch.parallel import (quantize_model_ep,
+                                             quantize_model_tp, spawn)
+    with open(os.path.join(model, "config.json")) as f:
+        cfg = config_from_hf(json.load(f))
+    params = load_dense_params(model, cfg, device="cpu")
+    calibs, absmax = load_calibration(calib)
+    if absmax:
+        params = smooth_params(params, cfg, {k: {"absmax": v}
+                                             for k, v in absmax.items()})
+    engine = dict(max_seqs=2, page_size=16, decode_chunk=2, kv_bits=4)
+    specs = [dict(prompt=tok(p)["input_ids"], max_new_tokens=6,
+                  eos_id=tok.eos_token_id) for p in prompts]
+    run = [dict(engine=engine, specs=specs)]
+    if mode == "tp":
+        ranks = spawn(torch_ranks.tp_serve, 2, quantize_model_tp(
+            params, cfg, calibs, 2), cfg, run, device="cpu")
+    else:
+        ranks = spawn(torch_ranks.ep_serve, 2, quantize_model_ep(
+            params, cfg, calibs), cfg, run, device="cpu", axis="expert")
+    return [[tok.decode(t, skip_special_tokens=True) for t in r[0]["tokens"]]
+            for r in ranks]
+
+
+@pytest.mark.parametrize("mode", ["tp", "ep"])
+def test_serve_over_ranks_prints_the_library_ranks_completions(
+        ckpt, moe_ckpt, tmp_path, capsys, mode):  # noqa: F811
+    """``serve --tp 2`` (the Llama, calibrated by the CLI: smoothing
+    included) and ``serve --ep 2`` (the Mixtral): two ranks quantize their
+    shards from the dense weights; the completions equal the library's
+    two ranks on the global tree, sliced; the stats name the ranks and
+    gloo."""
+    from transformers import AutoTokenizer
+    if mode == "tp":
+        model, calib = ckpt, str(tmp_path / "calib.npz")
+        _run(["calibrate", "--model", ckpt, "--samples", "2", "--seqlen", "32",
+              "--dataset", "synthetic", "--output", calib], capsys)
+    else:
+        model, calib = moe_ckpt
+    prompts = ["w1 w2 w3", "w4 w5 w6 w7 w8"]
+    pfile = tmp_path / "prompts.txt"
+    pfile.write_text("\n".join(prompts) + "\n")
+    out = _run(["serve", "--model", model, "--do-quant", "--calibration", calib,
+                "--prompts", str(pfile), f"--{mode}", "2"] + SERVE,
+               capsys).strip().splitlines()
+    stats = json.loads(out[-1])
+    assert stats["ranks"] == 2 and stats["backend"] == "gloo"
+    assert stats["requests"] == 2 and stats["all_reduces"] > 0
+    got = [out[i + 1] if i + 1 < len(out) - 1 and not out[i + 1].startswith("--- [")
+           else "" for i, ln in enumerate(out[:-1]) if ln.startswith("--- [")]
+    tok = AutoTokenizer.from_pretrained(model, use_fast=True)
+    ranks = _library_ranks(model, calib, prompts, tok, mode)
+    assert ranks[0] == ranks[1]
+    assert got == ranks[0] and all(got), (got, ranks[0])
 
 
 def _first_leaf_kinds(qdir):

@@ -1116,10 +1116,13 @@ def _sp_weight(dev, n, splits, fp4_only=True):
 @pytest.mark.parametrize("m", [1, 8, 65, 100, 128, 129, 256, 300, 511])
 @pytest.mark.parametrize("splits,n,fp4_only", [
     (SPLITS, 200, True), (SPLITS, 64, False), ((384, 128, 0), 136, True),
-    ((1792, 128, 128), 72, False)])
+    ((1792, 128, 128), 72, False), ((576, 1024, 448), 72, False),
+    ((160, 32, 64), 64, True)])
 def test_sp_gemm_kernel(dev, m, splits, n, fp4_only):
     """Kernel K against its plain version; (1792, 128, 128) splits K at
-    decode M and its fp4 plane boundary (896) is no multiple of 128."""
+    decode M and its fp4 plane boundary (896) is no multiple of 128;
+    (576, 1024, 448) and (160, 32, 64): segments of multiples of 32 (a
+    tensor-parallel shard's budgets), each segment's last step partial."""
     a = mx_quantize((torch.randn(m, sum(splits), device=dev) * 3).to(torch.bfloat16),
                     *splits)
     w = _sp_weight(dev, n, splits, fp4_only)
@@ -1131,11 +1134,15 @@ def test_sp_gemm_kernel(dev, m, splits, n, fp4_only):
 
 @pytest.mark.parametrize("m", [1, 8, 100, 128])
 @pytest.mark.parametrize("producer", ["plain", "rms", "silu"])
-def test_sp_stack_kernel(dev, m, producer):
+@pytest.mark.parametrize("splits", [(1792, 128, 128), (576, 1024, 448),
+                                    (160, 32, 64)])
+def test_sp_stack_kernel(dev, m, producer, splits):
     """Kernel L against its plain version on the site kernel's image, and
     against Kernel J + Kernel K on every section, bit for bit; sections
-    of 256, 120 and 128 rows (padded to 256, 128, 128)."""
-    splits = (1792, 128, 128)
+    of 256, 120 and 128 rows (padded to 256, 128, 128).  (576, 1024, 448)
+    and (160, 32, 64): segments of multiples of 32 (a tensor-parallel
+    shard's budgets), each segment's last step partial, as in
+    ``test_sp_gemm_kernel``."""
     k = sum(splits)
     ns = (256,) if producer == "silu" else (256, 120, 128)
     st = stack_split_plane([_sp_weight(dev, n, splits, fp4_only=False) for n in ns])
@@ -1253,3 +1260,81 @@ def test_sp_kernels_refuse(dev):
     with pytest.raises(ValueError):               # more than 4 sections
         sp_stack_gemm(torch.zeros(2, K, dtype=torch.bfloat16, device=dev),
                       stack_split_plane([w] * 5))
+
+
+def _f32_close(got, ref, a, w):
+    """f32 sums of the same exact products in another order: each side
+    within gamma_K = K 2^-24 of |A| |W|^T."""
+    bound = 2 * a.shape[1] * 2.0 ** -24 * (a.abs().float() @ w.abs().float().t())
+    assert bool(((got - ref).abs() <= bound).all()), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 8, 100, 512])
+@pytest.mark.parametrize("n,k", [(72, 512), (264, 2048)])
+def test_w8_gemm_f32_out(dev, m, n, k):
+    """Kernel B with f32 output (a tensor-parallel rank's partial) against
+    its plain version; its bf16 output is the f32 one rounded, bit for
+    bit (one store template, the same split); f32 calls counted apart."""
+    splits = (k - 256, 128, 128)
+    w = pack_scaled_w8(quantize_mixed(torch.randn(n, k, device=dev) * 0.05,
+                                      *splits, weight_fp4_only=True))
+    a = fakequant_values(torch.randn(m, k, device=dev), *splits)
+    before = build.launches["w8_gemm_f32"]
+    got = mixed_matmul_w8(a, w, torch.float32)
+    assert got.dtype == torch.float32
+    assert build.launches["w8_gemm_f32"] == before + 1
+    _f32_close(got, mixed_matmul_w8_plain(a, w, torch.float32), a,
+               dequantize_scaled_w8(w))
+    assert torch.equal(mixed_matmul_w8(a, w), got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [1, 8, 100, 511])
+@pytest.mark.parametrize("splits,n,fp4_only", [(SPLITS, 200, True),
+                                               ((1792, 128, 128), 72, False),
+                                               ((576, 1024, 448), 72, False)])
+def test_sp_gemm_f32_out(dev, m, splits, n, fp4_only):
+    """Kernel K with f32 output against its plain version; its bf16
+    output is the f32 one rounded, bit for bit."""
+    a = mx_quantize((torch.randn(m, sum(splits), device=dev) * 3).to(torch.bfloat16),
+                    *splits)
+    w = _sp_weight(dev, n, splits, fp4_only)
+    before = build.launches["sp_gemm_f32"]
+    got = mixed_matmul_sp(a, w, torch.float32)
+    assert got.dtype == torch.float32
+    assert build.launches["sp_gemm_f32"] == before + 1
+    _f32_close(got, mixed_matmul_sp_plain(a, w, torch.float32),
+               dequantize_mixed_device(a), dequantize_mixed_device(w))
+    assert torch.equal(mixed_matmul_sp(a, w), got.to(torch.bfloat16))
+
+
+def test_f32_out_dequantize_routes(dev):
+    """From the row thresholds on, ``mixed_matmul`` gives f32 out from f32
+    products of the exact decoded operands (the JAX package's dot with f32
+    accumulation), within the same band of its plain version."""
+    splits = (256, 128, 128)
+    w8 = pack_scaled_w8(quantize_mixed(torch.randn(64, K, device=dev) * 0.05,
+                                       *splits, weight_fp4_only=True))
+    a = fakequant_values(torch.randn(mm.W8_PREFILL_DEQUANT_THRESHOLD, K,
+                                     device=dev), *splits)
+    got = mm.mixed_matmul(a, w8, out_dtype=torch.float32)
+    _f32_close(got, mixed_matmul_w8_plain(a, w8, torch.float32), a,
+               dequantize_scaled_w8(w8))
+    wsp = _sp_weight(dev, 64, splits, False)
+    asp = mx_quantize(torch.randn(mm.PREFILL_DEQUANT_THRESHOLD, K,
+                                  device=dev).to(torch.bfloat16), *splits)
+    got = mm.mixed_matmul(asp, wsp, out_dtype=torch.float32)
+    _f32_close(got, mixed_matmul_sp_plain(asp, wsp, torch.float32),
+               dequantize_mixed_device(asp), dequantize_mixed_device(wsp))
+
+
+def test_two_ranks_all_reduce_cuda_tensors_on_one_card(dev):
+    """Two ranks on one card (parallel.spawn): gloo, as NCCL refuses two
+    ranks on one device, sums CUDA tensors staged through the host."""
+    import torch_ranks
+    from micromix_tpu_torch.parallel import spawn
+    if torch.cuda.device_count() != 1:
+        pytest.skip("one card: the two ranks share it")
+    out = spawn(torch_ranks.cuda_all_reduce, 2, device="cuda")
+    assert [o["backend"] for o in out] == ["gloo", "gloo"]
+    assert all(o["device"] == "cuda:0" for o in out)
+    assert all(o["sum"] == [3.0, 6.0, 9.0] for o in out)
