@@ -18,7 +18,12 @@ flag, and the same printed lines and stats JSON:
                    shard from the dense checkpoint and serving it with its
                    own engine; this process tokenizes, checks that every
                    rank emitted the same tokens, and prints rank 0's
-                   completions and stats)
+                   completions and stats).  Over ranks, ``--port`` serves
+                   rank 0's ApiServer with the other ranks in lockstep
+                   (``parallel/api_ranks.py``) until SIGINT / SIGTERM (or
+                   ``stop_serving()`` from another thread), then prints
+                   the stats line; ``--profile DIR`` writes one trace a
+                   rank, ``DIR/rank{r}/``
 
 ``--platform auto`` runs on the card and raises without one; nothing
 falls back to the CPU.  ``--platform cpu`` runs the plain PyTorch
@@ -39,9 +44,8 @@ import time
 _NOT_PORTED = {
     "tasks": (bool, "item 8 (eval/lm_eval_adapter.py)"),
 }
-# serve flags that the multi-rank serve does not run yet
-_RANKS_ITEM = ("ROADMAP.md item 1.2b (the HTTP server, the router and the "
-               "profiler over --tp / --ep ranks)")
+# the stop events of the servers over ranks that this process runs
+_SERVING = []
 
 
 def _refuse_unported(args) -> None:
@@ -187,15 +191,9 @@ def _check_ranks(args) -> int:
         # the ranks quantize their shards from the dense weights
         raise SystemExit("--tp requires --do-quant from a dense model "
                          "(not --quantized-ckpt or --weight-only)")
-    if args.port:
-        raise SystemExit("serve --port with --tp / --ep is not ported: an "
-                         "HTTP server on rank 0 would have to send each "
-                         f"admitted request to the other ranks; {_RANKS_ITEM}")
-    if args.profile:
-        raise SystemExit(f"serve --profile with --tp / --ep is not ported; "
-                         f"{_RANKS_ITEM}")
-    if not args.prompts:
-        raise SystemExit("serve --tp / --ep: need --prompts FILE")
+    if not args.prompts and not args.port:
+        raise SystemExit("serve --tp / --ep: need --prompts FILE (batch "
+                         "mode) or --port N (HTTP API mode)")
     if args.ep > 1:
         from .models.loader import config_from_hf
         with open(os.path.join(args.model, "config.json")) as f:
@@ -204,10 +202,12 @@ def _check_ranks(args) -> int:
     return n
 
 
-def _serve_rank(group, args, prompts, eos_id):
+def _serve_rank(group, args, prompts, eos_id, tok=None, stop=None):
     """One rank of ``serve --tp`` / ``--ep``: the dense checkpoint, the
     calibration's smoothing, the rank's shard quantized, its engine over
-    the prompt token ids -> (outputs, stats)."""
+    the prompt token ids -> (outputs, stats); with ``--port``, rank 0's
+    HTTP server over ``tok`` until ``stop`` is set, the others following
+    it -> ({req_id: outputs}, stats)."""
     from .calib import load_calibration, smooth_params
     from .parallel import (make_ep_engine, make_tp_engine, quantize_model_ep,
                            quantize_model_tp, quantize_model_tp_hetero)
@@ -235,19 +235,92 @@ def _serve_rank(group, args, prompts, eos_id):
         qm = quantize_model_ep(params, cfg, calibs)
         del params
         eng = make_ep_engine(qm, cfg, group, **_engine_kw(args, group.device))
-    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                              top_p=args.top_p, min_p=args.min_p)
-    reqs = [Request(req_id=i, prompt=ids, max_new_tokens=args.max_new_tokens,
-                    sampling=sampling, eos_id=eos_id)
-            for i, ids in enumerate(prompts)]
     group.reset_counts()
-    t0 = time.time()
-    eng.run(reqs)
-    dt = time.time() - t0
+    with _rank_trace(args, group.rank):
+        if args.port:
+            return _serve_http_rank(group, eng, args, tok, stop)
+        sampling = SamplingParams(temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  min_p=args.min_p)
+        reqs = [Request(req_id=i, prompt=ids,
+                        max_new_tokens=args.max_new_tokens,
+                        sampling=sampling, eos_id=eos_id)
+                for i, ids in enumerate(prompts)]
+        t0 = time.time()
+        eng.run(reqs)
+        dt = time.time() - t0
     stats = _serve_stats(eng, reqs, dt)
     stats.update(ranks=group.world, backend=group.backend,
                  all_reduces=group.reduces)
     return [r.output for r in reqs], stats
+
+
+def _rank_trace(args, rank: int):
+    """``--profile DIR``: the rank's trace under ``DIR/rank{rank}``."""
+    import contextlib
+    if not args.profile:
+        return contextlib.nullcontext()
+    from .utils.profiling import trace
+    return trace(os.path.join(args.profile, f"rank{rank}"))
+
+
+def _api_server(eng, tok, args, **kw):
+    from .serve.api import ApiServer
+    chat_tpl = None
+    if getattr(tok, "chat_template", None):
+        chat_tpl = lambda msgs: tok.apply_chat_template(  # noqa: E731
+            msgs, tokenize=False, add_generation_prompt=True)
+    return ApiServer(
+        eng, lambda s: tok(s)["input_ids"],
+        lambda ids: tok.decode(ids, skip_special_tokens=True),
+        model_name=os.path.basename(args.model.rstrip("/")),
+        eos_id=tok.eos_token_id, chat_template=chat_tpl, port=args.port, **kw)
+
+
+def _print_serving(port: int) -> None:
+    print(json.dumps({"serving": f"http://127.0.0.1:{port}",
+                      "endpoints": ["/v1/completions", "/v1/chat/completions",
+                                    "/v1/models", "/health", "/metrics"]}),
+          flush=True)
+
+
+def _serve_http_rank(group, eng, args, tok, stop):
+    """Rank 0: the ApiServer, the others' engines in lockstep, until
+    ``stop``; the followers: receive, apply, step, until rank 0 stops.
+    -> (every request's outputs by id, stats)."""
+    import signal
+    from .parallel.api_ranks import Lockstep
+    # the parent stops the server: Ctrl-C reaches the ranks too
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    lock = Lockstep(group)
+    t0 = time.time()
+    if group.rank == 0:
+        srv = _api_server(eng, tok, args, followers=lock.send)
+        srv.start()
+        _print_serving(srv.port)
+        try:
+            while not stop.wait(1.0):
+                pass
+        finally:
+            srv.close()
+        requests = srv.requests_total
+    else:
+        lock.follow(eng)
+        requests = len(lock.requests)
+    outs = lock.outputs()
+    stats = {"requests": requests, "prefill_tokens": eng.prefill_tokens,
+             "decode_tokens": eng.decode_tokens,
+             "wall_s": round(time.time() - t0, 3),
+             "lockstep_messages": lock.messages, "ranks": group.world,
+             "backend": group.backend, "all_reduces": group.reduces}
+    return outs, stats
+
+
+def stop_serving() -> None:
+    """Stop the ``serve --tp / --ep --port`` servers this process runs
+    (from another thread; the signal handlers do it in the main one)."""
+    for ev in list(_SERVING):
+        ev.set()
 
 
 def _engine_kw(args, device) -> dict:
@@ -293,23 +366,50 @@ def _serve_stats(eng, reqs, dt: float) -> dict:
 
 
 def _serve_ranks(args, n: int) -> None:
-    """``serve --tp N`` / ``--ep N``: N ranks over the prompts file."""
+    """``serve --tp N`` / ``--ep N``: N ranks over the prompts file, or
+    with ``--port`` rank 0's HTTP server until stopped."""
     from .parallel import spawn
 
     tok = _tokenizer(args)
-    with open(args.prompts) as f:
-        prompts = [tok(ln.rstrip("\n"))["input_ids"] for ln in f if ln.strip()]
-    outs = spawn(_serve_rank, n, args, prompts, tok.eos_token_id,
-                 device=args.device or "cuda",
-                 axis="model" if args.tp > 1 else "expert")
+    kw = dict(device=args.device or "cuda",
+              axis="model" if args.tp > 1 else "expert")
+    if args.port:
+        outs = _serve_ranks_http(spawn, args, n, tok, kw)
+    else:
+        with open(args.prompts) as f:
+            prompts = [tok(ln.rstrip("\n"))["input_ids"] for ln in f
+                       if ln.strip()]
+        outs = spawn(_serve_rank, n, args, prompts, tok.eos_token_id, **kw)
     for r, (toks, _) in enumerate(outs[1:], start=1):
         if toks != outs[0][0]:
             raise SystemExit(f"rank {r} emitted other tokens than rank 0")
     toks, stats = outs[0]
-    for i, ids in enumerate(toks):
-        print(f"--- [{i}] ---")
-        print(tok.decode(ids, skip_special_tokens=True))
+    if not args.port:
+        for i, ids in enumerate(toks):
+            print(f"--- [{i}] ---")
+            print(tok.decode(ids, skip_special_tokens=True))
     print(json.dumps(stats))
+
+
+def _serve_ranks_http(spawn, args, n: int, tok, kw):
+    """The ranks' HTTP server until SIGINT / SIGTERM or ``stop_serving``:
+    each stops rank 0's server, which stops the others."""
+    import signal
+    import threading
+    import torch.multiprocessing as mp
+    stop = mp.get_context("spawn").Event()
+    _SERVING.append(stop)
+    saved = {}
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            saved[sig] = signal.signal(sig, lambda *_: stop.set())
+    try:
+        return spawn(_serve_rank, n, args, None, tok.eos_token_id, tok, stop,
+                     **kw)
+    finally:
+        _SERVING.remove(stop)
+        for sig, h in saved.items():
+            signal.signal(sig, h)
 
 
 def cmd_serve(args) -> None:
@@ -333,23 +433,8 @@ def cmd_serve(args) -> None:
             prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
     eng = Engine(params, cfg, **_engine_kw(args, args.device))
     if args.port:
-        from .serve.api import ApiServer
-        chat_tpl = None
-        if getattr(tok, "chat_template", None):
-            chat_tpl = lambda msgs: tok.apply_chat_template(  # noqa: E731
-                msgs, tokenize=False, add_generation_prompt=True)
-        srv = ApiServer(
-            eng, lambda s: tok(s)["input_ids"],
-            lambda ids: tok.decode(ids, skip_special_tokens=True),
-            model_name=os.path.basename(args.model.rstrip("/")),
-            eos_id=tok.eos_token_id, chat_template=chat_tpl,
-            port=args.port)
-        print(json.dumps({"serving": f"http://127.0.0.1:{srv.port}",
-                          "endpoints": ["/v1/completions",
-                                        "/v1/chat/completions",
-                                        "/v1/models", "/health",
-                                        "/metrics"]}),
-              flush=True)
+        srv = _api_server(eng, tok, args)
+        _print_serving(srv.port)
         srv.serve_forever()
         return
     sampling = SamplingParams(temperature=args.temperature,

@@ -23,9 +23,11 @@ _SIG = {"flash_attention": [build.PTR, build.PTR, build.PTR, build.PTR,
 
 
 def causal_mask(s_q: int, s_k: int, sliding_window: Optional[int] = None,
-                device=None) -> torch.Tensor:
-    """(s_q, s_k) bool, True = attend (query i sees keys j <= i)."""
-    qi = torch.arange(s_q, device=device)[:, None]
+                offset: int = 0, device=None) -> torch.Tensor:
+    """(s_q, s_k) bool, True = attend: query i, at position i + ``offset``,
+    sees keys j <= i + offset (and, with a window, j > i + offset -
+    window)."""
+    qi = torch.arange(s_q, device=device)[:, None] + offset
     kj = torch.arange(s_k, device=device)[None, :]
     m = kj <= qi
     if sliding_window is not None:
@@ -48,7 +50,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sliding_window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, Hkv, D) bf16 -> (B, S, H, D) bf16."""
     b, s, h, d = q.shape

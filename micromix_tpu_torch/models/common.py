@@ -8,7 +8,10 @@ Mixtral paths with ScaledW8 or split-plane weights: ``ModelConfig``,
 ``FakeQuantSite`` (the hetero form's budgets-as-data site, see
 ``models/hetero.py``), ``rmsnorm``, ``quantize_int_group`` (the
 KV fake quantization of the accuracy mode), the RoPE helpers (including
-llama3 frequency scaling) and the legs of ``project_all``: dense (bf16,
+llama3 frequency scaling), ``attention`` (the JAX package's XLA
+attention, probabilities rounded to bf16) with ``causal_mask`` (offset
+for a sequence shard) and ``causal_attention`` (the two together over
+one sequence), and the legs of ``project_all``: dense (bf16,
 weight-only or int8 linears, no site), hetero (Kernel A's block-format
 route, then ScaledW8 per consumer), ScaledW8 per consumer, split-plane per
 consumer (the MX quantize, then one split-plane GEMM per consumer), a
@@ -28,6 +31,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from ..kernels.fakequant import fakequant_site, fakequant_site_blocks
+from ..kernels.flash_attention import causal_mask
 from ..kernels.mixed_matmul import (W8_STACK_MAX_M, mixed_matmul,
                                     mixed_matmul_sp_stack,
                                     mixed_matmul_w8_site,
@@ -301,6 +305,53 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
     c, s = cos[:, None, :], sin[:, None, :]
     return (x.to(torch.float32) * c + rotated.to(torch.float32) * s).to(x.dtype)
+
+
+# query heads whose f32 scores are formed at a time: bounds the scores and
+# probabilities of a long sequence (one head of 2048 x 8192 f32 is 64 MiB)
+_ATTN_HEAD_CHUNK = 8
+_NEG = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """q (B, S, H, D), k / v (B, T, Hkv, D), mask (S, T) bool (True =
+    attend) -> (B, S, H, D) in v's dtype.
+
+    The JAX package's XLA ``attention`` (TP v1, gather and Ulysses
+    sequence parallelism): GQA by repeating the KV heads, f32 scores
+    divided by sqrt(D), masked to -1e30, an f32 softmax, the
+    probabilities rounded to v's dtype (bf16) before P.V, which sums in
+    f32 and rounds once.  Plain PyTorch on every device (no Pallas kernel
+    computes it in the JAX package), a few query heads at a time."""
+    h, d = q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = torch.full((), math.sqrt(d), dtype=torch.float32, device=q.device)
+    keep = mask[None, None]
+    outs = []
+    for h0 in range(0, h, _ATTN_HEAD_CHUNK):
+        hs = slice(h0, h0 + _ATTN_HEAD_CHUNK)
+        scores = torch.einsum("bshd,bthd->bhst", q[:, :, hs].to(torch.float32),
+                              k[:, :, hs].to(torch.float32)) / scale
+        scores = torch.where(keep, scores, _NEG)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        del scores
+        outs.append(torch.einsum("bhst,bthd->bshd", probs.to(torch.float32),
+                                 v[:, :, hs].to(torch.float32)).to(v.dtype))
+    return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     sliding_window: Optional[int] = None) -> torch.Tensor:
+    """``attention`` under the causal mask of one whole sequence: the JAX
+    package's ``forward(use_flash=False)``, as ``forward(attend=)``
+    takes it."""
+    mask = causal_mask(q.shape[1], k.shape[1], sliding_window,
+                       device=q.device)
+    return attention(q, k, v, mask)
 
 
 # lm_head rows converted to f32 at a time (bounds the f32 copy: 16384 x 4096

@@ -68,6 +68,11 @@ class SiteCalibration:
 LayerCalib = Dict[str, SiteCalibration]
 
 
+def identity_calibration(k: int, p6: int = 0, p8: int = 0) -> SiteCalibration:
+    """A site's calibration in channel order with the given budgets."""
+    return SiteCalibration(np.arange(k, dtype=np.int32), int(p6), int(p8))
+
+
 def make_site(calib: SiteCalibration, k: int, device=None) -> QuantSite:
     k4, k6, k8 = calib.splits(k)
     perm = lay.compose_segmented(calib.reorder_index, k4, k6, k8)

@@ -14,8 +14,11 @@ experts, their grouped form (``experts_grouped``).  A dense Llama layer
 input and each expert's two site inputs with its routed-row mask, and
 ``kv_quant_bits`` fake-quantizes K and V per head
 (``quantize_int_group``).  Weight-only and int8 layers (no sites) run as
-the dense forms do.  Prefill attention goes through ``flash_attention``:
-the CUDA kernel on the GPU, its plain f32 version on the CPU.  The
+the dense forms do.  Prefill attention is ``attend(q, k, v,
+sliding_window)``, by default ``flash_attention``: the CUDA kernel on the
+GPU, its plain f32 version on the CPU.  ``common.causal_attention`` is the
+JAX package's XLA attention (its ``use_flash=False``), and sequence
+parallelism passes its gather, ring and Ulysses attentions.  The
 expert-parallel forms (``parallel/ep_serve.py``): a rank's layer carries
 its local experts grouped (``experts_grouped_ep``) or stacked
 (``experts_stacked``, the hetero experts) and its ``ep_group``; the block
@@ -56,9 +59,12 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def attention_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
                     cos: torch.Tensor, sin: torch.Tensor,
                     kv_quant_bits: Optional[int] = None,
-                    tap: Optional[Callable] = None) -> torch.Tensor:
+                    tap: Optional[Callable] = None,
+                    attend: Callable = flash_attention) -> torch.Tensor:
     """``tap`` (dense layers): called with the attention and o sites'
-    inputs, ("attn_in", rmsnorm(h)) and ("o_in", attention output)."""
+    inputs, ("attn_in", rmsnorm(h)) and ("o_in", attention output).
+    ``attend(q, k, v, sliding_window)``: q (B, S, H, D), k / v
+    (B, S, Hkv, D) -> (B, S, H, D), causal over the layer's tokens."""
     b, s, _ = h.shape
     hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     if tap is not None:
@@ -73,7 +79,7 @@ def attention_block(h: torch.Tensor, p: Params, cfg: ModelConfig,
     if kv_quant_bits:
         k = quantize_int_group(k, kv_quant_bits, group_size=hd)
         v = quantize_int_group(v, kv_quant_bits, group_size=hd)
-    out = flash_attention(q, k, v, sliding_window=cfg.sliding_window)
+    out = attend(q, k, v, cfg.sliding_window)
     out = out.reshape(b, s, nh * hd)
     if tap is not None:
         tap("o_in", out)
@@ -362,8 +368,9 @@ def _moe_tapped(xn: torch.Tensor, weights: torch.Tensor, p: Params,
     return out
 
 
-def decoder_layer(h, p, cfg, cos, sin, kv_quant_bits=None, tap=None):
-    h = h + attention_block(h, p, cfg, cos, sin, kv_quant_bits, tap)
+def decoder_layer(h, p, cfg, cos, sin, kv_quant_bits=None, tap=None,
+                  attend=flash_attention):
+    h = h + attention_block(h, p, cfg, cos, sin, kv_quant_bits, tap, attend)
     if cfg.is_moe:
         return h + moe_block(h, p, cfg, tap)
     return h + mlp_block(h, p, cfg, tap)
@@ -371,12 +378,14 @@ def decoder_layer(h, p, cfg, cos, sin, kv_quant_bits=None, tap=None):
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             kv_quant_bits: Optional[int] = None,
-            tap: Optional[Callable] = None) -> torch.Tensor:
+            tap: Optional[Callable] = None,
+            attend: Callable = flash_attention) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) f32, causal.
 
     ``tap(layer_idx, site_name, x[, mask])``: the calibration hook, dense
     params only (``mask``: a MoE expert's routed rows); ``kv_quant_bits``: fake-quantize K and V per head to that many
-    bits (the accuracy mode)."""
+    bits (the accuracy mode); ``attend``: the prefill attention
+    (``attention_block``)."""
     b, s = tokens.shape
     h = params["embed"][tokens].to(torch.bfloat16)
     cos, sin = rope_table(torch.arange(s, device=tokens.device), cfg)
@@ -384,6 +393,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         layer_tap = None
         if tap is not None:
             layer_tap = functools.partial(tap, i)
-        h = decoder_layer(h, p, cfg, cos, sin, kv_quant_bits, layer_tap)
+        h = decoder_layer(h, p, cfg, cos, sin, kv_quant_bits, layer_tap,
+                          attend)
     h = rmsnorm(h, params["final_ln"], cfg.rms_eps)
     return lm_logits(h, params["lm_head"])

@@ -7,11 +7,19 @@ Standard library only (``ThreadingHTTPServer``).
 
 Design: HTTP handler threads never touch the engine.  One scheduler
 thread owns every Engine / Router call behind a single lock: handlers
-submit requests through a queue and wait on per-request events;
-streaming responses read a per-request token queue fed by the engine's
-``on_token`` callback (which fires inside the scheduler thread's
+submit requests and cancels through queues and wait on per-request
+events; streaming responses read a per-request token queue fed by the
+engine's ``on_token`` callback (which fires inside the scheduler thread's
 ``step()``).  So the card's launches come from one thread on one stream,
-and concurrency lives at the HTTP edge.
+and concurrency lives at the HTTP edge.  The scheduler applies the
+admissions and cancels queued since its last step at the next step
+boundary, and steps only while the engines have work.  Over tensor- or
+expert-parallel ranks, ``followers`` (``parallel.api_ranks.Lockstep.send``)
+is called at each boundary with what it is about to apply, before it
+applies it, so the other ranks' engines follow in lockstep; while idle
+it is called every ``HEARTBEAT_S`` seconds with op "idle" (well inside
+gloo's 30-minute timeout of a follower's wait), and with op "stop" when
+the server closes.
 
 Endpoints:
   POST /v1/completions   prompt, max_tokens, temperature, top_k, top_p,
@@ -38,6 +46,8 @@ from typing import Any, Callable, Dict, List, Optional
 from .engine import Request
 from .router import Router
 from .sampling import SamplingParams
+
+HEARTBEAT_S = 10.0
 
 
 class _Live:
@@ -69,9 +79,12 @@ class ApiServer:
                  max_new_tokens_cap: int = 2048,
                  chat_template: Optional[
                      Callable[[List[Dict[str, str]]], str]] = None,
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0,
+                 followers: Optional[Callable[[List[Request], List[int], str],
+                                              None]] = None):
         self.router = engine if isinstance(engine, Router) \
             else Router([engine])
+        self.followers = followers
         self.encode = encode
         self.decode = decode
         self.model_name = model_name
@@ -80,6 +93,7 @@ class ApiServer:
         self.chat_template = chat_template or _default_chat_template
         self._lock = threading.Lock()        # guards ALL engine access
         self._submit_q: "queue.Queue[_Live]" = queue.Queue()
+        self._cancel_q: "queue.Queue[int]" = queue.Queue()
         self._live: Dict[int, _Live] = {}
         self._next_id = 0
         self._stop = threading.Event()
@@ -92,21 +106,35 @@ class ApiServer:
 
     # ---------------- scheduler thread ----------------
 
+    @staticmethod
+    def _drain(q: queue.Queue) -> list:
+        out = []
+        while True:
+            try:
+                out.append(q.get_nowait())
+            except queue.Empty:
+                return out
+
     def _scheduler(self) -> None:
+        working, last = False, time.monotonic()
         while not self._stop.is_set():
-            moved = False
-            while True:
-                try:
-                    lv = self._submit_q.get_nowait()
-                except queue.Empty:
-                    break
-                with self._lock:
+            admits = self._drain(self._submit_q)
+            cancels = self._drain(self._cancel_q)
+            busy = bool(admits or cancels) or working
+            if self.followers is not None and (
+                    busy or time.monotonic() - last >= HEARTBEAT_S):
+                self.followers([lv.req for lv in admits], cancels,
+                               "step" if busy else "idle")
+                last = time.monotonic()
+            with self._lock:
+                for lv in admits:
                     self._live[lv.req.req_id] = lv
                     self.router.submit(lv.req)
-                moved = True
-            with self._lock:
-                if self.router.step():
-                    moved = True
+                for rid in cancels:
+                    self.router.cancel(rid)
+                # an engine whose step found no work stays idle until the
+                # next admission or cancel
+                working = busy and self.router.step()
                 finished = [rid for rid, lv in self._live.items()
                             if lv.req.done]
                 for rid in finished:
@@ -114,10 +142,12 @@ class ApiServer:
                     if lv.tokens is not None:
                         lv.tokens.put(None)  # stream sentinel
                     lv.done.set()
-            if not moved:
+            if not working:
                 # idle: wait for the next submission instead of spinning
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+        if self.followers is not None:
+            self.followers([], [], "stop")
 
     # ---------------- request plumbing ----------------
 
@@ -172,14 +202,17 @@ class ApiServer:
         self._wake.set()
 
     def cancel(self, req_id: int) -> bool:
+        """Queue a cancel for the next step boundary and release the
+        request's waiter now; False if the request is not live."""
+        self._cancel_q.put(req_id)
+        self._wake.set()
         with self._lock:
-            ok = self.router.cancel(req_id)
             lv = self._live.pop(req_id, None)
         if lv is not None:
             if lv.tokens is not None:
                 lv.tokens.put(None)
             lv.done.set()
-        return ok
+        return lv is not None
 
     def _finish_reason(self, req: Request) -> str:
         return "length" if len(req.output) >= req.max_new_tokens \
@@ -384,9 +417,9 @@ class ApiServer:
                                    server._finish_reason(req)))
                     self._chunk("[DONE]")
                     self.wfile.write(b"0\r\n\r\n")  # end chunked body
-                except BrokenPipeError:
+                except (BrokenPipeError, ConnectionResetError):
                     # client disconnect mid-stream aborts the request so
-                    # its slot/pages free immediately
+                    # its slot/pages free at the next step boundary
                     server.cancel(req.req_id)
 
             def _chunk(self, data: str) -> None:

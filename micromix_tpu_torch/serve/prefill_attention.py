@@ -62,7 +62,7 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_chunk: torch.Tensor,
                        k_chunk.to(torch.float32)])
     v_all = torch.cat([torch.where(keep, history(cache.v_codes, cache.v_sz), 0.0),
                        v_chunk.to(torch.float32)])
-    allow = torch.cat([hist_ok, causal_mask(s, s, sliding_window, q.device)], 1)
+    allow = torch.cat([hist_ok, causal_mask(s, s, sliding_window, device=q.device)], 1)
     qf = q.to(torch.float32).reshape(s, hkv, g, d) * (1.0 / d ** 0.5)
     scores = torch.einsum("skgd,tkd->kgst", qf, k_all)
     scores = scores.masked_fill(~allow, _NEG)

@@ -3,11 +3,12 @@ the logit controls (repetition penalty, terminator suppression, min-p).
 
 Counterpart of ``micromix_tpu/serve/sampling.py`` (``SamplingParams``,
 ``uses_logit_controls``, ``minp_shifts``, ``unpack_presence``,
-``ban_mask``, ``apply_logit_controls``, ``SAMPLE_MODES``,
-``sample_batch``, ``pick_sample_mode``).  Randomness comes from a
-``torch.Generator``, so sampled (non-greedy) tokens differ from the JAX
-package's for the same seed; greedy rows and the controlled logits are
-identical.  The controls are plain PyTorch ops over (B, V), as the JAX
+``ban_mask``, ``apply_logit_controls``, ``sample`` (one
+``SamplingParams`` for every row), ``SAMPLE_MODES``, ``sample_batch``,
+``pick_sample_mode``).  Randomness comes from a ``torch.Generator``, so
+sampled (non-greedy) tokens differ from the JAX package's for the same
+seed, unless the caller hands in the Gumbel noise (``gumbel=``); greedy
+rows and the controlled logits are identical.  The controls are plain PyTorch ops over (B, V), as the JAX
 package computes them outside any kernel.
 """
 
@@ -18,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..mx.numerics import div
 
 SAMPLE_MODES = ("greedy", "simple", "topk", "full")
 _TOPK_WIDTH = 128
@@ -105,6 +108,30 @@ def _categorical(x: torch.Tensor, gen: Optional[torch.Generator],
                        dtype=torch.float32)
         gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(x + gumbel, dim=-1)
+
+
+def sample(logits: torch.Tensor, gen: Optional[torch.Generator] = None,
+           params: SamplingParams = SamplingParams(),
+           gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B, V) -> token ids (B,) int32 under one ``params``: argmax
+    at temperature 0; else logits / T, the top-k and top-p filters (the
+    smallest set whose cumulative probability reaches top_p, at least one
+    token), and one Gumbel-max draw (from ``gen``, or ``gumbel``)."""
+    if params.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    x = div(logits.to(torch.float32), params.temperature)
+    if params.top_k and params.top_k > 0:
+        kth = torch.topk(x, params.top_k, dim=-1).values[..., -1:]
+        x = torch.where(x < kth, -torch.inf, x)
+    if params.top_p < 1.0:
+        sorted_x = torch.sort(x, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_x, dim=-1), dim=-1)
+        # an index past the end (rounding) masks nothing, as JAX's gather
+        # of a filled out-of-bounds value does
+        idx = (cum < params.top_p).sum(dim=-1, keepdim=True)
+        cutoff = sorted_x.gather(-1, idx.clamp(max=x.shape[-1] - 1))
+        x = torch.where(x < cutoff, -torch.inf, x)
+    return _categorical(x, gen, gumbel).to(torch.int32)
 
 
 def sample_batch(logits: torch.Tensor, gen: Optional[torch.Generator],

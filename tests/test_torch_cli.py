@@ -25,9 +25,12 @@
 * ``serve --tp 2`` and ``serve --ep 2`` (two gloo ranks, each quantizing
   its shard from the dense checkpoint) print the same completions as the
   library's two ranks on the global tree, sliced.
-* Every flag whose path is not ported exits naming its ROADMAP.md item
-  (``serve --tp / --ep`` with ``--port``: item 1.2b); ``--platform auto``
-  raises without a GPU.
+* ``serve --tp 2 --port`` and ``--ep 2 --port``: rank 0's HTTP server with
+  the other rank in lockstep answers completions (one streamed, one
+  cancelled mid-stream) equal to batch mode's; ``serve --tp 2 --profile``
+  writes one trace a rank.
+* Every flag whose path is not ported exits naming its ROADMAP.md item;
+  ``--platform auto`` raises without a GPU.
 * The shell's modules import without jax, micromix_tpu, ml_dtypes,
   safetensors and transformers (a subprocess with those blocked).
 """
@@ -260,8 +263,6 @@ def test_serve_prefix_cache_and_speculation_print_jax_completions(
 
 
 REFUSED = [
-    ("serve", ["--tp", "2", "--port", "8000"], "item 1.2b"),
-    ("serve", ["--ep", "2", "--port", "8000"], "item 1.2b"),
     ("eval", ["--tasks", "hellaswag"], "item 8"),
 ]
 
@@ -363,6 +364,152 @@ def test_serve_over_ranks_prints_the_library_ranks_completions(
     ranks = _library_ranks(model, calib, prompts, tok, mode)
     assert ranks[0] == ranks[1]
     assert got == ranks[0] and all(got), (got, ranks[0])
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port, path, body=None, timeout=120):
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _cancelled_stream(port, prompt, n_read=2):
+    """A streamed completion whose client goes away after ``n_read``
+    events -> the texts it read."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/completions", json.dumps(
+        {"prompt": prompt, "max_tokens": 64, "stream": True}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    got = []
+    while len(got) < n_read:
+        line = resp.fp.readline().decode()
+        if line.startswith("data: "):
+            got.append(json.loads(line[len("data: "):])["choices"][0]["text"])
+    conn.close()
+    return got
+
+
+def _serve_http_ranks(argv, port, prompts):
+    """``serve ... --port`` over ranks in a thread: once /health answers,
+    the prompts as completions at once (the second one streamed) beside a
+    stream whose client goes away, then /metrics; then ``stop_serving``
+    -> (texts, metrics, the stats line's dict)."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    from micromix_tpu_torch import cli
+    buf, err = io.StringIO(), []
+
+    def run():
+        try:
+            with contextlib.redirect_stdout(buf):
+                main(["--platform", "cpu"] + argv)
+        except BaseException as e:      # noqa: BLE001 (re-raised below)
+            err.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        t0 = time.time()
+        while True:
+            try:
+                if _http(port, "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert not err and time.time() - t0 < 300, err
+            time.sleep(0.5)
+
+        def one(i):
+            if i == 1:
+                _, raw = _http(port, "/v1/completions", {
+                    "prompt": prompts[i], "max_tokens": 6, "stream": True})
+                ev = [ln[6:] for ln in raw.splitlines() if ln.startswith("data: ")]
+                assert ev[-1] == "[DONE]"
+                return "".join(json.loads(e)["choices"][0]["text"]
+                               for e in ev[:-1])
+            _, body = _http(port, "/v1/completions",
+                            {"prompt": prompts[i], "max_tokens": 6})
+            return json.loads(body)["choices"][0]["text"]
+
+        with ThreadPoolExecutor(len(prompts) + 1) as ex:
+            cut = ex.submit(_cancelled_stream, port, prompts[0])
+            texts = list(ex.map(one, range(len(prompts))))
+            assert len(cut.result()) == 2
+        status, metrics = _http(port, "/metrics")
+        assert status == 200
+    finally:
+        cli.stop_serving()
+        th.join(300)
+    assert not th.is_alive() and not err, err
+    return texts, metrics, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mode", ["tp", "ep"])
+def test_serve_http_over_ranks_equals_batch_mode(ckpt, moe_ckpt, tmp_path,
+                                                 capsys, mode):  # noqa: F811
+    """``serve --tp 2 --port`` / ``--ep 2 --port`` on two CPU ranks: rank
+    0's HTTP server, the other rank in lockstep.  Completions sent at once
+    (one streamed), beside a stream whose client goes away mid-stream (its
+    cancel reaches both ranks at the same step boundary: the CLI checks
+    the ranks' outputs of every request equal), equal batch mode's
+    completions of the same prompts; one slot (``--max-seqs 1``), so each
+    request decodes alone in both modes, as in batch mode's schedule."""
+    if mode == "tp":
+        model, calib = ckpt, str(tmp_path / "calib.npz")
+        _run(["calibrate", "--model", ckpt, "--samples", "2", "--seqlen", "32",
+              "--dataset", "synthetic", "--output", calib], capsys)
+    else:
+        model, calib = moe_ckpt
+    prompts = ["w1 w2 w3", "w4 w5 w6 w7 w8", "w9 w3 w1", "w2 w2 w5 w7"]
+    pfile = tmp_path / "prompts.txt"
+    pfile.write_text("\n".join(prompts) + "\n")
+    base = ["serve", "--model", model, "--do-quant", "--calibration", calib,
+            f"--{mode}", "2", "--max-new-tokens", "6", "--max-seqs", "1",
+            "--page-size", "16", "--decode-chunk", "2"]
+    out = _run(base + ["--prompts", str(pfile)], capsys).strip().splitlines()
+    batch = [out[i + 1] if not out[i + 1].startswith(("--- [", "{")) else ""
+             for i, ln in enumerate(out[:-1]) if ln.startswith("--- [")]
+    port = _free_port()
+    texts, metrics, stats = _serve_http_ranks(base + ["--port", str(port)],
+                                              port, prompts)
+    assert texts == batch and all(batch), (texts, batch)
+    assert "micromix_requests_total 5" in metrics
+    assert stats["ranks"] == 2 and stats["backend"] == "gloo"
+    assert stats["requests"] == 5 and stats["lockstep_messages"] > 0
+
+
+def test_serve_profile_over_ranks_writes_a_trace_a_rank(ckpt, tmp_path,
+                                                        capsys):  # noqa: F811
+    """``serve --tp 2 --profile DIR``: one Chrome trace under DIR/rank0
+    and one under DIR/rank1, each with events."""
+    calib = str(tmp_path / "calib.npz")
+    _run(["calibrate", "--model", ckpt, "--samples", "2", "--seqlen", "32",
+          "--dataset", "synthetic", "--output", calib], capsys)
+    pfile = tmp_path / "prompts.txt"
+    pfile.write_text("w1 w2 w3\nw4 w5 w6 w7\n")
+    logdir = tmp_path / "trace"
+    stats = _serve_stats(_run(
+        ["serve", "--model", ckpt, "--do-quant", "--calibration", calib,
+         "--prompts", str(pfile), "--tp", "2", "--profile", str(logdir)]
+        + SERVE, capsys))
+    assert stats["ranks"] == 2 and stats["decode_tokens"] > 0
+    assert sorted(os.listdir(logdir)) == ["rank0", "rank1"]
+    for r in ("rank0", "rank1"):
+        (name,) = os.listdir(logdir / r)
+        with open(logdir / r / name) as f:
+            assert json.load(f)["traceEvents"]
 
 
 def _first_leaf_kinds(qdir):

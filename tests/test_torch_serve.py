@@ -237,6 +237,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "import micromix_tpu_torch.serve.speculative\n"
         "import micromix_tpu_torch.serve.prefix_cache\n"
         "import micromix_tpu_torch.kernels, micromix_tpu_torch.ops\n"
+        "import micromix_tpu_torch.parallel.spmd, micromix_tpu_torch.parallel.pp\n"
+        "import micromix_tpu_torch.parallel.sp, micromix_tpu_torch.parallel.mesh\n"
+        "import micromix_tpu_torch.parallel.api_ranks\n"
         "bad = [m for m in sys.modules if m == 'micromix_tpu'\n"
         "       or m.startswith('micromix_tpu.')]\n"
         "assert not bad, bad\n"

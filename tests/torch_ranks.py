@@ -1,4 +1,5 @@
-"""Rank functions for the port's tensor- and expert-parallel tests.
+"""Rank functions for the port's parallel tests (TP v1 and v2, EP, PP,
+SP, the collectives).
 
 ``micromix_tpu_torch.parallel.spawn`` starts each rank in a fresh
 interpreter, which finds its function by module and name; the test
@@ -13,10 +14,16 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from micromix_tpu_torch.parallel import (make_ep_engine, make_tp_engine,
+from micromix_tpu_torch.parallel import (axis_groups, make_ep_engine,
+                                         make_tp_engine,
+                                         pipeline_parallel_forward,
                                          quantize_model_tp,
                                          quantize_model_tp_hetero,
-                                         shard_params_tp, sharded_forward_tp)
+                                         sequence_parallel_forward,
+                                         shard_params_tp,
+                                         shard_quantized_params,
+                                         sharded_forward_tp,
+                                         sharded_quantized_forward)
 from micromix_tpu_torch.parallel.moe_ep import (ep_moe_forward,
                                                 ep_moe_forward_hetero,
                                                 ep_moe_forward_quant)
@@ -141,3 +148,51 @@ def tp_quant_and_forward(group, dense, tree, cfg, calibs, tokens, hetero: bool,
                                      weight_fp4_only)
     logits = None if tokens is None else tp_forward(group, tree, cfg, tokens)
     return local, n_reduce, logits
+
+
+def spmd_forward(group, params, cfg, tokens: np.ndarray, data: int,
+                 model: int) -> np.ndarray:
+    """TP v1 on a (data, model) layout: the rank's model shard of the
+    global tree, its data shard's logits."""
+    groups = axis_groups(group, data=data, model=model)
+    mine = shard_quantized_params(params, groups["model"].rank, model)
+    return sharded_quantized_forward(mine, cfg, torch.from_numpy(tokens),
+                                     groups).numpy()
+
+
+def pp_forward(group, params, cfg, tokens: np.ndarray,
+               n_micro: int) -> np.ndarray:
+    """The rank's (replicated) logits of the pipeline over its stages."""
+    return pipeline_parallel_forward(params, cfg, torch.from_numpy(tokens),
+                                     group, n_micro=n_micro).numpy()
+
+
+def sp_forwards(group, params, cases) -> List[np.ndarray]:
+    """Each case (cfg, tokens, attn) -> the rank's sequence shard of the
+    logits."""
+    return [sequence_parallel_forward(params, cfg, torch.from_numpy(tokens),
+                                      group, attn=attn).numpy()
+            for cfg, tokens, attn in cases]
+
+
+def collectives(group) -> Dict[str, Any]:
+    """Each collective on a rank-dependent bf16 and f32 tensor; the 2-D
+    layout's groups on 4 ranks; the counts by kind."""
+    out = {}
+    r, w = group.rank, group.world
+    for dt in (torch.bfloat16, torch.float32):
+        t = (torch.arange(2 * 4 * w, dtype=torch.float32).reshape(2, 4 * w)
+             + 1000 * r).to(dt)
+        out[str(dt)] = {
+            "all_gather": group.all_gather(t, 1),
+            "all_to_all": group.all_to_all(t, 1, 0),
+            "ring": group.ppermute(t, [(i, (i + 1) % w) for i in range(w)]),
+            "chain": group.ppermute(t, [(i, i + 1) for i in range(w - 1)]),
+            "broadcast": group.broadcast(t.clone(), w - 1)}
+    out["counts"] = dict(group.counts)
+    if w == 4:
+        gs = axis_groups(group, data=2, model=2)
+        x = torch.tensor([float(r)])
+        out["layout"] = {a: (g.rank, g.world, g.all_gather(x, 0).tolist())
+                         for a, g in gs.items()}
+    return out
