@@ -10,7 +10,8 @@ It builds the port's twelve CUDA kernel sources from
 non-zero before the result line.
 
   0. the card's name and power limit, torch / CUDA / nvcc versions;
-  1. build the kernels (one nvcc per source, all at once);
+  1. build the kernels (one nvcc per source, all at once) and the host
+     libraries (``utils/native.py``: g++ of ``csrc/host/*.cpp``);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the Llama-3.1-8B (ScaledW8 and split-plane layouts) and
      Mixtral-8x7B main paths, with its median time (CUDA events, L2
@@ -109,7 +110,8 @@ non-zero before the result line.
      (``phase10``);
  11. the other single-card weight forms at Llama-3.1-8B widths, 32
      layers, phase 7's dense model made again from the seed: the hetero
-     form (phase 7's calibrations as its budgets), weight-only MXFP4 and
+     form (phase 7's calibrations as its budgets),
+     weight-only MXFP4 and
      MXFP8 and int8, each served by the default engine on phase 4's
      traffic (A's block-format route only in the hetero run, B in the
      hetero and MXFP4 runs, no plain version), then 2 layers of each card
@@ -124,8 +126,8 @@ non-zero before the result line.
      processes on cuda:0 over gloo, ``parallel.spawn``): B and K with f32
      output against their plain versions at Llama-3.1-8B's tp=2
      row-parallel shard shapes, their bf16 output equal to the f32 one
-     rounded, bit for bit; Llama-3.1-8B widths at 32 layers, tp=2, each
-     rank quantizing its own shard from the seed with phase 7's
+     rounded, bit for bit; Llama-3.1-8B widths at 8 layers, tp=2, each
+     rank quantizing its own shard from the seed with phase 7's first 8
      calibrations, on phase 4's traffic; 2 layers of it card against CPU,
      and at identity calibration with k4-only budgets against the single
      card; the hetero and symmetric-weights forms at 4 layers;
@@ -153,9 +155,32 @@ non-zero before the result line.
      mode's, one streamed, one cancelled mid-stream, /metrics) and
      ``--profile`` (a trace a rank) (``phase13``).  Each run prints, per
      rank, host ms, device busy ms, CUDA launches, each collective's
-     count and host ms, the launches by kernel and the peak memory.
+     count and host ms, the launches by kernel and the peak memory;
+ 14. every head dim and GQA group the port serves (``phase14``): (a)
+     Kernels E, H, C and D at head dims 32, 64, 80, 96, 100, 112, 128,
+     192 and 256 (the padded widths 64, 128, 256) and C and H at G = 1,
+     12, 16, 32 and 64, on int4, int8 and bf16 pages, C's window and
+     ``lengths``-override rows, each against its plain version (D
+     bit-exact), beside SDPA for E and for H over history dequantized
+     beforehand, with ``ptxas -v`` of each instantiation; (b)
+     Llama-3.1-405B's published widths (hidden 16384, 128 / 8 heads: G =
+     16, intermediate 53248, vocab 128256) at 4 layers of random weights
+     through the default engine on phase 4's traffic, int4 and bf16
+     pages, then 2 layers of a narrow model with the same G and D card
+     against CPU; (c) head dim 96 at Phi-3-mini's widths (32 / 32 heads,
+     hidden 3072) and 256 at Gemma-2B's (8 / 1 heads, hidden 2048) served
+     the same way at 4 layers, each 2 layers card against CPU; (d)
+     ``quantize_model(host=True)`` (the port's native host quantizer) of
+     2 layers at Llama-3.1-8B widths held in host memory equal to the
+     card's quantizer on the same weights, both timed, and every engine
+     of the run on the native page pool (the prefix cache's on its Python
+     pool).
 
-In phases 4 to 13 every kernel launch counter is reset just before each
+Every kernel check of phases 2, 12 and 14 calls the kernel twice more on
+its inputs and fails unless the results are equal bit for bit
+(``record``'s ``rerun``).
+
+In phases 4 to 14 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel, phase 11's forms no kernel off their own path), and no
@@ -179,6 +204,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -273,11 +299,33 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def _same_bits(a, b) -> bool:
+    """Two results (tensors, nested in tuples / lists / dataclasses) equal
+    bit for bit."""
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _same_bits(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+    return a == b
+
+
 def record(results, kernel, shape, err, tol, ok, t, nbytes, flops,
-           plain_ms, library_ms=None, flops_peak=PEAK_BF16_S, **extra):
+           plain_ms, library_ms=None, flops_peak=PEAK_BF16_S, rerun=None,
+           **extra):
     """One kernel check; ``extra``: other measured times of the shape
     (yardsticks that are not the same function), printed and kept.
-    ``flops_peak``: the card's rate for the type of the operations."""
+    ``flops_peak``: the card's rate for the type of the operations.
+    ``rerun``: the kernel's call, made twice more on the same inputs:
+    its results must be equal bit for bit (run-to-run determinism)."""
+    if rerun is not None:
+        extra["repeat_bit_equal"] = _same_bits(rerun(), rerun())
+        if not extra["repeat_bit_equal"]:
+            fail(f"{kernel} {shape}: two calls on the same inputs differ")
     bms, by = bound(nbytes, flops, flops_peak)
     r = dict(kernel=kernel, shape=shape, max_abs_err=err, tolerance=tol,
              ms=t, bound_ms=bms, bound_by=by, plain_ms=plain_ms,
@@ -370,7 +418,8 @@ def check_site(results, timer, rng):
             record(results, "site_fakequant", f"{producer} M={m} K={k}", err,
                    tol, ok, timer.ms(lambda: fakequant_site(x, *splits, **kw)),
                    nbytes, 0.0,
-                   timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)))
+                   timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)),
+           rerun=lambda: fakequant_site(x, *splits, **kw))
     # prefill rows: the q|k|v site of 512- and 4096-token chunks, and the
     # Mixtral-8x7B expert sites of a 512-token dense-dispatch chunk (E x C
     # = 4096 rows): w1|w3's plain site, one permutation per 512 rows, and
@@ -401,7 +450,8 @@ def check_site(results, timer, rng):
         record(results, "site_fakequant", label, err, tol, ok,
                timer.ms(lambda: fakequant_site(x, *splits, **kw)),
                2 * m * k * 2 + aux, 0.0,
-               timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)))
+               timer.ms(lambda: fakequant_site_plain(x, *splits, **kw)),
+           rerun=lambda: fakequant_site(x, *splits, **kw))
 
 
 def _block_formats(rng, k: int) -> torch.Tensor:
@@ -451,7 +501,8 @@ def check_site_blocks(results, timer, rng):
                f"{producer} M={m} K={k} ({runs} format runs)", err, tol, ok,
                timer.ms(lambda: fakequant_site_blocks(x, fmt, **kw)),
                2 * m * k * 2 + aux + k // 8, 0.0,
-               timer.ms(lambda: fakequant_site_blocks_plain(x, fmt, **kw)))
+               timer.ms(lambda: fakequant_site_blocks_plain(x, fmt, **kw)),
+           rerun=lambda: fakequant_site_blocks(x, fmt, **kw))
 
 
 def check_gemm(results, timer):
@@ -489,7 +540,8 @@ def check_gemm(results, timer):
                    timer.ms(lambda: mixed_matmul_w8(a, w)),
                    m * k * 2 + n * k + m * n * 2, 2.0 * m * n * k,
                    timer.ms(lambda: mixed_matmul_w8_plain(a, w)),
-                   timer.ms(lambda: torch.matmul(a, wd.t())), **extra)
+                   timer.ms(lambda: torch.matmul(a, wd.t())), **extra,
+           rerun=lambda: mixed_matmul_w8(a, w))
         del w, wd
 
 
@@ -596,8 +648,25 @@ def check_decode(results, timer, rng):
         splits, pps = decode_split(b, hkv, mp)
         record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} {label}",
                err, tol, ok, timer.ms(run), nbytes, 4.0 * tokens * h * d,
-               timer.ms(plain), grid_splits=splits, pages_per_split=pps)
+               timer.ms(plain), grid_splits=splits, pages_per_split=pps,
+           rerun=run)
         del cache
+
+
+KV_FIELDS = ("k_codes", "v_codes", "k_sz", "v_sz", "lengths")
+
+
+def appended(state, fn) -> list:
+    """``fn`` (an append) applied to a copy of ``state``, a cache (its
+    pages and lengths) or a list of page tensors: the copy's tensors."""
+    if isinstance(state, list):
+        copy = [p.clone() for p in state]
+        fn(copy)
+        return copy
+    copy = dataclasses.replace(state, **{n: getattr(state, n).clone()
+                                         for n in KV_FIELDS})
+    fn(copy)
+    return [getattr(copy, n) for n in KV_FIELDS]
 
 
 def check_append(results, timer, rng):
@@ -632,7 +701,9 @@ def check_append(results, timer, rng):
         record(results, "append_kv", f"T={t} Hkv={hkv} D={d}", err,
                "bit-exact", err == 0.0,
                timer.ms(lambda: append_kv_kernel(*got, *args)), nbytes, 0.0,
-               timer.ms(lambda: append_kv_plain(*ref, *args)))
+               timer.ms(lambda: append_kv_plain(*ref, *args)),
+               rerun=lambda: appended(list(pages),
+                                      lambda c: append_kv_kernel(*c, *args)))
 
 
 def _append_cache(rng, bits, seqs, mp, hkv=8, d=128, ps=128):
@@ -760,7 +831,9 @@ def check_append_quant(results, timer, rng):
                    timer.ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
                    nbytes, ops,
                    timer.ms(lambda: append_kv_plain(ref, seq, pos, k, v, rope=rope)),
-                   flops_peak=PEAK_F32_S, **extra)
+                   flops_peak=PEAK_F32_S,
+                   rerun=lambda: appended(cache, lambda c: append_kv(
+                       c, seq, pos, k, v, rope=rope)), **extra)
             del cache, got, ref, old
 
 
@@ -787,7 +860,8 @@ def check_site_gemm(results, timer):
     record(results, "w8_site", f"silu M={m} N={n} K={k}", max(err, band_err),
            "site: tie band; GEMM: 2^-7|ref|+2^-8max|ref|", ok and band_ok,
            timer.ms(lambda: mixed_matmul_w8_site(x, w, producer="silu", up=up)),
-           2 * m * k * 2 + n * k + m * n * 2, 2.0 * m * n * k, timer.ms(plain))
+           2 * m * k * 2 + n * k + m * n * 2, 2.0 * m * n * k, timer.ms(plain),
+           rerun=lambda: mixed_matmul_w8_site(x, w, producer="silu", up=up))
     del w
 
 
@@ -810,7 +884,8 @@ def check_flash(results, timer):
         record(results, "flash_attention", f"B={b} S={s} H={h} Hkv={hkv} D={d}",
                err, "2^-7|ref|+2^-8max|ref|", ok,
                timer.ms(lambda: flash_attention(q, k, v)), nbytes, flops,
-               timer.ms(lambda: flash_attention_plain(q, k, v)), lib)
+               timer.ms(lambda: flash_attention_plain(q, k, v)), lib,
+           rerun=lambda: flash_attention(q, k, v))
 
 
 def _w8_weight(n, k, splits):
@@ -885,7 +960,8 @@ def check_stack(results, timer, rng):
                    timer.ms(lambda: mixed_matmul_w8_stack(x, st, **kw)),
                    nbytes, 2.0 * m * sum(ns) * k,
                    timer.ms(lambda: mixed_matmul_w8_stack_plain(x, st, **kw)),
-                   timer.ms(lambda: torch.matmul(img, wd.t())), **extra)
+                   timer.ms(lambda: torch.matmul(img, wd.t())), **extra,
+           rerun=lambda: mixed_matmul_w8_stack(x, st, **kw))
         del st, wd
 
 
@@ -935,7 +1011,8 @@ def check_pair(results, timer, rng):
                timer.ms(lambda: mixed_matmul_w8_pair_plain(x, h, wa, st, **kw)),
                residual_ms=timer.ms(lambda: w8_residual(img_a, wa, h)),
                residual_bound_ms=g_bound,
-               residual_library_ms=timer.ms(lambda: torch.addmm(h, img_a, wd.t())))
+               residual_library_ms=timer.ms(lambda: torch.addmm(h, img_a, wd.t())),
+           rerun=lambda: mixed_matmul_w8_pair(x, h, wa, st, **kw))
         del wa, st, wd
 
 
@@ -1065,7 +1142,8 @@ def check_prefill(results, timer, rng):
                  + {4: "", 8: " int8", 16: " bf16"}[bits])
         record(results, "paged_prefill", label,
                err, "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run), nbytes,
-               4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), lib, **extra)
+               4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), lib, **extra,
+           rerun=run)
 
 
 def check_grouped(results, timer, rng):
@@ -1138,7 +1216,8 @@ def check_grouped(results, timer, rng):
                    timer.ms(lambda: mixed_matmul_w8_grouped(x, gw, **kw)),
                    nbytes, 2.0 * e * c * sum(ns) * k,
                    timer.ms(lambda: mixed_matmul_w8_grouped_plain(x, gw, **kw)),
-                   timer.ms(lambda: torch.bmm(img, wd.transpose(1, 2))), **extra)
+                   timer.ms(lambda: torch.bmm(img, wd.transpose(1, 2))), **extra,
+           rerun=lambda: mixed_matmul_w8_grouped(x, gw, **kw))
         del gw, wd
 
 
@@ -1230,7 +1309,8 @@ def check_quantize(results, timer, rng):
                "differing code and scale bytes: 0 (bit-exact); decoded codes "
                "== the site kernel's image", diff == 0 and img_ok,
                timer.ms(lambda: quantize_mixed(x, *splits, **kw)), nbytes, 0.0,
-               timer.ms(lambda: quantize_mixed_plain(x, *splits, **kw)))
+               timer.ms(lambda: quantize_mixed_plain(x, *splits, **kw)),
+           rerun=lambda: quantize_mixed(x, *splits, **kw))
 
 
 def check_sp_gemm(results, timer):
@@ -1258,7 +1338,8 @@ def check_sp_gemm(results, timer):
                timer.ms(lambda: mixed_matmul_sp(a, w)),
                _mx_bytes(a) + _mx_bytes(w) + m * n * 2, 2.0 * m * n * k,
                timer.ms(lambda: mixed_matmul_sp_plain(a, w)),
-               timer.ms(lambda: torch.matmul(ad, wd.t())))
+               timer.ms(lambda: torch.matmul(ad, wd.t())),
+           rerun=lambda: mixed_matmul_sp(a, w))
         del w, wd
 
 
@@ -1310,7 +1391,8 @@ def check_sp_stack(results, timer, rng):
                timer.ms(lambda: mixed_matmul_sp_stack(x, st, **kw)), nbytes,
                2.0 * m * sum(ns) * k,
                timer.ms(lambda: mixed_matmul_sp_stack_plain(x, st, **kw)),
-               timer.ms(lambda: torch.matmul(img, wd.t())))
+               timer.ms(lambda: torch.matmul(img, wd.t())),
+           rerun=lambda: mixed_matmul_sp_stack(x, st, **kw))
         del st, wd
 
 
@@ -1557,7 +1639,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
         c.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
     t0 = time.perf_counter()
     build.reset_launches()
-    rels, card, cpu, top2 = [], [], [], []
+    rels, card, cpu, top2, digests = [], [], [], [], []
 
     def both(fn, *args, **kw):
         """One unit on the card and on a CPU copy of its state: the
@@ -1568,6 +1650,7 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
         c, _ = fn(cpu_params, cfg, cpu_caches,
                   *[params_to(a, "cpu") for a in args], **kw)
         g, c = g[0].float().cpu(), c[0].float()
+        digests.append(hashlib.sha256(g.numpy().tobytes()).hexdigest()[:16])
         rng_c = float(c.abs().max())
         rels.append(float((g - c).abs().max()) / rng_c)
         t = torch.topk(c, 2)
@@ -1620,8 +1703,9 @@ def card_vs_cpu(cfg, steps: int, must_launch, form_ok, layout="auto",
     if missing:
         fail(f"phase 3 ({name}): kernels not launched on the card: {missing}")
     return dict(logit_rel_err=rels, first_chunk_rel_err=rels[0],
-                tokens=card, launches=launches, page_launches=on_pages,
-                kv_bits=bits, wall_s=wall)
+                tokens=card, cpu_tokens=cpu, cpu_top2=top2,
+                card_logit_sha256=digests, launches=launches,
+                page_launches=on_pages, kv_bits=bits, wall_s=wall)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2248,13 +2332,14 @@ def dense_llama(cfg, seed: int, device):
 
 
 def calib_pipeline(params, cfg, seqlen: int, n_cal: int, n_eval: int,
-                   sync=lambda: None, quantize_from=None) -> dict:
+                   sync=lambda: None, quantize_from=None, **quant_kw) -> dict:
     """calibrate -> allocate -> dense ppl -> smooth + quantize (layer by
     layer, each dense layer dropped) -> quantized ppl over
     ``synthetic_tokens`` from SEED: n_cal windows of ``seqlen`` to
     calibrate, the next n_eval to evaluate.  ``quantize_from``: another
     run's result, whose stats and calibrations then smooth and quantize
-    the model in place of this run's own.  Consumes ``params``."""
+    the model in place of this run's own; ``quant_kw`` go to the
+    quantizer (``host=True`` on the CPU).  Consumes ``params``."""
     from micromix_tpu_torch.calib import (average_bits, collect_calibration,
                                           smooth_quantize_model,
                                           stats_to_calibration)
@@ -2278,7 +2363,7 @@ def calib_pipeline(params, cfg, seqlen: int, n_cal: int, n_eval: int,
         params, cfg, test, seqlen=seqlen))
     src = quantize_from or dict(stats=stats, calibs=calibs)
     qparams = timed("smooth_quantize", lambda: smooth_quantize_model(
-        params, cfg, src["stats"], src["calibs"]))
+        params, cfg, src["stats"], src["calibs"], **quant_kw))
     out["quant_ppl"] = timed("quant_ppl", lambda: eval_ppl(
         qparams, cfg, test, seqlen=seqlen))
     out.update(average_bits=average_bits(calibs, cfg), stage_s=secs,
@@ -2354,7 +2439,8 @@ def phase7_card_vs_cpu() -> dict:
     reorders many of them, and with them which channels each segment
     holds: the CPU therefore smooths and quantizes from the card's stats
     and calibrations, so that both perplexities (dense, and quantized of
-    the same quantized model) are held to PPL_RTOL."""
+    the same quantized model) are held to PPL_RTOL.  The CPU quantizes
+    with the native host quantizer (bit for bit the torch quantizer's)."""
     cfg = llama31_8b(2)
     card_params = dense_llama(cfg, SEED, DEV)
     cpu_params = params_to(card_params, "cpu")
@@ -2365,7 +2451,7 @@ def phase7_card_vs_cpu() -> dict:
     del card_params
     t0 = time.perf_counter()
     cpu = calib_pipeline(cpu_params, cfg, P7_CMP_SEQLEN, P7_CMP_CAL,
-                         P7_CMP_EVAL, quantize_from=card)
+                         P7_CMP_EVAL, quantize_from=card, host=True)
     cpu_s = time.perf_counter() - t0
     del cpu_params
     stat_err = {f: 0.0 for f in STATS_RTOL}
@@ -3543,8 +3629,8 @@ def form_serve(cfg, params, reqs, form: str, label: str, **kw):
 
 
 def phase11(rng, calibs) -> dict:
-    """Llama-3.1-8B widths, 32 layers, dense weights from SEED made on the
-    card (phase 7's model; its calibrations give the hetero budgets): the
+    """Llama-3.1-8B widths, P11_LAYERS layers, dense weights from SEED made
+    on the card (phase 7's model; its calibrations give the hetero budgets): the
     default engine serves phase 4's traffic with the hetero form, weight-
     only MXFP4 and MXFP8 and int8 in turn, each launching its path's
     kernels and no plain version; then 2 layers of each form card against
@@ -3557,7 +3643,7 @@ def phase11(rng, calibs) -> dict:
     out = {"forms": {}}
     for form in P11_FORMS:
         t0 = time.perf_counter()
-        params = p11_quantize(form, dense, cfg, calibs)
+        params = p11_quantize(form, dense, cfg, calibs[:P11_LAYERS])
         torch.cuda.synchronize()
         quant_s = time.perf_counter() - t0
         params_gib = _tree_bytes(params["layers"]) / 2 ** 30
@@ -3696,6 +3782,11 @@ def p11_moe(rng) -> dict:
 # ---------------------------------------------------------------- phase 12
 
 P12_TP = 2
+# (b) serves the first 8 of phase 7's 32 layers: at 32 layers 320 of its
+# 437 ms a step were 64 host-staged gloo all_reduces, 60 s more of the
+# script's 1200 s for the same kernels and shapes (PERF.md section 4);
+# phase 11 serves all 32 layers' budgets on one card
+P12_LAYERS = 8
 P12_SMALL_LAYERS = 4
 # the row-parallel shard shapes of Llama-3.1-8B at tp=2: o (N=4096,
 # K=4096/2) and down (K=14336/2), at decode rows and a 512-row chunk
@@ -3753,7 +3844,8 @@ def check_f32_gemms(results, timer) -> dict:
                timer.ms(lambda: mixed_matmul_w8(a, w, f32)),
                m * k * 2 + n * k + m * n * 4, 2.0 * m * n * k,
                timer.ms(lambda: mixed_matmul_w8_plain(a, w, f32)),
-               timer.ms(lambda: torch.matmul(a, wd.t())))
+               timer.ms(lambda: torch.matmul(a, wd.t())),
+           rerun=lambda: mixed_matmul_w8(a, w, f32))
         del w, wd
     # K at a shard's budgets as phase 7's calibration splits them: the
     # fp6 / fp8 widths are multiples of 32, not 128 (partial steps)
@@ -3772,7 +3864,8 @@ def check_f32_gemms(results, timer) -> dict:
                ok and same, timer.ms(lambda: mixed_matmul_sp(a, w, f32)),
                _mx_bytes(a) + _mx_bytes(w) + m * n * 4, 2.0 * m * n * k,
                timer.ms(lambda: mixed_matmul_sp_plain(a, w, f32)),
-               timer.ms(lambda: torch.matmul(ad, wd.t())))
+               timer.ms(lambda: torch.matmul(ad, wd.t())),
+           rerun=lambda: mixed_matmul_sp(a, w, f32))
         del w, wd
     return rounded
 
@@ -4049,12 +4142,12 @@ def p12_tp_rank(group, calibs, specs, small_specs) -> dict:
     out = {"backend": group.backend, "device": str(group.device)}
     eng_kw = dict(seed=SEED, max_seqs=8, page_size=128, decode_chunk=8)
 
-    # (b) Llama-3.1-8B widths, 32 layers
-    cfg = llama31_8b(32)
+    # (b) Llama-3.1-8B widths, the first P12_LAYERS of phase 7's layers
+    cfg = llama31_8b(P12_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tree = p12_tp_model(cfg, calibs, group, SEED)
+    tree = p12_tp_model(cfg, calibs[:P12_LAYERS], group, SEED)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4193,7 +4286,8 @@ def phase12(rng, calibs, p8_tp) -> dict:
     processes on cuda:0 over gloo (NCCL refuses two ranks on one card).
 
       a. B and K with f32 output (``check_f32_gemms``);
-      b. Llama-3.1-8B widths, 32 layers, tp=2, phase 7's calibrations:
+      b. Llama-3.1-8B widths, P12_LAYERS layers, tp=2, phase 7's first
+         P12_LAYERS calibrations:
          each rank draws its dense layers from the seed one at a time and
          quantizes its shard alone (half the codes each, the embedding
          and head whole); phase 4's traffic (chunked and batched prefill);
@@ -5002,6 +5096,480 @@ def p13_serve(cli, hf: str, calib: str, rng, vocab: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+# (D, H, Hkv) of phase 14's head-dim sweep: each public family's heads at
+# that width where one exists (Phi-2's 32 x 80, Phi-3-mini's 32 x 96,
+# Gemma-2B's 8 / 1 x 256), else Llama-3.1-8B's 32 / 8
+P14_DIMS = ((32, 32, 8), (64, 32, 8), (80, 32, 32), (96, 32, 32),
+            (100, 32, 8), (112, 32, 8), (128, 32, 8), (192, 16, 4),
+            (256, 8, 1))
+# (H, Hkv) of the GQA-group sweep at D = 128: G = 1, 12, 16 (Llama-3.1-
+# 405B's 128 / 8), 32 and 64
+P14_GROUPS = ((8, 8), (96, 8), (128, 8), (64, 2), (128, 2))
+# the C, D and H kernels' (padded width) sources, for their ptxas report
+P14_SOURCES = ("flash_attention", "paged_decode", "paged_prefill", "append_kv")
+
+
+def _rand_pages(cache, rng, bits):
+    """Random page contents as ``_decode_cache`` makes them: codes, scales
+    in [smax / 10, smax] with integer zero points (bf16 pages: normal
+    values), values (c - z) s within about +-1.5 at either width."""
+    for codes in (cache.k_codes, cache.v_codes):
+        if bits == 16:
+            codes.copy_(torch.randn(codes.shape, device=DEV))
+        else:
+            codes.random_(0, 256)
+    smax = 0.1 if bits == 4 else 0.006
+    for sz in (cache.k_sz, cache.v_sz):
+        sz[:, :, 0].uniform_(smax / 10, smax)
+        sz[:, :, 1].copy_(torch.randint(0, 2 ** min(bits, 8), sz[:, :, 1].shape,
+                                        device=DEV))
+
+
+def p14_flash(results, timer, d, h, hkv, s=2048):
+    import torch.nn.functional as F
+    from micromix_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    q = torch.randn(1, s, h, d, device=DEV).to(torch.bfloat16)
+    k = torch.randn(1, s, hkv, d, device=DEV).to(torch.bfloat16)
+    v = torch.randn(1, s, hkv, d, device=DEV).to(torch.bfloat16)
+    err, ok = close(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    record(results, "flash_attention", f"B=1 S={s} H={h} Hkv={hkv} D={d}",
+           err, "2^-7|ref|+2^-8max|ref|", ok,
+           timer.ms(lambda: flash_attention(q, k, v)),
+           2 * s * (h + 2 * hkv) * d + 2 * s * h * d, 2.0 * d * s * (s + 1) * h,
+           timer.ms(lambda: flash_attention_plain(q, k, v)), lib,
+           rerun=lambda: flash_attention(q, k, v))
+
+
+def p14_prefill(results, timer, rng, d, h, hkv, bits, s=512, hist=1536):
+    import torch.nn.functional as F
+    from micromix_tpu_torch.serve.kv_cache import kv_dequantize_page, make_cache
+    from micromix_tpu_torch.serve.prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    ps = 128
+    mp = -(-(hist + s) // ps)
+    cache = make_cache(mp + 1, ps, hkv, d, 1, mp, bits=bits, device=DEV)
+    _rand_pages(cache, rng, bits)
+    cache.page_table[0] = torch.from_numpy(
+        1 + rng.permutation(mp).astype(np.int32)).to(DEV)
+    q = torch.randn(s, h, d, device=DEV).to(torch.bfloat16)
+    k = torch.randn(s, hkv, d, device=DEV).to(torch.bfloat16)
+    v = torch.randn(s, hkv, d, device=DEV).to(torch.bfloat16)
+    start = torch.tensor(hist, dtype=torch.int32, device=DEV)
+    run = lambda: paged_prefill_attention(q, k, v, cache, 0, start)
+    plain = lambda: paged_prefill_attention_plain(q, k, v, cache, 0, start)
+    err, ok = close(run(), plain())
+    # SDPA over the history dequantized beforehand, plus the chunk: a
+    # yardstick (no one call computes the function over quantized pages)
+    pages = cache.page_table[0].long()
+
+    def history(codes, sz):     # (1, Hkv, hist, D)
+        x = kv_dequantize_page(codes[pages], sz[pages], cache.bits)
+        return x.permute(1, 0, 3, 2).reshape(hkv, -1, d)[None, :, :hist]
+    qt = q.transpose(0, 1)[None].contiguous()
+    kt = torch.cat([history(cache.k_codes, cache.k_sz),
+                    k.transpose(0, 1)[None].float()], 2).to(torch.bfloat16)
+    vt = torch.cat([history(cache.v_codes, cache.v_sz),
+                    v.transpose(0, 1)[None].float()], 2).to(torch.bfloat16)
+    mask = torch.ones(s, hist + s, dtype=torch.bool, device=DEV)
+    mask[:, hist:] = torch.ones(s, s, dtype=torch.bool, device=DEV).tril()
+    sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    record(results, "paged_prefill",
+           f"S={s} hist={hist} H={h} Hkv={hkv} D={d}"
+           + {4: "", 8: " int8", 16: " bf16"}[bits],
+           err, "2^-7|ref|+2^-8max|ref|", ok, timer.ms(run),
+           2 * s * (h + 2 * hkv) * d + 2 * s * h * d
+           + 2 * hist * hkv * _page_bytes(bits, d),
+           4.0 * s * (hist + s / 2) * h * d, timer.ms(plain), None,
+           sdpa_bf16_ms=sdpa,
+           rerun=run)
+
+
+def p14_decode(results, timer, rng, d, h, hkv, bits, case="len 100..600"):
+    """Kernel C at B=8 over 100-600 tokens, or ("window") 4096 tokens under
+    a 1024-token window, or ("lengths") 8 rows of one 2048-token sequence
+    at successive positions under the ``lengths`` override with the (m,
+    den) state, as ``check_decode`` holds each."""
+    from micromix_tpu_torch.models.common import rope_inv_freq
+    from micromix_tpu_torch.serve.attention import (
+        decode_split, paged_decode_attention, paged_decode_attention_plain)
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    ps, b = 128, 8
+    lengths, window, override = {
+        "len 100..600": (np.linspace(100, 600, 8), None, False),
+        "window 1024 len 4096": (np.full(8, 4096), 1024, False),
+        "lengths 2041..2048 state": (np.arange(2041, 2049), None, True)}[case]
+    lengths = lengths.astype(np.int32)
+    mp = -(-int(lengths.max()) // ps)
+    seqs = 1 if override else b
+    cache = make_cache(seqs * mp + 1, ps, hkv, d, seqs, mp, bits=bits, device=DEV)
+    _rand_pages(cache, rng, bits)
+    cache.page_table.copy_(torch.from_numpy(
+        1 + rng.permutation(seqs * mp).reshape(seqs, mp).astype(np.int32)))
+    inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
+    seq = torch.zeros(b, device=DEV, dtype=torch.int32) if override else \
+        torch.arange(b, device=DEV, dtype=torch.int32)
+    cache.lengths.copy_(torch.from_numpy(lengths[-1:] if override else lengths))
+    q = torch.randn(b, h, d, device=DEV).to(torch.bfloat16)
+    pos = torch.from_numpy(lengths - 1).to(DEV)
+    kw = dict(rope_positions=pos, rope_inv_freq=inv, sliding_window=window)
+    pkw = {}
+    if override:
+        kw.update(lengths=torch.from_numpy(lengths).to(DEV), with_state=True)
+        pkw = dict(lengths=kw["lengths"], with_state=True)
+    run = lambda: paged_decode_attention(q, cache, seq, **kw)
+    plain = lambda: paged_decode_attention_plain(q, cache, seq, window, pos,
+                                                 inv, **pkw)
+    got, ref = run(), plain()
+    tol = "2^-7|ref|+2^-8max|ref|"
+    if override:
+        (got, m, den), (ref, rm, rden) = got, ref
+        err, ok = close(got, ref)
+        ok = (ok and bool(((m - rm).abs() <= 2.0 ** -16
+                           * rm.abs().max().clamp_min(1.0)).all())
+              and bool(((den - rden).abs() <= 2.0 ** -12 * rden.abs()).all()))
+        tol += "; m 2^-16 max(1,|m|), den 2^-12 rel"
+    else:
+        err, ok = close(got, ref)
+    attended = np.minimum(lengths, window or lengths.max())
+    read = int(attended.max()) if override else int(attended.sum())
+    nbytes = 2 * b * h * d * 2 + 2 * read * hkv * _page_bytes(bits, d) + b * mp * 4
+    groups = hkv * -(-(h // hkv) // 8)
+    splits, pps = decode_split(b, groups, mp)
+    width = {4: "", 8: " int8", 16: " bf16"}[bits]
+    record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} {case}{width}",
+           err, tol, ok, timer.ms(run), nbytes,
+           4.0 * int(attended.sum()) * h * d, timer.ms(plain),
+           grid_splits=splits, pages_per_split=pps, head_groups=groups // hkv,
+           rerun=run)
+
+
+def p14_append(results, timer, rng, d, hkv, bits, t=8):
+    """Kernel D's whole append at T=8 with RoPE (one token per sequence,
+    K and V column views of a q|k|v output) or T=1024 (8 sequences x 128
+    positions, no RoPE), bit-exact against its plain version."""
+    from micromix_tpu_torch.models.common import rope_inv_freq
+    from micromix_tpu_torch.serve.kv_cache import append_kv, append_kv_plain
+    ps, seqs = 128, 8
+    mp = 1 if t > 8 else 4
+    cache = _append_cache(rng, bits, seqs, mp, hkv=hkv, d=d, ps=ps)
+    if t == 8:
+        seq = torch.arange(8, device=DEV, dtype=torch.int32)
+        pos = torch.from_numpy(rng.integers(0, mp * ps, 8).astype(np.int32)).to(DEV)
+        qkv = torch.randn(t, 6 * hkv * d, device=DEV).to(torch.bfloat16)
+        k = qkv[:, 4 * hkv * d:5 * hkv * d].unflatten(1, (hkv, d))
+        v = qkv[:, 5 * hkv * d:].unflatten(1, (hkv, d))
+        inv = rope_inv_freq(d, 500000.0, LLAMA3_SCALING, device=DEV)
+        ang = pos.float()[:, None] * inv[None, :]
+        ang = torch.cat([ang, ang], dim=-1)
+        rope = (torch.cos(ang), torch.sin(ang))
+    else:
+        seq = torch.arange(8, device=DEV, dtype=torch.int32).repeat_interleave(128)
+        pos = torch.arange(128, device=DEV, dtype=torch.int32).repeat(8)
+        k, v = (torch.randn(t, hkv, d, device=DEV).to(torch.bfloat16) for _ in range(2))
+        rope = None
+    cache.lengths.zero_()
+    got, ref = (dataclasses.replace(cache, **{
+        n: getattr(cache, n).clone() for n in ("k_codes", "v_codes", "k_sz",
+                                               "v_sz", "lengths")})
+        for _ in range(2))
+    append_kv(got, seq, pos, k, v, rope=rope)
+    append_kv_plain(ref, seq, pos, k, v, rope=rope)
+    err = 0.0
+    for n in ("k_codes", "v_codes", "k_sz", "v_sz", "lengths"):
+        g, r = getattr(got, n), getattr(ref, n)
+        if g.dtype == torch.bfloat16:
+            g, r = g.view(torch.int16), r.view(torch.int16)
+        err = max(err, float((g.float() - r.float()).abs().max()))
+    slots = len(set((seq.long() * mp + pos.long() // ps).tolist()))
+    nbytes = (2 * t * hkv * d * 2 + (2 * t * d * 4 if rope else 0) + 2 * t * 4
+              + slots * 4 + seqs * 8 + 2 * t * hkv * _page_bytes(bits, d)
+              + (2 * t * hkv * 4 if bits == 16 else 0))
+    ops = t * hkv * d * ((0 if bits == 16 else 7 * 2) + (4 if rope else 0))
+    width = "bf16" if bits == 16 else f"int{bits}"
+    record(results, "append_kv_quant",
+           f"T={t} Hkv={hkv} D={d} {width}" + (" rope" if rope else ""), err,
+           "bit-exact (sz as int16 bits)", err == 0.0,
+           timer.ms(lambda: append_kv(got, seq, pos, k, v, rope=rope)),
+           nbytes, ops,
+           timer.ms(lambda: append_kv_plain(ref, seq, pos, k, v, rope=rope)),
+           flops_peak=PEAK_F32_S,
+           rerun=lambda: appended(cache, lambda c: append_kv(c, seq, pos, k, v,
+                                                             rope=rope)))
+
+
+def p14_ptxas() -> dict:
+    """``ptxas -v`` of the four kernels' instantiations: registers, spill
+    bytes, stack, static shared memory."""
+    from micromix_tpu_torch.kernels import build
+    out = {}
+    for name in P14_SOURCES:
+        rows = build.ptxas_report(name)
+        out[name] = rows
+        for r in rows:
+            print(f"  ptxas {name}: {r['function'][:72]} registers="
+                  f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
+                  f"spill_loads={r.get('spill_loads')} stack={r.get('stack')} "
+                  f"smem={r.get('smem')}", flush=True)
+    return out
+
+
+def phase14a(results, timer, rng) -> dict:
+    """Kernels E, H, C and D at every head dim of ``P14_DIMS`` and C and H
+    at every group of ``P14_GROUPS``, each against its plain version on
+    the card: E at S=2048 (beside SDPA); H at S=512 over 1536 history
+    positions of int4 pages (beside SDPA over the history dequantized
+    beforehand); C at B=8 over 100-600 tokens of int4 pages; D at T=8
+    with RoPE, bit-exact; then int8 and bf16 pages at D = 80, 100 and 256
+    (D also at T=1024), C's window and ``lengths``-override rows at D =
+    96, 256 and G = 12, 16, and the groups again on bf16 pages."""
+    t0 = time.perf_counter()
+    out = {"ptxas": p14_ptxas()}
+    for d, h, hkv in P14_DIMS:
+        p14_flash(results, timer, d, h, hkv)
+        p14_prefill(results, timer, rng, d, h, hkv, 4)
+        p14_decode(results, timer, rng, d, h, hkv, 4)
+        p14_append(results, timer, rng, d, hkv, 4)
+    for d, h, hkv in P14_DIMS:
+        if d not in (80, 100, 256):
+            continue
+        for bits in (8, 16):
+            p14_prefill(results, timer, rng, d, h, hkv, bits)
+            p14_decode(results, timer, rng, d, h, hkv, bits)
+            p14_append(results, timer, rng, d, hkv, bits)
+        p14_append(results, timer, rng, d, hkv, 4, t=1024)
+    for h, hkv in P14_GROUPS:
+        p14_prefill(results, timer, rng, 128, h, hkv, 4)
+        p14_decode(results, timer, rng, 128, h, hkv, 4)
+        p14_prefill(results, timer, rng, 128, h, hkv, 16)
+        p14_decode(results, timer, rng, 128, h, hkv, 16)
+    for d, h, hkv in ((96, 32, 32), (256, 8, 1), (128, 96, 8), (128, 128, 8)):
+        p14_decode(results, timer, rng, d, h, hkv, 4, "window 1024 len 4096")
+        p14_decode(results, timer, rng, d, h, hkv, 8, "lengths 2041..2048 state")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def llama31_405b(num_layers: int):
+    """Llama-3.1-405B's published config.json widths (128 query heads over
+    8 KV heads: G = 16); depth as given."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    return ModelConfig(arch="llama", vocab_size=128256, hidden_size=16384,
+                       intermediate_size=53248, num_layers=num_layers,
+                       num_heads=128, num_kv_heads=8, head_dim=128,
+                       rope_theta=500000.0, rms_eps=1e-5,
+                       max_position_embeddings=131072,
+                       rope_scaling=LLAMA3_SCALING)
+
+
+def phi3_mini_attention(num_layers: int):
+    """A Llama-architecture config at Phi-3-mini's published attention and
+    MLP widths (hidden 3072, 32 / 32 heads of 96, intermediate 8192,
+    vocab 32064, rope_theta 1e4); Phi-3's fused qkv / gate_up checkpoint
+    layout is not ported, only its shapes are served."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    return ModelConfig(arch="llama", vocab_size=32064, hidden_size=3072,
+                       intermediate_size=8192, num_layers=num_layers,
+                       num_heads=32, num_kv_heads=32, head_dim=96,
+                       rope_theta=10000.0, rms_eps=1e-5,
+                       max_position_embeddings=4096)
+
+
+def gemma_2b_attention(num_layers: int):
+    """A Llama-architecture config at Gemma-2B's published widths (hidden
+    2048, 8 query heads of 256 over 1 KV head, intermediate 16384, vocab
+    256000, rope_theta 1e4); Gemma's GeGLU MLP and scaled embedding are
+    not ported, only its shapes are served."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    return ModelConfig(arch="llama", vocab_size=256000, hidden_size=2048,
+                       intermediate_size=16384, num_layers=num_layers,
+                       num_heads=8, num_kv_heads=1, head_dim=256,
+                       rope_theta=10000.0, rms_eps=1e-6,
+                       max_position_embeddings=8192)
+
+
+P14_405B_LAYERS = 4
+P14_HEAD_DIM_LAYERS = 4
+# every Engine this process makes: (its page pool's class, native or not)
+ENGINE_POOLS = []
+
+
+def watch_engine_pools() -> None:
+    """Record the page pool of every ``Engine`` made from here on (its
+    subclasses' too) in ``ENGINE_POOLS``."""
+    from micromix_tpu_torch.serve import engine as engine_mod
+    init = engine_mod.Engine.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        bm = self.block_manager
+        ENGINE_POOLS.append((type(bm).__name__, bm.is_native))
+
+    engine_mod.Engine.__init__ = recorded
+
+
+def p14_serve(cfg, label: str, rng) -> dict:
+    """``cfg`` at its widths, random ScaledW8 weights made on the card:
+    the default engine (stacked, paired, pipelined) on phase 4's kind of
+    traffic on int4 and on bf16 KV pages, each run launching every kernel
+    of the Llama path, with its decode window and peak memory."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model)
+    from micromix_tpu_torch.serve.runner import _can_pair
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    torch.cuda.synchronize()
+    out = {"model_build_s": time.perf_counter() - t0,
+           "codes_gib": sum(lay[n].w.codes.numel() for lay in params["layers"]
+                            for n in ("q", "k", "v", "o", "gate", "up", "down"))
+           / 2 ** 30}
+    for bits in (4, 16):
+        width = "bf16" if bits == 16 else "int4"
+        name = f"phase 14 ({label}, {width} KV)"
+        eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size), name,
+                           max_seqs=8, page_size=128, max_pages_per_seq=16,
+                           decode_chunk=8, prefill_chunk=512, kv_bits=bits)
+        if "qkv_stack" not in eng.params["layers"][0] \
+                or not _can_pair(eng.params, cfg, 8):
+            fail(f"{name}: the engine did not stack and pair its params")
+        missing = [n for n in LLAMA_KERNELS if not stats["launches"].get(n)]
+        if missing:
+            fail(f"{name}: kernels never launched: {missing}")
+        stats["decode_window"] = decode_window(eng, cfg)
+        w = stats["decode_window"]
+        print(f"  {label}, {cfg.num_layers} layers, {width} KV: engine "
+              f"{stats['decode_ms_per_step']:.3f} ms/step, decode window "
+              f"{w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step; peak "
+              f"{stats['peak_mem_gib']:.2f} GiB; " + json.dumps(stats), flush=True)
+        out[width] = stats
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14_host_quantize() -> dict:
+    """``quantize_model(host=True)`` of a 2-layer dense model at
+    Llama-3.1-8B widths (made on the card from the seed, then copied to
+    host memory): quantized there by the port's native library, against
+    the card's quantizer on the same weights: every code and base equal.
+    Both timed (host wall seconds, the card's with a synchronize)."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   quantize_model)
+    from micromix_tpu_torch.utils.native import native_available
+    if not native_available():
+        fail("phase 14 (d): the host quantizer library did not build")
+    cfg = llama31_8b(2)
+    dense = dense_llama(cfg, SEED + 14, DEV)
+    calib = default_calibration(cfg, p6=256, p8=256, seed=SEED)
+    quantize_model(dense, cfg, calib)       # the card's first call warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = quantize_model(dense, cfg, calib)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    on_host = params_to(dense, "cpu")
+    del dense
+    t0 = time.perf_counter()
+    host = quantize_model(on_host, cfg, calib, host=True)
+    host_s = time.perf_counter() - t0
+    n = 0
+    for lc, lh in zip(card["layers"], host["layers"]):
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            wc, wh = lc[name].w, lh[name].w
+            if (type(wc) is not type(wh) or wh.codes.device.type != "cpu"
+                    or not torch.equal(wc.codes.cpu(), wh.codes)
+                    or wc.base != wh.base):
+                fail(f"phase 14 (d): {name}'s host codes differ from the card's")
+            n += wc.codes.numel()
+    out = dict(card_s=card_s, host_s=host_s, weights=n,
+               host_threads=os.cpu_count())
+    print(f"  quantize_model at Llama-3.1-8B widths, 2 layers ({n} weights): "
+          f"card {card_s:.2f}s, host (native, {os.cpu_count()} threads, "
+          f"weights in host memory) {host_s:.2f}s; codes and bases "
+          "equal", flush=True)
+    return out
+
+
+def phase14(rng, results, timer) -> dict:
+    """Every head dim and GQA group the port serves: (a) Kernels E, H, C
+    and D at every head dim and group against their plain versions
+    (``phase14a``); (b) Llama-3.1-405B's published widths at
+    ``P14_405B_LAYERS`` layers (G = 16) through the default engine on
+    int4 and bf16 pages, then 2 layers of a narrow model with the same G
+    and D card against CPU; (c) head dims 96 (Phi-3-mini's widths) and
+    256 (Gemma-2B's) served the same way at ``P14_HEAD_DIM_LAYERS``
+    layers, each 2 layers card against CPU; (d) the host quantizer
+    against the card's, and every engine of the run on the native page
+    pool.  Card against CPU: the prompt's last chunk may give the CPU's
+    second token where the CPU's top two lie closer than that unit's
+    card/CPU difference (``card_vs_cpu``'s ``near_tie``), as phase 3's
+    windowed Llama may: at Gemma-2B's widths (a 256000-token vocabulary)
+    the last chunk's token parted in one call while every decode step's
+    agreed; every decode step's token must be equal."""
+    from micromix_tpu_torch.models.common import ModelConfig
+    from micromix_tpu_torch.serve.runner import _can_pair
+    t14 = time.perf_counter()
+    out = {"a": phase14a(results, timer, rng)}
+    print(f"  phase 14 (a) took {out['a']['seconds']:.1f}s", flush=True)
+    out["b"] = p14_serve(llama31_405b(P14_405B_LAYERS), "llama-3.1-405b", rng)
+    narrow = ModelConfig(arch="llama", vocab_size=32000, hidden_size=2048,
+                         intermediate_size=5632, num_layers=2, num_heads=16,
+                         num_kv_heads=1, head_dim=128, rope_theta=500000.0,
+                         rms_eps=1e-5, rope_scaling=LLAMA3_SCALING)
+    must = ("flash_attention", "paged_prefill", "paged_decode", "w8_stack",
+            "w8_pair")
+    for bits in (4, 16):
+        width = "bf16" if bits == 16 else "int4"
+        out["b"][f"card_vs_cpu_{width}"] = card_vs_cpu(
+            narrow, 8, must, lambda p: _can_pair(p, narrow, 1),
+            name=f"G=16 D=128 narrow {width} KV", near_tie=True, bits=bits)
+    out["c"] = {}
+    for make, label in ((phi3_mini_attention, "d96"), (gemma_2b_attention, "d256")):
+        cfg = make(P14_HEAD_DIM_LAYERS)
+        run = p14_serve(cfg, f"{label} ({cfg.num_heads} / {cfg.num_kv_heads} "
+                             f"heads of {cfg.head_dim})", rng)
+        cfg2 = make(2)
+        for bits in (4, 16):
+            width = "bf16" if bits == 16 else "int4"
+            run[f"card_vs_cpu_{width}"] = card_vs_cpu(
+                cfg2, 8, must, lambda p, c=cfg2: _can_pair(p, c, 1),
+                name=f"{label} {width} KV", near_tie=True, bits=bits)
+        out["c"][label] = run
+    out["d"] = p14_host_quantize()
+    pools = collections.Counter(ENGINE_POOLS)
+    print(f"  page pools of this run's engines: {dict(pools)}", flush=True)
+    off = [k for k in pools if not k[1] and k[0] != "PrefixBlockManager"]
+    if off or not pools:
+        fail(f"phase 14 (d): engines off the native page pool: {off}")
+    out["d"]["pools"] = {f"{k[0]}/{'native' if k[1] else 'python'}": n
+                         for k, n in pools.items()}
+    out["seconds"] = time.perf_counter() - t14
+    return out
+
+
+def p14_launches(p14, part: str) -> collections.Counter:
+    """The launches of phase 14's engine runs: (b)'s ("g16"), or (c)'s at
+    one head dim ("d96", "d256")."""
+    runs = p14["b"] if part == "g16" else p14["c"][part]
+    out = collections.Counter()
+    for width in ("int4", "bf16"):
+        out.update(runs[width]["launches"])
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -5114,6 +5682,24 @@ G7_ENTRIES = {
     "paged_decode_g7": ("paged_decode", "B=8 H=28 Hkv=4 D=128 len 100..600"),
     "paged_prefill_g7": ("paged_prefill", "S=512 hist=1536 H=28 Hkv=4 D=128"),
 }
+# phase 14: C and H at Llama-3.1-405B's G = 16 (their launches phase 14
+# (b)'s engine runs', on int4 and bf16 pages), and E, H, C and D at head
+# dims 96 and 256 (phase 14 (c)'s runs at Phi-3-mini's and Gemma-2B's
+# widths): entry -> (kernel, the shape reported, launches key)
+P14_ENTRIES = {
+    "paged_decode_g16": ("paged_decode", "B=8 H=128 Hkv=8 D=128 len 100..600", "g16"),
+    "paged_prefill_g16": ("paged_prefill", "S=512 hist=1536 H=128 Hkv=8 D=128", "g16"),
+    "flash_attention_d96": ("flash_attention", "B=1 S=2048 H=32 Hkv=32 D=96", "d96"),
+    "paged_decode_d96": ("paged_decode", "B=8 H=32 Hkv=32 D=96 len 100..600", "d96"),
+    "paged_prefill_d96": ("paged_prefill", "S=512 hist=1536 H=32 Hkv=32 D=96", "d96"),
+    "append_kv_quant_d96": ("append_kv_quant", "T=8 Hkv=32 D=96 int4 rope", "d96"),
+    "flash_attention_d256": ("flash_attention", "B=1 S=2048 H=8 Hkv=1 D=256", "d256"),
+    "paged_decode_d256": ("paged_decode", "B=8 H=8 Hkv=1 D=256 len 100..600", "d256"),
+    "paged_prefill_d256": ("paged_prefill", "S=512 hist=1536 H=8 Hkv=1 D=256", "d256"),
+    "append_kv_quant_d256": ("append_kv_quant", "T=8 Hkv=1 D=256 int4 rope", "d256"),
+}
+# the rows of phase 14's checks whose largest error each entry reports
+P14_PARTS = {"g16": "H=128 Hkv=8 D=128", "d96": "D=96", "d256": "D=256"}
 # B and K with f32 output (a tensor-parallel rank's row-parallel
 # partial); their launches are phase 12's, on every rank
 F32_ENTRIES = {
@@ -5123,10 +5709,11 @@ F32_ENTRIES = {
 
 
 def kernel_line(results, launches, page_launches, verify_launches,
-                bf16_launches, g7_launches, f32_launches) -> dict:
+                bf16_launches, g7_launches, f32_launches, p14) -> dict:
     """The per-kernel JSON line: every kernel at its main shape, then the
-    entries of another page width, row count or head group, each with the
-    largest error over its rows (those whose shape names it)."""
+    entries of another page width, row count, head group or head dim,
+    each with the largest error over its rows (those whose shape names
+    it)."""
     out = []
     entries = [(name, name, shape, launches.get(name, 0), None)
                for name, (_, _, shape) in KERNELS.items()]
@@ -5140,6 +5727,9 @@ def kernel_line(results, launches, page_launches, verify_launches,
                 for entry, (kernel, shape) in G7_ENTRIES.items()]
     entries += [(entry, kernel, shape, f32_launches.get(entry, 0), "f32")
                 for entry, (kernel, shape) in F32_ENTRIES.items()]
+    entries += [(entry, kernel, shape, p14_launches(p14, key).get(kernel, 0),
+                 P14_PARTS[key])
+                for entry, (kernel, shape, key) in P14_ENTRIES.items()]
     for entry, kernel, shape, n, part in entries:
         src, replaces, _ = KERNELS[kernel]
         rows = [r for r in results if r["kernel"] == kernel
@@ -5174,12 +5764,27 @@ def main() -> int:
 
     print(f"phase 1: built {len(build.SOURCES)} kernels in "
           f"{build.build():.1f}s", flush=True)
+    from micromix_tpu_torch.utils.native import host_library
+    t0 = time.perf_counter()
+    for lib in ("mxpack", "kvpool"):
+        host_library(lib)
+    print(f"  built the host libraries (mxpack, kvpool) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    watch_engine_pools()
 
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     results = []
     timer = Timer()
     print("phase 2: kernels against their plain versions on the card", flush=True)
+    t_phase = time.perf_counter()
+
+    def took(phase: int) -> None:
+        nonlocal t_phase
+        print(f"  phase {phase} took {time.perf_counter() - t_phase:.1f}s",
+              flush=True)
+        t_phase = time.perf_counter()
+
     check_site(results, timer, rng)
     check_site_blocks(results, timer, rng)
     check_gemm(results, timer)
@@ -5200,28 +5805,33 @@ def main() -> int:
     controls = check_controls(timer)
     del timer
     torch.cuda.empty_cache()
+    took(2)
 
     print("phase 3: 2-layer full-width stacked models, card against CPU",
           flush=True)
     p3 = phase3()
     torch.cuda.empty_cache()
+    took(3)
 
     print("phase 4: the stacked engine at full depth (32 layers) and the "
           "per-consumer engine at 4 layers, 8 requests each", flush=True)
     p4 = phase4(rng)
     torch.cuda.empty_cache()
+    took(4)
 
     print("phase 5: Mixtral-8x7B, the default engine at full depth (32 "
           "layers) and the per-expert engine at 2 layers, 8 requests each",
           flush=True)
     p5 = phase5(rng)
     torch.cuda.empty_cache()
+    took(5)
 
     print("phase 6: split-plane Llama-3.1-8B, the default engine at full "
           "depth (32 layers) and the per-consumer engine at 4 layers, 8 "
           "requests each", flush=True)
     p6 = phase6()
     torch.cuda.empty_cache()
+    took(6)
 
     print(f"phase 7: calibrate -> smooth -> quantize -> perplexity, dense "
           f"Llama-3.1-8B widths at {P7_LAYERS} layers, then 2 layers card "
@@ -5229,6 +5839,7 @@ def main() -> int:
     p7 = phase7()
     p7_calibs = p7.pop("calibs")
     torch.cuda.empty_cache()
+    took(7)
 
     print(f"phase 8: the shell (HF checkpoint, cli calibrate / quantize / "
           f"eval / serve at int4 and int8 KV, the API server, the router) at "
@@ -5262,7 +5873,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print(f"phase 12: tensor and expert parallelism, {P12_TP} ranks on the "
-          f"card over gloo: B and K with f32 output, Llama-3.1-8B tp=2 at 32 "
+          f"card over gloo: B and K with f32 output, Llama-3.1-8B tp=2 at {P12_LAYERS} "
           f"layers, 2 layers card against CPU and against the single card, "
           f"the hetero and symmetric forms at {P12_SMALL_LAYERS} layers, "
           f"Mixtral-8x7B ep=2 at {P12_SMALL_LAYERS} layers, serve --tp 2",
@@ -5279,6 +5890,18 @@ def main() -> int:
           f"and --profile ran in phase 8", flush=True)
     p13 = phase13(np.random.default_rng(SEED + 131), p8.get("p13"))
     print(f"  phase 13 took {p13['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 14: every head dim (up to 256) and GQA group (up to 64): "
+          f"E, H, C and D against their plain versions; Llama-3.1-405B "
+          f"widths at {P14_405B_LAYERS} layers (G = 16) and head dims 96 and "
+          f"256 at {P14_HEAD_DIM_LAYERS} layers through the default engine, "
+          f"each 2 layers card against CPU; the host quantizer and the "
+          f"native page pool", flush=True)
+    timer = Timer()
+    p14 = phase14(rng, results, timer)
+    del timer
+    print(f"  phase 14 took {p14['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -5289,7 +5912,11 @@ def main() -> int:
                          ("Qwen2-7B int4 KV", p10["int4"]),
                          ("Qwen2-7B bf16 KV", p10["bf16"]),
                          *((f"Llama {form}", p11["forms"][form])
-                           for form in P11_FORMS)):
+                           for form in P11_FORMS),
+                         ("Llama-3.1-405B int4 KV", p14["b"]["int4"]),
+                         ("Llama-3.1-405B bf16 KV", p14["b"]["bf16"]),
+                         ("D=96 int4 KV", p14["c"]["d96"]["int4"]),
+                         ("D=256 int4 KV", p14["c"]["d256"]["int4"])):
         w = stats["decode_window"]
         print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
@@ -5316,6 +5943,8 @@ def main() -> int:
     main_launches.update(p11["moe"]["serve"]["launches"])
     main_launches.update(p12["launches"])
     main_launches.update(p13_launches(p13))
+    for key in ("g16", "d96", "d256"):
+        main_launches.update(p14_launches(p14, key))
     # bf16 pages: C's and H's launches on them, D's in that run
     bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
                      for k in ("paged_decode", "paged_prefill")}
@@ -5324,14 +5953,14 @@ def main() -> int:
     g7_launches.update(p10["bf16"]["launches"])
     line = kernel_line(results, main_launches, p8_pages,
                        p9["draft"]["row_launches"], bf16_launches, g7_launches,
-                       p12["launches"])
+                       p12["launches"], p14)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
                        phase8=p8, phase9=p9, phase10=p10, phase11=p11,
-                       phase12=p12, phase13=p13,
+                       phase12=p12, phase13=p13, phase14=p14,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

@@ -99,8 +99,10 @@ def _quantize(params, cfg, args):
     from .models.surgery import quantize_model
 
     calibs, absmax = load_calibration(args.calibration)
+    # on the CPU the native host quantizer, faster there than torch's
     kw = {} if args.hetero else dict(
-        weight_fp4_only=not args.symmetric_weights)
+        weight_fp4_only=not args.symmetric_weights,
+        host=args.device == "cpu")
     if args.smooth and absmax:
         stats = {k: {"absmax": v} for k, v in absmax.items()}
         return smooth_quantize_model(params, cfg, stats, calibs,

@@ -38,9 +38,14 @@
 // Design of ``append_kv_quant``.  Grid (ceil(T / 32), H, 2): a block takes
 // 32 consecutive tokens of one head, of K or of V; 8 warps, each
 // quantizing every 8th token of the block.  A warp holds one row, a lane
-// the elements lane + 32 j, so a lane holds both halves of each int4 byte
-// (D / 2 is a multiple of 32) and packs it itself; max and min come from
-// xor shuffles, exact in any order.  A warp loads all its rows and their
+// the dim pairs (e, e + D/2) for e = lane + 32 j < D/2, so a lane holds
+// both halves of each int4 byte (and of each RoPE pair) and packs it
+// itself; max and min come from xor shuffles, exact in any order.  Any
+// even D up to 256: the kernel is instantiated at a padded width DP of
+// 64, 128 or 256, and a lane's slots with e >= D/2 (D/2 not a multiple
+// of 32) are masked: they load nothing, enter neither the max nor the
+// min, and store nothing, so codes, scale and zero are those of the true
+// D.  A warp loads all its rows and their
 // indices before it computes.  The codes are staged in shared memory in
 // the page's own token-minor order (a row of 32 tokens, pitch 36 bytes so
 // the warp's byte stores hit distinct banks; bf16 values 68), then
@@ -112,7 +117,7 @@ struct QuantArgs {
   const __nv_bfloat16* v;
   const float* cos;
   const float* sin;
-  int T, H, ps, n_pages, max_pages, n_seqs, k_stride, v_stride;
+  int T, H, D, ps, n_pages, max_pages, n_seqs, k_stride, v_stride;
   float recip;
 };
 
@@ -120,18 +125,21 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int BITS, int D>
+template <int BITS, int DP>
 __global__ void __launch_bounds__(kWarps * 32)
 append_quant_kernel(const QuantArgs a) {
   // a code byte, or a bf16 value's bits for bf16 pages
   using E = typename std::conditional<BITS == 16, uint16_t, uint8_t>::type;
-  constexpr int NE = D / 32;                // elements a lane holds
-  constexpr int DQ = BITS == 4 ? D / 2 : D;
+  constexpr int NE = DP / 32;               // element slots a lane holds
+  constexpr int NH = NE / 2;                // slot j < NH: dim e; NH + j: dim e + D/2
+  constexpr int DQP = BITS == 4 ? DP / 2 : DP;
+  const int D = a.D, HALF = D / 2;
+  const int DQ = BITS == 4 ? HALF : D;      // code rows a page
   constexpr float QMAX = BITS == 4 ? 15.f : 255.f;
   // staged code row: 9 words (bf16: 17), an odd count for distinct banks
   constexpr int PITCH = BITS == 16 ? kRunTokens + 2 : kRunTokens + 4;
   constexpr int PER_WORD = 4 / sizeof(E);   // elements a 4-byte word
-  __shared__ __align__(16) E stage[DQ * PITCH];
+  __shared__ __align__(16) E stage[DQP * PITCH];
   __shared__ __nv_bfloat16 sz_s[2][kRunTokens];
   __shared__ int dst_page[kRunTokens], dst_col[kRunTokens];
 
@@ -153,7 +161,11 @@ append_quant_kernel(const QuantArgs a) {
         is_v ? a.v + static_cast<size_t>(t) * a.v_stride + h * D
              : a.k + static_cast<size_t>(t) * a.k_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < NE; ++j) xs[u][j] = __bfloat162float(x[lane + 32 * j]);
+    for (int j = 0; j < NH; ++j) {
+      const int e = lane + 32 * j;
+      xs[u][j] = e < HALF ? __bfloat162float(x[e]) : 0.0f;
+      xs[u][NH + j] = e < HALF ? __bfloat162float(x[e + HALF]) : 0.0f;
+    }
     seq[u] = a.seq_ids[t];
     pos[u] = a.positions[t];
   }
@@ -167,24 +179,31 @@ append_quant_kernel(const QuantArgs a) {
       const float* c = a.cos + static_cast<size_t>(t) * D;
       const float* s = a.sin + static_cast<size_t>(t) * D;
 #pragma unroll
-      for (int j = 0; j < NE / 2; ++j) {
-        const int e = lane + 32 * j, f = e + D / 2;
-        const float lo = x[j], hi = x[j + NE / 2];
+      for (int j = 0; j < NH; ++j) {
+        const int e = lane + 32 * j, f = e + HALF;
+        if (e >= HALF) continue;
+        const float lo = x[j], hi = x[j + NH];
         x[j] = round_bf16(__fadd_rn(__fmul_rn(lo, c[e]), __fmul_rn(-hi, s[e])));
-        x[j + NE / 2] = round_bf16(__fadd_rn(__fmul_rn(hi, c[f]), __fmul_rn(lo, s[f])));
+        x[j + NH] = round_bf16(__fadd_rn(__fmul_rn(hi, c[f]), __fmul_rn(lo, s[f])));
       }
     }
     float scale = 1.f, z = 0.f;
     if constexpr (BITS == 16) {
 #pragma unroll
-      for (int j = 0; j < NE; ++j)
-        stage[(lane + 32 * j) * PITCH + i] = __bfloat16_as_ushort(__float2bfloat16_rn(x[j]));
+      for (int j = 0; j < NH; ++j) {
+        const int e = lane + 32 * j;
+        if (e >= HALF) continue;
+        stage[e * PITCH + i] = __bfloat16_as_ushort(__float2bfloat16_rn(x[j]));
+        stage[(e + HALF) * PITCH + i] = __bfloat16_as_ushort(__float2bfloat16_rn(x[NH + j]));
+      }
     } else {
+      // lane 0 always holds dims 0 and D/2
       float mx = x[0], mn = x[0];
 #pragma unroll
-      for (int j = 1; j < NE; ++j) {
-        mx = fmaxf(mx, x[j]);
-        mn = fminf(mn, x[j]);
+      for (int j = 0; j < NH; ++j) {
+        if (lane + 32 * j >= HALF) continue;
+        mx = fmaxf(mx, fmaxf(x[j], x[NH + j]));
+        mn = fminf(mn, fminf(x[j], x[NH + j]));
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
@@ -202,12 +221,18 @@ append_quant_kernel(const QuantArgs a) {
       }
       if constexpr (BITS == 4) {
 #pragma unroll
-        for (int j = 0; j < NE / 2; ++j)
-          stage[(lane + 32 * j) * PITCH + i] =
-              static_cast<uint8_t>(q[j] | (q[j + NE / 2] << 4));
+        for (int j = 0; j < NH; ++j) {
+          const int e = lane + 32 * j;
+          if (e < HALF) stage[e * PITCH + i] = static_cast<uint8_t>(q[j] | (q[j + NH] << 4));
+        }
       } else {
 #pragma unroll
-        for (int j = 0; j < NE; ++j) stage[(lane + 32 * j) * PITCH + i] = q[j];
+        for (int j = 0; j < NH; ++j) {
+          const int e = lane + 32 * j;
+          if (e >= HALF) continue;
+          stage[e * PITCH + i] = q[j];
+          stage[(e + HALF) * PITCH + i] = q[NH + j];
+        }
       }
     }
     if (lane == 0) {
@@ -259,10 +284,10 @@ append_quant_kernel(const QuantArgs a) {
   }
 }
 
-template <int BITS, int D>
+template <int BITS, int DP>
 int launch_quant(const QuantArgs& a, cudaStream_t s) {
   const dim3 grid((a.T + kRunTokens - 1) / kRunTokens, a.H, 2);
-  append_quant_kernel<BITS, D><<<grid, kWarps * 32, 0, s>>>(a);
+  append_quant_kernel<BITS, DP><<<grid, kWarps * 32, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,13 +325,21 @@ extern "C" int append_kv_quant(void* kc, void* vc, void* ksz, void* vsz,
                     static_cast<const __nv_bfloat16*>(k),
                     static_cast<const __nv_bfloat16*>(v),
                     static_cast<const float*>(cos), static_cast<const float*>(sin),
-                    T, H, ps, n_pages, max_pages, n_seqs, k_stride, v_stride, recip};
+                    T, H, D, ps, n_pages, max_pages, n_seqs, k_stride, v_stride, recip};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && D == 128) return launch_quant<4, 128>(a, s);
-  if (bits == 4 && D == 64) return launch_quant<4, 64>(a, s);
-  if (bits == 8 && D == 128) return launch_quant<8, 128>(a, s);
-  if (bits == 8 && D == 64) return launch_quant<8, 64>(a, s);
-  if (bits == 16 && D == 128) return launch_quant<16, 128>(a, s);
-  if (bits == 16 && D == 64) return launch_quant<16, 64>(a, s);
+  if (D < 2 || D > 256 || D % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = D <= 64 ? 64 : D <= 128 ? 128 : 256;
+#define MM_APPEND(BB, DD) \
+  if (bits == BB && dp == DD) return launch_quant<BB, DD>(a, s);
+  MM_APPEND(4, 64)
+  MM_APPEND(4, 128)
+  MM_APPEND(4, 256)
+  MM_APPEND(8, 64)
+  MM_APPEND(8, 128)
+  MM_APPEND(8, 256)
+  MM_APPEND(16, 64)
+  MM_APPEND(16, 128)
+  MM_APPEND(16, 256)
+#undef MM_APPEND
   return static_cast<int>(cudaErrorInvalidValue);
 }

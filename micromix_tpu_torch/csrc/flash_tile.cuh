@@ -1,5 +1,8 @@
 // The tensor-core flash-attention tile (FlashAttention-2 style) on
-// mma.sync m16n8k16 bf16 with f32 accumulation.  Kernel E
+// mma.sync m16n8k16 bf16 with f32 accumulation, templated on a padded
+// head width DP (64, 128 or 256): a kernel runs a head dim D <= DP with
+// dims [D, DP) of Q, K and V zero in shared memory, so the Q K^T sums are
+// exact and P.V's padded columns, never stored, are zero.  Kernel E
 // (flash_attention.cu) runs it on bf16 K/V tiles; Kernel H
 // (paged_prefill.cu) runs it on the chunk's bf16 K/V and on its int4
 // history pages unpacked to dims-major tiles.
@@ -69,19 +72,54 @@ __device__ __forceinline__ void split(float x, float y, uint32_t (&t)[PV_TERMS])
   }
 }
 
+// Chunk [c, c + 8) of a row of D bf16 (row: its first element, read only
+// when ok) into 16 bytes of shared memory at dst, dims at or past D and
+// the whole chunk when !ok zero.  Rows of D % 8 == 0 are 16-byte aligned
+// and go by cp.async (the caller commits and waits); any other row is
+// read an element at a time and stored at once.
+__device__ __forceinline__ void load_chunk(__nv_bfloat16* dst, const __nv_bfloat16* row,
+                                           int c, int D, bool ok) {
+  if ((D & 7) == 0) {
+    const bool in = ok && c < D;
+    ptx::cp_async16(dst, in ? row + c : row, in);
+    return;
+  }
+  const uint16_t* r = reinterpret_cast<const uint16_t*>(row);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int lo = c + 2 * e;
+    const uint32_t a = ok && lo < D ? r[lo] : 0u, b = ok && lo + 1 < D ? r[lo + 1] : 0u;
+    w[e] = a | (b << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Copy rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix whose row r starts
-// at src + r * stride elements into a [ROWS][LD] tile, rows at or beyond
-// `valid` zero-filled.  cp.async: the caller commits and waits.
-template <int D, int ROWS, int THREADS>
+// at src + r * stride elements into a [ROWS][LD] tile of width DP >= D,
+// rows at or beyond `valid` and dims at or past D zero-filled.
+template <int DP, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t stride, int r0, int valid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
+                                          size_t stride, int r0, int valid, int D) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks a row
   for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const bool ok = r0 + r < valid;
-    const __nv_bfloat16* s = ok ? src + static_cast<size_t>(r0 + r) * stride + c : src;
-    ptx::cp_async16(dst + r * Tile<D>::LD + c, s, ok);
+    const __nv_bfloat16* s = ok ? src + static_cast<size_t>(r0 + r) * stride : src;
+    load_chunk(dst + r * Tile<DP>::LD + c, s, c, D, ok);
   }
+}
+
+// The output pair (x, y) of dims dim, dim + 1 into a row of D bf16 at o
+// (dims at or past D are padding and not stored).
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, int dim, int D, float x, float y) {
+  if ((D & 1) == 0) {
+    if (dim < D)
+      *reinterpret_cast<__nv_bfloat162*>(o + dim) = __floats2bfloat162_rn(x, y);
+    return;
+  }
+  if (dim < D) o[dim] = __float2bfloat16_rn(x);
+  if (dim + 1 < D) o[dim + 1] = __float2bfloat16_rn(y);
 }
 
 // ------------------------------------------------------------------ tile

@@ -22,16 +22,30 @@
 // zero] pair of its attended range once (D/2 + 4 bytes a token, head and
 // K or V, for int4; 2 D for bf16) and does about 4 operations per byte.
 //
-// Design.  Grid (Hkv, B, S): S splits of the page-table row, each of
-// ``pps`` pages; the wrapper derives both from B, Hkv and
-// max_pages_per_seq alone (never from lengths on the device), so the
+// Head dims and groups.  Any even D up to 256: the kernel is instantiated
+// at a padded width DP of 64, 128 or 256 (the least that holds D).  A
+// stage holds the code rows of DP dims, the rows past the true width
+// zeroed once, and the Q fragments of dim pairs (m, m + D/2) with m >=
+// D/2 are zero, so the padding adds nothing to a score; O^T's padded rows
+// are never stored.  1/sqrt(D), the nibble and RoPE pairs, the page
+// strides and the output take the true D.  Any G = H / Hkv up to 64: the
+// heads of a KV head go in groups of 8 (the MMA's columns), one block a
+// group, each with its own partials and tickets; every group reads the
+// same pages (L2 takes most of the repeat).  Where two stages of a page
+// do not fit in shared memory (bf16 pages of 128 tokens at DP = 256: 128
+// KiB a stage) the ring has one stage, and a page's copy waits for the
+// last one's compute.
+//
+// Design.  Grid (Hkv x head groups, B, S): S splits of the page-table
+// row, each of ``pps`` pages; the wrapper derives both from B, the heads
+// and max_pages_per_seq alone (never from lengths on the device), so the
 // launch shape is fixed for a given cache and batch.  A block whose pages
 // lie past the row's last page or wholly below the window floor exits at
 // once: every block of the row derives the same range of non-empty splits
 // from n, the position and the window, so none writes a neutral partial.
-// A block of 4 warps holds the G = H / Hkv <= 8 query heads of its KV
-// head: q is rotated in f32 from positions * inv_freq (cosf / sinf),
-// scaled by 1/sqrt(D) and split into two bf16 terms (hi + lo, about 16
+// A block of 4 warps holds up to 8 query heads of its KV head: q is
+// rotated in f32 from positions * inv_freq (cosf / sinf), scaled by
+// 1/sqrt(D) and split into two bf16 terms (hi + lo, about 16
 // bits), kept in registers as MMA fragments.  Pages arrive through a
 // 2-stage cp.async ring (K and V codes 16 bytes a copy, rows XOR-swizzled
 // by 16-byte chunk, and the [scale, zero] rows); each warp takes 16-token
@@ -62,7 +76,9 @@
 // block writes its f32 (acc, m, den) partial, and the last block of (b,
 // kvh) by an atomic ticket (which it resets to 0 for the next launch)
 // merges all partials in split order, so the result does not depend on
-// which block finishes last.  At most 32 splits a row.
+// which block finishes last.  At most 32 splits a row.  Registers are
+// capped at 128 a thread at DP = 64 and 128; at DP = 256 (O^T and Q's
+// fragments alone take 128) at 255, two blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,24 +113,29 @@ struct Args {
   float* den_out;
   float* part_acc;        // (B, Hkv, S, G, D) f32
   float* part_md;         // (B, Hkv, S, G, 2) f32
-  int* tickets;           // (B, Hkv), 0 between launches
+  int* tickets;           // (B, Hkv, head groups), 0 between launches
   int lengths_per_row;
   int H, Hkv, D, ps, max_pages, pps, window;
   float scale;
 };
 
-// Shared memory, byte offsets: the ring (then, after the pages, the
-// warps' states), q, the page's per-token scales and zero points, the
-// warps' P^T buffers, the block's merged state, the split merge and the
-// block's page ids.
+constexpr int SMEM_MAX = 227 * 1024;  // the opt-in limit of a block
+
+// Shared memory, byte offsets: the ring of ``stages`` stages (then, after
+// the pages, the warps' states), q, the page's per-token scales and zero
+// points, the warps' P^T buffers, the block's merged state, the split
+// merge and the block's page ids.  D is the padded width DP.
 struct Smem {
-  int stage, ring, qs, tok, pt, st, bytes;
+  int stage, stages, ring, qs, tok, pt, st, bytes;
   __host__ __device__ Smem(int bits, int D, int ps, int pps) {
     const int dq = bits == 4 ? D / 2 : D;
     const int rb = bits == 16 ? 2 * ps : ps;     // bytes a code row
     stage = 2 * dq * rb + (bits == 16 ? 0 : 8 * ps);
     const int warps_state = WARPS * HP * (D + 2) * 4;
-    ring = 2 * stage > warps_state ? 2 * stage : warps_state;
+    const int rest = HP * D * 4 + 4 * ps * 4 + WARPS * 16 * PT_LD * 4 + (2 * HP + 4) * 4 +
+                     2 * MAX_SPLITS * HP * 4 + pps * 4;
+    stages = 2 * stage + rest <= SMEM_MAX ? 2 : 1;
+    ring = stages * stage > warps_state ? stages * stage : warps_state;
     qs = ring;
     tok = qs + HP * D * 4;
     pt = tok + 4 * ps * 4;
@@ -138,22 +159,25 @@ __device__ __forceinline__ uint32_t hsub(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-template <int BITS, int D>
-__global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
+template <int BITS, int DP>
+__global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int HALF = D / 2;
-  constexpr int DQ = BITS == 4 ? D / 2 : D;
-  constexpr int KSTEPS = D / 16;       // 16 k indices a step: 8 dim pairs
-  constexpr int MT = D / 16;           // 16-dim tiles of O^T
-  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z, S = gridDim.z;
+  constexpr int DQP = BITS == 4 ? DP / 2 : DP;   // code rows a stage holds
+  constexpr int KSTEPS = DP / 16;      // 16 k indices a step: 8 dim pairs
+  constexpr int MT = DP / 16;          // 16-row tiles of O^T
+  const int D = a.D, HALF = D / 2;
+  const int DQ = BITS == 4 ? HALF : D; // code rows a page
+  const int G = a.H / a.Hkv, NG = (G + HP - 1) / HP;
+  const int kvh = blockIdx.x / NG, hg = blockIdx.x % NG;
+  const int GB = min(HP, G - hg * HP); // this block's heads
+  const int b = blockIdx.y, split = blockIdx.z, S = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int ps = a.ps;
-  const int G = a.H / a.Hkv;
   const int rb = BITS == 16 ? 2 * ps : ps;   // bytes a code row
   const int nch = rb / 16;             // 16-byte chunks a code row (a power of two)
   const int nsl = ps / 16;             // 16-token slices a page
-  const Smem L(BITS, D, ps, a.pps);
+  const Smem L(BITS, DP, ps, a.pps);
 
   const int seq = a.seq_ids[b];
   const int n = a.lengths[a.lengths_per_row ? b : seq];
@@ -165,13 +189,24 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   const int s_lo = p0 / a.pps;
   const int s_hi = npages > p0 ? (npages - 1) / a.pps : s_lo - 1;
   const int count = s_hi - s_lo + 1;                  // non-empty splits
-  const size_t bk = static_cast<size_t>(b) * a.Hkv + kvh;
-  const size_t head0 = static_cast<size_t>(b) * a.H + static_cast<size_t>(kvh) * G;
+  // the (row, KV head, head group) of this block: its ticket and partials
+  const size_t bk = (static_cast<size_t>(b) * a.Hkv + kvh) * NG + hg;
+  const size_t head0 = static_cast<size_t>(b) * a.H + static_cast<size_t>(kvh) * G + hg * HP;
+  // row R of O^T -> its dim, -1 for a padded row: int4 rows [0, DP/2) are
+  // the code rows' low nibbles (dim R), rows [DP/2, DP) their high ones
+  // (dim R - DP/2 + D/2)
+  auto dim_of = [&](int R) -> int {
+    if (BITS == 4) {
+      const int r = R < DP / 2 ? R : R - DP / 2;
+      return r >= HALF ? -1 : R < DP / 2 ? r : r + HALF;
+    }
+    return R < D ? R : -1;
+  };
 
   if (count <= 0) {                 // nothing to attend: 0, state (-1e30, 0)
     if (split == 0) {
-      for (int i = tid; i < G * D; i += THREADS) a.out[head0 * D + i] = __float2bfloat16_rn(0.0f);
-      if (a.m_out != nullptr && tid < G) {
+      for (int i = tid; i < GB * D; i += THREADS) a.out[head0 * D + i] = __float2bfloat16_rn(0.0f);
+      if (a.m_out != nullptr && tid < GB) {
         a.m_out[head0 + tid] = NEG;
         a.den_out[head0 + tid] = 0.0f;
       }
@@ -182,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   const int pbeg = max(split * a.pps, p0);
   const int pend = min((split + 1) * a.pps, npages);
 
-  float* qs = reinterpret_cast<float*>(smem + L.qs);          // [HP][D]
+  float* qs = reinterpret_cast<float*>(smem + L.qs);          // [HP][DP]
   float* ksc = reinterpret_cast<float*>(smem + L.tok);        // [ps] K scale
   float* vsc = ksc + ps;                                       // [ps] V scale
   uint32_t* kzz = reinterpret_cast<uint32_t*>(vsc + ps);      // [ps] K zero
@@ -198,6 +233,13 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
 
   const int* trow = a.table + static_cast<size_t>(seq) * a.max_pages;
   for (int i = tid; i < pend - pbeg; i += THREADS) pids[i] = trow[pbeg + i];
+  // code rows [DQ, DQP) of K and V in every stage: zero for the whole loop
+  for (int st = 0; st < L.stages; ++st)
+    for (int i = tid * 16; i < 2 * (DQP - DQ) * rb; i += THREADS * 16) {
+      const int kv = i / ((DQP - DQ) * rb), rem = i % ((DQP - DQ) * rb);
+      *reinterpret_cast<uint4*>(smem + st * L.stage + (kv * DQP + DQ) * rb + rem) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
   auto stage = [&](int st, int p) {
     const size_t ph = static_cast<size_t>(pids[p - pbeg]) * a.Hkv + kvh;
     const uint8_t* kp = a.kc + ph * DQ * rb;
@@ -207,13 +249,13 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
       const int r = c / nch, cc = c % nch;
       const int dst = r * rb + ((cc ^ (r & (nch - 1))) << 4);
       ptx::cp_async16(kd + dst, kp + static_cast<size_t>(c) * 16, true);
-      ptx::cp_async16(kd + DQ * rb + dst, vp + static_cast<size_t>(c) * 16, true);
+      ptx::cp_async16(kd + DQP * rb + dst, vp + static_cast<size_t>(c) * 16, true);
     }
     if (BITS == 16) {       // no [scale, zero] pages
       ptx::cp_async_commit();
       return;
     }
-    uint8_t* sd = kd + 2 * DQ * ps;
+    uint8_t* sd = kd + 2 * DQP * ps;
     const __nv_bfloat16* ks = a.ksz + ph * 2 * ps;
     const __nv_bfloat16* vs = a.vsz + ph * 2 * ps;
     for (int c = tid; c < ps / 4; c += THREADS) {
@@ -225,40 +267,41 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   __syncthreads();
   stage(0, pbeg);
 
-  // q rotated and scaled in f32, heads past G zero
+  // q rotated and scaled in f32; heads past GB and dims past D zero
   const __nv_bfloat16* qb = a.q + head0 * D;
-  if (tid < D) {
+  for (int d = tid; d < DP; d += THREADS) {
     float c = 1.0f, s = 0.0f;
-    if (a.positions != nullptr) {
-      const float ang = static_cast<float>(a.positions[b]) * a.inv_freq[tid % HALF];
+    if (a.positions != nullptr && d < D) {
+      const float ang = static_cast<float>(a.positions[b]) * a.inv_freq[d % HALF];
       c = cosf(ang);
       s = sinf(ang);
     }
     for (int h = 0; h < HP; ++h) {
       float v = 0.0f;
-      if (h < G) {
-        const float x = __bfloat162float(qb[h * D + tid]);
+      if (h < GB && d < D) {
+        const float x = __bfloat162float(qb[h * D + d]);
         if (a.positions != nullptr) {
-          const float rot = tid < HALF ? -__bfloat162float(qb[h * D + tid + HALF])
-                                       : __bfloat162float(qb[h * D + tid - HALF]);
+          const float rot = d < HALF ? -__bfloat162float(qb[h * D + d + HALF])
+                                     : __bfloat162float(qb[h * D + d - HALF]);
           v = x * c + rot * s;
         } else {
           v = x;
         }
       }
-      qs[h * D + tid] = v * a.scale;
+      qs[h * DP + d] = v * a.scale;
     }
   }
   __syncthreads();
   // B fragments of Q^T: k pair 2 t4 (+8) of step kk is dims (m, m + D/2),
-  // m = 8 kk + t4 (+4); column (head) g; two bf16 terms
+  // m = 8 kk + t4 (+4); column (head) g; two bf16 terms; zero for m >= D/2
   uint32_t qf[KSTEPS][2][2];
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int m = 8 * kk + t4 + 4 * j;
-      const float x = qs[g * D + m], y = qs[g * D + m + HALF];
+      const bool in = m < HALF;
+      const float x = in ? qs[g * DP + m] : 0.0f, y = in ? qs[g * DP + m + HALF] : 0.0f;
       const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
       qf[kk][0][j] = *reinterpret_cast<const uint32_t*>(&hi);
       qf[kk][1][j] = pack_bf16(x - __low2float(hi), y - __high2float(hi));
@@ -271,21 +314,23 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[mt][r] = 0.0f;
   float m_w[2] = {NEG, NEG}, den_w[2] = {0.0f, 0.0f};
+  // the k steps and O^T tiles that hold a real dim
+  const int ksteps = (HALF + 7) / 8, mts = ((BITS == 4 ? HALF : D) + 15) / 16;
 
   for (int p = pbeg; p < pend; ++p) {
-    const int st = (p - pbeg) & 1;
+    const int st = L.stages == 2 ? (p - pbeg) & 1 : 0;
     ptx::cp_async_wait<0>();
     __syncthreads();      // page p landed; page p - 1 and its token arrays done
-    if (p + 1 < pend) stage(st ^ 1, p + 1);
+    if (L.stages == 2 && p + 1 < pend) stage(st ^ 1, p + 1);
     const uint8_t* kp = smem + st * L.stage;
-    const uint8_t* vp = kp + DQ * rb;
+    const uint8_t* vp = kp + DQP * rb;
     if (BITS == 16 && tid < ps) {   // the page's tokens: scale 1; masked: 0
       const int pos = p * ps + tid;
       const bool ok = pos < n && pos >= lo;
       ksc[tid] = ok ? 1.0f : 0.0f;
       vsc[tid] = ok ? 1.0f : 0.0f;
     } else if (tid < ps) {  // the page's tokens: scales, zero points; masked: 0
-      const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(vp + DQ * ps);
+      const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(vp + DQP * ps);
       const int pos = p * ps + tid;
       const bool ok = pos < n && pos >= lo;
       const float kz = ok ? __bfloat162float(sz[ps + tid]) : 0.0f;
@@ -313,6 +358,7 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
       const uint32_t z0 = kzz[t0], z1 = kzz[t1];
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        if (kk >= ksteps) break;
         uint32_t af[4];   // (row g, k 2t4..), (row g+8, ..), (row g, k 2t4+8..), (row g+8, ..)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
@@ -386,11 +432,12 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
         }
       }
       __syncwarp();
-      // ---- P.V: O^T += (V - z)^T P^T; A rows dims 16 mt + g (+8), k tokens
+      // ---- P.V: O^T += (V - z)^T P^T; A rows 16 mt + g (+8), k tokens
       // sl * 16 + 2 t4 (+1, +8, +9): two tokens of one code row a load
       const int j0 = sl * 16 + 2 * t4;
 #pragma unroll
       for (int mt = 0; mt < (BITS == 4 ? MT / 2 : MT); ++mt) {
+        if (mt >= mts) break;
         if (BITS == 16) {   // rows r, r + 8 x tokens j0 (+1), j0 + 8 (+9): the values
           uint32_t av[4];
 #pragma unroll
@@ -447,6 +494,10 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
         }
       }
     }
+    if (L.stages == 1 && p + 1 < pend) {   // one stage: the next page after this one
+      __syncthreads();
+      stage(0, p + 1);
+    }
   }
   __syncthreads();        // the ring is free: the warps' states go there
 
@@ -457,54 +508,50 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
     den_w[h] += __shfl_xor_sync(0xffffffffu, den_w[h], 8);
     den_w[h] += __shfl_xor_sync(0xffffffffu, den_w[h], 16);
   }
-  float* ws = reinterpret_cast<float*>(smem) + warp * HP * (D + 2);   // [HP][D + 2]
+  constexpr int WS = DP + 2;   // a head's row of a warp's state: O^T rows, m, den
+  float* ws = reinterpret_cast<float*>(smem);   // [WARPS][HP][WS]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      ws[(2 * t4 + (r & 1)) * (D + 2) + 16 * mt + g + 8 * (r >> 1)] = o[mt][r];
+      ws[(warp * HP + 2 * t4 + (r & 1)) * WS + 16 * mt + g + 8 * (r >> 1)] = o[mt][r];
   if (g == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      ws[(2 * t4 + h) * (D + 2) + D] = m_w[h];
-      ws[(2 * t4 + h) * (D + 2) + D + 1] = den_w[h];
+      ws[(warp * HP + 2 * t4 + h) * WS + DP] = m_w[h];
+      ws[(warp * HP + 2 * t4 + h) * WS + DP + 1] = den_w[h];
     }
   }
   __syncthreads();
-  float acc[HP];
-#pragma unroll
-  for (int h = 0; h < HP; ++h) acc[h] = 0.0f;
-  if (tid < D) {
-#pragma unroll
-    for (int h = 0; h < HP; ++h) {
-      if (h < G) {
-        const float* wh = reinterpret_cast<const float*>(smem) + h * (D + 2);
-        float mx = NEG;
-        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wh[w * HP * (D + 2) + D]);
-        float den = 0.0f;
-        for (int w = 0; w < WARPS; ++w) {
-          const float* ww = wh + w * HP * (D + 2);
-          const float wt = expf(ww[D] - mx);
-          den += ww[D + 1] * wt;
-          acc[h] += ww[tid] * wt;
-        }
-        if (tid == 0) {
-          m_s[h] = mx;
-          den_s[h] = den;
-        }
-      }
+  // per head: the block's max and denominator, and each warp's weight
+  // exp(m_w - m) (in wts, free until the split merge)
+  if (tid < GB) {
+    float mx = NEG;
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ws[(w * HP + tid) * WS + DP]);
+    float den = 0.0f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(ws[(w * HP + tid) * WS + DP] - mx);
+      wts[w * HP + tid] = wt;
+      den += ws[(w * HP + tid) * WS + DP + 1] * wt;
     }
+    m_s[tid] = mx;
+    den_s[tid] = den;
   }
   __syncthreads();
+  auto acc_of = [&](int h, int R) {
+    float acc = 0.0f;
+    for (int w = 0; w < WARPS; ++w) acc += ws[(w * HP + h) * WS + R] * wts[w * HP + h];
+    return acc;
+  };
 
   if (count == 1) {       // the row's only split: write the result
-    if (tid < D) {
-#pragma unroll
-      for (int h = 0; h < HP; ++h)
-        if (h < G)
-          a.out[(head0 + h) * D + tid] = __float2bfloat16_rn(acc[h] / fmaxf(den_s[h], 1e-30f));
+    for (int R = tid; R < DP; R += THREADS) {
+      const int d = dim_of(R);
+      if (d < 0) continue;
+      for (int h = 0; h < GB; ++h)
+        a.out[(head0 + h) * D + d] = __float2bfloat16_rn(acc_of(h, R) / fmaxf(den_s[h], 1e-30f));
     }
-    if (a.m_out != nullptr && tid < G) {
+    if (a.m_out != nullptr && tid < GB) {
       a.m_out[head0 + tid] = m_s[tid];
       a.den_out[head0 + tid] = den_s[tid];
     }
@@ -512,14 +559,14 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   }
 
   const size_t slot = bk * S + split;
-  if (tid < D) {
-#pragma unroll
-    for (int h = 0; h < HP; ++h)
-      if (h < G) a.part_acc[(slot * G + h) * D + tid] = acc[h];
+  for (int R = tid; R < DP; R += THREADS) {
+    const int d = dim_of(R);
+    if (d < 0) continue;
+    for (int h = 0; h < GB; ++h) a.part_acc[(slot * HP + h) * D + d] = acc_of(h, R);
   }
-  if (tid < G) {
-    a.part_md[(slot * G + tid) * 2] = m_s[tid];
-    a.part_md[(slot * G + tid) * 2 + 1] = den_s[tid];
+  if (tid < GB) {
+    a.part_md[(slot * HP + tid) * 2] = m_s[tid];
+    a.part_md[(slot * HP + tid) * 2 + 1] = den_s[tid];
   }
   __threadfence();
   __syncthreads();
@@ -535,46 +582,46 @@ __global__ void __launch_bounds__(THREADS, 4) decode_kernel(const Args a) {
   // the last block merges the partials in split order: the splits' (m,
   // den) staged in shared memory, the weights exp(m_s - m) by one thread a
   // head, then thread d sums its dim, eight loads in flight
-  for (int i = tid; i < count * G; i += THREADS) {
-    const size_t o2 = ((bk * S + s_lo + i / G) * G + i % G) * 2;
+  for (int i = tid; i < count * GB; i += THREADS) {
+    const size_t o2 = ((bk * S + s_lo + i / GB) * HP + i % GB) * 2;
     wts[i] = __ldcg(a.part_md + o2);
     dws[i] = __ldcg(a.part_md + o2 + 1);
   }
   __syncthreads();
-  if (tid < G) {
+  if (tid < GB) {
     float mx = NEG;
-    for (int k = 0; k < count; ++k) mx = fmaxf(mx, wts[k * G + tid]);
+    for (int k = 0; k < count; ++k) mx = fmaxf(mx, wts[k * GB + tid]);
     float den = 0.0f;
     for (int k = 0; k < count; ++k) {
-      const float w = expf(wts[k * G + tid] - mx);
-      wts[k * G + tid] = w;
-      den += dws[k * G + tid] * w;
+      const float w = expf(wts[k * GB + tid] - mx);
+      wts[k * GB + tid] = w;
+      den += dws[k * GB + tid] * w;
     }
     m_s[tid] = mx;
     den_s[tid] = den;
   }
   __syncthreads();
-  if (tid < D) {
-    const float* pa = a.part_acc + (bk * S + s_lo) * G * D + tid;
-    for (int h = 0; h < G; ++h) {
+  for (int d = tid; d < D; d += THREADS) {
+    const float* pa = a.part_acc + (bk * S + s_lo) * HP * D + d;
+    for (int h = 0; h < GB; ++h) {
       float ov = 0.0f;
 #pragma unroll 8
       for (int k = 0; k < count; ++k)
-        ov += __ldcg(pa + (static_cast<size_t>(k) * G + h) * D) * wts[k * G + h];
-      a.out[(head0 + h) * D + tid] = __float2bfloat16_rn(ov / fmaxf(den_s[h], 1e-30f));
+        ov += __ldcg(pa + (static_cast<size_t>(k) * HP + h) * D) * wts[k * GB + h];
+      a.out[(head0 + h) * D + d] = __float2bfloat16_rn(ov / fmaxf(den_s[h], 1e-30f));
     }
   }
-  if (a.m_out != nullptr && tid < G) {
+  if (a.m_out != nullptr && tid < GB) {
     a.m_out[head0 + tid] = m_s[tid];
     a.den_out[head0 + tid] = den_s[tid];
   }
 }
 
-template <int BITS, int D>
+template <int BITS, int DP>
 int launch(const Args& a, int B, int splits, cudaStream_t stream) {
-  if (splits > MAX_SPLITS || a.H / a.Hkv > HP) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = Smem(BITS, D, a.ps, a.pps).bytes;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > MAX_SPLITS || a.H / a.Hkv > 8 * HP) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = Smem(BITS, DP, a.ps, a.pps).bytes;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   // raise the kernel's shared memory limit on a device only when a launch
   // needs more than was set there: one driver call, not one a launch
   static int done[64] = {};
@@ -582,25 +629,27 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || done[dev] < smem) {
-    err = cudaFuncSetAttribute(decode_kernel<BITS, D>,
+    err = cudaFuncSetAttribute(decode_kernel<BITS, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) done[dev] = smem;
   }
-  dim3 grid(a.Hkv, B, splits);
-  decode_kernel<BITS, D><<<grid, THREADS, smem, stream>>>(a);
+  const int ng = (a.H / a.Hkv + HP - 1) / HP;
+  dim3 grid(a.Hkv * ng, B, splits);
+  decode_kernel<BITS, DP><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bits 4, 8 or 16; D 64 or 128; ps in {16, 32, 64, 128}; H / Hkv <= 8;
-// splits <= 32; window <= 0: none; positions / inv_freq null: no RoPE;
+// bits 4, 8 or 16; D even, 2 to 256; ps in {16, 32, 64, 128}; H / Hkv <=
+// 64; splits <= 32; window <= 0: none; positions / inv_freq null: no RoPE;
 // lengths_per_row: lengths is (B,) (the override) rather than the cache's
 // per-sequence lengths; m_out / den_out null: no state.  Zero points are
-// integers (kv_quantize rounds them).  part_acc (B, Hkv, splits, G, D) and
-// part_md (B, Hkv, splits, G, 2) f32 scratch; tickets (B, Hkv) int32, zero
-// before the launch and left zero after it.
+// integers (kv_quantize rounds them).  With NG = ceil(G / 8) head groups,
+// part_acc (B, Hkv, NG, splits, 8, D) and part_md (B, Hkv, NG, splits, 8,
+// 2) f32 scratch; tickets (B, Hkv, NG) int32, zero before the launch and
+// left zero after it.
 extern "C" int paged_decode(const void* q, const void* kc, const void* vc,
                             const void* ksz, const void* vsz, const void* table,
                             const void* seq_ids, const void* lengths,
@@ -620,11 +669,19 @@ extern "C" int paged_decode(const void* q, const void* kc, const void* vc,
          static_cast<float*>(part_md), static_cast<int*>(tickets), lengths_per_row,
          H, Hkv, D, ps, max_pages, pps, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && D == 128) return launch<4, 128>(a, B, splits, s);
-  if (bits == 4 && D == 64) return launch<4, 64>(a, B, splits, s);
-  if (bits == 8 && D == 128) return launch<8, 128>(a, B, splits, s);
-  if (bits == 8 && D == 64) return launch<8, 64>(a, B, splits, s);
-  if (bits == 16 && D == 128) return launch<16, 128>(a, B, splits, s);
-  if (bits == 16 && D == 64) return launch<16, 64>(a, B, splits, s);
+  if (D < 2 || D > 256 || D % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = D <= 64 ? 64 : D <= 128 ? 128 : 256;
+#define MM_DECODE(BB, DD) \
+  if (bits == BB && dp == DD) return launch<BB, DD>(a, B, splits, s);
+  MM_DECODE(4, 64)
+  MM_DECODE(4, 128)
+  MM_DECODE(4, 256)
+  MM_DECODE(8, 64)
+  MM_DECODE(8, 128)
+  MM_DECODE(8, 256)
+  MM_DECODE(16, 64)
+  MM_DECODE(16, 128)
+  MM_DECODE(16, 256)
+#undef MM_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,8 +25,8 @@
 // as Kernel C batches it: one block of 4 warps per (q tile, KV head)
 // holds 64 query rows, the G = H / Hkv heads of that KV head times
 // RQ = floor(64 / G) chunk positions, so each K/V tile it loads serves
-// all G heads.  Any G from 1 to 8 maps so: rows G RQ .. 63 are spare (1
-// of 64 at G = 3 or 7, 4 at G = 5 or 6, none where G divides 64); they
+// all G heads.  Any G from 1 to 64 maps so: rows G RQ .. 63 are spare (1
+// of 64 at G = 3 or 7, 4 at G = 5, 6 or 12, none where G divides 64); they
 // load zero queries, which score 0 everywhere and stay finite, and are
 // never stored.  Blocks of G ceil(64 / G) rows (70 at G = 7) would waste
 // none of a row's keys but would need a fifth warp, another query tile
@@ -65,6 +65,13 @@
 // at or past it, from the same page: their scores are masked and their
 // per-token scales 0, as for the quantized pages.
 //
+// Head dims: any even D up to 256, the tiles templated on a padded width
+// DP of 64, 128 or 256 as Kernel E's; the page strides, the int4 nibble
+// pair (i, i + D/2), 1/sqrt(D) and the output's columns take the true D.
+// Rows [D, DP) of the dims-major K and V tiles are zeroed once, before
+// the history loop (nothing writes them after), and the query and chunk
+// tiles load zero there, so the padding adds nothing to a score.
+//
 // Chunk: the chunk's bf16 K/V rows through the same 2-stage ring as E,
 // keys-major.  Masked scores are -1e30 as in the JAX kernel; history
 // tokens at or past start, whose codes and scales may be stale, unpack
@@ -89,8 +96,9 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // pairs; none for bf16 pages) and the tile's per-token scales, with the
 // query tile after them (in registers before phase 2 overwrites it).  The
 // raw ring holds DQ code rows of K and of V a stage: at D = 128 and int8,
-// 32 KiB of the 86.5 KiB a block takes; bf16 pages take 90 KiB (the
-// opt-in limit is 227 KiB).
+// 32 KiB of the 86.5 KiB a block takes; bf16 pages take 90 KiB; at DP =
+// 256 int8 takes 170.5 KiB and bf16 177.5 KiB (the opt-in limit is 227
+// KiB).  D here is the padded width DP.
 template <int D, int BITS>
 struct Smem {
   static constexpr int LD = fa::Tile<D>::LD;
@@ -129,7 +137,7 @@ __device__ __forceinline__ void unpack8(__nv_bfloat16* dst, uint32_t w,
                                               fa::bits(__floats2bfloat162_rn(d2, d3)));
 }
 
-template <int D, int BITS>
+template <int DP, int BITS>
 __global__ void __launch_bounds__(THREADS)
 prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ kch,
@@ -138,13 +146,14 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ ksz,
                const __nv_bfloat16* __restrict__ vsz,
                const int* __restrict__ table, const int* __restrict__ start_ptr,
-               __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int ps,
+               __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int D, int ps,
                int window, float scale) {
-  using L = Smem<D, BITS>;
-  constexpr int LD = L::LD, DQ = L::DQ;
+  using L = Smem<DP, BITS>;
+  constexpr int LD = L::LD, DQP = L::DQ;  // code rows a stage holds
+  const int DQ = BITS == 4 ? D / 2 : D;   // code rows a page
   extern __shared__ __align__(16) uint8_t smem[];
   // stage st's dims-major K tile (one stage unless the pages are bf16);
-  // its V tile follows at + D * LDT
+  // its V tile follows at + DP * LDT
   auto ktile = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(smem + L::KT + (BITS == 16 ? st * L::TILES : 0));
   };
@@ -165,15 +174,22 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) lp[i] = q0 + (warp * 16 + g + 8 * i) % RQ;
 
-  for (int i = tid; i < BQ * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = tid; i < BQ * (DP / 8); i += THREADS) {
+    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int pos = q0 + r % RQ;
     const bool ok = pos < S && r < ROWS;
     const __nv_bfloat16* src =
-        ok ? q + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D + c : q;
-    ptx::cp_async16(Qs + r * LD + c, src, ok);
+        ok ? q + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D : q;
+    fa::load_chunk(Qs + r * LD + c, src, c, D, ok);
   }
   ptx::cp_async_commit();
+  // rows [D, DP) of the dims-major K and V tiles (both stages for bf16
+  // pages): zero for the whole history loop
+  for (int st = 0; st < (BITS == 16 ? 2 : 1); ++st)
+    for (int i = tid; i < 2 * (DP - D) * LDT; i += THREADS) {
+      const int kv = i / ((DP - D) * LDT), rem = i % ((DP - D) * LDT);
+      ktile(st)[(kv * DP + D) * LDT + rem] = __float2bfloat16_rn(0.0f);
+    }
 
   // ---------------- phase 1: the paged history ----------------
   // tile t covers history positions [64 t, 64 t + 64); positions at or
@@ -183,7 +199,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(kc);
       const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(vc);
       __nv_bfloat16* kd = ktile(stage);
-      __nv_bfloat16* vd = kd + D * LDT;
+      __nv_bfloat16* vd = kd + DP * LDT;
       const int t0 = t * BK;
       if (ps % 8 == 0) {  // 8 tokens a copy: column tid % 8, rows tid / 8 + 16 i
         const int c = (tid % 8) * 8, pos = t0 + c;
@@ -208,7 +224,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       }
       return;
     }
-    uint8_t* raw = smem + L::RAW + stage * 2 * DQ * BK;
+    uint8_t* raw = smem + L::RAW + stage * 2 * DQP * BK;
     __nv_bfloat16* sz = reinterpret_cast<__nv_bfloat16*>(smem + L::SZ) + stage * 4 * BK;
     const int t0 = t * BK;
     if (ps % 16 == 0) {  // 16 tokens a copy: column tid % 4, rows tid / 4 + 32 i
@@ -219,7 +235,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = tid / 4; i < DQ; i += THREADS / 4) {
         const size_t o = off + static_cast<size_t>(i) * ps;
         ptx::cp_async16(raw + i * BK + c, kc + o, ok);
-        ptx::cp_async16(raw + (DQ + i) * BK + c, vc + o, ok);
+        ptx::cp_async16(raw + (DQP + i) * BK + c, vc + o, ok);
       }
     } else {  // 4 tokens a copy: column tid % 16, rows tid / 16 + 8 i
       const int c = (tid % 16) * 4, pos = t0 + c;
@@ -229,7 +245,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = tid / 16; i < DQ; i += THREADS / 16) {
         const size_t o = off + static_cast<size_t>(i) * ps;
         ptx::cp_async_ca<4>(raw + i * BK + c, kc + o, ok);
-        ptx::cp_async_ca<4>(raw + (DQ + i) * BK + c, vc + o, ok);
+        ptx::cp_async_ca<4>(raw + (DQP + i) * BK + c, vc + o, ok);
       }
     }
     if (tid < 64) {  // array a = tid / 16 (ks, kz, vs, vz), 4 tokens a copy
@@ -256,8 +272,8 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       return;
     }
     __nv_bfloat16* KT = ktile(0);
-    __nv_bfloat16* VT = KT + D * LDT;
-    const uint8_t* raw = smem + L::RAW + stage * 2 * DQ * BK;
+    __nv_bfloat16* VT = KT + DP * LDT;
+    const uint8_t* raw = smem + L::RAW + stage * 2 * DQP * BK;
     const __nv_bfloat16* sz = reinterpret_cast<const __nv_bfloat16*>(smem + L::SZ) + stage * 4 * BK;
     const int t0 = t * BK, c = (tid % 16) * 4;
     if constexpr (BITS == 4) {
@@ -274,7 +290,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 4
       for (int i = tid / 16; i < DQ; i += THREADS / 16) {
         const uint32_t wk = *reinterpret_cast<const uint32_t*>(raw + i * BK + c);
-        const uint32_t wv = *reinterpret_cast<const uint32_t*>(raw + (DQ + i) * BK + c);
+        const uint32_t wv = *reinterpret_cast<const uint32_t*>(raw + (DQP + i) * BK + c);
         unpack4(KT + i * LDT + c, wk & 0x0F0F0F0Fu, zk);
         unpack4(KT + (i + DQ) * LDT + c, (wk >> 4) & 0x0F0F0F0Fu, zk);
         unpack4(VT + i * LDT + c, wv & 0x0F0F0F0Fu, zv);
@@ -291,7 +307,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 4
       for (int i = tid / 16; i < DQ; i += THREADS / 16) {
         unpack8(KT + i * LDT + c, *reinterpret_cast<const uint32_t*>(raw + i * BK + c), zk);
-        unpack8(VT + i * LDT + c, *reinterpret_cast<const uint32_t*>(raw + (DQ + i) * BK + c),
+        unpack8(VT + i * LDT + c, *reinterpret_cast<const uint32_t*>(raw + (DQP + i) * BK + c),
                 zv);
       }
     }
@@ -308,10 +324,10 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   ptx::cp_async_commit();
   ptx::cp_async_wait<1>();  // the query tile
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  fa::load_q<D>(Qs, qf);
+  uint32_t qf[DP / 16][4];
+  fa::load_q<DP>(Qs, qf);
 
-  fa::Softmax<D> sm;
+  fa::Softmax<DP> sm;
   sm.init();
   for (int t = h_lo; t < h_hi; ++t) {
     const int st = (t - h_lo) & 1;
@@ -337,7 +353,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* KT = ktile(st);
 
     float s[BK / 8][4];
-    fa::scores<D, true>(qf, KT, s);
+    fa::scores<DP, true>(qf, KT, s);
     const int t0 = t * BK;
     const bool edge = t0 + BK > start || (window > 0 && t0 <= start + q0 + RQ - 1 - window);
 #pragma unroll
@@ -359,7 +375,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[nt][r] *= vsc[nt * 8 + t4 * 2 + (r & 1)];
-    sm.template pv<true>(s, KT + D * LDT);
+    sm.template pv<true>(s, KT + DP * LDT);
   }
 
   // ---------------- phase 2: the chunk, causally ----------------
@@ -368,8 +384,8 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Vs = Ks + 2 * BK * LD;                           // [2][BK][LD]
   const size_t kstride = static_cast<size_t>(Hkv) * D;
   auto load_kv = [&](int jk, int stage) {
-    fa::load_rows<D, BK, THREADS>(Ks + stage * BK * LD, kch + kvh * D, kstride, jk * BK, S);
-    fa::load_rows<D, BK, THREADS>(Vs + stage * BK * LD, vch + kvh * D, kstride, jk * BK, S);
+    fa::load_rows<DP, BK, THREADS>(Ks + stage * BK * LD, kch + kvh * D, kstride, jk * BK, S, D);
+    fa::load_rows<DP, BK, THREADS>(Vs + stage * BK * LD, vch + kvh * D, kstride, jk * BK, S, D);
     ptx::cp_async_commit();
   };
   // the block's positions q0 .. q0 + RQ - 1 lie in one 64-key tile
@@ -387,7 +403,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     float s[BK / 8][4];
-    fa::scores<D>(qf, Ks + st * BK * LD, s);
+    fa::scores<DP>(qf, Ks + st * BK * LD, s);
     const int k0 = jk * BK;
     const bool edge = k0 + BK - 1 > q0 || (window > 0 && k0 <= q0 + RQ - 1 - window);
 #pragma unroll
@@ -413,40 +429,39 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + g + half * 8, pos = lp[half];
     if (pos >= S || r >= ROWS) continue;
-    __nv_bfloat16* o = out + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D + t4 * 2;
+    __nv_bfloat16* o = out + (static_cast<size_t>(pos) * H + kvh * G + r / RQ) * D;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(o + dt * 8) =
-          __floats2bfloat162_rn(sm.o[dt][2 * half], sm.o[dt][2 * half + 1]);
+    for (int dt = 0; dt < DP / 8; ++dt)
+      fa::store_pair(o, dt * 8 + t4 * 2, D, sm.o[dt][2 * half], sm.o[dt][2 * half + 1]);
   }
 }
 
-template <int D, int BITS>
+template <int DP, int BITS>
 int launch(const void* q, const void* kch, const void* vch, const void* kc,
            const void* vc, const void* ksz, const void* vsz, const void* table,
-           const void* start, void* out, int S, int H, int Hkv, int ps,
+           const void* start, void* out, int S, int H, int Hkv, int D, int ps,
            int window, float scale, cudaStream_t stream) {
-  if (Hkv < 1 || H % Hkv || H / Hkv > 8) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Smem<D, BITS>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<D, BITS>,
+  if (Hkv < 1 || H % Hkv || H / Hkv > BQ) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Smem<DP, BITS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(prefill_kernel<DP, BITS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rq = BQ / (H / Hkv);
   dim3 grid((S + rq - 1) / rq, Hkv);
-  prefill_kernel<D, BITS><<<grid, THREADS, smem, stream>>>(
+  prefill_kernel<DP, BITS><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kch),
       static_cast<const __nv_bfloat16*>(vch), static_cast<const uint8_t*>(kc),
       static_cast<const uint8_t*>(vc), static_cast<const __nv_bfloat16*>(ksz),
       static_cast<const __nv_bfloat16*>(vsz), static_cast<const int*>(table),
       static_cast<const int*>(start), static_cast<__nv_bfloat16*>(out), S, H, Hkv,
-      ps, window, scale);
+      D, ps, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // table: the sequence's page-table row; start: one device int32.  bits is
-// 4, 8 or 16, D 64 or 128, H / Hkv at most 8, ps is a multiple of 4;
+// 4, 8 or 16, D even and at most 256, H / Hkv at most 64, ps a multiple of 4;
 // window <= 0: none.  Zero points are integers in [0, 2^bits - 1]
 // (kv_quantize rounds them); bf16 pages have no sz pages to read.
 extern "C" int paged_prefill(const void* q, const void* kch, const void* vch,
@@ -456,16 +471,21 @@ extern "C" int paged_prefill(const void* q, const void* kch, const void* vch,
                              int Hkv, int D, int ps, int window, int bits,
                              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D < 2 || D > 256 || D % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = D <= 64 ? 64 : D <= 128 ? 128 : 256;
 #define MM_PREFILL(DD, BB)                                                     \
-  if (D == DD && bits == BB)                                                   \
+  if (dp == DD && bits == BB)                                                  \
     return launch<DD, BB>(q, kch, vch, kc, vc, ksz, vsz, table, start, out, S, \
-                          H, Hkv, ps, window, scale, s);
-  MM_PREFILL(128, 4)
+                          H, Hkv, D, ps, window, scale, s);
   MM_PREFILL(64, 4)
-  MM_PREFILL(128, 8)
+  MM_PREFILL(128, 4)
+  MM_PREFILL(256, 4)
   MM_PREFILL(64, 8)
-  MM_PREFILL(128, 16)
+  MM_PREFILL(128, 8)
+  MM_PREFILL(256, 8)
   MM_PREFILL(64, 16)
+  MM_PREFILL(128, 16)
+  MM_PREFILL(256, 16)
 #undef MM_PREFILL
   return static_cast<int>(cudaErrorInvalidValue);
 }

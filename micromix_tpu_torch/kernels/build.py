@@ -40,9 +40,10 @@ SOURCES = ("site_fakequant", "w8_gemm", "paged_decode", "append_kv",
            "flash_attention", "w8_stack", "w8_pair", "paged_prefill",
            "w8_grouped", "mx_quantize", "sp_gemm", "sp_stack")
 # No --use_fast_math: the site kernel's bit-exactness rests on IEEE
-# division, sqrtf and rintf.
+# division, sqrtf and rintf.  -Xptxas -v: each kernel's registers, spills
+# and shared memory, kept beside its library (``ptxas_report``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: collections.Counter = collections.Counter()
 page_launches: collections.Counter = collections.Counter()
@@ -100,10 +101,42 @@ def build(names: Iterable[str] = SOURCES) -> float:
         if p.returncode != 0:
             errors.append(f"{n}.cu:\n{out.decode(errors='replace')}")
         else:
+            _target(n).with_suffix(".ptxas.txt").write_bytes(out)
             os.replace(tmp, _target(n))
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> List[Dict]:
+    """What ``ptxas -v`` said of each kernel instantiation in source
+    ``name`` when it was built: [{"function", "registers", "spill_stores",
+    "spill_loads", "stack", "smem"}] (smem: static shared bytes)."""
+    import re
+    text = _target(name).with_suffix(".ptxas.txt").read_text(errors="replace")
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # a mangled kernel name -> "name<template ints>"
+            t = re.search(r"([A-Za-z_]+)I((?:Li\d+E)+)E", m.group(1))
+            cur = {"function": m.group(1) if t is None else
+                   f"{t.group(1)}<{','.join(re.findall(r'Li(\d+)E', t.group(2)))}>"}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def library(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:

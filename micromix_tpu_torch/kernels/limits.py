@@ -6,11 +6,16 @@ C (``paged_decode_attention``), H (``paged_prefill_attention``) and D
 cache (``serve.engine.check_card_serves``), so that the engine refuses
 exactly what one of its kernels would refuse later:
 
-  * head_dim 64 or 128 (E's and H's tiles, C's dim pairs (m, m + D/2), D's
-    lane holding dims i and i + D/2);
-  * at most 8 query heads per KV head for C (the heads are its MMA's 8
-    columns) and H (a 64-row block holds G x floor(64 / G) rows); E takes
-    any group;
+  * head_dim up to 256 (``MAX_HEAD_DIM``; Gemma's heads, the widest of
+    any public decoder): the kernels template their tiles on a padded
+    width of 64, 128 or 256 and zero the dims past the true one, as the
+    JAX kernel pads D to its 128-lane tile.  E takes any D from 1; C, D
+    and H take even D only, since their int4 pages pair dims i and
+    i + D/2 in one byte and RoPE pairs the same dims;
+  * at most 64 query heads per KV head for C (blocks of 8 heads, the
+    MMA's 8 columns, ceil(G / 8) of them a KV head) and H (a 64-row block
+    holds G x floor(64 / G) rows: at G = 64 one position); E takes any
+    group;
   * KV pages of 4, 8 or 16 bits (int4, int8, bf16) for C, D and H;
   * page sizes 16, 32, 64 and 128 for C (a page row is whole 16-byte
     chunks, swizzled by a power of two), any multiple of 4 for H (its
@@ -21,8 +26,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8
+MAX_HEAD_DIM = 256
+MAX_GROUP = 64
 KV_BITS = (4, 8, 16)
 DECODE_PAGE_SIZES = (16, 32, 64, 128)
 KERNELS = ("flash", "decode", "prefill", "append", "engine")
@@ -37,8 +42,10 @@ def refusal(kernel: str, *, head_dim: int, num_heads: Optional[int] = None,
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
     why = []
-    if head_dim not in HEAD_DIMS:
-        why.append(f"head_dim {head_dim} (takes {HEAD_DIMS})")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        why.append(f"head_dim {head_dim} (takes 1 to {MAX_HEAD_DIM})")
+    elif kernel != "flash" and head_dim % 2:
+        why.append(f"odd head_dim {head_dim} (pairs dims i, i + D/2)")
     if num_heads is not None:
         if num_kv_heads < 1 or num_heads % num_kv_heads:
             why.append(f"{num_heads} query heads over {num_kv_heads} KV heads")

@@ -15,8 +15,17 @@ none: the port gathers by ``perm``) and ``FakeQuantSite``.
 A quantized tree loads through ``convert.from_jax_params``, which reads
 containers by attribute name (and the node's kind where names are
 shared); a dense tree comes back in the layout of
-``random_dense_params``.  The JAX package's orbax checkpoints
-(``save_params_async`` / ``load_params_async``) have no counterpart.
+``random_dense_params``.
+
+The JAX package's ``save_params_async`` writes its arrays through Orbax
+(``array_container: orbax``): ``<path>/arrays_ocp``, an OCDBT key-value
+store holding one zarr array per key of the manifest.  ``load_params``
+(and ``load_params_async``, the JAX package's name) read that container
+with ``tensorstore`` alone (zarr arrays in an ``ocdbt`` key-value
+store), importing no JAX and no Orbax; without ``tensorstore`` they
+raise.  The port's ``save_params_async`` writes the npz container on a
+background thread instead (the machine with the card has no Orbax), so
+the JAX package's ``load_params`` reads what it writes.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import types
 from typing import Any, Dict, Optional, Tuple
 
@@ -147,21 +157,101 @@ def _dense(node: Any, device) -> Any:
     return node
 
 
-def save_params(path: str, params: Any, cfg: Optional[ModelConfig] = None,
-                meta: Optional[Dict[str, Any]] = None) -> None:
-    """Serialize a (quantized or dense) parameter tree to ``path``/."""
-    os.makedirs(path, exist_ok=True)
+def _manifest(params: Any, cfg: Optional[ModelConfig],
+              meta: Optional[Dict[str, Any]]):
+    """-> (the manifest, its arrays as host numpy arrays)."""
     arrays: Dict[str, np.ndarray] = {}
     tree = _encode(params, arrays, "params")
-    manifest = {
+    return {
         "format_version": FORMAT_VERSION,
         "tree": tree,
         "config": dataclasses.asdict(cfg) if cfg is not None else None,
         "meta": meta or {},
-    }
+    }, arrays
+
+
+def _write(path: str, manifest: Dict[str, Any], arrays) -> None:
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f)
+
+
+def save_params(path: str, params: Any, cfg: Optional[ModelConfig] = None,
+                meta: Optional[Dict[str, Any]] = None) -> None:
+    """Serialize a (quantized or dense) parameter tree to ``path``/."""
+    os.makedirs(path, exist_ok=True)
+    _write(path, *_manifest(params, cfg, meta))
+
+
+class AsyncSave:
+    """The handle ``save_params_async`` returns: the write runs on a
+    background thread; ``wait_until_finished()`` joins it and raises what
+    it raised (as the JAX package's Orbax ``AsyncCheckpointer``)."""
+
+    def __init__(self, fn):
+        self._error: Optional[BaseException] = None
+
+        def run():
+            try:
+                fn()
+            except Exception as e:  # raised by wait_until_finished
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=False)
+        self._thread.start()
+
+    def wait_until_finished(self) -> None:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+
+def save_params_async(path: str, params: Any,
+                      cfg: Optional[ModelConfig] = None,
+                      meta: Optional[Dict[str, Any]] = None) -> AsyncSave:
+    """``save_params`` with the file writes on a background thread: the
+    tree is copied to host arrays before this returns (the caller may
+    change or free its tensors at once), then ``arrays.npz`` and, last,
+    ``manifest.json`` are written.  The container is npz, not the JAX
+    package's Orbax one: the JAX package's ``load_params`` reads it."""
+    os.makedirs(path, exist_ok=True)
+    manifest, arrays = _manifest(params, cfg, meta)
+    return AsyncSave(lambda: _write(path, manifest, arrays))
+
+
+def _array_keys(spec: Dict[str, Any]):
+    """The npz / Orbax keys of a manifest tree's arrays."""
+    if spec["kind"] == "array":
+        yield spec["key"]
+        return
+    children = spec.get("items", spec.get("fields", ()))
+    for child in (children.values() if isinstance(children, dict) else children):
+        yield from _array_keys(child)
+
+
+def _read_orbax(path: str, manifest: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Every array of an Orbax container (``<path>/arrays_ocp``) by its
+    manifest key, through tensorstore alone: zarr arrays in the OCDBT
+    key-value store, one path a key.  bf16 arrays come back as their uint16
+    bits (the JAX package writes them as such a view; an ml_dtypes
+    bfloat16 is viewed so too)."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            "reading an Orbax checkpoint (array_container: orbax) needs the "
+            "tensorstore package, which is not installed here") from e
+    base = "file://" + os.path.join(os.path.abspath(path), "arrays_ocp")
+    ctx = ts.Context()
+    arrays = {}
+    for key in _array_keys(manifest["tree"]):
+        a = ts.open({"driver": "zarr", "kvstore": {"driver": "ocdbt",
+                                                   "base": base, "path": key}},
+                    open=True, context=ctx).result().read().result()
+        if a.dtype.name == "bfloat16":
+            a = a.view(np.uint16)
+        arrays[key] = a
+    return arrays
 
 
 def load_params(path: str, device=None) -> Tuple[Any, Optional[ModelConfig],
@@ -175,14 +265,17 @@ def load_params(path: str, device=None) -> Tuple[Any, Optional[ModelConfig],
     if manifest["format_version"] != FORMAT_VERSION:
         raise ValueError(
             f"unsupported checkpoint version {manifest['format_version']}")
-    if manifest.get("array_container", "npz") != "npz":
-        raise NotImplementedError(
-            "orbax checkpoints (save_params_async) are not ported")
+    container = manifest.get("array_container", "npz")
+    if container not in ("npz", "orbax"):
+        raise ValueError(f"unknown array container {container!r}")
     cfg = (ModelConfig(**manifest["config"])
            if manifest["config"] is not None else None)
     kinds: set = set()
-    with np.load(os.path.join(path, "arrays.npz")) as arrays:
-        tree = _decode(manifest["tree"], arrays, kinds)
+    if container == "orbax":
+        tree = _decode(manifest["tree"], _read_orbax(path, manifest), kinds)
+    else:
+        with np.load(os.path.join(path, "arrays.npz")) as arrays:
+            tree = _decode(manifest["tree"], arrays, kinds)
     if kinds - {"DenseLinear"}:
         params = from_jax_params(tree, cfg, device)
     else:
@@ -190,4 +283,12 @@ def load_params(path: str, device=None) -> Tuple[Any, Optional[ModelConfig],
     return params, cfg, manifest["meta"]
 
 
-__all__ = ["save_params", "load_params", "FORMAT_VERSION"]
+def load_params_async(path: str, device=None
+                      ) -> Tuple[Any, Optional[ModelConfig], Dict[str, Any]]:
+    """The JAX package's name for reading a ``save_params_async``
+    checkpoint: ``load_params``, which reads either container."""
+    return load_params(path, device)
+
+
+__all__ = ["save_params", "load_params", "save_params_async",
+           "load_params_async", "AsyncSave", "FORMAT_VERSION"]

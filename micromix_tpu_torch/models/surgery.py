@@ -97,26 +97,54 @@ def _weight_layout(wq: MixedTensor, layout: str):
     return pack_mixed(wq)
 
 
+def _quantize_host(wp: torch.Tensor, k4: int, k6: int, k8: int,
+                   weight_fp4_only: bool, layout: str):
+    """A permuted f32 weight in host memory, quantized by the native
+    library (``utils.native``, multithreaded C++, bit for bit
+    ``quantize_mixed``): ScaledW8 from the fused quantize + pack where
+    "auto" takes an fp4-only weight and its exponents fit, else the
+    unpacked-layout MixedTensor (fp4 packed) for ``_weight_layout``."""
+    from ..utils.native import quantize_mixed_host, quantize_scaledw8_host
+    x = wp.numpy()
+    if layout == "auto" and weight_fp4_only:
+        got = quantize_scaledw8_host(x, k4, k6, k8)
+        if got is not None:
+            return ScaledW8(codes=torch.from_numpy(got[0]), base=got[1],
+                            k4=k4, k6=k6, k8=k8)
+    segs = quantize_mixed_host(x, k4, k6, k8, weight_fp4_only=weight_fp4_only)
+    return MixedTensor(**{f: torch.from_numpy(segs[f])
+                          for f in ("fp4", "fp6", "fp8", "sf4", "sf6", "sf8")},
+                       fp4_packed=bool(k4), fp4_only=weight_fp4_only)
+
+
 def quantize_linear(w: torch.Tensor, calib: SiteCalibration,
                     bias: Optional[torch.Tensor] = None, *,
                     row_perm: Optional[np.ndarray] = None,
                     weight_fp4_only: bool = True,
-                    layout: str = "auto") -> QuantLinear:
+                    layout: str = "auto", host: bool = False) -> QuantLinear:
     """w (N, K) dense -> QuantLinear (input channels permuted by the
-    calibration, rows by ``row_perm`` when given), ScaledW8 or split-plane
-    as ``layout`` and ``weight_fp4_only`` give."""
+    calibration, rows by ``row_perm`` when given, and a bias with them),
+    ScaledW8 or split-plane as ``layout`` and ``weight_fp4_only`` give.
+    ``host=True`` quantizes a weight held in host memory with the native
+    library (``_quantize_host``), bit for bit as ``quantize_mixed`` does;
+    the shell's ``quantize`` on the CPU takes it."""
+    if host and w.device.type != "cpu":
+        raise ValueError("host=True quantizes weights held in host memory, "
+                         f"not on {w.device}")
     k4, k6, k8 = calib.splits(w.shape[1])
     idx = torch.as_tensor(np.asarray(calib.reorder_index), dtype=torch.long,
                           device=w.device)
-    wp = w.to(torch.float32)[:, idx]
+    wp = w[:, idx]
     if row_perm is not None:
         rows = torch.as_tensor(np.asarray(row_perm), dtype=torch.long,
                                device=w.device)
         wp = wp[rows]
         if bias is not None:
             bias = bias[rows]
-    wq = quantize_mixed(wp, k4, k6, k8, weight_fp4_only=weight_fp4_only)
-    return QuantLinear(w=_weight_layout(wq, layout),
+    wp = wp.to(torch.float32)
+    wq = (_quantize_host(wp, k4, k6, k8, weight_fp4_only, layout) if host
+          else quantize_mixed(wp, k4, k6, k8, weight_fp4_only=weight_fp4_only))
+    return QuantLinear(w=wq if isinstance(wq, ScaledW8) else _weight_layout(wq, layout),
                        bias=None if bias is None else bias.to(torch.bfloat16))
 
 
@@ -127,10 +155,11 @@ def _down_row_perm(calib: SiteCalibration, k: int) -> np.ndarray:
 
 def quantize_layer(p: Dict[str, Any], cfg: ModelConfig, calib: LayerCalib, *,
                    weight_fp4_only: bool = True,
-                   layout: str = "auto") -> Dict[str, Any]:
-    """One dense decoder-layer dict -> quantized layer dict."""
+                   layout: str = "auto", host: bool = False) -> Dict[str, Any]:
+    """One dense decoder-layer dict -> quantized layer dict (``host``: see
+    ``quantize_linear``)."""
     ql = functools.partial(quantize_linear, weight_fp4_only=weight_fp4_only,
-                           layout=layout)
+                           layout=layout, host=host)
     dev = p["ln1"].device
     hid, inter = cfg.hidden_size, cfg.intermediate_size
     out: Dict[str, Any] = {"ln1": p["ln1"], "ln2": p["ln2"]}
@@ -169,16 +198,17 @@ def quantize_layer(p: Dict[str, Any], cfg: ModelConfig, calib: LayerCalib, *,
 
 def quantize_model(params: Dict[str, Any], cfg: ModelConfig,
                    calibs: List[LayerCalib], *, weight_fp4_only: bool = True,
-                   layout: str = "auto") -> Dict[str, Any]:
+                   layout: str = "auto", host: bool = False) -> Dict[str, Any]:
     """Dense model dict -> quantized model dict (embed / norms / head stay
-    bf16).  Each layer is quantized on the device its weights lie on."""
+    bf16).  Each layer is quantized on the device its weights lie on, with
+    ``host=True`` (weights in host memory) by the native library."""
     assert len(calibs) == cfg.num_layers
     return {
         "embed": params["embed"],
         "final_ln": params["final_ln"],
         "lm_head": params["lm_head"],
         "layers": [quantize_layer(p, cfg, c, weight_fp4_only=weight_fp4_only,
-                                  layout=layout)
+                                  layout=layout, host=host)
                    for p, c in zip(params["layers"], calibs)],
     }
 

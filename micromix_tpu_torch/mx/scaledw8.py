@@ -111,6 +111,60 @@ def encode_scaled_values(vals: torch.Tensor, base: Optional[int] = None):
     return code.to(torch.uint8), base
 
 
+def pack_scaled_w8_host(segs, k4: int, k6: int, k8: int) -> ScaledW8:
+    """NumPy pack, on the host: ``utils.native.quantize_mixed_host``'s
+    segments (numpy, the fp4 segment split-plane packed, every segment
+    block-interleaved, the all-MXFP4 grid) -> ScaledW8 with CPU codes.
+    The JAX package's ``pack_scaled_w8_host``: small-integer arithmetic
+    end to end, no float values.  Per element, with fp4 code c = s|e4|m
+    and block scale exponent eb = sf - 127:
+
+      e4 >= 1 (normal)          E = eb + e4 - 1, mantissa bit m
+      e4 == 0, m == 1 (0.5)     E = eb - 1,      mantissa bit 0
+      c & 7 == 0                zero
+
+    E biased (+127) as the f32-bit path has it.  Raises ValueError when
+    the exponent span exceeds 62 or the base is above 1."""
+    import numpy as np
+
+    def seg_fields(packed, codes, sf, kseg):
+        if not kseg:
+            return None
+        if packed is not None:
+            codes = np.concatenate([packed & np.uint8(0xF),
+                                    (packed >> 4) & np.uint8(0xF)], axis=-1)
+        c = codes.astype(np.int16)
+        sign = (c >> 3) & 1
+        e4 = (c >> 1) & 3
+        m = c & 1
+        nonzero = (c & 7) != 0
+        eb = np.tile(sf.astype(np.int16) - 127, (1, kseg // sf.shape[-1]))
+        expf = np.where(e4 >= 1, eb + e4 - 1, eb - 1) + 127
+        mant = np.where(e4 >= 1, m, 0)
+        return sign, expf, mant, nonzero
+
+    parts = [p for p in (
+        seg_fields(segs["fp4"] if k4 else None, None, segs["sf4"], k4),
+        seg_fields(None, segs["fp6"], segs["sf6"], k6),
+        seg_fields(None, segs["fp8"], segs["sf8"], k8)) if p is not None]
+    sign, expf, mant, nonzero = (
+        np.concatenate([p[i] for p in parts], axis=-1) for i in range(4))
+    if nonzero.any():
+        live = expf[nonzero]
+        emin, emax = int(live.min()), int(live.max())
+        base = emin - 127
+        if emax - emin > 62:
+            raise ValueError(f"scaled-weight exponent span {emax - emin} exceeds 62")
+        if base > 1:
+            raise ValueError(f"scaled-weight base exponent {base} > 1")
+    else:
+        base = 0
+    e6 = np.clip(expf - 127 - base + 1, 1, 63).astype(np.int16)
+    code = np.where(nonzero, (sign << 7) | (e6 << 1) | mant, 0).astype(np.uint8)
+    return ScaledW8(codes=torch.from_numpy(code), base=int(base),
+                    k4=k4, k6=k6, k8=k8)
+
+
 def decode_table(base: int, device=None) -> torch.Tensor:
     """The value of each of the 256 codes for one base, f32: the sign bit,
     then ``(c & 0x7F) << 22`` rescaled by 2^(base+126); code 0 is +0."""

@@ -42,12 +42,12 @@ def rotate_q(q: torch.Tensor, positions: torch.Tensor,
     return qf * cos + rot * sin
 
 
-def decode_split(b: int, hkv: int, max_pages: int) -> Tuple[int, int]:
-    """(splits, pages per split) of the kernel's grid (Hkv, B, splits):
-    from the batch, the KV heads and ``max_pages_per_seq`` only, never
-    from lengths on the device, so one cache and batch always launch the
-    same grid."""
-    pps = max(1, -(-max_pages * b * hkv // DECODE_BLOCKS),
+def decode_split(b: int, groups: int, max_pages: int) -> Tuple[int, int]:
+    """(splits, pages per split) of the kernel's grid (groups, B, splits),
+    ``groups`` the KV heads times their head groups of 8: from the batch,
+    the heads and ``max_pages_per_seq`` only, never from lengths on the
+    device, so one cache and batch always launch the same grid."""
+    pps = max(1, -(-max_pages * b * groups // DECODE_BLOCKS),
               -(-max_pages // DECODE_MAX_SPLITS))
     return -(-max_pages // pps), pps
 
@@ -101,10 +101,10 @@ def paged_decode_attention_plain(q: torch.Tensor, cache: PagedKVCache,
 
 def _scratch_buffers(device: torch.device, n_tickets: int, n_acc: int,
                      n_md: int) -> Dict[str, torch.Tensor]:
-    """The kernel's (B, Hkv) tickets (zero before every launch and left
-    zero by it) and its f32 partials, one set per device and stream,
-    grown as needed: launches on one stream run in order, so every call
-    there can share them."""
+    """The kernel's (B, Hkv, head groups) tickets (zero before every
+    launch and left zero by it) and its f32 partials, one set per device
+    and stream, grown as needed: launches on one stream run in order, so
+    every call there can share them."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     bufs = _scratch.setdefault(key, {})
     for name, n, dtype in (("tickets", n_tickets, torch.int32),
@@ -168,10 +168,11 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     if b == 0:
         return (out, m, den) if with_state else out
     mp = cache.max_pages_per_seq
-    splits, pps = decode_split(b, hkv, mp)
-    g = h // hkv
-    bufs = _scratch_buffers(q.device, b * hkv, b * hkv * splits * g * d,
-                            b * hkv * splits * g * 2)
+    # the kernel's blocks: ceil(G / 8) head groups of each KV head
+    groups = hkv * -(-(h // hkv) // 8)
+    splits, pps = decode_split(b, groups, mp)
+    bufs = _scratch_buffers(q.device, b * groups, b * groups * splits * 8 * d,
+                            b * groups * splits * 8 * 2)
     lib = build.library("paged_decode", _SIG)
     build.launches["paged_decode"] += 1
     build.page_launches[("paged_decode", cache.bits)] += 1

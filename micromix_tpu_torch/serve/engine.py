@@ -46,7 +46,9 @@ start alike (``serve/prefix_cache.py``): admission attaches the longest
 cached page chain and prefills from there over the quantized history,
 every prefill chunk registers its full pages, and a finished request
 registers its generated tokens' pages too.  In spec mode the draft's
-caches mirror the shared pages at the same physical ids.
+caches mirror the shared pages at the same physical ids.  Without it the
+pages come from the native pool (``NativeBlockManager``), as in the JAX
+engine.
 
 Pipelined decode, on by default as in the JAX engine (``pipeline=True``;
 off under speculation and the prefix cache): a plain decode chunk's
@@ -103,7 +105,7 @@ from ..device import resolve_device
 from ..kernels import limits
 from ..models.common import ModelConfig
 from ..models.surgery import stack_layer_projections
-from .block_manager import BlockManager
+from .block_manager import NativeBlockManager
 from .kv_cache import make_cache
 from .prefix_cache import PrefixBlockManager
 from .runner import decode_multi, prefill, prefill_batch, prefill_decode
@@ -144,9 +146,9 @@ def check_card_serves(device: torch.device, cfg: ModelConfig,
     """Refuse, before any cache is made, what one of the card's attention
     and KV kernels (C, D, E, H) would refuse later, by their shared
     statement (``kernels/limits.py``): a model (the target, or the draft
-    of speculative decoding) whose head_dim is not 64 or 128 or that has
-    more than 8 query heads per KV head, KV pages of other than 4, 8 or
-    16 bits, a page size C does not take.  A sliding window runs on the
+    of speculative decoding) whose head_dim is odd or over 256 or that
+    has more than 64 query heads per KV head, KV pages of other than 4, 8
+    or 16 bits, a page size C does not take.  A sliding window runs on the
     card (C, E and H apply it).  The CPU serves what ``make_cache`` makes
     through the plain versions."""
     if device.type != "cuda":
@@ -310,8 +312,8 @@ class Engine:
                      if draft_params is not None else None)
         self._prefix_cache = prefix_cache
         self.block_manager = (PrefixBlockManager if prefix_cache
-                              else BlockManager)(n_pages, page_size, max_seqs,
-                                                 max_pages_per_seq)
+                              else NativeBlockManager)(
+            n_pages, page_size, max_seqs, max_pages_per_seq)
         self.slots = [_Slot() for _ in range(max_seqs)]
         self.waiting: List[Request] = []
         self.decode_chunk = max(1, decode_chunk)

@@ -1,5 +1,8 @@
-"""Utilities (torch counterpart of ``micromix_tpu.utils``): profiling."""
+"""Utilities (torch counterpart of ``micromix_tpu.utils``): the native
+host quantizers, profiling."""
 
+from .native import native_available, quantize_mixed_host
 from .profiling import annotate, marginal_timer, trace
 
-__all__ = ["trace", "annotate", "marginal_timer"]
+__all__ = ["native_available", "quantize_mixed_host",
+           "trace", "annotate", "marginal_timer"]

@@ -59,7 +59,7 @@ VARIANTS = {
                     "        e[h] = ok0 ? s[h] : 0.0f;\n        e[2 + h] = ok1 ? s[2 + h] : 0.0f;")],
     "no_pv": [("      for (int mt = 0; mt < (BITS == 4 ? MT / 2 : MT); ++mt) {",
                "      for (int mt = 0; mt < 0; ++mt) {")],
-    "no_refill": [("    if (p + 1 < pend) stage(st ^ 1, p + 1);", "")],
+    "no_refill": [("    if (L.stages == 2 && p + 1 < pend) stage(st ^ 1, p + 1);", "")],
     "no_rope": [("      c = cosf(ang);\n      s = sinf(ang);", "      c = ang;\n      s = ang;")],
     "no_merge": [("  if (count == 1) {       // the row's only split: write the result",
                   "  if (true) {")],
@@ -136,8 +136,10 @@ def main() -> int:
         pos = torch.from_numpy(lengths - 1).to(cs.DEV)
         out = torch.empty_like(q)
         splits, pps = att.decode_split(b, hkv, mp)
-        part_acc = torch.empty(b * hkv * splits * (h // hkv) * d, device=cs.DEV)
-        part_md = torch.empty(b * hkv * splits * (h // hkv) * 2, device=cs.DEV)
+        # the partials of heads in groups of 8 (more than a tree before
+        # head groups needs)
+        part_acc = torch.empty(b * hkv * splits * 8 * d, device=cs.DEV)
+        part_md = torch.empty(b * hkv * splits * 8 * 2, device=cs.DEV)
         tickets = torch.zeros(b * hkv, dtype=torch.int32, device=cs.DEV)
         common = [build.ptr(t) for t in (q, cache.k_codes, cache.v_codes, cache.k_sz,
                                          cache.v_sz, cache.page_table, seq, cache.lengths)]

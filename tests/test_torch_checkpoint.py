@@ -10,13 +10,19 @@ the JAX package with every array equal to the original tree's
 (``QuantSite.benes`` is written as none: the port gathers by ``perm``).
 The node kinds of the int8, weight-only and hetero forms
 (``Int8TurboLinear``, ``WeightOnlyLinear``, ``FakeQuantSite``) cross both
-ways the same way.  Dense trees round-trip in both directions.
+ways the same way.  Dense trees round-trip in both directions.  The JAX package's Orbax
+checkpoints (``save_params_async``) load in the port through
+``tensorstore`` alone, equal to the npz route and with no JAX imported;
+the port's ``save_params_async`` (the npz container, written on a
+background thread) loads in the JAX package.
 Tolerances: none.
 """
 
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -210,19 +216,18 @@ def test_item8_nodes_cross_packages(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", ["orbax"])
-def test_unported_nodes_raise(tmp_path, kind):
-    """The JAX package's orbax checkpoints raise NotImplementedError."""
+def test_unported_nodes_raise(tmp_path, kind, monkeypatch):
+    """An Orbax checkpoint where ``tensorstore`` is not installed (the
+    machine with the card) raises ImportError naming the package, before
+    it reads anything."""
     arr = {"kind": "array", "key": "a0", "dtype": "int32", "path": "params.w"}
-    tree = {"kind": "dict", "items": {"x": {
-        "kind": kind, "fields": {"w": arr}, "statics": {}}}}
-    manifest = {"format_version": 1, "tree": tree, "config": None, "meta": {}}
-    if kind == "orbax":
-        manifest.update(tree=arr, array_container="orbax")
+    manifest = {"format_version": 1, "tree": arr, "config": None, "meta": {},
+                "array_container": kind}
     os.makedirs(tmp_path / "ck")
-    np.savez(tmp_path / "ck" / "arrays.npz", a0=np.zeros(3, np.int32))
     with open(tmp_path / "ck" / "manifest.json", "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="tensorstore"):
         tck.load_params(str(tmp_path / "ck"), device="cpu")
 
 
@@ -234,3 +239,50 @@ def test_stacked_params_are_refused(tmp_path):
                              cfg, tsurg.default_calibration(cfg, p6=64, p8=64))
     with pytest.raises(NotImplementedError, match="stack"):
         tck.save_params(str(tmp_path / "s"), tsurg.stack_layer_projections(q), cfg)
+
+
+@pytest.mark.parametrize("name", ["scaledw8_llama", "dense"])
+def test_orbax_checkpoints_cross_packages(tmp_path, name):
+    """JAX's ``save_params_async`` (Orbax) of a quantized and of a dense
+    tree read by the port's ``load_params`` and ``load_params_async`` equal
+    leaf for leaf to the same tree through JAX's npz ``save_params``; the
+    port's ``save_params_async`` of it (npz on a background thread) read
+    by JAX's ``load_params`` equals the JAX tree."""
+    base = MODELS["scaledw8_llama"][0]
+    jcfg, tcfg = jcommon.ModelConfig(**base), ModelConfig(**base)
+    jp = jsurg.random_dense_params(jcfg, seed=4)
+    tree = jp if name == "dense" else jsurg.quantize_model(
+        jp, jcfg, jsurg.default_calibration(jcfg, p6=64, p8=64, seed=4),
+        host=True)
+    jck.save_params(str(tmp_path / "npz"), tree, jcfg, meta={"m": 1})
+    jck.save_params_async(str(tmp_path / "ocp"), tree, jcfg,
+                          meta={"m": 1}).wait_until_finished()
+    ref, _, _ = tck.load_params(str(tmp_path / "npz"), device="cpu")
+    for load in (tck.load_params, tck.load_params_async):
+        got, cfg, meta = load(str(tmp_path / "ocp"), device="cpu")
+        assert cfg == tcfg and meta == {"m": 1}
+        _assert_port_trees_equal(got, ref)
+    handle = tck.save_params_async(str(tmp_path / "port"), ref, tcfg, meta={"m": 2})
+    handle.wait_until_finished()
+    with open(tmp_path / "port" / "manifest.json") as f:
+        assert json.load(f).get("array_container", "npz") == "npz"
+    back, cfg2, meta2 = jck.load_params(str(tmp_path / "port"))
+    assert cfg2 == jcfg and meta2 == {"m": 2}
+    _assert_jax_trees_equal(back, tree if name == "dense" else _without_benes(tree))
+
+
+def test_orbax_read_imports_no_jax(tmp_path):
+    """In a fresh process the port reads an Orbax checkpoint with
+    ``tensorstore`` and leaves ``jax`` (and ``orbax``) out of
+    ``sys.modules``."""
+    jck.save_params_async(str(tmp_path / "ocp"),
+                          {"w": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3),
+                           "i": jnp.arange(4, dtype=jnp.int32)}).wait_until_finished()
+    code = ("import sys; from micromix_tpu_torch.models import checkpoint as c; "
+            f"p, _, _ = c.load_params({str(tmp_path / 'ocp')!r}, device='cpu'); "
+            "print(p['w'].float().tolist(), p['i'].tolist(), "
+            "[m for m in sys.modules if m.split('.')[0] in ('jax', 'orbax')])")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, timeout=300, check=True)
+    assert out.stdout.split("\n")[0] == "[[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]] [0, 1, 2, 3] []"

@@ -430,8 +430,12 @@ def test_paged_decode_refuses(dev):
     with pytest.raises(ValueError):                     # ps 48
         paged_decode_attention(q, cache, seq)
     cache = _decode_cache(dev, rng, 1, 2, 16, 1, 64)
-    with pytest.raises(ValueError):                     # G = 16
-        paged_decode_attention(torch.zeros(1, 16, 64, dtype=torch.bfloat16,
+    with pytest.raises(ValueError):                     # G = 65
+        paged_decode_attention(torch.zeros(1, 65, 64, dtype=torch.bfloat16,
+                                           device=dev), cache, seq)
+    cache = _decode_cache(dev, rng, 1, 2, 16, 1, 65)
+    with pytest.raises(ValueError):                     # odd D
+        paged_decode_attention(torch.zeros(1, 4, 65, dtype=torch.bfloat16,
                                            device=dev), cache, seq)
 
 
@@ -567,7 +571,8 @@ def test_append_quant_one_cuda_launch(dev):
 
 def test_append_quant_refusals(dev):
     """No conversion on the card: int64 indices, f32 K, K whose dims are
-    not dense, a head dim the kernel does not take all raise."""
+    not dense, a head dim the kernel does not take (258: over 256) all
+    raise."""
     cache = _append_cache(dev, 4, 2, 2, 128)
     seq = torch.arange(2, device=dev, dtype=torch.int32)
     pos = torch.tensor([3, 9], device=dev, dtype=torch.int32)
@@ -581,9 +586,9 @@ def test_append_quant_refusals(dev):
     with pytest.raises(ValueError):
         kv_cache.append_kv(cache, seq, pos, k.transpose(1, 2).contiguous().transpose(1, 2), k)
     with pytest.raises(ValueError):
-        kv_cache.append_kv(_append_cache(dev, 4, 2, 2, 96), seq, pos,
-                  torch.zeros(2, 8, 96, device=dev, dtype=torch.bfloat16),
-                  torch.zeros(2, 8, 96, device=dev, dtype=torch.bfloat16))
+        kv_cache.append_kv(_append_cache(dev, 4, 2, 2, 258), seq, pos,
+                  torch.zeros(2, 8, 258, device=dev, dtype=torch.bfloat16),
+                  torch.zeros(2, 8, 258, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300])

@@ -215,15 +215,16 @@ def test_engine_refuses_what_the_card_cannot_serve(kv_bits, window):
     """The check the engine runs before it makes a cache: on a CUDA
     device int8 and bf16 pages (Kernels C, D and H read both) and a
     sliding window over int4 pages (C, E and H apply it) pass, while KV
-    pages of 2 bits, head_dim 96, 9 query heads per KV head and a page
-    size C does not take raise NotImplementedError naming what no kernel
-    takes; the CPU passes all."""
+    pages of 2 bits, head_dim 258 and the odd 97, 65 query heads per KV
+    head and a page size C does not take raise NotImplementedError naming
+    what no kernel takes; the CPU passes all."""
     cfg = _tiny_llama(sliding_window=window)
     tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits)
     tengine.check_card_serves(torch.device("cuda"), cfg, kv_bits, page_size=16)
     for bad, kw, what in ((cfg, dict(kv_bits=2), "2-bit"),
-                          (_tiny_llama(head_dim=96), {}, "head_dim 96"),
-                          (_tiny_llama(num_heads=18), {}, "9 query heads"),
+                          (_tiny_llama(head_dim=258), {}, "head_dim 258"),
+                          (_tiny_llama(head_dim=97), {}, "odd head_dim 97"),
+                          (_tiny_llama(num_heads=130), {}, "65 query heads"),
                           (cfg, dict(page_size=48), "page_size 48")):
         args = dict(dict(kv_bits=kv_bits), **kw)
         with pytest.raises(NotImplementedError, match=what):
@@ -242,15 +243,23 @@ QWEN2_7B = dict(arch="qwen2", vocab_size=152064, hidden_size=3584,
     (4 * g, 4, 128, b, 128) for g in range(1, 9) for b in (4, 8, 16)] + [
     (28, 4, 128, 16, 16), (14, 2, 64, 8, 32), (36, 4, 128, 4, 128),
     (24, 8, 80, 4, 128), (32, 8, 128, 2, 128), (32, 8, 128, 4, 12),
-    (32, 8, 128, 16, 256), (3, 2, 64, 4, 64)])
+    (32, 8, 128, 16, 256), (3, 2, 64, 4, 64)] + [
+    (128, 8, 128, 4, 128), (96, 8, 128, 16, 64), (64, 1, 128, 8, 16),
+    (130, 2, 128, 4, 128), (32, 32, 96, 4, 128), (8, 1, 256, 16, 128),
+    (32, 8, 100, 8, 32), (16, 4, 2, 4, 16), (32, 8, 258, 4, 128),
+    (32, 8, 97, 4, 128), (32, 8, 255, 16, 128), (8, 1, 256, 4, 8),
+    (8, 1, 256, 4, 64 + 32)])
 def test_engine_refuses_only_what_a_kernel_refuses(heads, kv_heads, head_dim,
                                                    kv_bits, page_size):
     """The engine's card check refuses a configuration exactly when one of
     its kernels (E, C, H or D, by their shared statement) would: every
     GQA group G = 1..8 on int4, int8 and bf16 pages is served, and so is
-    the Qwen2-7B config (28 / 4 heads, G = 7, bf16 pages, page 16); G = 9,
-    head_dim 80, 2-bit pages, page sizes 12 and 256 and 3 heads over 2
-    are refused, each by a kernel's own check."""
+    the Qwen2-7B config (28 / 4 heads, G = 7, bf16 pages, page 16), G =
+    9, 12, 16 (Llama-3.1-405B's 128 / 8), 64, and every even head_dim up
+    to 256 (80, 96 at Phi-3-mini's 32 / 32 heads, 100, 2, Gemma's 256 over
+    one KV head); G = 65, head_dim 258 and the odd 97 and 255, 2-bit pages,
+    page sizes 8, 12, 96 and 256 and 3 heads over 2 are refused, each by
+    a kernel's own check."""
     from micromix_tpu_torch.kernels import limits
     cfg = (ModelConfig(**dict(QWEN2_7B, num_heads=heads, num_kv_heads=kv_heads))
            if heads == 28 else _tiny_llama(num_heads=heads,
@@ -267,8 +276,9 @@ def test_engine_refuses_only_what_a_kernel_refuses(heads, kv_heads, head_dim,
     except NotImplementedError:
         refused = True
     assert refused == any(w is not None for w in kernels)
-    assert refused == (heads % kv_heads != 0 or heads // kv_heads > 8
-                       or head_dim not in (64, 128) or kv_bits not in (4, 8, 16)
+    assert refused == (heads % kv_heads != 0 or heads // kv_heads > 64
+                       or not 2 <= head_dim <= 256 or head_dim % 2
+                       or kv_bits not in (4, 8, 16)
                        or page_size not in (16, 32, 64, 128))
 
 
