@@ -49,8 +49,8 @@ non-zero before the result line.
      (ScaledW8, again on int8 KV pages, and with a 256-token sliding
      window), Mixtral-8x7B
      (experts grouped) and Llama-3.1-8B in the split-plane layout: a
-     300-token prompt prefilled in chunks of 128
-     (flash, then paged history) and 8 (Mixtral: 4) greedy decode steps
+     200-token prompt (the windowed model's 300) prefilled in chunks of 128
+     (flash, then paged history) and 4 (Mixtral: 2) greedy decode steps
      (ScaledW8 Llama: through the residual pairs), each chunk and step
      with the kernels on the card and with the plain versions on the CPU
      from the same cache state; the greedy tokens must be equal;
@@ -174,13 +174,29 @@ non-zero before the result line.
      2 layers at Llama-3.1-8B widths held in host memory equal to the
      card's quantizer on the same weights, both timed, and every engine
      of the run on the native page pool (the prefix cache's on its Python
-     pool).
+     pool);
+ 15. Kernel C at every page size the JAX package serves on its chip
+     (``phase15a``, ``phase15b``, ``phase15c``): (a) pages of 256, 384,
+     512 and 1024 tokens (walked in 128-token stages) against the plain
+     version on int4, int8 and bf16 pages at D = 64, 128 and 256, G = 4
+     and 16, B=8 over 100-600 tokens and B=1 at 8192, the window and
+     ``lengths`` rows at 512, the same rows at 128 beside them, with
+     ``ptxas -v`` of C; (b) the default engine at Llama-3.1-8B widths, 4
+     layers, on pages of 256 and 512 tokens (phase 4's traffic), then each
+     prefill chunk and decode step at 256 and 512 from the state of the
+     same run at 128 (its caches re-paged), logits within 0.5 of the
+     range; (c) the lm-eval adapter: ``cli eval --tasks`` on phase 8's
+     quantized checkpoint under a stand-in ``lm_eval`` (in phase 8; equal
+     to ``run_lm_eval`` on the model in memory), ``Scorer`` at
+     Llama-3.1-8B widths, 4 layers (loglikelihood, rolling,
+     generate_until requests launching A, B and E and no plain version),
+     and 2 narrow layers card against CPU.
 
-Every kernel check of phases 2, 12 and 14 calls the kernel twice more on
+Every kernel check of phases 2, 12, 14 and 15 calls the kernel twice more on
 its inputs and fails unless the results are equal bit for bit
 (``record``'s ``rerun``).
 
-In phases 4 to 14 every kernel launch counter is reset just before each
+In phases 4 to 15 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel, phase 11's forms no kernel off their own path), and no
@@ -1513,13 +1529,25 @@ def params_to(params, device):
     return move(params)
 
 
+# decode steps of the card-against-CPU checks' Llama units (phases 3, 10,
+# 14) and of phase 3's Mixtral's, and their prompt (2 chunks: E, then H)
+# but for the windowed model's 300 (3 chunks, the window crossed): the
+# CPU side of every unit dequantizes every weight, seconds a unit
+P3_STEPS = 4
+P3_MOE_STEPS = 2
+P3_PROMPT = 200
+
+
 def phase3() -> dict:
-    """Card against CPU on 2-layer full-width stacked models: a 300-token
-    prompt prefilled in chunks of 128 (flash, then paged history), then
-    greedy decode steps: Llama-3.1-8B, 8 steps through the residual pairs,
-    again on int8 KV pages, also with a 256-token sliding window; Mixtral-8x7B (experts grouped, dense dispatch), 4 steps through the
-    grouped expert GEMMs (the CPU side dequantizes 1.4 G codes per layer
-    and unit).
+    """Card against CPU on 2-layer full-width stacked models: a
+    ``P3_PROMPT``-token prompt (300 for the windowed Llama) prefilled in
+    chunks of 128 (flash, then paged history), then
+    greedy decode steps: Llama-3.1-8B, ``P3_STEPS`` steps through the
+    residual pairs, again on int8 KV pages, also with a 256-token sliding
+    window; Mixtral-8x7B (experts grouped, dense dispatch),
+    ``P3_MOE_STEPS`` steps through the grouped expert GEMMs (the CPU side
+    dequantizes 1.4 G codes per layer and unit).  Each CPU unit
+    dequantizes every weight, so the units set the phase's time.
 
     The windowed Llama is also served by the default engine on the card.
     Each chunk and each decode step runs on the card and on the CPU from
@@ -1541,24 +1569,28 @@ def phase3() -> dict:
     from micromix_tpu_torch.serve.runner import _can_pair
     out = {}
     cfg = llama31_8b(2)
-    out["llama"] = card_vs_cpu(cfg, 8, ("flash_attention", "paged_prefill",
+    out["llama"] = card_vs_cpu(cfg, P3_STEPS, ("flash_attention", "paged_prefill",
                                         "w8_stack", "w8_pair"),
-                               lambda p: _can_pair(p, cfg, 1))
-    # the same model on int8 KV pages: H reads them at the second and third
-    # chunks, C at every decode step
+                               lambda p: _can_pair(p, cfg, 1),
+                               prompt_len=P3_PROMPT)
+    # the same model on int8 KV pages: H reads them at the second chunk, C
+    # at every decode step
     out["llama_int8_kv"] = card_vs_cpu(
-        cfg, 8, ("flash_attention", "paged_prefill", "paged_decode",
-                 "w8_stack", "w8_pair"),
-        lambda p: _can_pair(p, cfg, 1), name="llama int8 KV", bits=8)
-    out["mixtral"] = card_vs_cpu(mixtral_8x7b(2), 4,
+        cfg, P3_STEPS, ("flash_attention", "paged_prefill", "paged_decode",
+                        "w8_stack", "w8_pair"),
+        lambda p: _can_pair(p, cfg, 1), name="llama int8 KV", bits=8,
+        prompt_len=P3_PROMPT)
+    out["mixtral"] = card_vs_cpu(mixtral_8x7b(2), P3_MOE_STEPS,
                                  ("flash_attention", "paged_prefill",
                                   "w8_stack", "w8_grouped"),
-                                 lambda p: "experts_grouped" in p["layers"][0])
+                                 lambda p: "experts_grouped" in p["layers"][0],
+                                 prompt_len=P3_PROMPT)
     out["llama_splitplane"] = card_vs_cpu(
-        cfg, 8, ("flash_attention", "paged_prefill", "site_fakequant",
-                 "sp_stack"),
+        cfg, P3_STEPS, ("flash_attention", "paged_prefill", "site_fakequant",
+                        "sp_stack"),
         lambda p: (isinstance(p["layers"][0]["qkv_stack"], SplitPlaneStack)
-                   and not _can_pair(p, cfg, 1)), layout="splitplane")
+                   and not _can_pair(p, cfg, 1)), layout="splitplane",
+        prompt_len=P3_PROMPT)
     # a 256-token sliding window: the third chunk's queries (H) and every
     # decode step (C, floor position + 1 - 256) drop the oldest tokens; E
     # takes the window too, though a 128-token chunk lies inside it
@@ -1569,7 +1601,7 @@ def phase3() -> dict:
     # equal.
     cfg_w = dataclasses.replace(cfg, sliding_window=256)
     out["llama_window"] = card_vs_cpu(
-        cfg_w, 8, ("flash_attention", "paged_prefill", "paged_decode",
+        cfg_w, P3_STEPS, ("flash_attention", "paged_prefill", "paged_decode",
                    "w8_stack", "w8_pair"),
         lambda p: _can_pair(p, cfg_w, 1), name="llama window 256",
         near_tie=True)
@@ -2583,10 +2615,14 @@ class IntTokenizer:
 
     vocab_size = 128256
     eos_token_id = None
+    bos_token_id = None
     chat_template = None
 
     def __call__(self, text, return_tensors=None):
-        return {"input_ids": [int(w) for w in text.split()]}
+        return {"input_ids": self.encode(text)}
+
+    def encode(self, text, add_special_tokens=True):
+        return [int(w) for w in text.split()]
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(str(int(i)) for i in ids)
@@ -2863,6 +2899,17 @@ def phase8(rng) -> dict:
                               os.path.join(P8_DIR, "results")],
                      ("flash_attention", "site_fakequant"))
         ppl = float(text.split("synthetic perplexity:")[1])
+        # phase 15 (c): eval --tasks on the same checkpoint, under the
+        # stand-in lm_eval (the card's machine has none)
+        with mini_lm_eval(p15_tasks(cfg.vocab_size)):
+            text = shell("eval_tasks", ["eval", "--model", hf,
+                                        "--quantized-ckpt", qdir, "--tasks",
+                                        "p15_mc", "--log-dir",
+                                        os.path.join(P8_DIR, "results")],
+                         FORWARD_KERNELS)
+        out["eval_tasks"] = json.loads(text)
+        print(f"  phase 15 (c), eval --tasks p15_mc: {json.dumps(out['eval_tasks'])} "
+              f"in {stage['eval_tasks']:.1f}s", flush=True)
         with open(prompts, "w") as f:
             f.write("\n".join(IntTokenizer().decode(p) for p in traffic) + "\n")
         served = {}
@@ -3009,6 +3056,13 @@ def phase8(rng) -> dict:
     ppl_mem = eval_ppl(qmem, cfg, test, seqlen=2048)
     if not np.isfinite(ppl) or abs(ppl - ppl_mem) > 1e-4 * ppl_mem:
         fail(f"phase 8: eval's perplexity {ppl} against {ppl_mem} in memory")
+    from micromix_tpu_torch.eval.lm_eval_adapter import Scorer, run_lm_eval
+    with mini_lm_eval(p15_tasks(cfg.vocab_size)):
+        tasks_mem = run_lm_eval(Scorer(qmem, cfg), IntTokenizer(),
+                                ["p15_mc"])["results"]
+    if out["eval_tasks"] != tasks_mem:
+        fail(f"phase 15 (c): eval --tasks gave {out['eval_tasks']}, "
+             f"run_lm_eval on the model in memory {tasks_mem}")
     for kv in (4, 8):
         ref = p8_engine_tokens(qmem, cfg, traffic, P8_NEW, kv)
         if served[kv] != ref:
@@ -3038,7 +3092,7 @@ def phase8(rng) -> dict:
           f"router assigned {router['assigned']}", flush=True)
     main = collections.Counter()
     pages = collections.Counter()
-    for label in ("serve_int4", "serve_int8", "serve_spec_ngram",
+    for label in ("eval_tasks", "serve_int4", "serve_int8", "serve_spec_ngram",
                   "serve_draft", "serve_prefix_cache", "serve_profile"):
         main.update(runs[label]["launches"])
         pages.update(runs[label]["page_launches"])
@@ -3533,10 +3587,11 @@ def phase10(rng) -> dict:
     cfg2 = qwen2_7b(2)
     for bits in (4, 16):
         out[f"card_vs_cpu_{'bf16' if bits == 16 else 'int4'}"] = card_vs_cpu(
-            cfg2, 8, ("flash_attention", "paged_prefill", "paged_decode",
-                      "w8_stack", "w8_pair"),
+            cfg2, P3_STEPS, ("flash_attention", "paged_prefill", "paged_decode",
+                             "w8_stack", "w8_pair"),
             lambda p: _can_pair(p, cfg2, 1),
-            name=f"qwen2-7b {'bf16' if bits == 16 else 'int4'} KV", bits=bits)
+            name=f"qwen2-7b {'bf16' if bits == 16 else 'int4'} KV", bits=bits,
+            prompt_len=P3_PROMPT)
     out["seconds"] = time.perf_counter() - t10
     return out
 
@@ -5191,21 +5246,24 @@ def p14_prefill(results, timer, rng, d, h, hkv, bits, s=512, hist=1536):
            rerun=run)
 
 
-def p14_decode(results, timer, rng, d, h, hkv, bits, case="len 100..600"):
+def p14_decode(results, timer, rng, d, h, hkv, bits, case="len 100..600",
+               ps=128):
     """Kernel C at B=8 over 100-600 tokens, or ("window") 4096 tokens under
     a 1024-token window, or ("lengths") 8 rows of one 2048-token sequence
     at successive positions under the ``lengths`` override with the (m,
-    den) state, as ``check_decode`` holds each."""
+    den) state, as ``check_decode`` holds each, or ("len 8192") B=1 at
+    8192 tokens; on pages of ``ps`` tokens."""
     from micromix_tpu_torch.models.common import rope_inv_freq
     from micromix_tpu_torch.serve.attention import (
         decode_split, paged_decode_attention, paged_decode_attention_plain)
     from micromix_tpu_torch.serve.kv_cache import make_cache
-    ps, b = 128, 8
     lengths, window, override = {
         "len 100..600": (np.linspace(100, 600, 8), None, False),
+        "len 8192": (np.full(1, 8192), None, False),
         "window 1024 len 4096": (np.full(8, 4096), 1024, False),
         "lengths 2041..2048 state": (np.arange(2041, 2049), None, True)}[case]
     lengths = lengths.astype(np.int32)
+    b = len(lengths)
     mp = -(-int(lengths.max()) // ps)
     seqs = 1 if override else b
     cache = make_cache(seqs * mp + 1, ps, hkv, d, seqs, mp, bits=bits, device=DEV)
@@ -5242,7 +5300,7 @@ def p14_decode(results, timer, rng, d, h, hkv, bits, case="len 100..600"):
     nbytes = 2 * b * h * d * 2 + 2 * read * hkv * _page_bytes(bits, d) + b * mp * 4
     groups = hkv * -(-(h // hkv) // 8)
     splits, pps = decode_split(b, groups, mp)
-    width = {4: "", 8: " int8", 16: " bf16"}[bits]
+    width = {4: "", 8: " int8", 16: " bf16"}[bits] + f" ps={ps}"
     record(results, "paged_decode", f"B={b} H={h} Hkv={hkv} D={d} {case}{width}",
            err, tol, ok, timer.ms(run), nbytes,
            4.0 * int(attended.sum()) * h * d, timer.ms(plain),
@@ -5307,17 +5365,7 @@ def p14_append(results, timer, rng, d, hkv, bits, t=8):
 def p14_ptxas() -> dict:
     """``ptxas -v`` of the four kernels' instantiations: registers, spill
     bytes, stack, static shared memory."""
-    from micromix_tpu_torch.kernels import build
-    out = {}
-    for name in P14_SOURCES:
-        rows = build.ptxas_report(name)
-        out[name] = rows
-        for r in rows:
-            print(f"  ptxas {name}: {r['function'][:72]} registers="
-                  f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
-                  f"spill_loads={r.get('spill_loads')} stack={r.get('stack')} "
-                  f"smem={r.get('smem')}", flush=True)
-    return out
+    return {name: build_report(name) for name in P14_SOURCES}
 
 
 def phase14a(results, timer, rng) -> dict:
@@ -5534,8 +5582,9 @@ def phase14(rng, results, timer) -> dict:
     for bits in (4, 16):
         width = "bf16" if bits == 16 else "int4"
         out["b"][f"card_vs_cpu_{width}"] = card_vs_cpu(
-            narrow, 8, must, lambda p: _can_pair(p, narrow, 1),
-            name=f"G=16 D=128 narrow {width} KV", near_tie=True, bits=bits)
+            narrow, P3_STEPS, must, lambda p: _can_pair(p, narrow, 1),
+            name=f"G=16 D=128 narrow {width} KV", near_tie=True, bits=bits,
+            prompt_len=P3_PROMPT)
     out["c"] = {}
     for make, label in ((phi3_mini_attention, "d96"), (gemma_2b_attention, "d256")):
         cfg = make(P14_HEAD_DIM_LAYERS)
@@ -5545,8 +5594,9 @@ def phase14(rng, results, timer) -> dict:
         for bits in (4, 16):
             width = "bf16" if bits == 16 else "int4"
             run[f"card_vs_cpu_{width}"] = card_vs_cpu(
-                cfg2, 8, must, lambda p, c=cfg2: _can_pair(p, c, 1),
-                name=f"{label} {width} KV", near_tie=True, bits=bits)
+                cfg2, P3_STEPS, must, lambda p, c=cfg2: _can_pair(p, c, 1),
+                name=f"{label} {width} KV", near_tie=True, bits=bits,
+                prompt_len=P3_PROMPT)
         out["c"][label] = run
     out["d"] = p14_host_quantize()
     pools = collections.Counter(ENGINE_POOLS)
@@ -5567,6 +5617,422 @@ def p14_launches(p14, part: str) -> collections.Counter:
     out = collections.Counter()
     for width in ("int4", "bf16"):
         out.update(runs[width]["launches"])
+    return out
+
+
+# ----------------------------------------------------------------- phase 15
+
+# page sizes above 128 tokens that Kernel C walks in 128-token stages (the
+# JAX kernel's pages on its chip are multiples of 128)
+P15_PAGES = (256, 384, 512, 1024)
+# (D, H, Hkv, page bits) of each page size's rows: D = 128 at G = 4 on
+# int4, int8 and bf16 pages, D = 64 and 256 at G = 4, G = 16 (Llama-3.1-
+# 405B's 128 / 8) on int4 and bf16
+P15_ROWS = ((128, 32, 8, 4), (128, 32, 8, 8), (128, 32, 8, 16), (64, 32, 8, 4),
+            (256, 32, 8, 4), (128, 128, 8, 4), (128, 128, 8, 16))
+P15_CASE_PS = 512           # the page size of the window and lengths rows
+
+
+def phase15a(results, timer, rng) -> dict:
+    """Kernel C at pages of 256, 384, 512 and 1024 tokens against its
+    plain version on the card, and at 128 beside them: every row of
+    ``P15_ROWS`` at B=8 over 100-600 tokens, B=1 at 8192 tokens (int4, D =
+    128, G = 4), and the window and ``lengths``-override rows at
+    ``P15_CASE_PS``; each with the ``rerun`` bit-equality check, its
+    median time and bound; then ``ptxas -v`` of C's instantiations, and
+    per page size the grid's blocks at B=8 over 100-600 tokens (G = 4)."""
+    from micromix_tpu_torch.serve.attention import decode_split
+    t0 = time.perf_counter()
+    out = {"ptxas": build_report("paged_decode"), "grid": {}}
+    first = len(results)
+    for ps in (128,) + P15_PAGES:
+        for d, h, hkv, bits in P15_ROWS:
+            p14_decode(results, timer, rng, d, h, hkv, bits, ps=ps)
+        p14_decode(results, timer, rng, 128, 32, 8, 4, "len 8192", ps=ps)
+        if ps in (128, P15_CASE_PS):
+            p14_decode(results, timer, rng, 128, 32, 8, 4,
+                       "window 1024 len 4096", ps=ps)
+            p14_decode(results, timer, rng, 128, 32, 8, 8,
+                       "lengths 2041..2048 state", ps=ps)
+        mp = -(-600 // ps)
+        splits, pps = decode_split(8, 8, mp)
+        # blocks with pages to walk: a row of n tokens has ceil(n / ps)
+        # pages, ceil(pages / pps) non-empty splits, each over 8 KV heads
+        busy = sum(8 * -(-(-(-int(n) // ps)) // pps)
+                   for n in np.linspace(100, 600, 8).astype(np.int32))
+        out["grid"][ps] = dict(splits=splits, pages_per_split=pps,
+                               blocks=8 * 8 * splits, blocks_with_pages=busy)
+        print(f"  C at ps={ps}, B=8 100-600 tokens, G=4: grid {8 * 8 * splits} "
+              f"blocks ({splits} splits of {pps} pages), {busy} with pages "
+              f"to walk, on 132 SMs", flush=True)
+    out["rows"] = len(results) - first
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def build_report(name: str) -> list:
+    """``ptxas -v`` of one kernel source's instantiations, printed."""
+    from micromix_tpu_torch.kernels import build
+    rows = build.ptxas_report(name)
+    for r in rows:
+        print(f"  ptxas {name}: ...{r['function'][-40:]} registers="
+              f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')} stack={r.get('stack')} "
+              f"smem={r.get('smem')}", flush=True)
+    return rows
+
+
+P15_LAYERS = 4              # (b)'s and (c)'s depth at Llama-3.1-8B widths
+P15_SERVE_PAGES = (256, 512)
+P15_BAND = 0.5              # (b): |logit diff| / max |logit| against ps=128
+P15_NARROW_RTOL = 5e-2      # (c): the narrow model's log-likelihoods, card vs CPU
+# the kernels of ``forward`` at prefill rows (the per-consumer ScaledW8
+# projections, the causal prefill attention)
+FORWARD_KERNELS = ("site_fakequant", "w8_gemm", "flash_attention")
+
+
+def p15_repage(cache, ps: int):
+    """A copy of one sequence's pages (row 0, the whole table) on pages of
+    ``ps`` tokens: the same tokens, codes and [scale, zero] pairs."""
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    total = cache.page_table.shape[1] * cache.page_size
+    mp = total // ps
+    new = make_cache(mp + 1, ps, cache.n_kv_heads, cache.head_dim, 1, mp,
+                     bits=cache.bits, device=DEV)
+    new.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
+    pages = cache.page_table[0].long()
+    for name in ("k_codes", "v_codes", "k_sz", "v_sz"):
+        x = getattr(cache, name)[pages]                 # (MP, Hkv, rows, ps0)
+        hkv, rows = x.shape[1], x.shape[2]
+        x = x.permute(1, 2, 0, 3).reshape(hkv, rows, mp, ps)
+        getattr(new, name)[1:] = x.permute(2, 0, 1, 3)
+    new.lengths.copy_(cache.lengths)
+    return new
+
+
+def p15_units(params, cfg, prompt, feed, pages=P15_SERVE_PAGES) -> dict:
+    """The runner on pages of 128 tokens: ``prompt`` prefilled in chunks
+    of 512 (E, then H over the paged history), then one decode step (C)
+    for each token of ``feed``; each unit also run on a copy of its caches
+    re-paged to each of ``pages`` -> {page size: each unit's f32 logits on
+    the host}, every page size's units from the 128-token run's state."""
+    from micromix_tpu_torch.serve.kv_cache import make_cache
+    from micromix_tpu_torch.serve.runner import decode_step, prefill
+    mp = -(-(len(prompt) + len(feed) + 1) // max(pages))
+    mp *= max(pages) // 128
+    caches = [make_cache(mp + 1, 128, cfg.num_kv_heads, cfg.head_dim, 1, mp,
+                         device=DEV) for _ in range(cfg.num_layers)]
+    for c in caches:
+        c.page_table[0] = torch.arange(1, mp + 1, dtype=torch.int32)
+    out = {ps: [] for ps in (128,) + tuple(pages)}
+
+    def unit(fn, *args, **kw):
+        nonlocal caches
+        for ps in pages:
+            lg, _ = fn(params, cfg, [p15_repage(c, ps) for c in caches],
+                       *args, **kw)
+            out[ps].append(lg[0].float().cpu())
+        lg, caches = fn(params, cfg, caches, *args, **kw)
+        out[128].append(lg[0].float().cpu())
+
+    for start in range(0, len(prompt), 512):
+        unit(prefill, torch.tensor([prompt[start:start + 512]], device=DEV),
+             0, start, hist_len=start)
+    seq = torch.zeros(1, dtype=torch.int32, device=DEV)
+    for i, tok in enumerate(feed):
+        unit(decode_step, torch.tensor([tok], device=DEV), seq,
+             torch.tensor([len(prompt) + i], device=DEV, dtype=torch.int32))
+    del caches
+    return out
+
+
+def phase15b(rng) -> dict:
+    """The default engine at Llama-3.1-8B widths, ``P15_LAYERS`` layers of
+    random ScaledW8 weights, on pages of 256 and of 512 tokens (phase 4's
+    traffic, 2048 tokens a slot): every kernel of the Llama path launched,
+    no plain append, C and H on int4 pages; then a 1300-token prompt and 8
+    decode steps through the runner, each unit at 256 and 512 run from the
+    state of the same run at 128 (its caches re-paged), every unit's
+    logits within ``P15_BAND`` of the range of that run's: only the order
+    of C's and H's f32 sums differs (C's split merge, H's page walk), and
+    where that moves one bf16 output across an RNE tie of a site's codes,
+    the random layers carry it to a sizable fraction of the range: the
+    band is phase 3's card-against-CPU one (a decode step's single row
+    with such a crossing reached 0.25 there, and 0.236 at 256-token pages
+    in one run here); most units are bit-equal."""
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   random_quantized_model,
+                                                   stack_layer_projections)
+    from micromix_tpu_torch.serve.runner import _can_pair
+    cfg = llama31_8b(P15_LAYERS)
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    out = {}
+    for ps in P15_SERVE_PAGES:
+        name = f"phase 15 (b, ps={ps})"
+        eng, stats = serve(cfg, params, _traffic(rng, cfg.vocab_size), name,
+                           max_seqs=8, page_size=ps,
+                           max_pages_per_seq=2048 // ps, decode_chunk=8,
+                           prefill_chunk=512)
+        if "qkv_stack" not in eng.params["layers"][0] \
+                or not _can_pair(eng.params, cfg, 8):
+            fail(f"{name}: the engine did not stack and pair its params")
+        missing = [n for n in LLAMA_KERNELS if not stats["launches"].get(n)]
+        if missing:
+            fail(f"{name}: kernels never launched: {missing}")
+        stats["decode_window"] = decode_window(eng, cfg)
+        w = stats["decode_window"]
+        print(f"  ps={ps}, {cfg.num_layers} layers: engine "
+              f"{stats['decode_ms_per_step']:.3f} ms/step, decode window "
+              f"{w['ms_per_step']:.3f} ms/step host, "
+              f"{w['device_busy_ms_per_step']:.3f} busy, "
+              f"{w['cuda_launches_per_step']:.1f} CUDA launches/step; "
+              + json.dumps(stats), flush=True)
+        out[f"ps{ps}"] = stats
+        del eng
+        torch.cuda.empty_cache()
+    stacked = stack_layer_projections(params)
+    prompt = rng.integers(0, cfg.vocab_size, 1300).tolist()
+    feed = rng.integers(0, cfg.vocab_size, 8).tolist()
+    units = p15_units(stacked, cfg, prompt, feed)
+    ref = units[128]
+    out["logits"] = {}
+    for ps in P15_SERVE_PAGES:
+        got = units[ps]
+        rels = [float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(got, ref)]
+        same = [bool(torch.equal(g, r)) for g, r in zip(got, ref)]
+        tokens = [int(g.argmax()) for g in got]
+        out["logits"][f"ps{ps}"] = dict(rel_err=rels, bit_equal=same,
+                                        tokens=tokens,
+                                        tokens_128=[int(r.argmax()) for r in ref])
+        print(f"  ps={ps} against ps=128, 3 prefill chunks then 8 decode steps: "
+              f"|logit diff| / max |logit| {['%.2e' % r for r in rels]} (band "
+              f"{P15_BAND}); bit-equal {same}; greedy {tokens} against "
+              f"{out['logits'][f'ps{ps}']['tokens_128']}", flush=True)
+        if max(rels) > P15_BAND:
+            fail(f"phase 15 (b): ps={ps} logits {max(rels):.3e} of the range "
+                 f"from ps=128's, over {P15_BAND}")
+    del params, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Instance:
+    """lm-eval 0.4's ``Instance``: a request's ``args``."""
+
+    def __init__(self, request_type, args):
+        self.request_type = request_type
+        self.args = args
+
+
+def p15_tasks(vocab: int) -> dict:
+    """The stand-in harness's task: multiple choice over integer tokens
+    (the words of ``IntTokenizer``), 4 documents of 100-400 query tokens
+    and 3 choices of 1-4 tokens, from the seed."""
+    rng = np.random.default_rng(SEED + 15)
+    words = lambda n: " ".join(str(int(t)) for t in rng.integers(0, vocab, n))
+    return {"p15_mc": [dict(query=words(int(rng.integers(100, 401))),
+                            choices=[" " + words(int(rng.integers(1, 5)))
+                                     for _ in range(3)], gold=int(i % 3))
+                       for i in range(4)]}
+
+
+@contextlib.contextmanager
+def mini_lm_eval(tasks: dict):
+    """A stand-in for lm-eval 0.4's ``lm_eval`` (the card's machine has
+    none), as the JAX package's own harness test vendors it: the
+    ``lm_eval.api.model.LM`` base, and a ``simple_evaluate`` that scores
+    each document's choices by loglikelihood requests (accuracy), then
+    issues one ``loglikelihood_rolling`` and one ``generate_until``
+    request."""
+    import types
+    lm_eval = types.ModuleType("lm_eval")
+    api = types.ModuleType("lm_eval.api")
+    model_mod = types.ModuleType("lm_eval.api.model")
+
+    class LM:
+        def __init__(self):
+            pass
+
+    def simple_evaluate(model, tasks=(), num_fewshot=0, limit=None):
+        if not isinstance(model, LM):
+            fail("lm_eval stand-in: the model is not an LM")
+        results = {}
+        for task in tasks:
+            docs = docs_by_task[task][:limit] if limit else docs_by_task[task]
+            correct = 0
+            for doc in docs:
+                lls = model.loglikelihood([
+                    _Instance("loglikelihood", (doc["query"], c))
+                    for c in doc["choices"]])
+                correct += int(int(np.argmax([ll for ll, _ in lls]))
+                               == doc["gold"])
+            results[task] = {"acc": correct / len(docs)}
+        roll = model.loglikelihood_rolling(
+            [_Instance("loglikelihood_rolling", (docs_by_task[tasks[0]][0]["query"],))])
+        gen = model.generate_until(
+            [_Instance("generate_until", ("1 2 3", {"max_gen_toks": 3}))])
+        if not (len(roll) == 1 and np.isfinite(roll[0]) and len(gen) == 1
+                and len(gen[0].split()) == 3):
+            fail(f"lm_eval stand-in: rolling {roll}, generated {gen}")
+        return {"results": results}
+
+    docs_by_task = tasks
+    model_mod.LM = LM
+    api.model = model_mod
+    lm_eval.api = api
+    lm_eval.simple_evaluate = simple_evaluate
+    names = {"lm_eval": lm_eval, "lm_eval.api": api,
+             "lm_eval.api.model": model_mod}
+    saved = {k: sys.modules.get(k) for k in names}
+    sys.modules.update(names)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def p15_requests(vocab: int, rng):
+    """A few requests of each kind: 4 loglikelihood (contexts of 200-900
+    tokens, continuations of 1-8; one empty context), 2 rolling (600 and
+    1800 tokens), 2 generate_until (contexts of 300 and 700, 4 and 8 new
+    tokens)."""
+    words = lambda n: " ".join(str(int(t)) for t in rng.integers(0, vocab, n))
+    ll = [_Instance("loglikelihood", (words(n), " " + words(c)))
+          for n, c in ((200, 1), (500, 4), (900, 8))]
+    ll.append(_Instance("loglikelihood", ("", words(5))))
+    roll = [_Instance("loglikelihood_rolling", (words(n),)) for n in (600, 1800)]
+    gen = [_Instance("generate_until", (words(n), {"max_gen_toks": k}))
+           for n, k in ((300, 4), (700, 8))]
+    return ll, roll, gen
+
+
+def p15_score(scorer, reqs, label: str, must_launch=()) -> dict:
+    """The three request kinds through ``make_lm_eval_model`` under the
+    stand-in harness, counted (``must_launch``) with the plain versions of
+    A, B and E refused on the card -> results, seconds per request."""
+    from micromix_tpu_torch.eval.lm_eval_adapter import make_lm_eval_model
+    ll, roll, gen = reqs
+    out = {}
+    with mini_lm_eval({}):
+        lm = make_lm_eval_model(scorer, IntTokenizer())
+        for kind, fn, batch in (("loglikelihood", lm.loglikelihood, ll),
+                                ("loglikelihood_rolling",
+                                 lm.loglikelihood_rolling, roll),
+                                ("generate_until", lm.generate_until, gen)):
+            guard = (refuse_plain_kernels(label) if scorer.device.type == "cuda"
+                     else contextlib.nullcontext())
+            with guard:
+                res, secs, launches, _ = counted_run(
+                    f"{label} ({kind})", lambda: fn(batch),
+                    must_launch if scorer.device.type == "cuda" else ())
+            out[kind] = dict(results=res, s_per_request=secs / len(batch),
+                             launches=launches)
+    return out
+
+
+def p15_greedy_steps(card, cpu, gen_requests) -> list:
+    """Each ``generate_until`` request's greedy steps on the card, every
+    step's next token then taken on the CPU from the same context (the
+    card's tokens so far), as phase 3 holds each unit from one state: over
+    a whole generation a random fp4 model turns last-bit differences into
+    other paths.  A step whose CPU top two lie closer than that step's
+    card/CPU logit difference (of the CPU's range) is a near tie and may
+    give the CPU's second token on the card."""
+    tok = IntTokenizer()
+    out = []
+    for req in gen_requests:
+        ctx, kw = req.args
+        ids = tok.encode(ctx)
+        gen = card.greedy_generate(ids, kw["max_gen_toks"])
+        for i, t in enumerate(gen):
+            prefix = (ids + gen[:i])[-card.max_len:]
+            g = card._logits(prefix)[-1].float().cpu()
+            c = cpu._logits(prefix)[-1].float()
+            span = float(c.abs().max())
+            top = torch.topk(c, 2)
+            diff = float((g - c).abs().max()) / span
+            margin = float(top.values[0] - top.values[1]) / span
+            out.append(dict(card=t, cpu=int(top.indices[0]), rel_err=diff,
+                            margin=margin, near_tie=bool(
+                                margin < diff and t == int(top.indices[1]))))
+    return out
+
+
+def phase15c(rng) -> dict:
+    """``Scorer`` at Llama-3.1-8B widths, ``P15_LAYERS`` layers of random
+    ScaledW8 weights (the per-consumer form ``forward`` runs): a few
+    loglikelihood, rolling and generate_until requests through
+    ``make_lm_eval_model`` under the stand-in harness, each kind launching
+    A, B and E and no plain version; then 2 layers of a narrow model
+    (hidden 512, 8 / 4 heads, vocab 512) on the card and on the CPU, in
+    the weight-only MXFP4 form (B and E on the card, no activation site:
+    with segmented sites a 2-layer random model's units part on the
+    sites' RNE ties by about a tenth of the logit range between the
+    devices, phase 3, and its greedy steps part with them): the
+    log-likelihoods within ``P15_NARROW_RTOL`` (E's and B's f32 sums in
+    another order), the greedy flags equal, and every greedy step of the
+    generate_until requests equal from the card's context
+    (``p15_greedy_steps``; a near tie may give the CPU's second token).
+    ``eval --tasks`` on phase 8's checkpoint ran in phase 8."""
+    from micromix_tpu_torch.eval.lm_eval_adapter import Scorer
+    from micromix_tpu_torch.models.common import ModelConfig
+    from micromix_tpu_torch.models.surgery import (default_calibration,
+                                                   quantize_model_weight_only,
+                                                   random_quantized_model)
+    cfg = llama31_8b(P15_LAYERS)
+    params = random_quantized_model(
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        device=DEV)
+    out = {"8b": p15_score(Scorer(params, cfg), p15_requests(cfg.vocab_size, rng),
+                           "phase 15 (c)", FORWARD_KERNELS)}
+    for kind, r in out["8b"].items():
+        print(f"  Scorer, {cfg.num_layers} layers at Llama-3.1-8B widths, "
+              f"{kind}: {r['s_per_request']:.3f} s a request; launches "
+              f"{r['launches']}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    narrow = ModelConfig(arch="llama", vocab_size=512, hidden_size=512,
+                         intermediate_size=1024, num_layers=2, num_heads=8,
+                         num_kv_heads=4, head_dim=64, rope_theta=500000.0,
+                         rms_eps=1e-5)
+    params = quantize_model_weight_only(dense_llama(narrow, SEED, DEV), narrow,
+                                        "mxfp4")
+    reqs = p15_requests(narrow.vocab_size, np.random.default_rng(SEED + 151))
+    card = p15_score(Scorer(params, narrow), reqs, "phase 15 (c, narrow)",
+                     ("w8_gemm", "flash_attention"))
+    cpu = p15_score(Scorer(params_to(params, "cpu"), narrow), reqs,
+                    "phase 15 (c, narrow, CPU)")
+    g_ll, c_ll = card["loglikelihood"]["results"], cpu["loglikelihood"]["results"]
+    rel = [abs(g - c) / abs(c) for (g, _), (c, _) in zip(g_ll, c_ll)]
+    g_roll = card["loglikelihood_rolling"]["results"]
+    c_roll = cpu["loglikelihood_rolling"]["results"]
+    rel += [abs(g - c) / abs(c) for g, c in zip(g_roll, c_roll)]
+    flags = ([f for _, f in g_ll], [f for _, f in c_ll])
+    steps = p15_greedy_steps(Scorer(params, narrow),
+                             Scorer(params_to(params, "cpu"), narrow), reqs[2])
+    out["narrow"] = dict(rel_err=rel, greedy_flags=flags, steps=steps,
+                         card=card, cpu=cpu)
+    ties = sum(st["near_tie"] for st in steps)
+    print(f"  narrow 2-layer model, card against CPU: log-likelihood relative "
+          f"differences {['%.2e' % r for r in rel]} (tolerance "
+          f"{P15_NARROW_RTOL}); greedy flags {flags[0]} / {flags[1]}; "
+          f"generate_until's {len(steps)} greedy steps, each from the card's "
+          f"context: card tokens {[st['card'] for st in steps]}, CPU "
+          f"{[st['cpu'] for st in steps]}, {ties} near ties accepted "
+          f"(CPU's top two closer than the step's card/CPU difference)",
+          flush=True)
+    if max(rel) > P15_NARROW_RTOL or flags[0] != flags[1] or not all(
+            st["card"] == st["cpu"] or st["near_tie"] for st in steps):
+        fail("phase 15 (c): the narrow model's card and CPU scores differ")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5700,6 +6166,15 @@ P14_ENTRIES = {
 }
 # the rows of phase 14's checks whose largest error each entry reports
 P14_PARTS = {"g16": "H=128 Hkv=8 D=128", "d96": "D=96", "d256": "D=256"}
+# phase 15: C on pages of 256 and 512 tokens (their launches phase 15
+# (b)'s engine runs at those page sizes): entry -> (kernel, the shape
+# reported, the run)
+P15_ENTRIES = {
+    "paged_decode_ps256": ("paged_decode", "B=8 H=32 Hkv=8 D=128 len 100..600 ps=256",
+                           "ps256"),
+    "paged_decode_ps512": ("paged_decode", "B=8 H=32 Hkv=8 D=128 len 100..600 ps=512",
+                           "ps512"),
+}
 # B and K with f32 output (a tensor-parallel rank's row-parallel
 # partial); their launches are phase 12's, on every rank
 F32_ENTRIES = {
@@ -5709,7 +6184,7 @@ F32_ENTRIES = {
 
 
 def kernel_line(results, launches, page_launches, verify_launches,
-                bf16_launches, g7_launches, f32_launches, p14) -> dict:
+                bf16_launches, g7_launches, f32_launches, p14, p15) -> dict:
     """The per-kernel JSON line: every kernel at its main shape, then the
     entries of another page width, row count, head group or head dim,
     each with the largest error over its rows (those whose shape names
@@ -5730,6 +6205,9 @@ def kernel_line(results, launches, page_launches, verify_launches,
     entries += [(entry, kernel, shape, p14_launches(p14, key).get(kernel, 0),
                  P14_PARTS[key])
                 for entry, (kernel, shape, key) in P14_ENTRIES.items()]
+    entries += [(entry, kernel, shape,
+                 p15["b"][key]["launches"].get(kernel, 0), shape)
+                for entry, (kernel, shape, key) in P15_ENTRIES.items()]
     for entry, kernel, shape, n, part in entries:
         src, replaces, _ = KERNELS[kernel]
         rows = [r for r in results if r["kernel"] == kernel
@@ -5902,6 +6380,21 @@ def main() -> int:
     p14 = phase14(rng, results, timer)
     del timer
     print(f"  phase 14 took {p14['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 15: Kernel C on pages of 256-1024 tokens against its plain "
+          f"version; the default engine at Llama-3.1-8B widths on pages of "
+          f"256 and 512 at {P15_LAYERS} layers; the lm-eval adapter's Scorer "
+          f"at {P15_LAYERS} layers and 2 narrow layers card against CPU "
+          f"(eval --tasks ran in phase 8)", flush=True)
+    t15 = time.perf_counter()
+    timer = Timer()
+    p15 = {"a": phase15a(results, timer, rng)}
+    del timer
+    p15["b"] = phase15b(rng)
+    p15["c"] = phase15c(rng)
+    p15["seconds"] = time.perf_counter() - t15
+    print(f"  phase 15 took {p15['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -5916,7 +6409,9 @@ def main() -> int:
                          ("Llama-3.1-405B int4 KV", p14["b"]["int4"]),
                          ("Llama-3.1-405B bf16 KV", p14["b"]["bf16"]),
                          ("D=96 int4 KV", p14["c"]["d96"]["int4"]),
-                         ("D=256 int4 KV", p14["c"]["d256"]["int4"])):
+                         ("D=256 int4 KV", p14["c"]["d256"]["int4"]),
+                         *((f"Llama pages of {ps}", p15["b"][f"ps{ps}"])
+                           for ps in P15_SERVE_PAGES)):
         w = stats["decode_window"]
         print(f"  decode, {label}: engine {stats['decode_ms_per_step']} ms/step; "
               f"decode window {w['ms_per_step']:.3f} ms/step host, "
@@ -5945,6 +6440,10 @@ def main() -> int:
     main_launches.update(p13_launches(p13))
     for key in ("g16", "d96", "d256"):
         main_launches.update(p14_launches(p14, key))
+    for ps in P15_SERVE_PAGES:
+        main_launches.update(p15["b"][f"ps{ps}"]["launches"])
+    for run in p15["c"]["8b"].values():
+        main_launches.update(run["launches"])
     # bf16 pages: C's and H's launches on them, D's in that run
     bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
                      for k in ("paged_decode", "paged_prefill")}
@@ -5953,14 +6452,14 @@ def main() -> int:
     g7_launches.update(p10["bf16"]["launches"])
     line = kernel_line(results, main_launches, p8_pages,
                        p9["draft"]["row_launches"], bf16_launches, g7_launches,
-                       p12["launches"], p14)
+                       p12["launches"], p14, p15)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, checks=results, controls=controls,
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
                        phase8=p8, phase9=p9, phase10=p10, phase11=p11,
-                       phase12=p12, phase13=p13, phase14=p14,
+                       phase12=p12, phase13=p13, phase14=p14, phase15=p15,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

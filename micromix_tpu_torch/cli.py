@@ -9,7 +9,9 @@ flag, and the same printed lines and stats JSON:
                    (``--weight-only``) or W8A8 int8 (``--int8-turbo``),
                    baked once into a checkpoint (the JAX package's
                    format: either package loads the other's)
-  * ``eval``       perplexity of a dense, quantized or baked model
+  * ``eval``       perplexity of a dense, quantized or baked model, and
+                   lm-eval tasks (``--tasks``, through
+                   ``eval/lm_eval_adapter.py``; needs ``lm_eval``)
   * ``serve``      batch generation through the engine (a profiler trace
                    of the run with ``--profile DIR``), or with
                    ``--port N`` the OpenAI-style HTTP server; with
@@ -27,8 +29,7 @@ flag, and the same printed lines and stats JSON:
 
 ``--platform auto`` runs on the card and raises without one; nothing
 falls back to the CPU.  ``--platform cpu`` runs the plain PyTorch
-versions.  A flag whose path the port has not ported yet exits with a
-message naming its ROADMAP.md item instead of being ignored.  The
+versions.  The
 tokenizer is ``transformers.AutoTokenizer`` over the checkpoint
 directory, imported only where a command needs it.
 """
@@ -40,20 +41,8 @@ import json
 import os
 import time
 
-# flag -> (is it set?, the ROADMAP.md item that ports its path)
-_NOT_PORTED = {
-    "tasks": (bool, "item 8 (eval/lm_eval_adapter.py)"),
-}
 # the stop events of the servers over ranks that this process runs
 _SERVING = []
-
-
-def _refuse_unported(args) -> None:
-    for flag, (is_set, item) in _NOT_PORTED.items():
-        if is_set(getattr(args, flag, None) or 0):
-            raise SystemExit(
-                f"--{flag.replace('_', '-')} is not ported to "
-                f"micromix_tpu_torch yet: ROADMAP.md {item}")
 
 
 def _load_model(args):
@@ -172,6 +161,15 @@ def cmd_eval(args) -> None:
             print()
             results[f"ppl/{name}"] = ppl
             print(f"{name} perplexity: {ppl:.4f}")
+
+    if args.tasks:
+        from .eval.lm_eval_adapter import Scorer, run_lm_eval
+        scorer = Scorer(params, cfg, max_len=args.seqlen,
+                        kv_quant_bits=args.kv_bits)
+        out = run_lm_eval(scorer, tok, args.tasks.split(","),
+                          num_fewshot=args.num_fewshot, limit=args.limit)
+        results["lm_eval"] = out["results"]
+        print(json.dumps(out["results"], indent=2, default=str))
 
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
@@ -513,9 +511,9 @@ def main(argv=None) -> None:
     e.add_argument("--hetero", action="store_true",
                    help="budgets-as-data hetero representation")
     e.add_argument("--eval-ppl", default="",
-                   help="comma list: synthetic, file:<path> (wikitext2, "
-                        "ptb, c4 need a download)")
-    e.add_argument("--tasks", default="", help="lm-eval tasks (not ported)")
+                   help="comma list: wikitext2, ptb, c4 (from the local "
+                        "datasets cache), synthetic, file:<path>")
+    e.add_argument("--tasks", default="", help="lm-eval task list")
     e.add_argument("--num-fewshot", type=int, default=0)
     e.add_argument("--limit", type=int, default=None)
     e.add_argument("--seqlen", type=int, default=2048)
@@ -572,7 +570,6 @@ def main(argv=None) -> None:
     s.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
-    _refuse_unported(args)
     args.device = "cpu" if args.platform == "cpu" else None
     args.fn(args)
 

@@ -36,6 +36,17 @@
 // KiB a stage) the ring has one stage, and a page's copy waits for the
 // last one's compute.
 //
+// Page sizes 16, 32, 64 and 128, and every multiple of 128 up to 1024 (the
+// JAX kernel's pages on its chip, page_size % 128 == 0).  A page of more
+// than 128 tokens is walked as ps / 128 ring stages of 128 tokens each: a
+// stage holds the same slice of every code row and of the [scale, zero]
+// rows, so a stage, the ring's two stages and the per-token buffers stay
+// at their size for 128-token pages, and each stage keeps the 16-byte
+// chunk swizzle over a power-of-two row.  Stages wholly below the window
+// floor or past the row's length are not loaded.  Pages of up to 128
+// tokens are one stage a page, as before, in their own instantiation
+// (STAGED false), which compiles to the code of one stage a page.
+//
 // Design.  Grid (Hkv x head groups, B, S): S splits of the page-table
 // row, each of ``pps`` pages; the wrapper derives both from B, the heads
 // and max_pages_per_seq alone (never from lengths on the device), so the
@@ -120,11 +131,18 @@ struct Args {
 };
 
 constexpr int SMEM_MAX = 227 * 1024;  // the opt-in limit of a block
+constexpr int STAGE_TOKENS = 128;     // tokens a ring stage holds at most
+
+// tokens a ring stage holds: the whole page up to 128, else 128
+__host__ __device__ __forceinline__ int stage_tokens(int ps) {
+  return ps < STAGE_TOKENS ? ps : STAGE_TOKENS;
+}
 
 // Shared memory, byte offsets: the ring of ``stages`` stages (then, after
-// the pages, the warps' states), q, the page's per-token scales and zero
+// the pages, the warps' states), q, the stage's per-token scales and zero
 // points, the warps' P^T buffers, the block's merged state, the split
-// merge and the block's page ids.  D is the padded width DP.
+// merge and the block's page ids.  D is the padded width DP, ps the tokens
+// of a stage (``stage_tokens``).
 struct Smem {
   int stage, stages, ring, qs, tok, pt, st, bytes;
   __host__ __device__ Smem(int bits, int D, int ps, int pps) {
@@ -159,7 +177,7 @@ __device__ __forceinline__ uint32_t hsub(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-template <int BITS, int DP>
+template <int BITS, int DP, bool STAGED>
 __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int DQP = BITS == 4 ? DP / 2 : DP;   // code rows a stage holds
@@ -173,19 +191,22 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
   const int b = blockIdx.y, split = blockIdx.z, S = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int ps = a.ps;
-  const int rb = BITS == 16 ? 2 * ps : ps;   // bytes a code row
+  const int PS = a.ps;                 // tokens a page
+  const int ps = STAGED ? STAGE_TOKENS : PS;   // tokens a stage
+  const int sub = STAGED ? PS / STAGE_TOKENS : 1;   // stages a page
+  const int rb = BITS == 16 ? 2 * ps : ps;   // bytes a stage's code row
+  const int rbp = sub * rb;            // bytes a page's code row
   const int nch = rb / 16;             // 16-byte chunks a code row (a power of two)
-  const int nsl = ps / 16;             // 16-token slices a page
+  const int nsl = ps / 16;             // 16-token slices a stage
   const Smem L(BITS, DP, ps, a.pps);
 
   const int seq = a.seq_ids[b];
   const int n = a.lengths[a.lengths_per_row ? b : seq];
-  int npages = (n + ps - 1) / ps;
+  int npages = (n + PS - 1) / PS;
   if (npages > a.max_pages) npages = a.max_pages;
   const int wb = a.positions != nullptr ? a.positions[b] + 1 : n;
   const int lo = a.window > 0 ? wb - a.window : 0;   // first attended position
-  const int p0 = lo > 0 ? lo / ps : 0;
+  const int p0 = lo > 0 ? lo / PS : 0;
   const int s_lo = p0 / a.pps;
   const int s_hi = npages > p0 ? (npages - 1) / a.pps : s_lo - 1;
   const int count = s_hi - s_lo + 1;                  // non-empty splits
@@ -216,6 +237,11 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
   if (split < s_lo || split > s_hi) return;
   const int pbeg = max(split * a.pps, p0);
   const int pend = min((split + 1) * a.pps, npages);
+  // the split's stages: its pages' stages from the one holding the window
+  // floor to the one holding the row's last token (its pages' all, one a
+  // page, at pages of up to 128 tokens)
+  const int qbeg = STAGED ? max(pbeg * sub, lo > 0 ? lo / ps : 0) : pbeg;
+  const int qend = STAGED ? min(pend * sub, (n + ps - 1) / ps) : pend;
 
   float* qs = reinterpret_cast<float*>(smem + L.qs);          // [HP][DP]
   float* ksc = reinterpret_cast<float*>(smem + L.tok);        // [ps] K scale
@@ -240,32 +266,38 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
       *reinterpret_cast<uint4*>(smem + st * L.stage + (kv * DQP + DQ) * rb + rem) =
           make_uint4(0u, 0u, 0u, 0u);
     }
-  auto stage = [&](int st, int p) {
+  // stage q (stage q % sub of page q / sub) into ring slot st
+  auto stage = [&](int st, int q) {
+    const int p = STAGED ? q / sub : q, s0 = STAGED ? q - p * sub : 0;
     const size_t ph = static_cast<size_t>(pids[p - pbeg]) * a.Hkv + kvh;
-    const uint8_t* kp = a.kc + ph * DQ * rb;
-    const uint8_t* vp = a.vc + ph * DQ * rb;
+    const uint8_t* kp = a.kc + ph * DQ * rbp + s0 * rb;
+    const uint8_t* vp = a.vc + ph * DQ * rbp + s0 * rb;
     uint8_t* kd = smem + st * L.stage;
     for (int c = tid; c < DQ * nch; c += THREADS) {
       const int r = c / nch, cc = c % nch;
       const int dst = r * rb + ((cc ^ (r & (nch - 1))) << 4);
-      ptx::cp_async16(kd + dst, kp + static_cast<size_t>(c) * 16, true);
-      ptx::cp_async16(kd + DQP * rb + dst, vp + static_cast<size_t>(c) * 16, true);
+      const size_t src = STAGED ? static_cast<size_t>(r) * rbp + cc * 16
+                                : static_cast<size_t>(c) * 16;
+      ptx::cp_async16(kd + dst, kp + src, true);
+      ptx::cp_async16(kd + DQP * rb + dst, vp + src, true);
     }
     if (BITS == 16) {       // no [scale, zero] pages
       ptx::cp_async_commit();
       return;
     }
+    // the stage's scales, then its zero points: 16 bytes (8 tokens) a copy
     uint8_t* sd = kd + 2 * DQP * ps;
-    const __nv_bfloat16* ks = a.ksz + ph * 2 * ps;
-    const __nv_bfloat16* vs = a.vsz + ph * 2 * ps;
+    const __nv_bfloat16* ks = a.ksz + ph * 2 * PS + s0 * ps;
+    const __nv_bfloat16* vs = a.vsz + ph * 2 * PS + s0 * ps;
     for (int c = tid; c < ps / 4; c += THREADS) {
-      ptx::cp_async16(sd + c * 16, ks + c * 8, true);
-      ptx::cp_async16(sd + 4 * ps + c * 16, vs + c * 8, true);
+      const int src = STAGED ? (c / (ps / 8)) * PS + (c % (ps / 8)) * 8 : c * 8;
+      ptx::cp_async16(sd + c * 16, ks + src, true);
+      ptx::cp_async16(sd + 4 * ps + c * 16, vs + src, true);
     }
     ptx::cp_async_commit();
   };
   __syncthreads();
-  stage(0, pbeg);
+  if (qbeg < qend) stage(0, qbeg);
 
   // q rotated and scaled in f32; heads past GB and dims past D zero
   const __nv_bfloat16* qb = a.q + head0 * D;
@@ -317,11 +349,11 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
   // the k steps and O^T tiles that hold a real dim
   const int ksteps = (HALF + 7) / 8, mts = ((BITS == 4 ? HALF : D) + 15) / 16;
 
-  for (int p = pbeg; p < pend; ++p) {
-    const int st = L.stages == 2 ? (p - pbeg) & 1 : 0;
+  for (int p = qbeg; p < qend; ++p) {   // p: a stage, ps tokens from p * ps
+    const int st = L.stages == 2 ? (p - qbeg) & 1 : 0;
     ptx::cp_async_wait<0>();
-    __syncthreads();      // page p landed; page p - 1 and its token arrays done
-    if (L.stages == 2 && p + 1 < pend) stage(st ^ 1, p + 1);
+    __syncthreads();      // stage p landed; stage p - 1 and its token arrays done
+    if (L.stages == 2 && p + 1 < qend) stage(st ^ 1, p + 1);
     const uint8_t* kp = smem + st * L.stage;
     const uint8_t* vp = kp + DQP * rb;
     if (BITS == 16 && tid < ps) {   // the page's tokens: scale 1; masked: 0
@@ -494,7 +526,7 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
         }
       }
     }
-    if (L.stages == 1 && p + 1 < pend) {   // one stage: the next page after this one
+    if (L.stages == 1 && p + 1 < qend) {   // one stage: the next one after this one
       __syncthreads();
       stage(0, p + 1);
     }
@@ -617,10 +649,10 @@ __global__ void __launch_bounds__(THREADS, DP == 256 ? 2 : 4) decode_kernel(cons
   }
 }
 
-template <int BITS, int DP>
+template <int BITS, int DP, bool STAGED>
 int launch(const Args& a, int B, int splits, cudaStream_t stream) {
   if (splits > MAX_SPLITS || a.H / a.Hkv > 8 * HP) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = Smem(BITS, DP, a.ps, a.pps).bytes;
+  const int smem = Smem(BITS, DP, stage_tokens(a.ps), a.pps).bytes;
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   // raise the kernel's shared memory limit on a device only when a launch
   // needs more than was set there: one driver call, not one a launch
@@ -629,20 +661,21 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || done[dev] < smem) {
-    err = cudaFuncSetAttribute(decode_kernel<BITS, DP>,
+    err = cudaFuncSetAttribute(decode_kernel<BITS, DP, STAGED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) done[dev] = smem;
   }
   const int ng = (a.H / a.Hkv + HP - 1) / HP;
   dim3 grid(a.Hkv * ng, B, splits);
-  decode_kernel<BITS, DP><<<grid, THREADS, smem, stream>>>(a);
+  decode_kernel<BITS, DP, STAGED><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bits 4, 8 or 16; D even, 2 to 256; ps in {16, 32, 64, 128}; H / Hkv <=
+// bits 4, 8 or 16; D even, 2 to 256; ps 16, 32, 64 or a multiple of 128 up
+// to 1024; H / Hkv <=
 // 64; splits <= 32; window <= 0: none; positions / inv_freq null: no RoPE;
 // lengths_per_row: lengths is (B,) (the override) rather than the cache's
 // per-sequence lengths; m_out / den_out null: no state.  Zero points are
@@ -670,9 +703,13 @@ extern "C" int paged_decode(const void* q, const void* kc, const void* vc,
          H, Hkv, D, ps, max_pages, pps, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 2 || D > 256 || D % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (ps < 16 || ps > 1024 || (ps <= STAGE_TOKENS ? (ps & (ps - 1)) : ps % STAGE_TOKENS))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int dp = D <= 64 ? 64 : D <= 128 ? 128 : 256;
-#define MM_DECODE(BB, DD) \
-  if (bits == BB && dp == DD) return launch<BB, DD>(a, B, splits, s);
+#define MM_DECODE(BB, DD)                                              \
+  if (bits == BB && dp == DD)                                          \
+    return ps > STAGE_TOKENS ? launch<BB, DD, true>(a, B, splits, s)   \
+                             : launch<BB, DD, false>(a, B, splits, s);
   MM_DECODE(4, 64)
   MM_DECODE(4, 128)
   MM_DECODE(4, 256)

@@ -17,9 +17,12 @@ exactly what one of its kernels would refuse later:
     holds G x floor(64 / G) rows: at G = 64 one position); E takes any
     group;
   * KV pages of 4, 8 or 16 bits (int4, int8, bf16) for C, D and H;
-  * page sizes 16, 32, 64 and 128 for C (a page row is whole 16-byte
-    chunks, swizzled by a power of two), any multiple of 4 for H (its
-    smallest page copy is 4 tokens); the engine runs both.
+  * page sizes 16, 32, 64, and every multiple of 128 up to 1024 for C
+    (``decode_page_size_ok``: a ring stage holds at most 128 tokens of a
+    page as whole 16-byte chunks of each row, swizzled by a power of two;
+    the JAX kernel's pages on its chip are multiples of 128), any
+    multiple of 4 for H (its smallest page copy is 4 tokens); the engine
+    runs both.
 """
 
 from __future__ import annotations
@@ -29,8 +32,17 @@ from typing import Optional
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64
 KV_BITS = (4, 8, 16)
-DECODE_PAGE_SIZES = (16, 32, 64, 128)
+DECODE_STAGE_TOKENS = 128     # tokens of a page one ring stage of C holds
+DECODE_MAX_PAGE = 1024
 KERNELS = ("flash", "decode", "prefill", "append", "engine")
+
+
+def decode_page_size_ok(page_size: int) -> bool:
+    """C's page sizes: 16, 32, 64, or a multiple of 128 up to 1024."""
+    if page_size <= DECODE_STAGE_TOKENS:
+        return page_size in (16, 32, 64, 128)
+    return (page_size % DECODE_STAGE_TOKENS == 0
+            and page_size <= DECODE_MAX_PAGE)
 
 
 def refusal(kernel: str, *, head_dim: int, num_heads: Optional[int] = None,
@@ -56,11 +68,12 @@ def refusal(kernel: str, *, head_dim: int, num_heads: Optional[int] = None,
         why.append(f"{bits}-bit KV pages (takes {KV_BITS})")
     if page_size is not None and kernel in ("decode", "prefill", "engine"):
         ok = (page_size % 4 == 0 if kernel == "prefill"
-              else page_size in DECODE_PAGE_SIZES)
+              else decode_page_size_ok(page_size))
         if page_size < 1 or not ok:
             why.append(f"page_size {page_size} (takes "
                        + ("a multiple of 4" if kernel == "prefill"
-                          else str(DECODE_PAGE_SIZES)) + ")")
+                          else "16, 32, 64 or a multiple of 128 up to "
+                          f"{DECODE_MAX_PAGE}") + ")")
     return "; ".join(why) or None
 
 

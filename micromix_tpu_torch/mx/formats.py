@@ -11,6 +11,10 @@ import dataclasses
 
 BLOCK_SIZE = 32  # MX spec: 32 elements share one UE8M0 scale.
 
+# Channel-segment alignment: calibration rounds p6_num / p8_num up to
+# multiples of 128.
+SEGMENT_ALIGN = 128
+
 
 @dataclasses.dataclass(frozen=True)
 class FormatInfo:
@@ -39,3 +43,5 @@ FP8 = FormatInfo(name="fp8", bits=8, exp_bits=4, mant_bits=3, emin=-6, emax=8, m
 
 # UE8M0 scale byte = unbiased exponent + 127.
 UE8M0_BIAS = 127
+
+FORMATS = {f.name: f for f in (FP4, FP6, FP8)}

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from .formats import BLOCK_SIZE, FormatInfo, UE8M0_BIAS
+from .formats import BLOCK_SIZE, FP4, FormatInfo, UE8M0_BIAS
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -115,6 +115,13 @@ def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
     return (vb * scale[..., None]).reshape(vals.shape)
 
 
+def fakequant_blocks(x: torch.Tensor, fmt: FormatInfo) -> torch.Tensor:
+    """x -> its MX image (quantize then dequantize each 32-block), in
+    x's dtype."""
+    codes, scales = quantize_blocks(x, fmt)
+    return dequantize_blocks(codes, scales, fmt).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def decode_table(fmt: FormatInfo, device=None) -> torch.Tensor:
     """The f32 value of each of the 256 byte codes (``decode`` of each),
@@ -138,3 +145,8 @@ def pack_fp4(codes: torch.Tensor) -> torch.Tensor:
 def unpack_fp4(packed: torch.Tensor) -> torch.Tensor:
     """Split-plane packed uint8 (..., K//2) -> uint8 fp4 codes (..., K)."""
     return torch.cat([packed & 0xF, packed >> 4], dim=-1)
+
+
+def decode_packed_fp4(packed: torch.Tensor, dtype=_F32) -> torch.Tensor:
+    """Packed fp4 (..., K//2) -> the values without their scales (..., K)."""
+    return decode(unpack_fp4(packed), FP4).to(dtype)

@@ -21,6 +21,10 @@ from .ep_serve import (make_ep_engine, make_ep_step_fns, quantize_model_ep,
                        shard_params_ep, stack_layer_experts)
 from .launch import spawn
 from .mesh import RankGroup, axis_groups, pick_backend
+# the JAX package's mesh constructors: a rank's groups on each axis of a layout
+# (``make_mesh(group, data=, expert=, seq=, model=)``,
+# ``make_pp_mesh(group, stage=n)``)
+make_mesh = make_pp_mesh = axis_groups
 from .moe_ep import (ep_moe_forward, ep_moe_forward_hetero,
                      ep_moe_forward_quant, stack_dense_experts,
                      stack_hetero_experts, stack_quant_experts)
@@ -36,7 +40,8 @@ from .tp_quant import (quantize_model_tp, shard_params_tp, sharded_forward_tp,
 from .tp_serve import make_tp_engine, make_tp_step_fns
 
 __all__ = [
-    "spawn", "RankGroup", "axis_groups", "pick_backend", "tp_validate_config",
+    "spawn", "RankGroup", "axis_groups", "pick_backend", "make_mesh",
+    "make_pp_mesh", "tp_validate_config",
     "shard_quantized_params", "sharded_quantized_forward", "stack_layers",
     "pipeline_parallel_forward", "sequence_parallel_forward",
     "sp_forward_local",

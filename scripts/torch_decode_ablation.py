@@ -59,7 +59,7 @@ VARIANTS = {
                     "        e[h] = ok0 ? s[h] : 0.0f;\n        e[2 + h] = ok1 ? s[2 + h] : 0.0f;")],
     "no_pv": [("      for (int mt = 0; mt < (BITS == 4 ? MT / 2 : MT); ++mt) {",
                "      for (int mt = 0; mt < 0; ++mt) {")],
-    "no_refill": [("    if (L.stages == 2 && p + 1 < pend) stage(st ^ 1, p + 1);", "")],
+    "no_refill": [("    if (L.stages == 2 && p + 1 < qend) stage(st ^ 1, p + 1);", "")],
     "no_rope": [("      c = cosf(ang);\n      s = sinf(ang);", "      c = ang;\n      s = ang;")],
     "no_merge": [("  if (count == 1) {       // the row's only split: write the result",
                   "  if (true) {")],

@@ -18,6 +18,8 @@ Tolerances:
   * perplexity: rtol 2e-3, the golden test's.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -262,7 +264,7 @@ class _ToyTokenizer:
         return {"input_ids": np.asarray([ids], np.int64)}
 
 
-def test_loaders_match_jax():
+def test_loaders_match_jax(monkeypatch):
     np.testing.assert_array_equal(tdata.synthetic_tokens(1000, 3000, seed=5),
                                   jdata.synthetic_tokens(1000, 3000, seed=5))
     tok = _ToyTokenizer()
@@ -273,8 +275,12 @@ def test_loaders_match_jax():
         assert len(tc) == len(jc) == 3
         for a, b in zip(tc, jc):
             np.testing.assert_array_equal(a, b)
+    # the hub corpora load through ``datasets``; without it (here: an
+    # import that fails, so nothing is fetched) both packages raise
+    monkeypatch.setitem(sys.modules, "datasets", None)
     for hub in ("wikitext2", "ptb", "c4"):
-        with pytest.raises(RuntimeError, match="'synthetic' or 'file:"):
-            tdata.get_loaders(hub, tok)
+        for mod in (jdata, tdata):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                mod.get_loaders(hub, tok)
     with pytest.raises(ValueError):
         tdata.get_loaders("nope", tok)

@@ -319,7 +319,9 @@ def test_w8_decode_exact(dev, base):
 
 
 @pytest.mark.parametrize("d,ps,h,hkv", [(64, 16, 8, 2), (128, 128, 32, 8),
-                                        (128, 64, 4, 4)])
+                                        (128, 64, 4, 4), (128, 256, 32, 8),
+                                        (64, 384, 8, 2), (128, 512, 32, 8),
+                                        (256, 1024, 8, 1)])
 def test_paged_decode_kernel(dev, d, ps, h, hkv):
     rng = np.random.default_rng(d + ps)
     b, mp = 4, 5
@@ -365,13 +367,17 @@ def _decode_cache(dev, rng, b, mp, ps, hkv, d, bits=4):
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("d,ps,h,hkv,mp", [(64, 16, 8, 2, 24), (128, 128, 32, 8, 24),
                                            (128, 64, 4, 4, 24), (128, 32, 24, 8, 40),
-                                           (128, 16, 28, 4, 24)])
+                                           (128, 16, 28, 4, 24), (128, 256, 32, 8, 12),
+                                           (64, 384, 8, 2, 8), (128, 512, 32, 8, 6),
+                                           (128, 1024, 128, 8, 4)])
 def test_paged_decode_split_boundaries(dev, bits, window, d, ps, h, hkv, mp):
     """Kernel C across its split-KV grid: lengths 0, 1, ps, one token past
     the first split, every page, and a ragged one; query positions up to
     3 past the stored length (the window counts back from the query);
     G = 3 and Qwen2-7B's G = 7 pad to 8 columns; int4, int8 and bf16
-    pages.  Twice the same bits: the partials merge in split order
+    pages; pages of 256-1024 tokens, walked in stages of 128 (a window
+    that starts inside a page, lengths that end inside a stage).  Twice
+    the same bits: the partials merge in split order
     whichever block finishes last."""
     rng = np.random.default_rng(d + ps + bits)
     b = 6

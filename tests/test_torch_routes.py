@@ -248,18 +248,21 @@ QWEN2_7B = dict(arch="qwen2", vocab_size=152064, hidden_size=3584,
     (130, 2, 128, 4, 128), (32, 32, 96, 4, 128), (8, 1, 256, 16, 128),
     (32, 8, 100, 8, 32), (16, 4, 2, 4, 16), (32, 8, 258, 4, 128),
     (32, 8, 97, 4, 128), (32, 8, 255, 16, 128), (8, 1, 256, 4, 8),
-    (8, 1, 256, 4, 64 + 32)])
+    (8, 1, 256, 4, 64 + 32), (32, 8, 128, 4, 48), (32, 8, 128, 4, 384),
+    (32, 8, 128, 8, 512), (8, 1, 256, 16, 1024), (32, 8, 128, 4, 2048),
+    (32, 8, 128, 4, 640 + 64)])
 def test_engine_refuses_only_what_a_kernel_refuses(heads, kv_heads, head_dim,
                                                    kv_bits, page_size):
     """The engine's card check refuses a configuration exactly when one of
     its kernels (E, C, H or D, by their shared statement) would: every
     GQA group G = 1..8 on int4, int8 and bf16 pages is served, and so is
     the Qwen2-7B config (28 / 4 heads, G = 7, bf16 pages, page 16), G =
-    9, 12, 16 (Llama-3.1-405B's 128 / 8), 64, and every even head_dim up
+    9, 12, 16 (Llama-3.1-405B's 128 / 8), 64, every even head_dim up
     to 256 (80, 96 at Phi-3-mini's 32 / 32 heads, 100, 2, Gemma's 256 over
-    one KV head); G = 65, head_dim 258 and the odd 97 and 255, 2-bit pages,
-    page sizes 8, 12, 96 and 256 and 3 heads over 2 are refused, each by
-    a kernel's own check."""
+    one KV head), and pages of 256, 384, 512 and 1024 tokens (the JAX
+    package's multiples of 128); G = 65, head_dim 258 and the odd 97 and
+    255, 2-bit pages, page sizes 8, 12, 48, 96, 704 and 2048 and 3 heads
+    over 2 are refused, each by a kernel's own check."""
     from micromix_tpu_torch.kernels import limits
     cfg = (ModelConfig(**dict(QWEN2_7B, num_heads=heads, num_kv_heads=kv_heads))
            if heads == 28 else _tiny_llama(num_heads=heads,
@@ -279,7 +282,8 @@ def test_engine_refuses_only_what_a_kernel_refuses(heads, kv_heads, head_dim,
     assert refused == (heads % kv_heads != 0 or heads // kv_heads > 64
                        or not 2 <= head_dim <= 256 or head_dim % 2
                        or kv_bits not in (4, 8, 16)
-                       or page_size not in (16, 32, 64, 128))
+                       or not (page_size in (16, 32, 64) or (
+                           page_size % 128 == 0 and page_size <= 1024)))
 
 
 @pytest.mark.parametrize("kv_bits,window", [(8, None), (4, 64)])

@@ -115,11 +115,23 @@ def test_engine_run_matches_jax_engine(model, jax_flash_prefill, monkeypatch):
     """3 requests, 2 slots: a batched prefill of two prompts, a later
     single-slot prefill after a retire, decode chunks of 4, eos-free
     retire at max_new_tokens.  Nothing chunks or preempts."""
+    _engine_parity(model, monkeypatch, PS, MP)
+
+
+def test_engine_run_matches_jax_engine_on_256_token_pages(
+        model, jax_flash_prefill, monkeypatch):
+    """The same run on pages of 256 tokens (the JAX package's page size on
+    its chip is a multiple of 128; the card walks such a page in stages of
+    128)."""
+    _engine_parity(model, monkeypatch, 256, 1)
+
+
+def _engine_parity(model, monkeypatch, page_size, max_pages):
     jcfg, tcfg, jparams, tparams = model
     monkeypatch.setenv("MICROMIX_NO_STACK", "1")
     prompts = _prompts(jcfg.vocab_size, [9, 14, 20])
     new = [6, 9, 5]
-    kw = dict(max_seqs=2, page_size=PS, max_pages_per_seq=MP,
+    kw = dict(max_seqs=2, page_size=page_size, max_pages_per_seq=max_pages,
               prefill_buckets=(16, 32), decode_chunk=4, seed=0)
     jeng = jengine.Engine(jparams, jcfg, piggyback=False, pipeline=False, **kw)
     jreqs = jeng.run([jengine.Request(i, p, max_new_tokens=n)
