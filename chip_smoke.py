@@ -190,19 +190,30 @@ non-zero before the result line.
      to ``run_lm_eval`` on the model in memory), ``Scorer`` at
      Llama-3.1-8B widths, 4 layers (loglikelihood, rolling,
      generate_until requests launching A, B and E and no plain version),
-     and 2 narrow layers card against CPU.
+     and 2 narrow layers card against CPU;
+ 16. data-parallel serving over replicas of ranks (``phase16``): 4
+     processes on the card over gloo, two replicas of two ranks behind
+     ``parallel.ReplicaRouter`` (replica r is ranks 2r, 2r + 1): (a) tp=2
+     at Llama-3.1-8B widths, 4 layers, phase 4's eight requests (each
+     replica's tokens equal to a lone tp=2 engine's on its requests in
+     the same order, ``assigned`` equal to ``Router``'s rule on the
+     host); (b) the ``ApiServer`` over such replicas (nine prompts, one
+     cut stream, ``/metrics`` against the summed stats); (c) ep=2 at
+     Mixtral-8x7B widths, 2 layers, eight requests, tokens equal to a
+     lone ep=2 engine's.  Per replica: decode ms a step, a window's host
+     and busy ms, control messages, rank 0's host ms a tick.
 
 Every kernel check of phases 2, 12, 14 and 15 calls the kernel twice more on
 its inputs and fails unless the results are equal bit for bit
 (``record``'s ``rerun``).
 
-In phases 4 to 15 every kernel launch counter is reset just before each
+In phases 4 to 16 every kernel launch counter is reset just before each
 run and read just after; each run must launch every kernel of its path
 (the default Mixtral run no residual pair, the split-plane runs no
 ScaledW8 kernel, phase 11's forms no kernel off their own path), and no
 run may take the plain PyTorch append or the pre-quantized one (nor, in
-phase 11, A's or B's plain version; in phases 12 and 13, A's, B's, E's,
-J's or K's).
+phase 11, A's or B's plain version; in phases 12, 13 and 16, A's, B's,
+E's, J's or K's).
 Every pipelined decode dispatch of a single-card engine (phases 4-11)
 runs under ``torch.cuda.set_sync_debug_mode("error")``: a stream
 synchronize or a blocking copy there fails the run.  Phase 12's do not:
@@ -3837,11 +3848,12 @@ def p11_moe(rng) -> dict:
 # ---------------------------------------------------------------- phase 12
 
 P12_TP = 2
-# (b) serves the first 8 of phase 7's 32 layers: at 32 layers 320 of its
-# 437 ms a step were 64 host-staged gloo all_reduces, 60 s more of the
-# script's 1200 s for the same kernels and shapes (PERF.md section 4);
-# phase 11 serves all 32 layers' budgets on one card
-P12_LAYERS = 8
+# (b) serves the first 4 of phase 7's 32 layers: at 32 layers 320 of its
+# 437 ms a step were 64 host-staged gloo all_reduces, time of the
+# script's 1200 s spent on the same kernels and shapes (PERF.md section
+# 4); phase 11 serves all 32 layers' budgets on one card, and phase 16
+# serves two more tp=2 replicas at 4 layers
+P12_LAYERS = 4
 P12_SMALL_LAYERS = 4
 # the row-parallel shard shapes of Llama-3.1-8B at tp=2: o (N=4096,
 # K=4096/2) and down (K=14336/2), at decode rows and a 512-row chunk
@@ -4281,7 +4293,7 @@ def p12_tp_rank(group, calibs, specs, small_specs) -> dict:
     return out
 
 
-def p12_ep_model(cfg, group):
+def p12_ep_model(cfg, group, seed: int = SEED):
     """The rank's tree of an expert-parallel Mixtral: the quantized model
     made from the seed, each layer's experts grouped as it is made
     (``random_quantized_model``), then split over the ranks
@@ -4290,7 +4302,7 @@ def p12_ep_model(cfg, group):
                                                    random_quantized_model)
     from micromix_tpu_torch.parallel import shard_params_ep
     params = random_quantized_model(
-        cfg, default_calibration(cfg, p6=256, p8=256, seed=SEED), seed=SEED,
+        cfg, default_calibration(cfg, p6=256, p8=256, seed=seed), seed=seed,
         device=DEV)
     for p in params["layers"]:
         p["experts_grouped_ep"] = p.pop("experts_grouped")
@@ -6036,6 +6048,330 @@ def phase15c(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+P16_REPLICAS, P16_RANKS = 2, 2      # R replicas of P ranks: 4 processes
+P16_LAYERS = 4                      # (a), (b): Llama-3.1-8B widths
+P16_MOE_LAYERS = 2                  # (c): Mixtral-8x7B widths
+P16_HEARTBEAT_S = 0.5               # (b): idle heartbeats the server sends
+P16_ENGINE = dict(seed=SEED, max_seqs=8, page_size=128, max_pages_per_seq=16,
+                  prefill_chunk=512, decode_chunk=8)
+P16_EP_ENGINE = dict(seed=SEED, max_seqs=4, page_size=128, max_pages_per_seq=2,
+                     decode_chunk=8)
+
+
+def p16_assign(specs, replicas: int) -> list:
+    """``Router``'s rule on the host for requests all submitted before the
+    first step: each to the replica with the least queued prompt + new
+    tokens, ties to the lowest index."""
+    loads, out = [0] * replicas, []
+    for prompt, new in specs:
+        out.append(loads.index(min(loads)))
+        loads[out[-1]] += len(prompt) + new
+    return out
+
+
+def p16_routed(router, specs, label: str, must_launch, lone) -> dict:
+    """One routed run over the replicas (rank 0 submits ``specs`` and
+    steps until no work is left, then stops the followers), launch
+    counters reset just before and read just after, the plain versions
+    refused; then a lone engine of the rank's replica (``lone(group)``,
+    fresh caches, over the replica's group) runs the replica's requests in the order it admitted them,
+    and must emit the same tokens; then its decode window."""
+    from micromix_tpu_torch.kernels import build
+    from micromix_tpu_torch.serve.engine import Request
+    rank = router.group.rank
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    router.local.reset_counts()
+    out = {}
+    with refuse_plain_kernels(label):
+        t0 = time.perf_counter()
+        if rank == 0:
+            reqs = p12_requests(specs)
+            out["where"] = [router.submit(r) for r in reqs]
+            while router.step():
+                pass
+            router.close()
+            out["tokens"] = [r.output for r in reqs]
+            out["done"] = all(r.done for r in reqs)
+        else:
+            router.follow()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    launches = dict(build.launches)
+    missing = [k for k in must_launch if not launches.get(k)]
+    missing += [f"{k} (bf16 out)" for k in ("w8_gemm", "sp_gemm")
+                if f"{k}_f32" in must_launch
+                and launches.get(k, 0) <= launches.get(f"{k}_f32", 0)]
+    if missing:
+        fail(f"{label}: rank {rank}: kernels not launched: {missing}")
+    eng = router.engine
+    steps = eng.phase_steps["decode"]
+    out.update(launches=launches, routed=router.outputs(),
+               messages=router.messages, all_reduces=router.local.reduces,
+               all_reduce_s=router.local.reduce_s,
+               decode_steps=steps, decode_ms_per_step=(
+                   1e3 * eng.phase_s["decode"] / steps if steps else None),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        out["ticks"] = router.ticks
+        out["tick_ms"] = 1e3 * router.tick_s / max(1, router.ticks)
+        out["ctl_ms"] = 1e3 * router.ctl_s / max(1, router.ticks)
+        out["stats"] = router.stats
+        out["replicas"] = [dict(steps=m.steps,
+                                leader_step_ms=1e3 * m.step_s / max(1, m.steps),
+                                decode_ms_per_step=(
+                                    1e3 * m.phase_s.get("decode", 0.0)
+                                    / m.phase_steps["decode"]
+                                    if m.phase_steps.get("decode") else None))
+                           for m in router.engines]
+    order = list(router.member.requests.values())
+    eng2 = lone(router.local)
+    reqs = [Request(r.req_id, list(r.prompt), max_new_tokens=r.max_new_tokens)
+            for r in order]
+    with refuse_plain_kernels(label):
+        eng2.run(reqs)
+        out["window"] = p12_window(eng2, router.local)
+    out["lone"] = {r.req_id: r.output for r in reqs}
+    if out["lone"] != out["routed"]:
+        fail(f"{label}: rank {rank}: the routed replica's tokens differ from "
+             f"a lone engine's on the same requests")
+    del eng2
+    torch.cuda.empty_cache()
+    return out
+
+
+def p16_http(router, prompts, new: int) -> dict:
+    """(b): the ``ApiServer`` over the replicas on rank 0
+    (``parallel.serve_http``): the prompts as completions at once (the
+    second one streamed), beside a stream whose client goes away; after a
+    few idle heartbeats /metrics, with the router's stats read under the
+    server's lock.  The others follow."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from micromix_tpu_torch.parallel import serve_http
+    from micromix_tpu_torch.serve import ApiServer, api
+    api.HEARTBEAT_S = P16_HEARTBEAT_S
+    tok = IntTokenizer()
+    stop, got = threading.Event(), {}
+
+    def client(srv):
+        def one(i):
+            text = tok.decode(prompts[i])
+            if i == 1:
+                _, raw = _http(srv.port, "/v1/completions",
+                               {"prompt": text, "max_tokens": new, "stream": True})
+                ev = [ln[6:] for ln in raw.splitlines() if ln.startswith("data: ")]
+                if ev[-1] != "[DONE]":
+                    fail("phase 16 (b): the stream did not end with [DONE]")
+                return "".join(json.loads(e)["choices"][0]["text"]
+                               for e in ev[:-1]).split()
+            _, body = _http(srv.port, "/v1/completions",
+                            {"prompt": text, "max_tokens": new})
+            return json.loads(body)["choices"][0]["text"].split()
+
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts)) as ex:
+                cut = ex.submit(_cut_stream, srv.port, tok.decode(prompts[0]))
+                got["texts"] = [[int(w) for w in t]
+                                for t in ex.map(one, range(1, len(prompts)))]
+                got["cut_read"] = cut.result()
+            got["wall_s"] = time.perf_counter() - t0
+            time.sleep(3 * P16_HEARTBEAT_S)
+            _, metrics = _http(srv.port, "/metrics")
+            with srv._lock:
+                got["stats"] = router.stats
+            got["metrics"] = dict(ln.split(" ", 1)
+                                  for ln in metrics.strip().splitlines())
+        finally:
+            stop.set()
+
+    with refuse_plain_kernels("phase 16 (b)"):
+        st = serve_http(router, lambda rt: ApiServer(rt, lambda s: tok(s)["input_ids"],
+                                                     tok.decode), stop,
+                        on_start=client)
+    eng = router.engine
+    got.update(served=st, ticks=router.ticks,
+               served_by={r.req_id: (list(r.prompt), list(r.output))
+                          for r in router.member.requests.values()},
+               counters={"decode_tokens": eng.decode_tokens,
+                         "prefill_tokens": eng.prefill_tokens})
+    return got
+
+
+def p16_rank(group, calibs, specs, http_prompts, ep_specs) -> dict:
+    """One rank of phase 16: (a) and (b) over two tp=2 replicas of
+    Llama-3.1-8B widths (each replica's tree from its own seed, each rank
+    quantizing its shard), (c) over two ep=2 replicas of Mixtral-8x7B
+    widths."""
+    from micromix_tpu_torch.parallel import (ReplicaRouter, make_ep_step_fns,
+                                             make_tp_engine)
+    from micromix_tpu_torch.serve.engine import Engine
+    cfg = llama31_8b(P16_LAYERS)
+    trees = {}
+
+    def tp_engine(g, r):
+        if "tp" not in trees:
+            trees["tp"] = p12_tp_model(cfg, calibs[:P16_LAYERS], g,
+                                       SEED + 16 + r)
+        return make_tp_engine(trees["tp"], cfg, g, **P16_ENGINE)
+
+    out = {"backend": group.backend, "device": str(group.device)}
+    router = ReplicaRouter(group, tp_engine, P16_REPLICAS)
+    out["placement"] = dict(replica=router.replica, members=router.local.members,
+                            local_backend=router.local.backend)
+    out["a"] = p16_routed(router, specs, "phase 16 (a)", TP_KERNELS,
+                          lambda g: tp_engine(g, None))
+    router = ReplicaRouter(group, tp_engine, P16_REPLICAS)
+    out["b"] = p16_http(router, http_prompts, P16_HTTP_NEW)
+    del router
+    trees.clear()
+    torch.cuda.empty_cache()
+
+    mcfg = mixtral_8x7b(P16_MOE_LAYERS)
+
+    def ep_engine(g, r):
+        if "ep" not in trees:
+            trees["ep"] = p12_ep_model(mcfg, g, seed=SEED + 160 + r)
+        return Engine(trees["ep"], mcfg, step_fns=make_ep_step_fns(mcfg),
+                      device=DEV, **P16_EP_ENGINE)
+
+    router = ReplicaRouter(group, ep_engine, P16_REPLICAS)
+    out["c"] = p16_routed(router, ep_specs, "phase 16 (c)", EP_KERNELS,
+                          lambda g: ep_engine(g, None))
+    trees.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+P16_HTTP_NEW = 8
+
+
+def phase16(rng, calibs) -> dict:
+    """Data-parallel serving over replicas of ranks: 4 processes on the
+    card over gloo, two replicas of two ranks (``parallel.ReplicaRouter``;
+    replica r is global ranks 2r, 2r + 1).
+
+      a. two tp=2 replicas at Llama-3.1-8B widths, P16_LAYERS layers
+         (phase 7's first calibrations, each replica's weights from its
+         own seed), phase 4's eight requests, 32 new tokens: ``assigned``
+         equal to ``Router``'s rule on the host, every request's tokens
+         equal to a lone tp=2 engine's run of its replica's requests in
+         the same order;
+      b. the ``ApiServer`` over two such replicas: nine prompts of
+         64-128 tokens (eight completions at once, one streamed, and a
+         stream whose client goes away), ``/metrics`` against the summed
+         ``stats`` and the replicas' own counters; every completion's
+         tokens are the serving replica's;
+      c. two ep=2 replicas at Mixtral-8x7B widths, P16_MOE_LAYERS layers,
+         eight requests of 96-128 tokens, 16 new: tokens equal to a lone
+         ep=2 engine's.
+
+    Every rank must launch its path's kernels and no plain version, and
+    the ranks of a replica must emit the same tokens.  Per replica: the
+    engine's decode ms a step, a decode window's host and busy ms (the
+    other replica running on the same card meanwhile), the control
+    messages, rank 0's host ms a tick and the channel's share of it."""
+    from micromix_tpu_torch.parallel import spawn
+    t_start = time.perf_counter()
+    vocab = llama31_8b(1).vocab_size
+    specs = [(r.prompt, r.max_new_tokens) for r in _traffic(rng, vocab)]
+    http_prompts = [rng.integers(0, vocab, int(rng.integers(64, 129))).tolist()
+                    for _ in range(9)]
+    ep_specs = p12_specs(rng, mixtral_8x7b(1).vocab_size,
+                         [int(rng.integers(96, 129)) for _ in range(8)], 16)
+    world = P16_REPLICAS * P16_RANKS
+    ranks = spawn(p16_rank, world, calibs, specs, http_prompts, ep_specs,
+                  device=DEV)
+    out = {"backend": ranks[0]["backend"], "device": ranks[0]["device"],
+           "launches": collections.Counter()}
+    for g, r in enumerate(ranks):
+        pl = r["placement"]
+        want = tuple(range(g - g % P16_RANKS, g - g % P16_RANKS + P16_RANKS))
+        if pl["replica"] != g // P16_RANKS or tuple(pl["members"]) != want:
+            fail(f"phase 16: rank {g} placed as {pl}, not in replica "
+                 f"{g // P16_RANKS} of ranks {want}")
+    for key, sp, label in (("a", specs, "Llama-3.1-8B tp=2"),
+                           ("c", ep_specs, "Mixtral-8x7B ep=2")):
+        a0 = ranks[0][key]
+        rule = p16_assign(sp, P16_REPLICAS)
+        if a0["where"] != rule or a0["stats"]["assigned"] != [
+                rule.count(r) for r in range(P16_REPLICAS)]:
+            fail(f"phase 16 ({key}): assigned {a0['where']}, Router's rule {rule}")
+        if not a0["done"]:
+            fail(f"phase 16 ({key}): a request did not finish")
+        for g, r in enumerate(ranks):
+            if r[key]["routed"] != ranks[g - g % P16_RANKS][key]["routed"]:
+                fail(f"phase 16 ({key}): rank {g}'s tokens differ from its "
+                     f"replica's first rank's")
+        for i, rep in enumerate(a0["where"]):
+            lone = ranks[rep * P16_RANKS][key]["lone"][i]
+            if a0["tokens"][i] != lone or len(lone) != sp[i][1]:
+                fail(f"phase 16 ({key}): request {i}'s tokens differ from the "
+                     f"lone engine's on replica {rep}")
+        for g, r in enumerate(ranks):
+            out["launches"].update(r[key]["launches"])
+        out[key] = dict(where=a0["where"], stats=a0["stats"], ticks=a0["ticks"],
+                        tick_ms=a0["tick_ms"], ctl_ms=a0["ctl_ms"],
+                        replicas=a0["replicas"],
+                        ranks=[{k: v for k, v in r[key].items()
+                                if k not in ("routed", "lone", "tokens")}
+                               for r in ranks])
+        print(f"  ({key}) {label} x {P16_REPLICAS} replicas: assigned "
+              f"{a0['stats']['assigned']} (Router's rule), every request's "
+              f"tokens equal to a lone engine's; rank 0: {a0['ticks']} ticks, "
+              f"{a0['tick_ms']:.3f} host ms a tick, {a0['ctl_ms']:.3f} of it "
+              f"the channel, {a0['messages']} control messages", flush=True)
+        for rep, m in enumerate(a0["replicas"]):
+            w = ranks[rep * P16_RANKS][key]["window"]
+            dms = m["decode_ms_per_step"]
+            print(f"    replica {rep}: engine decode "
+                  f"{'n/a' if dms is None else f'{dms:.3f}'} ms/step, leader "
+                  f"{m['leader_step_ms']:.3f} ms an engine step(); window "
+                  f"{w['ms_per_step']:.3f} ms/step host, "
+                  f"{w['device_busy_ms_per_step']:.3f} busy, "
+                  f"{w['all_reduces_per_step']:.1f} all_reduces a step",
+                  flush=True)
+        for g, r in enumerate(ranks):
+            print(f"    rank {g}: launches {dict(sorted(r[key]['launches'].items()))}; "
+                  f"no plain version ran; peak {r[key]['peak_mem_gib']:.2f} GiB",
+                  flush=True)
+    b0 = ranks[0]["b"]
+    served = {}
+    for g in range(0, world, P16_RANKS):
+        for g2 in range(g, g + P16_RANKS):
+            if ranks[g2]["b"]["served_by"] != ranks[g]["b"]["served_by"]:
+                fail(f"phase 16 (b): rank {g2}'s tokens differ from rank {g}'s")
+        for prompt, output in ranks[g]["b"]["served_by"].values():
+            served[tuple(prompt)] = output
+    if [served.get(tuple(p)) for p in http_prompts[1:]] != b0["texts"] or \
+            b0["cut_read"] != 2 or any(len(t) != P16_HTTP_NEW for t in b0["texts"]):
+        fail("phase 16 (b): the completions differ from their replicas' tokens")
+    if not len(served.get(tuple(http_prompts[0]), [])) < 64:
+        fail("phase 16 (b): the cut stream was not cancelled on its replica")
+    m, st = b0["metrics"], b0["stats"]
+    leaders = [ranks[g]["b"]["counters"] for g in range(0, world, P16_RANKS)]
+    for key in ("decode_tokens", "prefill_tokens"):
+        if int(m[f"micromix_{key}_total"]) != sum(st[key]) or \
+                st[key] != [c[key] for c in leaders]:
+            fail(f"phase 16 (b): /metrics {key} {m} against stats {st} and "
+                 f"the replicas' {leaders}")
+    if int(m["micromix_requests_total"]) != len(http_prompts):
+        fail(f"phase 16 (b): /metrics says {m}")
+    idles = b0["served"]["messages"] - b0["ticks"] - 1
+    out["b"] = dict(metrics=m, stats=st, wall_s=b0["wall_s"], ticks=b0["ticks"],
+                    messages=b0["served"]["messages"], idle_heartbeats=idles)
+    print(f"  (b) ApiServer over 2 x tp=2: {len(http_prompts)} requests "
+          f"(one cut), assigned {st['assigned']}, {b0['ticks']} ticks, "
+          f"{idles} idle heartbeats, completions in {b0['wall_s']:.2f}s; "
+          f"/metrics = summed stats = the replicas' counters", flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 # name -> (source, TPU kernel it replaces, shape reported in the JSON line)
 KERNELS = {
     "site_fakequant": ("micromix_tpu_torch/csrc/site_fakequant.cu",
@@ -6395,6 +6731,15 @@ def main() -> int:
     p15["c"] = phase15c(rng)
     p15["seconds"] = time.perf_counter() - t15
     print(f"  phase 15 took {p15['seconds']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 16: data-parallel serving, {P16_REPLICAS} replicas of "
+          f"{P16_RANKS} ranks ({P16_REPLICAS * P16_RANKS} processes on the card "
+          f"over gloo) behind the router: Llama-3.1-8B tp=2 at {P16_LAYERS} "
+          f"layers, the ApiServer over it, Mixtral-8x7B ep=2 at "
+          f"{P16_MOE_LAYERS} layers", flush=True)
+    p16 = phase16(np.random.default_rng(SEED + 16), p7_calibs)
+    print(f"  phase 16 took {p16['seconds']:.1f}s", flush=True)
 
     for label, stats in (("Llama stacked", p4["stacked"]),
                          ("Llama per-consumer", p4["per_consumer"]),
@@ -6444,15 +6789,18 @@ def main() -> int:
         main_launches.update(p15["b"][f"ps{ps}"]["launches"])
     for run in p15["c"]["8b"].values():
         main_launches.update(run["launches"])
+    main_launches.update(p16["launches"])
     # bf16 pages: C's and H's launches on them, D's in that run
     bf16_launches = {k: p10["bf16"]["page_launches"].get(f"{k}/16", 0)
                      for k in ("paged_decode", "paged_prefill")}
     bf16_launches["append_kv_quant"] = p10["bf16"]["launches"].get("append_kv_quant", 0)
     g7_launches = collections.Counter(p10["int4"]["launches"])
     g7_launches.update(p10["bf16"]["launches"])
+    f32_launches = collections.Counter(p12["launches"])
+    f32_launches.update(p16["launches"])
     line = kernel_line(results, main_launches, p8_pages,
                        p9["draft"]["row_launches"], bf16_launches, g7_launches,
-                       p12["launches"], p14, p15)
+                       f32_launches, p14, p15)
     wall = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6460,6 +6808,7 @@ def main() -> int:
                        phase3=p3, phase4=p4, phase5=p5, phase6=p6, phase7=p7,
                        phase8=p8, phase9=p9, phase10=p10, phase11=p11,
                        phase12=p12, phase13=p13, phase14=p14, phase15=p15,
+                       phase16=p16,
                        routes=routes, g_routes=g_routes,
                        kernels=line["kernels"],
                        wall_s=wall), f,

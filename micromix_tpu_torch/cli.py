@@ -264,7 +264,7 @@ def _rank_trace(args, rank: int):
     return trace(os.path.join(args.profile, f"rank{rank}"))
 
 
-def _api_server(eng, tok, args, **kw):
+def _api_server(eng, tok, args):
     from .serve.api import ApiServer
     chat_tpl = None
     if getattr(tok, "chat_template", None):
@@ -274,7 +274,7 @@ def _api_server(eng, tok, args, **kw):
         eng, lambda s: tok(s)["input_ids"],
         lambda ids: tok.decode(ids, skip_special_tokens=True),
         model_name=os.path.basename(args.model.rstrip("/")),
-        eos_id=tok.eos_token_id, chat_template=chat_tpl, port=args.port, **kw)
+        eos_id=tok.eos_token_id, chat_template=chat_tpl, port=args.port)
 
 
 def _print_serving(port: int) -> None:
@@ -285,35 +285,22 @@ def _print_serving(port: int) -> None:
 
 
 def _serve_http_rank(group, eng, args, tok, stop):
-    """Rank 0: the ApiServer, the others' engines in lockstep, until
-    ``stop``; the followers: receive, apply, step, until rank 0 stops.
-    -> (every request's outputs by id, stats)."""
+    """Rank 0: the ApiServer over the ranks' one replica, until ``stop``;
+    the others: follow its boundaries.  -> (every request's outputs by
+    id, stats)."""
     import signal
-    from .parallel.api_ranks import Lockstep
+    from .parallel.api_ranks import serve_http
+    from .parallel.replicas import ReplicaRouter
     # the parent stops the server: Ctrl-C reaches the ranks too
     signal.signal(signal.SIGINT, signal.SIG_IGN)
-    lock = Lockstep(group)
-    t0 = time.time()
-    if group.rank == 0:
-        srv = _api_server(eng, tok, args, followers=lock.send)
-        srv.start()
-        _print_serving(srv.port)
-        try:
-            while not stop.wait(1.0):
-                pass
-        finally:
-            srv.close()
-        requests = srv.requests_total
-    else:
-        lock.follow(eng)
-        requests = len(lock.requests)
-    outs = lock.outputs()
-    stats = {"requests": requests, "prefill_tokens": eng.prefill_tokens,
-             "decode_tokens": eng.decode_tokens,
-             "wall_s": round(time.time() - t0, 3),
-             "lockstep_messages": lock.messages, "ranks": group.world,
+    router = ReplicaRouter(group, lambda g, r: eng)
+    st = serve_http(router, lambda rt: _api_server(rt, tok, args), stop,
+                    on_start=lambda srv: _print_serving(srv.port))
+    stats = {"requests": st["requests"], "prefill_tokens": eng.prefill_tokens,
+             "decode_tokens": eng.decode_tokens, "wall_s": st["wall_s"],
+             "lockstep_messages": st["messages"], "ranks": group.world,
              "backend": group.backend, "all_reduces": group.reduces}
-    return outs, stats
+    return router.outputs(), stats
 
 
 def stop_serving() -> None:

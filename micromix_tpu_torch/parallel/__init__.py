@@ -14,7 +14,10 @@ JAX program names (``mesh.axis_groups`` for a 2-D layout).
   * pipeline parallelism (``pp``: layer stages, microbatches handed on
     by ``ppermute``);
   * sequence parallelism (``sp``: K/V all-gathered, a ring of
-    ``ppermute``s, or Ulysses' ``all_to_all``s).
+    ``ppermute``s, or Ulysses' ``all_to_all``s);
+  * data parallelism over whole engines (``replicas``: ``ReplicaRouter``,
+    the serving router over R replicas of P TP / EP ranks, on disjoint
+    rank groups), with the HTTP server in front (``api_ranks.serve_http``).
 """
 
 from .ep_serve import (make_ep_engine, make_ep_step_fns, quantize_model_ep,
@@ -28,7 +31,9 @@ make_mesh = make_pp_mesh = axis_groups
 from .moe_ep import (ep_moe_forward, ep_moe_forward_hetero,
                      ep_moe_forward_quant, stack_dense_experts,
                      stack_hetero_experts, stack_quant_experts)
+from .api_ranks import serve_http
 from .pp import pipeline_parallel_forward, stack_layers
+from .replicas import ReplicaRouter
 from .sp import sequence_parallel_forward, sp_forward_local
 from .spmd import (shard_quantized_params, sharded_quantized_forward,
                    tp_validate_config)
@@ -53,5 +58,5 @@ __all__ = [
     "ep_moe_forward", "ep_moe_forward_quant", "ep_moe_forward_hetero",
     "stack_dense_experts", "stack_quant_experts", "stack_hetero_experts",
     "make_ep_engine", "make_ep_step_fns", "quantize_model_ep",
-    "shard_params_ep", "stack_layer_experts",
+    "shard_params_ep", "stack_layer_experts", "ReplicaRouter", "serve_http",
 ]

@@ -77,7 +77,10 @@ def pick_backend(world: int, device: torch.device) -> str:
 
 
 def rank_device(rank: int, device) -> torch.device:
-    """Rank r's device: ``cuda:{r % cards}`` for CUDA, else ``device``."""
+    """Rank r's device: ``cuda:{r % cards}`` for CUDA, else ``device``.
+    So the ranks of replica r of R replicas of P ranks (global ranks
+    r P ... (r + 1) P - 1) sit on cards r P ... when the machine has R P
+    cards."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return dev
@@ -234,7 +237,10 @@ def axis_groups(group: RankGroup, **shape: int) -> Dict[str, RankGroup]:
     the last axis varies fastest) -> the rank's group on each axis.
 
     Every rank must call it, with the same shape: each subgroup is made
-    by ``dist.new_group``, which all ranks enter for every subgroup."""
+    by ``dist.new_group``, which all ranks enter for every subgroup, in
+    the same order (axis by axis, then the other axes' coordinates in
+    ``itertools.product`` order), on the world's backend (the one
+    ``pick_backend`` named for it)."""
     axes, sizes = list(shape), list(shape.values())
     if math.prod(sizes) != group.world:
         raise ValueError(f"layout {shape} does not hold {group.world} ranks")
@@ -246,7 +252,7 @@ def axis_groups(group: RankGroup, **shape: int) -> Dict[str, RankGroup]:
                                         if j != i]):
             members = tuple(coords.index(rest[:i] + (x,) + rest[i:])
                             for x in range(sizes[i]))
-            pg = (dist.new_group(list(members))
+            pg = (dist.new_group(list(members), backend=group.backend)
                   if group.world > 1 else None)
             if group.rank in members:
                 out[axis] = RankGroup(

@@ -13,13 +13,14 @@ engine's ``on_token`` callback (which fires inside the scheduler thread's
 ``step()``).  So the card's launches come from one thread on one stream,
 and concurrency lives at the HTTP edge.  The scheduler applies the
 admissions and cancels queued since its last step at the next step
-boundary, and steps only while the engines have work.  Over tensor- or
-expert-parallel ranks, ``followers`` (``parallel.api_ranks.Lockstep.send``)
-is called at each boundary with what it is about to apply, before it
-applies it, so the other ranks' engines follow in lockstep; while idle
-it is called every ``HEARTBEAT_S`` seconds with op "idle" (well inside
-gloo's 30-minute timeout of a follower's wait), and with op "stop" when
-the server closes.
+boundary, and steps only while the engines have work.  Over ranks
+(``parallel.replicas.ReplicaRouter``: one replica of TP or EP ranks, or
+several), the router carries the boundary to the other ranks itself; the
+scheduler calls its ``heartbeat`` every ``HEARTBEAT_S`` seconds while
+idle (well inside gloo's 30-minute timeout of a follower's wait).  A
+router call that raises (a rank died) ends the scheduler: every waiting
+request is released, a new completion gets 503, and ``close`` raises
+the error.
 
 Endpoints:
   POST /v1/completions   prompt, max_tokens, temperature, top_k, top_p,
@@ -79,12 +80,10 @@ class ApiServer:
                  max_new_tokens_cap: int = 2048,
                  chat_template: Optional[
                      Callable[[List[Dict[str, str]]], str]] = None,
-                 host: str = "127.0.0.1", port: int = 0,
-                 followers: Optional[Callable[[List[Request], List[int], str],
-                                              None]] = None):
+                 host: str = "127.0.0.1", port: int = 0):
         self.router = engine if isinstance(engine, Router) \
             else Router([engine])
-        self.followers = followers
+        self.error: Optional[BaseException] = None
         self.encode = encode
         self.decode = decode
         self.model_name = model_name
@@ -115,17 +114,29 @@ class ApiServer:
             except queue.Empty:
                 return out
 
+    @staticmethod
+    def _release(lvs: List[_Live]) -> None:
+        """End the waiters of requests the scheduler will not serve."""
+        for lv in lvs:
+            if lv.tokens is not None:
+                lv.tokens.put(None)
+            lv.done.set()
+
     def _scheduler(self) -> None:
+        try:
+            self._schedule()
+        except BaseException as e:      # noqa: BLE001 (raised by close)
+            self.error = e
+            with self._lock:
+                live, self._live = list(self._live.values()), {}
+            self._release(live + self._drain(self._submit_q))
+
+    def _schedule(self) -> None:
         working, last = False, time.monotonic()
         while not self._stop.is_set():
             admits = self._drain(self._submit_q)
             cancels = self._drain(self._cancel_q)
             busy = bool(admits or cancels) or working
-            if self.followers is not None and (
-                    busy or time.monotonic() - last >= HEARTBEAT_S):
-                self.followers([lv.req for lv in admits], cancels,
-                               "step" if busy else "idle")
-                last = time.monotonic()
             with self._lock:
                 for lv in admits:
                     self._live[lv.req.req_id] = lv
@@ -135,6 +146,11 @@ class ApiServer:
                 # an engine whose step found no work stays idle until the
                 # next admission or cancel
                 working = busy and self.router.step()
+                if busy:
+                    last = time.monotonic()
+                elif time.monotonic() - last >= HEARTBEAT_S:
+                    self.router.heartbeat()
+                    last = time.monotonic()
                 finished = [rid for rid, lv in self._live.items()
                             if lv.req.done]
                 for rid in finished:
@@ -146,8 +162,6 @@ class ApiServer:
                 # idle: wait for the next submission instead of spinning
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
-        if self.followers is not None:
-            self.followers([], [], "stop")
 
     # ---------------- request plumbing ----------------
 
@@ -200,6 +214,10 @@ class ApiServer:
     def submit(self, lv: _Live) -> None:
         self._submit_q.put(lv)
         self._wake.set()
+        if self.error is not None:
+            # the scheduler is gone: nothing would release the waiters
+            # (this one, and any other handler's queued meanwhile)
+            self._release(self._drain(self._submit_q) + [lv])
 
     def cancel(self, req_id: int) -> bool:
         """Queue a cancel for the next step boundary and release the
@@ -345,6 +363,9 @@ class ApiServer:
                 lv = server._build_request(body, streaming=False)
                 server.submit(lv)
                 lv.done.wait()
+                if server.error is not None:
+                    self._json(503, {"error": f"server failed: {server.error}"})
+                    return
                 req = lv.req
                 text = server.decode(server._strip_stop(req, req.output))
                 text, trimmed = _trim_stops(text, lv.stop_strs)
@@ -452,12 +473,17 @@ class ApiServer:
             self.close()
 
     def close(self) -> None:
+        """Stop serving; the scheduler ends after its current step (a
+        router over ranks may then be closed).  Raises the error that
+        ended the scheduler, if one did."""
         self._stop.set()
         self._wake.set()
         self._httpd.shutdown()
         self._httpd.server_close()
         for t in self._threads:
-            t.join(timeout=5)
+            t.join(None if t.name == "micromix-scheduler" else 5)
+        if self.error is not None:
+            raise RuntimeError("the server's scheduler failed") from self.error
 
 
 def _default_chat_template(messages: List[Dict[str, str]]) -> str:

@@ -6,14 +6,28 @@ sharing one), and the router assigns each incoming request to the
 replica with the least outstanding work (queued prompt + new tokens, and
 the active requests' pending prompt and remaining new tokens).  Replicas
 share nothing, so the router is plain Python and can sit behind any RPC
-front end; ``ApiServer`` drives one.
+front end; ``ApiServer`` drives one.  ``parallel.replicas.ReplicaRouter``
+is this router over replicas of several ranks each (TP or EP engines on
+disjoint rank groups).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List
 
 from .engine import Engine, Request
+
+
+def outstanding(eng: Engine) -> Dict[int, int]:
+    """Each request the engine holds -> its outstanding work: a queued
+    one's prompt + new tokens, an active one's pending prompt tokens and
+    remaining new tokens.  Their sum is ``Router._load``."""
+    work = {r.req_id: len(r.prompt) + r.max_new_tokens for r in eng.waiting}
+    for s in eng.slots:
+        if s.req is not None:
+            work[s.req.req_id] = (len(s.pending) + s.req.max_new_tokens
+                                  - len(s.req.output))
+    return work
 
 
 class Router:
@@ -26,12 +40,7 @@ class Router:
 
     def _load(self, i: int) -> int:
         """Outstanding work estimate: queued + active prompt/decode tokens."""
-        eng = self.engines[i]
-        queued = sum(len(r.prompt) + r.max_new_tokens for r in eng.waiting)
-        active = sum(
-            len(s.pending) + (s.req.max_new_tokens - len(s.req.output))
-            for s in eng.slots if s.req is not None)
-        return queued + active
+        return sum(outstanding(self.engines[i]).values())
 
     def submit(self, req: Request) -> int:
         """Route one request; returns the replica index chosen."""
@@ -48,6 +57,10 @@ class Router:
             if eng.step():
                 progressed = True
         return progressed
+
+    def heartbeat(self) -> None:
+        """Called by an idle ``ApiServer`` every ``HEARTBEAT_S`` seconds:
+        nothing to do in-process (``ReplicaRouter`` wakes its ranks)."""
 
     def cancel(self, req_id: int) -> bool:
         """Abort a request on whichever replica holds it."""
@@ -70,4 +83,4 @@ class Router:
         }
 
 
-__all__ = ["Router"]
+__all__ = ["Router", "outstanding"]

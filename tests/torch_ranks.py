@@ -1,5 +1,5 @@
 """Rank functions for the port's parallel tests (TP v1 and v2, EP, PP,
-SP, the collectives).
+SP, the collectives, replicas behind the router).
 
 ``micromix_tpu_torch.parallel.spawn`` starts each rank in a fresh
 interpreter, which finds its function by module and name; the test
@@ -9,17 +9,25 @@ only torch and the port.  Each returns plain data (numpy, lists, ints).
 
 from __future__ import annotations
 
+import json
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from micromix_tpu_torch.parallel import (axis_groups, make_ep_engine,
+from micromix_tpu_torch.parallel import (ReplicaRouter, axis_groups,
+                                         make_ep_engine,
                                          make_tp_engine,
                                          pipeline_parallel_forward,
                                          quantize_model_tp,
                                          quantize_model_tp_hetero,
                                          sequence_parallel_forward,
+                                         serve_http,
                                          shard_params_tp,
                                          shard_quantized_params,
                                          sharded_forward_tp,
@@ -195,4 +203,167 @@ def collectives(group) -> Dict[str, Any]:
         x = torch.tensor([float(r)])
         out["layout"] = {a: (g.rank, g.world, g.all_gather(x, 0).tolist())
                          for a, g in gs.items()}
+    return out
+
+
+# ---------------- replicas behind the router ----------------
+
+def replica_engine(kind: str, trees, cfg, engine_kw, fail_rank=None):
+    """The factory of replica r's engine over ``trees[r]``: a TP engine
+    over the rank's slice ("tp"), an EP engine ("ep"), or a plain
+    ``Engine`` ("single", one rank a replica).  On global rank
+    ``fail_rank`` the engine's second step raises."""
+    def make(group, r):
+        if kind == "tp":
+            eng = make_tp_engine(shard_params_tp(trees[r], group.rank,
+                                                 group.world),
+                                 cfg, group, **engine_kw)
+        elif kind == "ep":
+            eng = make_ep_engine(trees[r], cfg, group, **engine_kw)
+        else:
+            eng = Engine(trees[r], cfg, device=group.device, **engine_kw)
+        if fail_rank is not None and dist.get_rank() == fail_rank:
+            step, n = eng.step, [0]
+
+            def failing():
+                n[0] += 1
+                if n[0] == 2:
+                    raise RuntimeError("a step failed on this rank")
+                return step()
+            eng.step = failing
+        return eng
+    return make
+
+
+def drive(router, reqs, cancel=None):
+    """Submit every request, then step until no work is left; with
+    ``cancel`` = (steps, req_id), cancel that request after that many
+    steps.  -> the replica each request went to, and (req_id, token) in
+    ``on_token`` order."""
+    order = []
+    for q in reqs:
+        q.on_token = lambda t, rid=q.req_id: order.append((rid, int(t)))
+    where = [router.submit(q) for q in reqs]
+    steps = 0
+    while router.step():
+        steps += 1
+        if cancel is not None and steps == cancel[0]:
+            assert router.cancel(cancel[1])
+    return where, order
+
+
+def _placement(router) -> Dict[str, Any]:
+    loc = router.local
+    return {"outputs": router.outputs(), "replica": router.replica,
+            "local": [loc.rank, loc.world], "members": loc.members,
+            "backend": loc.backend, "device": str(loc.device),
+            "subgroup_backend": (None if loc.group is None
+                                 else dist.get_backend(loc.group))}
+
+
+def replica_serve(group, kind: str, trees, cfg, engine_kw, specs,
+                  replicas: int, cancel=None, fail_rank=None):
+    """R replicas of world / R ranks; rank 0 drives ``specs`` through the
+    ``ReplicaRouter`` (``drive``), the others follow.  -> every rank: its
+    engine's outputs by id and its placement; rank 0 also the mirrors'
+    tokens, logprobs and done flags, the replica of each request, the
+    ``on_token`` order, the stats and the messages sent."""
+    router = ReplicaRouter(group, replica_engine(kind, trees, cfg, engine_kw,
+                                                 fail_rank), replicas)
+    out = {}
+    if group.rank == 0:
+        reqs = requests(specs)
+        where, order = drive(router, reqs, cancel)
+        router.close()
+        out.update(tokens=[r.output for r in reqs],
+                   logprobs=[r.token_logprobs for r in reqs],
+                   done=[r.done for r in reqs], where=where, order=order,
+                   stats=router.stats, messages=router.messages)
+    else:
+        router.follow()
+    out.update(_placement(router))
+    return out
+
+
+def _post(port: int, path: str, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read().decode()
+
+
+def _cut_stream(port: int, prompt: str, n_read: int = 2) -> int:
+    """A streamed completion whose client goes away after ``n_read``
+    events -> the events read."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/completions", json.dumps(
+        {"prompt": prompt, "max_tokens": 64, "stream": True}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    got = 0
+    while got < n_read:
+        if resp.fp.readline().decode().startswith("data: "):
+            got += 1
+    conn.close()
+    return got
+
+
+def replica_http(group, kind: str, trees, cfg, engine_kw, replicas: int,
+                 prompts, new: int, heartbeat_s: float):
+    """The ApiServer over R replicas on rank 0 (``serve_http``): the
+    prompts (token ids as words) as completions at once, the second one
+    streamed, beside a stream whose client goes away; then, once idle for
+    a few heartbeats, /metrics and the router's stats read together.
+    -> every rank: its engine's outputs by id and counters; rank 0 also
+    the completions' token ids, the metrics lines and the stats."""
+    from micromix_tpu_torch.serve import ApiServer, api
+    api.HEARTBEAT_S = heartbeat_s
+    router = ReplicaRouter(group, replica_engine(kind, trees, cfg, engine_kw),
+                           replicas)
+    stop, got = threading.Event(), {}
+
+    def ids(text):
+        return [int(w) for w in text.split()]
+
+    def one(i):
+        text = " ".join(str(t) for t in prompts[i])
+        if i == 1:
+            _, raw = _post(srv_port[0], "/v1/completions",
+                           {"prompt": text, "max_tokens": new, "stream": True})
+            ev = [ln[6:] for ln in raw.splitlines() if ln.startswith("data: ")]
+            assert ev[-1] == "[DONE]"
+            return ids("".join(json.loads(e)["choices"][0]["text"]
+                               for e in ev[:-1]))
+        _, body = _post(srv_port[0], "/v1/completions",
+                        {"prompt": text, "max_tokens": new})
+        return ids(json.loads(body)["choices"][0]["text"])
+
+    srv_port = [None]
+
+    def client(srv):
+        try:
+            srv_port[0] = srv.port
+            with ThreadPoolExecutor(len(prompts) + 1) as ex:
+                cut = ex.submit(_cut_stream, srv.port,
+                                " ".join(str(t) for t in prompts[0]))
+                got["texts"] = list(ex.map(one, range(len(prompts))))
+                got["cut_read"] = cut.result()
+            time.sleep(4 * heartbeat_s)
+            _, metrics = _post(srv.port, "/metrics")
+            with srv._lock:
+                got["stats"] = router.stats
+            got["metrics"] = dict(ln.split(" ", 1)
+                                  for ln in metrics.strip().splitlines())
+        finally:
+            stop.set()
+
+    st = serve_http(router, lambda rt: ApiServer(
+        rt, ids, lambda t: " ".join(str(x) for x in t)), stop, on_start=client)
+    eng = router.engine
+    out = dict(_placement(router), served=st,
+               counters={"decode_tokens": eng.decode_tokens,
+                         "prefill_tokens": eng.prefill_tokens})
+    out.update(got)
     return out
